@@ -1,0 +1,113 @@
+// MONA spatial op forward for Hopper (sm_90a):
+//
+//   y[b, i, j, c] = s + bias[b, c]
+//                 + sum_{di, dj < 7} u[b, i + di - 3, j + dj - 3, c] * k[b, di, dj, c]
+//   u = s * freq[c]   (zero outside the map: 'SAME' padding)
+//
+// with per-sample 7x7 depthwise kernels k [B, 7, 7, C] and per-sample bias
+// [B, C]; s and y are [B, h, w, C] (NHWC). Float32 accumulation, taps added
+// in (di, dj) row-major order after s + bias, one rounding to the storage
+// type at the end.
+//
+// Replaces nextgen_uia_tpu/ops/dwconv.py::mona_spatial, forward (the Pallas
+// kernel _mona_fwd_kernel). The TPU kernel's MIN_HW zero-padding was a
+// lowering workaround and is not carried over.
+//
+// What bounds it on the H100: 49 multiply-adds per output element against
+// one read of s and one write of y, so it is bound by memory traffic and
+// latency; at the serving shape ([32, 14, 14, 64] bf16, 0.8 MB in and out)
+// the whole op is a few microseconds of device-memory time and launch
+// overhead dominates.
+//
+// Design: one CTA per (channel group of up to 16, sample). The CTA stages
+// the zero-padded (h+6) x (w+6) tile of u for its channels in shared memory
+// in float32 (20 x 20 x 16 x 4 B = 25.6 KB at 14 x 14) and the sample's 49
+// taps, so every input element is read from device memory once; consecutive
+// threads take consecutive channels, so the global reads and writes of a
+// pixel's channel group are contiguous and the shared-memory reads are
+// conflict-free.
+
+#include "common.cuh"
+
+namespace nx {
+
+constexpr int MS_THREADS = 256, MS_K = 7, MS_HALO = 3;
+
+template <typename T>
+__global__ void __launch_bounds__(MS_THREADS)
+mona_spatial_kernel(const T* __restrict__ s, const T* __restrict__ freq,
+                    const T* __restrict__ kern, const T* __restrict__ bias,
+                    T* __restrict__ out, int h, int w, int c_total, int cg) {
+  extern __shared__ float sm[];
+  const int hp = h + 2 * MS_HALO, wp = w + 2 * MS_HALO;
+  float* u = sm;                   // [hp * wp][cg]
+  float* taps = u + hp * wp * cg;  // [49][cg]
+  const int b = blockIdx.y, c0 = blockIdx.x * cg;
+  const T* sb = s + (size_t)b * h * w * c_total;
+
+  for (int i = threadIdx.x; i < hp * wp * cg; i += MS_THREADS) {
+    const int c = i % cg, pix = i / cg;
+    const int y = pix / wp - MS_HALO, x = pix % wp - MS_HALO;
+    float v = 0.f;
+    if (y >= 0 && y < h && x >= 0 && x < w)
+      v = to_f32(sb[((size_t)y * w + x) * c_total + c0 + c]) * to_f32(freq[c0 + c]);
+    u[i] = v;
+  }
+  for (int i = threadIdx.x; i < MS_K * MS_K * cg; i += MS_THREADS) {
+    const int c = i % cg, t = i / cg;
+    taps[i] = to_f32(kern[((size_t)b * MS_K * MS_K + t) * c_total + c0 + c]);
+  }
+  __syncthreads();
+
+  T* ob = out + (size_t)b * h * w * c_total;
+  for (int i = threadIdx.x; i < h * w * cg; i += MS_THREADS) {
+    const int c = i % cg, pix = i / cg;
+    const int y = pix / w, x = pix % w;
+    const size_t gi = (size_t)pix * c_total + c0 + c;
+    float acc = to_f32(sb[gi]) + to_f32(bias[(size_t)b * c_total + c0 + c]);
+#pragma unroll
+    for (int di = 0; di < MS_K; ++di)
+#pragma unroll
+      for (int dj = 0; dj < MS_K; ++dj)
+        acc += u[((y + di) * wp + x + dj) * cg + c] * taps[(di * MS_K + dj) * cg + c];
+    ob[gi] = from_f32<T>(acc);
+  }
+}
+
+template <typename T>
+cudaError_t launch_mona_spatial(const void* s, const void* freq, const void* kern,
+                                const void* bias, void* out, int b, int h, int w, int c,
+                                cudaStream_t stream) {
+  int cg = 16;
+  while (c % cg) cg /= 2;
+  const size_t smem =
+      sizeof(float) * ((size_t)(h + 2 * MS_HALO) * (w + 2 * MS_HALO) + MS_K * MS_K) * cg;
+  cudaError_t err = cudaFuncSetAttribute(mona_spatial_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(c / cg, b);
+  mona_spatial_kernel<T><<<grid, MS_THREADS, smem, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(freq), static_cast<const T*>(kern),
+      static_cast<const T*>(bias), static_cast<T*>(out), h, w, c, cg);
+  return cudaGetLastError();
+}
+
+}  // namespace nx
+
+extern "C" {
+
+// all tensors share `dtype` (float32 or bf16), contiguous:
+// s, out [B, H, W, C]; freq [C]; kernels [B, 7, 7, C]; bias [B, C]
+int nx_mona_spatial(const void* s, const void* freq, const void* kernels, const void* bias,
+                    void* out, int dtype, int b, int h, int w, int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == nx::BF16)
+    return (int)nx::launch_mona_spatial<__nv_bfloat16>(s, freq, kernels, bias, out, b, h,
+                                                       w, c, st);
+  if (dtype == nx::F32)
+    return (int)nx::launch_mona_spatial<float>(s, freq, kernels, bias, out, b, h, w, c, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

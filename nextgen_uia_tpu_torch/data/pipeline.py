@@ -1,0 +1,63 @@
+"""Host -> device feed (counterpart of nextgen_uia_tpu/data/pipeline.py's
+``prefetch_to_device``)."""
+
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+
+def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):
+    """Yield the batches of ``iterator`` with their numeric numpy leaves as
+    tensors on ``device``, staged ``size`` batches ahead; other leaves pass
+    through.
+
+    On a CUDA device each leaf is copied from pinned host memory with
+    ``non_blocking`` on a side stream, so the copies of the next batches
+    overlap the work queued on the current stream; the consumer's stream
+    waits on each batch's copy event before the batch is handed out.
+    """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def transfer(batch):
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and (np.issubdtype(v.dtype, np.number)
+                                              or v.dtype == np.bool_):
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if cuda:
+                    with torch.cuda.stream(side):
+                        t = t.pin_memory().to(device, non_blocking=True)
+                else:
+                    t = t.to(device)
+                out[k] = t
+            else:
+                out[k] = v
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(side)
+        return out, event
+
+    def hand_out(batch, event):
+        if event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for v in batch.values():
+                if isinstance(v, torch.Tensor):
+                    # allocated on the side stream: keep the memory from reuse
+                    # until the consumer's queued work on it is done
+                    v.record_stream(stream)
+        return batch
+
+    staged = collections.deque()
+    for batch in iterator:
+        staged.append(transfer(batch))
+        if len(staged) > size:
+            yield hand_out(*staged.popleft())
+    while staged:
+        yield hand_out(*staged.popleft())

@@ -1,0 +1,123 @@
+"""Vision Transformer, serving route (counterpart of nextgen_uia_tpu/models/vit.py).
+
+Every block runs forward-only through ``fused_block_infer`` (the JAX
+package's ``block_impl='fused_infer'`` route), then its MONA adapter when
+the block carries one. The token sequence runs unpadded (N = grid^2 + 1):
+the kernels mask their ragged edges themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..adapters.mona import mona_apply
+from ..nn.attention import Attention
+from ..nn.layers import Conv, LayerNorm, Linear, layernorm, linear, normal, param
+from ..ops import KERNELS
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    width: int = 768
+    depth: int = 12
+    heads: int = 12
+    mlp_ratio: float = 4.0
+    act: str = "gelu"              # 'gelu' (timm/BiomedCLIP) | 'quick_gelu' (OpenAI)
+    proj_dim: int | None = 512
+    ln_eps: float = 1e-5           # timm uses 1e-6
+    mona_variant: str = "hybrid"
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1
+
+
+class Block(nn.Module):
+    """Pre-norm block parameters: ln1, attn (q/k/v/o), ln2, mlp (fc1/fc2),
+    and ``mona`` once an adapter is injected."""
+
+    def __init__(self, gen, cfg: ViTConfig):
+        super().__init__()
+        hidden = int(cfg.width * cfg.mlp_ratio)
+        self.ln1 = LayerNorm(cfg.width)
+        self.attn = Attention(gen, cfg.width)
+        self.ln2 = LayerNorm(cfg.width)
+        self.mlp = nn.Module()
+        self.mlp.fc1 = Linear(gen, cfg.width, hidden)
+        self.mlp.fc2 = Linear(gen, hidden, cfg.width)
+
+
+class ViT(nn.Module):
+    """``vit_init``, timm layout: patch conv (HWIO, with bias), cls [D],
+    pos [N, D], blocks, final norm over all tokens, optional bias-free
+    projection. The OpenAI layout (ln_pre, CLS-only final norm, bias-free
+    patch conv) comes with the other CLIP families."""
+
+    def __init__(self, gen, cfg: ViTConfig):
+        super().__init__()
+        scale = cfg.width ** -0.5
+        self.patch = Conv(gen, cfg.patch_size, cfg.patch_size, 3, cfg.width)
+        self.cls = param(normal(gen, (cfg.width,), scale))
+        self.pos = param(normal(gen, (cfg.seq_len, cfg.width), scale))
+        self.blocks = nn.ModuleList(Block(gen, cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(cfg.width)
+        if cfg.proj_dim is not None:
+            self.proj = Linear(gen, cfg.width, cfg.proj_dim, bias=False, std=scale)
+
+
+def vit_init(gen: torch.Generator, cfg: ViTConfig) -> ViT:
+    return ViT(gen, cfg)
+
+
+def embed_patches(p: ViT, cfg: ViTConfig, images, *, dtype=None):
+    """images [B, H, W, 3] -> tokens [B, N, D] with CLS + positional embedding."""
+    w = p.patch.w
+    if dtype is not None:
+        images, w = images.to(dtype), w.to(dtype)
+    x = F.conv2d(images.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.patch_size)
+    x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, D]
+    x = x + p.patch.b.to(x.dtype)
+    b = x.shape[0]
+    x = torch.cat([p.cls.to(x.dtype).expand(b, 1, cfg.width), x], dim=1)
+    return x + p.pos.to(x.dtype)
+
+
+def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS):
+    """Pre-norm block (fused_infer route), then the block's MONA adapter."""
+    x = x if dtype is None else x.to(dtype)
+    out = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
+                                eps=cfg.ln_eps)
+    if hasattr(p, "mona"):
+        out = mona_apply(p.mona, out, (cfg.grid, cfg.grid), variant=cfg.mona_variant,
+                         ops=ops)
+    return out
+
+
+def vit_apply(p: ViT, cfg: ViTConfig, images, *, dtype=None, extract_layers=(),
+              ops=KERNELS):
+    """Run the tower. Returns (pooled_embedding, activations), where
+    ``activations`` are the post-block token states of the blocks in
+    ``extract_layers``."""
+    x = embed_patches(p, cfg, images, dtype=dtype)
+    activations = []
+    for i, blk in enumerate(p.blocks):
+        x = block_apply(blk, x, cfg, dtype=dtype, ops=ops)
+        if i in extract_layers:
+            activations.append(x)
+    pooled = layernorm(p.norm, x, eps=cfg.ln_eps)[:, 0, :]
+    if hasattr(p, "proj"):
+        pooled = linear(p.proj, pooled, dtype=pooled.dtype)
+    return pooled, activations
+
+
+VIT_B16_TIMM = ViTConfig(act="gelu", proj_dim=512, ln_eps=1e-6)

@@ -1,0 +1,158 @@
+"""Shared task scaffolding (counterpart of nextgen_uia_tpu/tasks/common.py):
+flags, seeding, device choice and model assembly.
+
+The flags keep the JAX package's names and defaults for what the serving
+path reads. ``--device`` selects the torch device here (default ``cuda``);
+asking for CUDA where there is none raises, and nothing falls back to the
+CPU. Features outside the ported serving slice raise NotImplementedError
+naming their ROADMAP.md item.
+
+Without converted pretrained weights the backbone initialises randomly from
+``--seed`` with a loud warning.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import random
+import sys
+
+import numpy as np
+import torch
+
+from ..adapters.mona import inject_mona
+from ..core import checkpoint as ckpt
+from ..models import clip as clip_mod
+
+MONA_CHOICES = ["baseline", "noise_aware", "freq_enhanced", "hybrid"]
+
+
+def not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
+                               f"(ROADMAP.md, {item})")
+
+
+def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(name, conflict_handler="resolve")
+    p.add_argument("--exp", type=str, default=defaults.get("exp", name))
+    p.add_argument("--img_size", type=int, default=defaults.get("img_size", 224))
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--num_classes", type=int, default=2)
+    p.add_argument("--seed", type=int, default=defaults.get("seed", 1))
+    p.add_argument("--batch_size", type=int, default=defaults.get("batch_size", 32))
+    p.add_argument("--mona_weights", type=str, default=None)
+    p.add_argument("--mona_variant", type=str,
+                   default=defaults.get("mona_variant", "freq_enhanced"),
+                   choices=MONA_CHOICES + ["fractional"])
+    p.add_argument("--mona_bottleneck", type=int, default=64)
+    p.add_argument("--mona_layers", type=int, default=None)
+    p.add_argument("--lora_weights", type=str, default=None)
+    p.add_argument("--reduce_dim", type=int, default=512,
+                   help="pyramid-head reduce width")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cuda, cuda:N or cpu); CUDA asked "
+                        "for and absent is an error")
+    p.add_argument("--backbone_ckpt", type=str, default=None,
+                   help="converted backbone checkpoint (.npz)")
+    p.add_argument("--head_weights", type=str, default=None,
+                   help="trained head/component checkpoint to load")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--n_data", type=int, default=None,
+                   help="data-parallel width; the port serves on one device")
+    p.add_argument("--n_model", type=int, default=1, help="model-parallel width")
+    p.add_argument("--debug_tiny", default=False, action="store_true",
+                   help="shrink towers for smoke tests (random weights)")
+    return p
+
+
+def seed_everything(seed: int) -> torch.Generator:
+    """Seed Python, numpy and torch; returns the CPU generator that draws
+    the random init."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available on this host "
+                           "(pass --device cpu to run the plain versions on the CPU)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: only cuda and cpu are supported")
+    return device
+
+
+def setup_logging(log_path: str, args) -> None:
+    """Log to <log_path>/log.log and stdout."""
+    for handler in logging.root.handlers[:]:
+        logging.root.removeHandler(handler)
+    os.makedirs(log_path, exist_ok=True)
+    logging.basicConfig(filename=os.path.join(log_path, "log.log"), filemode="w",
+                        level=logging.INFO, format="[%(asctime)s] %(message)s",
+                        datefmt="%Y-%m-%d %H:%M:%S")
+    logging.getLogger().addHandler(logging.StreamHandler(sys.stdout))
+    logging.info(str(args))
+
+
+def resolve_mona_variant(variant: str) -> str:
+    """'fractional' is advertised by the reference CLI but has no
+    implementation; accepted for CLI compatibility, then refused."""
+    if variant == "fractional":
+        raise SystemExit("MONA variant 'fractional' is advertised by the reference CLI "
+                         f"but has no implementation. Choose from {MONA_CHOICES}.")
+    return variant
+
+
+def sniff_adapter_kind(path: str):
+    """Which adapter family a component checkpoint holds, by its flat key
+    paths: 'lora', 'mona' or None."""
+    keys = ckpt.peek_keys(path)
+    has_lora = any("/lora/" in k for k in keys)
+    has_mona = any("/mona/" in k for k in keys)
+    if has_lora and not has_mona:
+        return "lora"
+    if has_mona and not has_lora:
+        return "mona"
+    return None
+
+
+def build_clip_model(args, family: str, *, adapter: str | None = None,
+                     gen: torch.Generator | None = None):
+    """Assemble (cfg, CLIP module on CPU): config, random or converted
+    weights, MONA injection and the optional adapter weight load."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(args.seed)
+    if args.lora_weights or adapter == "lora" or (
+            args.mona_weights and os.path.exists(args.mona_weights)
+            and sniff_adapter_kind(args.mona_weights) == "lora"):
+        raise not_ported("LoRA", "section A, item 4")
+    use_mona = adapter == "mona" or bool(args.mona_weights)
+    variant = resolve_mona_variant(args.mona_variant) if use_mona else "hybrid"
+    cfg = clip_mod.clip_config(family, compute_dtype=args.compute_dtype,
+                               mona_variant=variant)
+    if args.debug_tiny:
+        cfg = cfg.replace(vision=dataclasses.replace(
+            cfg.vision, image_size=args.img_size, width=96, depth=4, heads=4, proj_dim=64))
+    params = clip_mod.clip_init(gen, cfg)
+
+    if args.backbone_ckpt:
+        _, n = ckpt.load_into(args.backbone_ckpt, params)
+        logging.info(f"Loaded {n} backbone tensors from {args.backbone_ckpt}")
+    else:
+        logging.warning("No --backbone_ckpt given: backbone weights are RANDOM. Run the "
+                        "checkpoint converter (nextgen_uia_tpu.convert) for pretrained "
+                        "towers.")
+    if use_mona:
+        _, n = inject_mona(gen, params.visual, dim=cfg.vision.width,
+                           bottleneck=args.mona_bottleneck, variant=variant,
+                           num_layers=args.mona_layers)
+        logging.info(f"Injected {variant} MONA into {n} blocks")
+        if args.mona_weights:
+            _, n = ckpt.load_into(args.mona_weights, params)
+            logging.info(f"Loaded {n} MONA tensors from {args.mona_weights}")
+    return cfg, params

@@ -1,0 +1,204 @@
+"""Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py), the
+supervised ``--task cls`` / ``--task seg`` route of the CLIP families.
+
+Point it at a directory (or a .txt list) of images; it decodes them to
+uint8 grayscale batches, stages them on the device, runs the PyramidHead
+model forward and writes predictions.csv (cls) or <index>_<stem>_mask.png
+plus index.csv (seg). The model is assembled exactly as the JAX package
+assembles it (``--backbone_ckpt``, ``--mona_weights``, ``--head_weights``,
+the same ``.npz`` files), on one device given by ``--device``.
+"""
+
+from __future__ import annotations
+
+import csv
+import logging
+import os
+
+import numpy as np
+import torch
+
+from ..core import train as T
+from ..data import pipeline as P
+from ..models import clip as clip_mod
+from ..ops import KERNELS
+from .clip_tasks import _build_supervised, _make_forward
+from .common import base_parser, not_ported, resolve_device, seed_everything, setup_logging
+
+IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
+
+
+def collect_images(spec: str) -> list[str]:
+    """A directory (recursive, sorted) or a .txt file of paths."""
+    if os.path.isdir(spec):
+        out = []
+        for root, _, files in os.walk(spec):
+            out.extend(os.path.join(root, f) for f in files
+                       if f.lower().endswith(IMG_EXTS))
+        return sorted(out)
+    if spec.endswith(".txt"):
+        with open(spec) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+    raise SystemExit(f"--images must be a directory or a .txt list: {spec}")
+
+
+def _batches(paths, batch_size, img_size, workers):
+    """Decoded uint8 grayscale batches [B, H, W] in path order. An
+    unreadable file decodes to zeros and is reported in the per-image ``ok``
+    mask (status=decode_error in the output csv)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    # host decode is the JAX package's (numpy + PIL, or its native loader)
+    from nextgen_uia_tpu.data.datasets import load_image
+
+    def safe_load(p):
+        try:
+            return load_image(p, img_size), True
+        except Exception as e:  # noqa: BLE001 - any decode failure
+            logging.warning(f"decode failed for {p}: {e}")
+            return np.zeros((img_size, img_size), np.uint8), False
+
+    with ThreadPoolExecutor(max_workers=max(workers, 1)) as ex:
+        for s in range(0, len(paths), batch_size):
+            part = paths[s:s + batch_size]
+            loaded = list(ex.map(safe_load, part))
+            yield part, np.stack([im for im, _ in loaded]), [ok for _, ok in loaded]
+
+
+def make_infer(forward, params, device):
+    """The per-batch serving function: uint8 images [B, H, W] on ``device``
+    -> logits, forward-only."""
+
+    @torch.inference_mode()
+    def infer(images_u8, ops=KERNELS):
+        return forward(params, images_u8.to(device), ops)
+
+    return infer
+
+
+def predict_main(family: str = "biomedclip", argv=None):
+    import argparse
+
+    if family not in clip_mod.FAMILIES:
+        raise not_ported(f"Serving the {family} family", "section A, items 11-13")
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--task", type=str, default="zero_shot")
+    if pre.parse_known_args(argv)[0].task == "zero_shot":
+        raise not_ported("--task zero_shot (BERT text tower and tokenizer)",
+                         "section A, item 10")
+
+    p = base_parser(f"{family}_predict", batch_size=32)
+    p.add_argument("--task", type=str, default="zero_shot",
+                   choices=["zero_shot", "cls", "seg"])
+    p.add_argument("--images", type=str, required=True,
+                   help="directory of images or a .txt list of paths")
+    p.add_argument("--out", type=str, default=None,
+                   help="output directory (default runs/serve/<exp>)")
+    p.add_argument("--class_names", type=str, default=None,
+                   help="comma-separated class names for csv headers")
+    p.add_argument("--export", type=str, default=None,
+                   help="not ported (jax.export)")
+    args = p.parse_args(argv)
+    if args.export:
+        raise not_ported("--export", "section A, item 14")
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_model/--n_data (multi-device serving)", "section A, item 14")
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+
+    out_dir = args.out or os.path.join("runs", "serve", args.exp)
+    os.makedirs(out_dir, exist_ok=True)
+    setup_logging(out_dir, args)
+    paths = collect_images(args.images)
+    if not paths:
+        raise SystemExit(f"no images found under {args.images}")
+    logging.info(f"Serving {len(paths)} images -> {out_dir} on {device}")
+
+    cfg, hcfg, params = _build_supervised(args, family, args.task, gen)
+    if not args.head_weights:
+        logging.warning("serving a supervised head without --head_weights: head is RANDOM")
+    infer = make_infer(_make_forward(cfg, hcfg, train=False), params.to(device),
+                       device)
+    if args.task == "cls":
+        names = _names(args, [str(i) for i in range(hcfg.num_classes)])
+        _run_cls(paths, args, infer, device, names, out_dir)
+    else:
+        _run_seg(paths, args, infer, device, out_dir)
+    return {"n_images": len(paths), "out": out_dir}
+
+
+def _names(args, default):
+    if not args.class_names:
+        return list(default)
+    names = [c.strip() for c in args.class_names.split(",") if c.strip()]
+    if len(names) != len(default):
+        raise SystemExit(f"--class_names has {len(names)} entries but the "
+                         f"model predicts {len(default)} classes {default}")
+    return names
+
+
+def iter_padded(batches, batch_size, infer, device):
+    """Serve decoded batches: yield (paths_chunk, ok_mask, outputs sliced to
+    the real batch) for each (paths, uint8 images [B, H, W], ok) of
+    ``batches``. A ragged tail batch is padded to ``batch_size`` by
+    repeating its last row, so every forward sees one shape."""
+    def padded():
+        for part, imgs, ok in batches:
+            b, n_real = T.pad_eval_batch({"image": imgs}, batch_size)
+            b["n_real"], b["paths"], b["ok"] = n_real, part, ok
+            yield b
+
+    for batch in P.prefetch_to_device(padded(), device=device):
+        out = infer(batch["image"])
+        yield batch["paths"], batch["ok"], out[: batch["n_real"]].float().cpu().numpy()
+
+
+def _iter_files(paths, args, infer, device):
+    batches = _batches(paths, args.batch_size, args.img_size, args.num_workers)
+    return iter_padded(batches, args.batch_size, infer, device)
+
+
+def _run_cls(paths, args, infer, device, names, out_dir):
+    csv_path = os.path.join(out_dir, "predictions.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["path", "pred", "status"] + [f"prob_{c}" for c in names])
+        for part, ok, logits in _iter_files(paths, args, infer, device):
+            probs = _softmax(logits)
+            for pth, good, pr in zip(part, ok, probs):
+                status = "ok" if good else "decode_error"
+                pred = names[int(np.argmax(pr))] if good else ""
+                w.writerow([pth, pred, status] + [f"{v:.6f}" if good else "" for v in pr])
+    logging.info(f"Wrote {csv_path}")
+
+
+def _run_seg(paths, args, infer, device, out_dir):
+    from PIL import Image
+
+    idx_path = os.path.join(out_dir, "index.csv")
+    with open(idx_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["path", "mask", "status", "foreground_frac"])
+        i = 0
+        for part, ok, logits in _iter_files(paths, args, infer, device):
+            # PyramidHead seg logits are [B, C, H, W]; mask = argmax class id
+            masks = np.argmax(logits, axis=1).astype(np.uint8)
+            for pth, good, m in zip(part, ok, masks):
+                stem = os.path.splitext(os.path.basename(pth))[0]
+                # global index prefix: recursive walks may repeat basenames
+                mp = os.path.join(out_dir, f"{i:05d}_{stem}_mask.png")
+                i += 1
+                if not good:
+                    w.writerow([pth, "", "decode_error", ""])
+                    continue
+                scale = 255 // max(int(m.max()), 1) if m.max() else 255
+                Image.fromarray(m * scale).save(mp)
+                w.writerow([pth, mp, "ok", f"{float((m > 0).mean()):.4f}"])
+    logging.info(f"Wrote {idx_path}")
+
+
+def _softmax(x):
+    x = np.asarray(x, np.float64)
+    x = x - x.max(axis=-1, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(axis=-1, keepdims=True)
