@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and the toolchain.
-2. Builds the port's CUDA kernels (nextgen_uia_tpu_torch/csrc, nvcc sm_90a).
-3. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and one odd shape, with CUDA-event times.
-   fused_block_infer: float32 max|d| <= 1e-4 * max|ref|; bfloat16 input
-   against the float32 plain version max|d| <= 3e-2 (unit-scale input).
-   mona_spatial: float32 max|d| <= 1e-5; bfloat16 <= one bf16 ulp of the
-   output's scale.
-4. Slice phase: BiomedCLIP ViT-B/16 at 224 px with hybrid MONA in all 12
+2. Builds the port's CUDA kernels (nextgen_uia_tpu_torch/csrc, one nvcc
+   per source, sm_90a, all started together).
+3. Kernel phase: each kernel, forward and backward, against its plain
+   PyTorch version on the card, at the main paths' shapes ([32, 197, 768],
+   12 heads, hidden 3072; MONA [32, 14, 14, 64]) and at one odd shape
+   (50 tokens, 2 heads, quick_gelu), with CUDA-event times and the bound
+   from the card's peak rates: float32 max|d| <= 1e-4 * max|ref| for every
+   output; bfloat16 against the float32 plain version on the bf16-rounded
+   inputs max|d| <= 3e-2 * max(1, max|ref|).
+4. Serving phase: BiomedCLIP ViT-B/16 at 224 px with hybrid MONA in all 12
    blocks and a 2-class seg PyramidHead, seeded random weights written to
    .npz and loaded back through --backbone_ckpt/--mona_weights/--head_weights,
    served over 3 batches of 32 and a ragged batch of 5 seeded uint8 images
@@ -57,15 +59,46 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM: dense bf16, HBM3 (data sheet)
+BF16_BOUND, F32_BOUND = 3e-2, 1e-4
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of flops at the bf16 tensor-core peak
+    and bytes at the memory rate."""
+    t_ops, t_mem = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def errors(got, ref):
+    """[(max|d|, max|ref|)] for each output of a tensor or a tuple."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    require(len(got) == len(ref), "output counts differ")
+    return [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+            for g, r in zip(got, ref)]
+
+
 def kernel_phase(dev):
+    """Every kernel (forward and backward) against its plain version on the
+    card: float32 at the main path's shape and at an odd one (max|d| <= 1e-4
+    max|ref|), bfloat16 against the float32 plain version on the
+    bf16-rounded inputs (max|d| <= 3e-2 max(1, max|ref|)); CUDA-event times
+    of kernel, plain version and (where one exists) the one PyTorch call
+    computing the same function, at the main path's shape in bfloat16."""
     import torch
+    import torch.nn.functional as F
 
     from nextgen_uia_tpu_torch.models.vit import VIT_B16_TIMM, Block, ViTConfig
-    from nextgen_uia_tpu_torch.ops import dwconv
-    from nextgen_uia_tpu_torch.ops import fused_block as fb
+    from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_block, fused_ln_mlp
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
 
     gen = torch.Generator().manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
     results = {}
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
 
     def block(width, heads):
         blk = Block(gen, ViTConfig(width=width, heads=heads))
@@ -75,59 +108,158 @@ def kernel_phase(dev):
                 ln.bias.add_(0.1 * torch.randn(width, generator=gen))
         return blk.to(dev)
 
-    with torch.no_grad():
-        # K1 at the serving shape: B=32, N=197, D=768, 12 heads, hidden 3072
-        cfg = VIT_B16_TIMM
-        blk = block(cfg.width, cfg.heads)
-        kw = dict(heads=cfg.heads, act=cfg.act, eps=cfg.ln_eps)
-        x = torch.randn(BATCH, cfg.seq_len, cfg.width, generator=gen).to(dev)
-        ref = fb.fused_block_infer_plain(x, blk, **kw)
-        rel32 = ((fb.fused_block_infer(x, blk, **kw) - ref).abs().max() / ref.abs().max()).item()
-        xb = x.to(torch.bfloat16)
-        ref_b = fb.fused_block_infer_plain(xb.float(), blk, **kw)
-        err_b = (fb.fused_block_infer(xb, blk, **kw).float() - ref_b).abs().max().item()
-        # odd shape: 50 tokens of which 41 real, key bias, quick_gelu, 2 heads
-        small = block(128, 2)
-        xo = torch.randn(3, 50, 128, generator=gen).to(dev)
-        kb = torch.randn(3, 50, generator=gen).to(dev)
-        okw = dict(heads=2, act="quick_gelu", key_bias=kb, n_real=41)
-        ref_o = fb.fused_block_infer_plain(xo, small, **okw)
-        rel_o = ((fb.fused_block_infer(xo, small, **okw) - ref_o).abs().max()
-                 / ref_o.abs().max()).item()
-        ms = cuda_ms(lambda: fb.fused_block_infer(xb, blk, **kw), 20)
-        plain_ms = cuda_ms(lambda: fb.fused_block_infer_plain(xb, blk, **kw), 20)
-        print(f"K1 fused_block_infer [32,197,768] h12: f32 rel max|d| {rel32:.3e} "
-              f"(<= 1e-4); bf16 max|d| {err_b:.3e} (<= 3e-2, max|ref| "
-              f"{ref_b.abs().max().item():.3f}); odd [3,50,128] n_real 41 f32 rel "
-              f"{rel_o:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (bf16 input)")
-        require(rel32 <= 1e-4 and rel_o <= 1e-4, "fused_block_infer float32 mismatch")
-        require(err_b <= 3e-2, "fused_block_infer bfloat16 mismatch")
-        results["fused_block_infer"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain_ms)
+    def rounded(t):
+        return t.to(bf16).float() if t.is_floating_point() else t
 
-        # K2 at the serving shape [32, 14, 14, 64] and an odd one
-        errs = []
-        for shape in ((BATCH, 14, 14, 64), (3, 9, 11, 24)):
-            b, _, _, c = shape
-            s = torch.randn(shape, generator=gen).to(dev)
-            freq = (1 + 0.3 * torch.randn(c, generator=gen)).to(dev)
-            kern = (0.2 * torch.randn(b, 7, 7, c, generator=gen)).to(dev)
-            bias = torch.randn(b, c, generator=gen).to(dev)
-            err32 = (dwconv.mona_spatial(s, freq, kern, bias)
-                     - dwconv.mona_spatial_plain(s, freq, kern, bias)).abs().max().item()
-            args_b = [t.to(torch.bfloat16) for t in (s, freq, kern, bias)]
-            ref_b = dwconv.mona_spatial_plain(*[t.float() for t in args_b])
-            err_b = (dwconv.mona_spatial(*args_b).float() - ref_b).abs().max().item()
-            ulp = 2.0 ** (torch.floor(torch.log2(ref_b.abs().max())).item() - 7)
-            print(f"K2 mona_spatial {list(shape)}: f32 max|d| {err32:.3e} (<= 1e-5); "
-                  f"bf16 max|d| {err_b:.3e} (<= {ulp:.3e}, one ulp)")
-            require(err32 <= 1e-5, f"mona_spatial float32 mismatch at {shape}")
-            require(err_b <= ulp, f"mona_spatial bfloat16 mismatch at {shape}")
-            errs.append((err_b, args_b))
-        err_b, args_b = errs[0]
-        ms = cuda_ms(lambda: dwconv.mona_spatial(*args_b), 200)
-        plain_ms = cuda_ms(lambda: dwconv.mona_spatial_plain(*args_b), 200)
-        print(f"K2 mona_spatial [32,14,14,64] bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results["mona_spatial"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain_ms)
+    def check(name, kern, plain, inputs, odd_inputs, cost, library=None):
+        """kern/plain(*inputs) -> tensor or tuple; inputs float32 on the
+        card (the first `main` shape, then the odd one)."""
+        with torch.no_grad():
+            rels = [max(d / scale for d, scale in errors(kern(*args), plain(*args)))
+                    for args in (inputs, odd_inputs)]
+            args_b = [t.to(bf16) if t.is_floating_point() else t for t in inputs]
+            errs_b = errors(kern(*args_b), plain(*[rounded(t) for t in inputs]))
+            torch.cuda.synchronize()
+            # each output against its own scale; report the worst ratio's pair
+            err_b, scale_b = max(errs_b, key=lambda e: e[0] / max(1.0, e[1]))
+            lim_b = BF16_BOUND * max(1.0, scale_b)
+            ms = cuda_ms(lambda: kern(*args_b), 20)
+            plain_ms = cuda_ms(lambda: plain(*args_b), 5, warmup=1)
+            lib_ms = cuda_ms(lambda: library(*args_b), 20) if library else None
+        b_ms, b_by = bound(*cost)
+        print(f"{name}: f32 rel max|d| {rels[0]:.3e} (odd shape {rels[1]:.3e}; <= 1e-4); "
+              f"bf16 max|d| {err_b:.3e} (<= {lim_b:.3e}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        require(max(rels) <= F32_BOUND, f"{name} float32 mismatch")
+        require(err_b <= lim_b, f"{name} bfloat16 mismatch")
+        results[name] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+
+    cfg = VIT_B16_TIMM
+    b, n, d, h, hid = BATCH, cfg.seq_len, cfg.width, cfg.heads, 4 * cfg.width
+    m, dh = b * n, d // h
+    blk, small = block(d, h), block(128, 2)
+    # odd shape: 50 tokens (not a multiple of 16), 2 heads of 64, quick_gelu
+    ob, on, oh = 3, 50, 2
+
+    # K1: the whole block, forward (serving path)
+    kw = dict(heads=h, act=cfg.act, eps=cfg.ln_eps)
+    okw = dict(heads=oh, act="quick_gelu", key_bias=randn(ob, on), n_real=41)
+    check("fused_block_infer",
+          lambda x, p=None: fused_block.fused_block_infer(x, p or blk, **(okw if p else kw)),
+          lambda x, p=None: fused_block.fused_block_infer_plain(x, p or blk,
+                                                                **(okw if p else kw)),
+          [randn(b, n, d)], [randn(ob, on, 128), small],
+          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d)))
+
+    # K5: LN + q/k/v, forward and backward
+    def qkv_fwd(x, p=None):
+        return fused_ln_qkv.fused_ln_qkv(x, (p or blk).ln1, (p or blk).attn,
+                                         heads=oh if p else h, eps=cfg.ln_eps)
+
+    def qkv_fwd_plain(x, p=None):
+        return fused_ln_qkv.fused_ln_qkv_plain(x, (p or blk).ln1, (p or blk).attn,
+                                               heads=oh if p else h, eps=cfg.ln_eps)
+
+    check("fused_ln_qkv", qkv_fwd, qkv_fwd_plain, [randn(b, n, d)], [randn(ob, on, 128), small],
+          (2 * m * d * 3 * d, 2 * (4 * m * d + 3 * d * d)))
+
+    def qkv_bwd_args(p, bb, nn_, hh, dd):
+        gamma, _, w, _ = fused_ln_qkv._weights(p.ln1, p.attn, f32)
+        return [randn(bb, nn_, dd), gamma, w] + [randn(bb, hh, nn_, dd // hh)
+                                                 for _ in range(3)]
+
+    check("fused_ln_qkv_backward",
+          lambda x, g_, w, *dy: fused_ln_qkv.fused_ln_qkv_backward(
+              x, g_.float(), w.to(x.dtype), *dy, eps=cfg.ln_eps),
+          lambda x, g_, w, *dy: fused_ln_qkv.fused_ln_qkv_backward_plain(
+              x, g_, w, *dy, eps=cfg.ln_eps),
+          qkv_bwd_args(blk, b, n, h, d), qkv_bwd_args(small, ob, on, oh, 128),
+          (2 * m * d * 3 * d, 2 * (5 * m * d + 3 * d * d)))
+
+    # K6: attention + o-projection + residual, forward and backward
+    akw = dict(bias=randn(ob, on), n_real=41)
+
+    def attn_fwd(q, k, v, x, p=None):
+        return fused_attn_o.fused_attn_o_residual(q, k, v, x, (p or blk).attn.o,
+                                                  heads=q.shape[1], **(akw if p else {}))
+
+    def attn_fwd_plain(q, k, v, x, p=None):
+        return fused_attn_o.fused_attn_o_residual_plain(q, k, v, x, (p or blk).attn.o,
+                                                        heads=q.shape[1],
+                                                        **(akw if p else {}))
+
+    def attn_args(bb, nn_, hh, dd, *extra):
+        return [randn(bb, hh, nn_, dd // hh) for _ in range(3)] + [randn(bb, nn_, dd), *extra]
+
+    attn_flops = 4 * b * h * n * n * dh
+    check("fused_attn_o_residual", attn_fwd, attn_fwd_plain, attn_args(b, n, h, d),
+          attn_args(ob, on, oh, 128, small), (attn_flops + 2 * m * d * d, 2 * (5 * m * d + d * d)))
+
+    def attn_bwd(q, k, v, g, w, *odd):
+        return fused_attn_o.fused_attn_o_residual_backward(q, k, v, w.to(q.dtype), g,
+                                                           **(akw if odd else {}))
+
+    def attn_bwd_plain(q, k, v, g, w, *odd):
+        return fused_attn_o.fused_attn_o_residual_backward_plain(q, k, v, w, g,
+                                                                 **(akw if odd else {}))
+
+    check("fused_attn_o_residual_backward", attn_bwd, attn_bwd_plain,
+          attn_args(b, n, h, d, blk.attn.o.w), attn_args(ob, on, oh, 128, small.attn.o.w, 1),
+          (2.5 * attn_flops + 2 * m * d * d, 2 * (7 * m * d + d * d)))
+
+    # K8: LN + MLP + residual, forward and backward
+    def mlp_fwd(x, p=None):
+        return fused_ln_mlp.fused_ln_mlp_residual(x, (p or blk).ln2, (p or blk).mlp,
+                                                  act="quick_gelu" if p else cfg.act,
+                                                  eps=cfg.ln_eps)
+
+    def mlp_fwd_plain(x, p=None):
+        return fused_ln_mlp.fused_ln_mlp_residual_plain(x, (p or blk).ln2, (p or blk).mlp,
+                                                        act="quick_gelu" if p else cfg.act,
+                                                        eps=cfg.ln_eps)
+
+    check("fused_ln_mlp_residual", mlp_fwd, mlp_fwd_plain, [randn(b, n, d)],
+          [randn(ob, on, 128), small], (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)))
+
+    def mlp_bwd_args(p, bb, nn_, dd):
+        ws = fused_ln_mlp._weights(p.ln2, p.mlp, f32)[:5]
+        return [randn(bb, nn_, dd), *ws, randn(bb, nn_, dd)]
+
+    def mlp_bwd(x, gamma, beta, w1, b1, w2, g, odd=False):
+        return fused_ln_mlp.fused_ln_mlp_residual_backward(
+            x, gamma.float(), beta.float(), w1.to(x.dtype), b1.float(), w2.to(x.dtype), g,
+            act="quick_gelu" if odd else cfg.act, eps=cfg.ln_eps)
+
+    def mlp_bwd_plain(x, gamma, beta, w1, b1, w2, g, odd=False):
+        return fused_ln_mlp.fused_ln_mlp_residual_backward_plain(
+            x, gamma, beta, w1, b1, w2, g, act="quick_gelu" if odd else cfg.act,
+            eps=cfg.ln_eps)
+
+    check("fused_ln_mlp_residual_backward", mlp_bwd, mlp_bwd_plain,
+          mlp_bwd_args(blk, b, n, d), mlp_bwd_args(small, ob, on, 128) + [True],
+          (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid)))
+
+    # K2/K3: the MONA spatial op, forward and backward, [32, 14, 14, 64] and
+    # an odd [3, 9, 11, 24]
+    def mona_args(bb, hh, ww, c, last):
+        return [randn(bb, hh, ww, c), 1 + randn(c, scale=0.3), randn(bb, 7, 7, c, scale=0.2),
+                randn(*last(bb, hh, ww, c))]
+
+    g2 = cfg.grid
+    px = b * g2 * g2 * 64
+    check("mona_spatial", dwconv.mona_spatial, dwconv.mona_spatial_plain,
+          mona_args(b, g2, g2, 64, lambda bb, hh, ww, c: (bb, c)),
+          mona_args(3, 9, 11, 24, lambda bb, hh, ww, c: (bb, c)),
+          (2 * 49 * px, 2 * (2 * px + b * 50 * 64 + 64)),
+          library=lambda s, f, k, _: F.conv2d(
+              s.permute(3, 0, 1, 2).reshape(1, -1, g2, g2),
+              k.permute(3, 0, 1, 2).reshape(-1, 1, 7, 7), padding=3, groups=s.shape[0] * 64))
+    check("mona_spatial_backward", dwconv.mona_spatial_backward,
+          dwconv.mona_spatial_backward_plain,
+          mona_args(b, g2, g2, 64, lambda *sh: sh), mona_args(3, 9, 11, 24, lambda *sh: sh),
+          (4 * 49 * px, 2 * 3 * px + 4 * b * 51 * 64 + 2 * 64))
     return results
 
 
@@ -139,8 +271,7 @@ def slice_phase(dev, work):
     from nextgen_uia_tpu_torch.core import checkpoint as ckpt
     from nextgen_uia_tpu_torch.models import clip as clip_mod
     from nextgen_uia_tpu_torch.models.heads import PyramidHeadConfig, pyramid_head_init
-    from nextgen_uia_tpu_torch.ops import PLAIN, dwconv
-    from nextgen_uia_tpu_torch.ops import fused_block as fb
+    from nextgen_uia_tpu_torch.ops import PLAIN
     from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
     from nextgen_uia_tpu_torch.tasks.common import base_parser
     from nextgen_uia_tpu_torch.tasks.serve import iter_padded, make_infer
@@ -182,14 +313,13 @@ def slice_phase(dev, work):
                 rng.integers(0, 256, (n, IMG, IMG), dtype=np.uint8), [True] * n)
                for i, n in enumerate(sizes)]
 
-    fb.fused_block_infer.launches = 0
-    dwconv.mona_spatial.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = [logits for _, _, logits in iter_padded(iter(batches), BATCH, infer, dev)]
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = {"fused_block_infer": fb.fused_block_infer.launches,
-                "mona_spatial": dwconv.mona_spatial.launches}
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("fused_block_infer", "mona_spatial")}
     depth = cfg.vision.depth
     print(f"slice: served {sum(sizes)} images in {N_BATCHES} batches in {host_s:.2f} s "
           f"(host clock, first batches included); launches {launches}")
@@ -198,6 +328,8 @@ def slice_phase(dev, work):
         require(np.isfinite(out).all(), "non-finite logits")
     for name, n in launches.items():
         require(n == depth * N_BATCHES, f"{name} launched {n} times, want {depth * N_BATCHES}")
+    require(sum(counts.values()) == sum(launches.values()),
+            f"serving launched a train-path kernel: {counts}")
 
     # the same batches through the plain versions on the card
     worst, scale = 0.0, 0.0
@@ -218,7 +350,246 @@ def slice_phase(dev, work):
     print(f"slice: batch {BATCH} forward {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s "
           f"(plain path {plain_ms:.2f} ms = {BATCH * 1000 / plain_ms:.1f} img/s); "
           f"peak device memory {peak_gb:.2f} GB")
+    return launches, files
+
+
+def disc_batch(rng, n):
+    """Seeded uint8 images [n, IMG, IMG] with a brighter disc of seeded
+    centre and radius, and its 0/1 mask: foreground the seg loss can see."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:IMG, :IMG]
+    imgs = rng.integers(0, 120, (n, IMG, IMG)).astype(np.int32)
+    masks = np.zeros((n, IMG, IMG), np.uint8)
+    for i in range(n):
+        cy, cx = rng.integers(IMG // 4, 3 * IMG // 4, 2)
+        r = rng.integers(IMG // 9, IMG // 4)
+        disc = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        masks[i][disc] = 1
+        imgs[i][disc] += 100
+    return imgs.clip(0, 255).astype(np.uint8), masks
+
+
+TRAIN_LAUNCHES = {  # per train step: see PERF.md (blocks 1-9 backward, MONA 0-9)
+    "fused_ln_qkv": 12, "fused_attn_o_residual": 12, "fused_ln_mlp_residual": 12,
+    "mona_spatial": 12, "fused_ln_qkv_backward": 9, "fused_attn_o_residual_backward": 9,
+    "fused_ln_mlp_residual_backward": 9, "mona_spatial_backward": 10, "fused_block_infer": 0}
+
+
+def launch_counters():
+    """name -> the function whose ``launches`` counts that kernel."""
+    from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_block, fused_ln_mlp
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+
+    fns = [fused_block.fused_block_infer, dwconv.mona_spatial, dwconv.mona_spatial_backward,
+           fused_ln_qkv.fused_ln_qkv, fused_ln_qkv.fused_ln_qkv_backward,
+           fused_attn_o.fused_attn_o_residual, fused_attn_o.fused_attn_o_residual_backward,
+           fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward]
+    return {f.__name__: f for f in fns}
+
+
+def reset_counts():
+    for f in launch_counters().values():
+        f.launches = 0
+
+
+def read_counts():
+    return {name: f.launches for name, f in launch_counters().items()}
+
+
+def train_phase(dev, files):
+    """The supervised train step at full ViT-B/16 width: hybrid MONA in all
+    12 blocks, 2-class seg head, batch 32, bf16, AdamW as run_supervised
+    sets it. Checks the launch counts of one step, the first step's loss and
+    trainable gradients against the plain path on the card, and that the
+    loss falls over 10 steps on one fixed batch; times the step."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    args = base_parser("chip_smoke").parse_args([
+        "--mona_variant", "hybrid", "--num_classes", str(SEG_CLASSES), "--img_size", str(IMG),
+        "--backbone_ckpt", files["backbone"], "--mona_weights", files["mona"],
+        "--head_weights", files["head"]])
+    cfg, hcfg, params = _build_supervised(args, "biomedclip", "seg",
+                                          torch.Generator().manual_seed(1))
+    trainable, frozen = partition(params, by_keywords("head", "mona", "lora"))
+    params.to(dev)
+    forward = _make_forward(cfg, hcfg, train=True)
+    imgs, masks = disc_batch(np.random.default_rng(1), BATCH)
+    batch = {"image": torch.from_numpy(imgs).to(dev)[None],
+             "mask": torch.from_numpy(masks).to(dev)[None]}
+    print(f"train: {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen; "
+          f"foreground {masks.mean():.3f} of the pixels")
+
+    def loss_fn(ops):
+        def fn(mb, gen):
+            logits, m = forward(params, mb["image"], mb["mask"], gen, ops=ops)
+            return dice_ce_loss(logits, m)
+        return fn
+
+    def grads(ops):
+        for p in trainable.values():
+            p.grad = None
+        loss = loss_fn(ops)({k: v[0] for k, v in batch.items()},
+                            torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        # blocks past the last tap (10-11) get no gradient: zeros, as in JAX
+        out = {k: torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+               for k, p in trainable.items()}
+        for p in trainable.values():
+            p.grad = None
+        return loss.item(), out
+
+    reset_counts()
+    loss_k, g_k = grads(KERNELS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"train: one step's launches {launches}")
+    for name, want in TRAIN_LAUNCHES.items():
+        require(launches[name] == want, f"{name} launched {launches[name]} times in a train "
+                                        f"step, want {want}")
+    loss_p, g_p = grads(PLAIN)
+    worst, worst_name = 0.0, None
+    for k, ref in g_p.items():
+        ratio = (g_k[k] - ref).abs().max().item() / (BF16_BOUND * max(1.0, ref.abs().max().item()))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"train: first-step loss kernel {loss_k:.6f} plain {loss_p:.6f}; trainable "
+          f"gradients worst max|d| / (3e-2 max(1, max|ref|)) = {worst:.3f} ({worst_name})")
+    require(np.isfinite(loss_k), "non-finite train loss")
+    require(abs(loss_k - loss_p) <= BF16_BOUND * max(1.0, abs(loss_p)),
+            "train loss disagrees with the plain path")
+    require(worst <= 1.0, f"gradient of {worst_name} disagrees with the plain path")
+
+    tcfg = T.TrainConfig(lr=1e-4, lr_min=1e-8, weight_decay=0.01, beta1=0.9, beta2=0.95,
+                         total_updates=25)
+    opt = T.make_optimizer(trainable.values(), tcfg)
+    step = T.TrainStep(loss_fn(KERNELS), opt, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(123)
+    losses = [step(batch, gen)["loss"] for _ in range(10)]
+    print("train: losses over 10 steps on one batch " + " ".join(f"{v:.4f}" for v in losses))
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], "the train loss did not fall")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 10, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_step = T.TrainStep(loss_fn(PLAIN), opt, tcfg)
+    plain_ms = cuda_ms(lambda: plain_step(batch, gen), 3, warmup=1)
+    print(f"train: batch {BATCH} step {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s (plain path "
+          f"{plain_ms:.2f} ms = {BATCH * 1000 / plain_ms:.1f} img/s); peak device memory "
+          f"{peak_gb:.2f} GB")
+    profile_steps(lambda: step(batch, gen), 3, ms)
     return launches
+
+
+def profile_steps(fn, steps, step_ms):
+    """torch.profiler over ``steps`` calls: device time per call by kernel
+    (top 14) and in all, and the share of ``step_ms`` (the call's time
+    without the profiler) that the card was busy (kernel times summed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue  # CPU ops and annotated ranges span the kernels they launch
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profile: kernels {total:.2f} ms of device time per step; busy "
+          f"{100 * total / step_ms:.1f}% of the {step_ms:.2f} ms step (host clock under the "
+          f"profiler {host_ms:.2f} ms)")
+    for ms_, count, key in rows[:14]:
+        print(f"profile:   {ms_:8.3f} ms {100 * ms_ / max(total, 1e-9):5.1f}%  x{count:<4d} "
+              f"{key[:90]}")
+
+
+def cli_phase(dev, work, files):
+    """The trainer CLI (python -m ...segmentation) on a synthetic dataset in
+    the reference layout, 224 px, batch 32, 2 updates, then the predict CLI
+    on its best_model.npz."""
+    import csv
+    import glob
+
+    import numpy as np
+    from PIL import Image
+
+    from nextgen_uia_tpu_torch.tasks.biomedclip import predict, segmentation
+
+    data = os.path.join(work, "data")
+    split_dir = os.path.join(data, "classification", "SYNTH")
+    for sub in ("all/images", "all/masks", "classification/SYNTH"):
+        os.makedirs(os.path.join(data, sub), exist_ok=True)
+    imgs, masks = disc_batch(np.random.default_rng(2), 80)
+    names = [f"img_{i:03d}.png" for i in range(80)]
+    for name, img, mask in zip(names, imgs, masks):
+        Image.fromarray(img).save(os.path.join(data, "all", "images", name))
+        Image.fromarray(mask * 255).save(os.path.join(data, "all", "masks", name))
+    for split, part in (("train", names[:64]), ("val", names[64:72]), ("test", names[72:])):
+        with open(os.path.join(split_dir, f"{split}.txt"), "w") as f:
+            f.write("\n".join(part))
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = segmentation.main([
+            "--dataset", "SYNTH", "--data_root", data, "--exp", "chip_cli", "--epochs", "1",
+            "--val_interval", "1", "--img_size", str(IMG), "--batch_size", str(BATCH),
+            "--num_workers", "4", "--device", "cuda", "--no-strong_augs", "--no-weak_augs",
+            "--mona_variant", "hybrid", "--backbone_ckpt", files["backbone"],
+            "--mona_weights", files["mona"], "--head_weights", files["head"]])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        run = os.path.join(work, "runs", "chip_cli", "SYNTH", "train")
+        best = os.path.join(run, "best_model.npz")
+        results = glob.glob(os.path.join(run, "*_iou=*", "results.csv"))
+        print(f"cli: trained 2 updates + val/test evaluation in {seconds:.1f} s (host clock, "
+              f"data decode included); dice_mean {stats['dice_mean']:.4f}; launches {counts}")
+        require(np.isfinite(stats["loss"]) and np.isfinite(stats["dice_mean"]),
+                f"trainer CLI stats {stats}")
+        require(counts["fused_ln_qkv_backward"] == 2 * 9 and counts["mona_spatial_backward"]
+                == 2 * 10, "the trainer CLI did not train through the backward kernels")
+        require(counts["fused_block_infer"] > 0, "the trainer CLI did not evaluate through K1")
+        require(os.path.exists(best) and results, "best_model.npz or results.csv missing")
+        listing = os.path.join(work, "predict.txt")
+        with open(listing, "w") as f:
+            f.write("\n".join(os.path.join(data, "all", "images", n) for n in names[72:]))
+        out = predict.main([
+            "--task", "seg", "--images", listing, "--img_size", str(IMG), "--batch_size",
+            str(BATCH), "--num_workers", "4", "--device", "cuda", "--mona_variant", "hybrid",
+            "--backbone_ckpt", files["backbone"], "--mona_weights", best, "--head_weights",
+            best, "--out", os.path.join(work, "predict_out")])["out"]
+        with open(os.path.join(out, "index.csv")) as f:
+            rows = list(csv.DictReader(f))
+        require(len(rows) == 8 and all(r["status"] == "ok" for r in rows),
+                "predict CLI on best_model.npz failed")
+        print(f"cli: predict loaded best_model.npz as --head_weights and --mona_weights and "
+              f"wrote {len(rows)} masks")
+    finally:
+        os.chdir(cwd)
 
 
 def main():
@@ -258,15 +629,23 @@ def main():
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
-        launches = slice_phase(dev, work)
+        launches, files = slice_phase(dev, work)
+        launches = {**train_phase(dev, files), **launches}
+        cli_phase(dev, work, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    source = {"fused_block_infer": ("nextgen_uia_tpu_torch/csrc/fused_block.cu",
-                                    "nextgen_uia_tpu/ops/fused_block.py:78"),
-              "mona_spatial": ("nextgen_uia_tpu_torch/csrc/mona_spatial.cu",
-                               "nextgen_uia_tpu/ops/dwconv.py:156")}
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+    csrc, jax_ops = "nextgen_uia_tpu_torch/csrc/", "nextgen_uia_tpu/ops/"
+    source = {"fused_block_infer": ("fused_block.cu", "fused_block.py:78"),
+              "mona_spatial": ("mona_spatial.cu", "dwconv.py:156"),
+              "mona_spatial_backward": ("mona_spatial.cu", "dwconv.py:171"),
+              "fused_ln_qkv": ("fused_ln_qkv.cu", "fused_ln_qkv.py:36"),
+              "fused_ln_qkv_backward": ("fused_ln_qkv.cu", "fused_ln_qkv.py:60"),
+              "fused_attn_o_residual": ("fused_attn_o.cu", "fused_attn_o.py:51"),
+              "fused_attn_o_residual_backward": ("fused_attn_o.cu", "fused_attn_o.py:83"),
+              "fused_ln_mlp_residual": ("fused_ln_mlp.cu", "fused_ln_mlp.py:29"),
+              "fused_ln_mlp_residual_backward": ("fused_ln_mlp.cu", "fused_ln_mlp.py:49")}
+    kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]
     print(json.dumps({"kernels": kernels}))

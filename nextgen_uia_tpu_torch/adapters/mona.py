@@ -1,4 +1,4 @@
-"""MONA adapters, 4 variants, eval mode (counterpart of
+"""MONA adapters, 4 variants, eval and train mode (counterpart of
 nextgen_uia_tpu/adapters/mona.py).
 
 With input x [B, N, D]:
@@ -7,7 +7,7 @@ With input x [B, N, D]:
     z  = z @ W_down                          (D -> c)
     cls, s = split(z); s -> [B, h, w, c]
     s  = MonaOp(s)
-    z  = GELU(concat(cls, s)) @ W_up
+    z  = dropout(GELU(concat(cls, s)), 0.1) @ W_up       (dropout: train mode)
     out = x + z
 
 MonaOp follows the JAX package's accelerator branch (``_mona_op`` on TPU):
@@ -16,8 +16,8 @@ the noise-aware variants fold their per-sample softmax branch weights into
 per-sample kernels and biases (in float32, then cast to s.dtype), the
 shared-kernel variants broadcast the mean kernel and bias; the per-channel
 frequency filter is the scale ``freq`` (irfft2(rfft2(s) * f_c) == s * f_c);
-then ``y = mona_spatial(s, freq, kernels, bias)`` (ops/dwconv.py) and
-``y + pw(y)``. Dropout is the training path's and is not applied here.
+then ``y = mona_spatial(s, freq, kernels, bias)`` (ops/dwconv.py, which
+autograd differentiates through its backward kernel) and ``y + pw(y)``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Conv, LayerNorm, Linear, gelu, layernorm, linear, param
+from ..nn.layers import Conv, LayerNorm, Linear, dropout, gelu, layernorm, linear, param
 from ..ops import KERNELS
 
 VARIANTS = ("baseline", "noise_aware", "freq_enhanced", "hybrid")
@@ -90,11 +90,14 @@ def _mona_op(p: Mona, s, variant: str, ops=KERNELS):
     return y + proj
 
 
-def mona_apply(p: Mona, x, hw, *, variant: str, ops=KERNELS):
-    """Apply a MONA adapter to token sequence x [B, N, D] in eval mode.
+def mona_apply(p: Mona, x, hw, *, variant: str, ops=KERNELS, gen=None, mask=None):
+    """Apply a MONA adapter to token sequence x [B, N, D].
 
     N = h*w + 1 (CLS first), h*w (no CLS), or h*w + 1 + pad (the trailing
-    rows take the CLS path: channel mixing only).
+    rows take the CLS path: channel mixing only). Train mode applies dropout
+    (rate 0.1) after the GELU, with a mask drawn from the generator ``gen``
+    or the pre-scaled ``mask`` [B, N, bottleneck] given; with neither it is
+    the eval forward.
     """
     b, n, _ = x.shape
     h, w = hw
@@ -106,7 +109,8 @@ def mona_apply(p: Mona, x, hw, *, variant: str, ops=KERNELS):
         z = torch.cat([z[:, :1], sp.reshape(b, h * w, c), z[:, 1 + h * w:]], dim=1)
     else:
         z = _mona_op(p, z.reshape(b, h, w, c), variant, ops).reshape(b, n, c)
-    z = linear(p.up, gelu(z), dtype=x.dtype)
+    z = dropout(gelu(z), 0.1, gen=gen, mask=mask)
+    z = linear(p.up, z, dtype=x.dtype)
     return x + z
 
 

@@ -4,7 +4,8 @@ Same format as nextgen_uia_tpu/core/checkpoint.py: one ``.npz`` of
 '/'-joined path -> array, loaded by name-intersection merge. Because a
 module's state-dict keys are the JAX paths with '.' for '/', a file written
 by either package loads into the other with a rename and a dtype/device cast
-and no transposes.
+and no transposes. Full train states for ``--resume`` are the port's own
+layout (``save_train_state``/``load_train_state``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,19 @@ from .partition import flatten_with_paths, path_str
 
 def save(path: str, module: torch.nn.Module, *, keyword_filter=None) -> int:
     """Save (optionally keyword-filtered) parameters; returns count saved."""
-    flat = {p: v.detach().cpu().numpy() for p, v in flatten_with_paths(module)}
+    flat = dict(flatten_with_paths(module))
     if keyword_filter:
         kws = [k.lower() for k in keyword_filter]
         flat = {p: v for p, v in flat.items() if any(k in p.lower() for k in kws)}
+    return save_flat(path, flat)
+
+
+def save_flat(path: str, flat: dict) -> int:
+    """Save a flat path -> tensor dict as the JAX package's .npz."""
+    arrays = {p: v.detach().cpu().numpy() for p, v in flat.items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **flat)
-    return len(flat)
+    np.savez(path, **arrays)
+    return len(arrays)
 
 
 class NoMatch(ValueError):
@@ -77,3 +84,33 @@ def load_into(path: str, module: torch.nn.Module, *, skip=()):
     Returns (module, loaded_count); raises NoMatch if nothing matched.
     """
     return merge_flat(load_flat(path), module, source=path, skip=skip)
+
+
+def save_train_state(path: str, flat: dict, extra: dict | None = None) -> int:
+    """Atomic full-state save of a flat path -> array dict (parameters,
+    optimizer moments, counters); ``extra`` holds host scalars (epoch,
+    best...). ``extra`` rides inside the .npz (key ``__meta__``), so the
+    state and its position publish in one os.replace, as in the JAX
+    package; a .meta.json copy is written afterwards for inspection."""
+    import json
+
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    if extra is not None:
+        flat["__meta__"] = np.array(json.dumps(extra))
+    tmp = path + ".tmp.npz"  # explicit .npz so np.savez does not append one
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    if extra is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(extra, f)
+    return len(flat) - (1 if extra is not None else 0)
+
+
+def load_train_state(path: str):
+    """(flat path -> array dict, extra dict) of a file save_train_state wrote."""
+    import json
+
+    saved = load_flat(path)
+    meta = saved.pop("__meta__", None)
+    return saved, ({} if meta is None else json.loads(str(meta.item())))

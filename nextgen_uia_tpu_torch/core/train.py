@@ -1,10 +1,122 @@
-"""Training/eval helpers (counterpart of nextgen_uia_tpu/core/train.py).
-The serving slice needs only the ragged-batch padding; the training step
-comes with the fine-tune slice."""
+"""The train step and its helpers (counterpart of nextgen_uia_tpu/core/train.py).
+
+Reference training semantics, as the JAX engine reproduces them:
+  - AdamW (betas 0.9/0.95 by default, eps 1e-8, decoupled weight decay on
+    every trainable tensor) with a cosine learning rate per *applied* update
+    from lr to lr_min over the run: optax's ``adamw(cosine_decay_schedule)``,
+    which ``torch.optim.AdamW`` equals when its rate is set to
+    ``cosine_lr_value(cfg, k)`` before update k;
+  - an update whose loss is not finite changes neither the parameters nor
+    the optimizer state nor the schedule count.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Callable
+
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 1e-4
+    lr_min: float = 1e-8
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    total_updates: int = 1000
+
+
+def cosine_lr_value(cfg: TrainConfig, count: int) -> float:
+    """The cosine schedule at 0-indexed applied update ``count`` (optax's
+    ``cosine_decay_schedule(lr, total_updates, alpha=lr_min / lr)``)."""
+    steps = max(cfg.total_updates, 1)
+    t = min(max(count, 0), steps)
+    alpha = cfg.lr_min / cfg.lr if cfg.lr > 0 else 0.0
+    return cfg.lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / steps)) + alpha)
+
+
+def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
+    """AdamW over ``params`` (an iterable of trainable tensors); the train
+    step sets its rate from the schedule before each update."""
+    return torch.optim.AdamW(list(params), lr=cosine_lr_value(cfg, 0),
+                             betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+                             weight_decay=cfg.weight_decay)
+
+
+class TrainStep:
+    """One optimizer update over a stacked batch, without gradient
+    accumulation or clipping (run_supervised's settings: accum_steps 1,
+    grad_clip 0; the others are ROADMAP.md, section A, item 6).
+
+    ``loss_fn(microbatch, gen) -> scalar loss`` runs the forward of the
+    trainable parameters the optimizer holds; ``step(batch, gen)`` takes
+    batch leaves shaped [1, batch, ...] (``stack_microbatches``) and returns
+    {'loss': the loss, or 0.0 when it is not finite, 'skipped': 1 when it
+    is not finite}. The backward is queued before the loss is read, so the
+    host does not wait for the forward. ``applied`` counts the updates taken
+    (the schedule's count), and is part of the resumable state.
+    """
+
+    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer,
+                 cfg: TrainConfig):
+        self.loss_fn, self.optimizer, self.cfg = loss_fn, optimizer, cfg
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.applied = 0
+
+    def __call__(self, batch: dict, gen=None) -> dict:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn({k: v[0] for k, v in batch.items()}, gen)
+        loss.backward()
+        value = float(loss.detach())
+        ok = math.isfinite(value)
+        if ok:
+            for p in self.params:  # optax sees zeros where the loss does not reach
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            for group in self.optimizer.param_groups:
+                group["lr"] = cosine_lr_value(self.cfg, self.applied)
+            self.optimizer.step()
+            self.applied += 1
+        return {"loss": value if ok else 0.0, "skipped": int(not ok)}
+
+    def state(self, names) -> dict:
+        """Flat path -> array of the resumable state: the trainable
+        parameters (``names`` gives each one's path, in optimizer order),
+        AdamW's moments and step counts, and the applied-update count."""
+        out = {"count": np.asarray(self.applied, np.int64)}
+        for name, p in zip(names, self.params):
+            out[f"params/{name}"] = p.detach().cpu().numpy()
+            for k, v in self.optimizer.state.get(p, {}).items():
+                out[f"opt/{name}/{k}"] = (v.detach().cpu().numpy() if torch.is_tensor(v)
+                                          else np.asarray(v))
+        return out
+
+    @torch.no_grad()
+    def load_state(self, flat: dict, names) -> None:
+        """Inverse of ``state``; every parameter's entry must be present."""
+        self.applied = int(flat["count"])
+        for name, p in zip(names, self.params):
+            p.copy_(torch.from_numpy(np.asarray(flat[f"params/{name}"])))
+            st = {}
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                key = f"opt/{name}/{k}"
+                if key in flat:
+                    v = torch.from_numpy(np.asarray(flat[key]))
+                    st[k] = v.to(torch.float32) if k == "step" else v.to(p.device, p.dtype)
+            if st:
+                self.optimizer.state[p] = st
+
+
+def stack_microbatches(batch: dict, accum_steps: int) -> dict:
+    """Reshape batch leaves [B, ...] -> [accum, B // accum, ...]."""
+    def r(x):
+        micro = x.shape[0] // accum_steps
+        return x[: accum_steps * micro].reshape(accum_steps, micro, *x.shape[1:])
+    return {k: r(v) for k, v in batch.items()}
 
 
 def pad_eval_batch(batch: dict, multiple: int):
@@ -28,3 +140,81 @@ def pad_eval_batch(batch: dict, multiple: int):
         else:
             out[k] = v
     return out, n
+
+
+class EarlyStopper:
+    """Best-metric tracking + patience early stop."""
+
+    def __init__(self, patience: int, mode: str = "min"):
+        self.patience = patience
+        self.mode = mode
+        self.best = None
+        self.best_step = -1
+        self.counter = 0
+
+    def update(self, value: float, step: int) -> bool:
+        """Returns True when this is a new best."""
+        better = (self.best is None
+                  or (self.mode == "min" and value < self.best)
+                  or (self.mode == "max" and value > self.best))
+        if better:
+            self.best = value
+            self.best_step = step
+            self.counter = 0
+            return True
+        self.counter += 1
+        return False
+
+    @property
+    def should_stop(self) -> bool:
+        return self.counter >= self.patience
+
+
+def stopper_meta(stopper: EarlyStopper) -> dict:
+    """The early-stop fields every resumable checkpoint carries."""
+    return {"best": stopper.best, "best_epoch": stopper.best_step,
+            "patience_counter": stopper.counter}
+
+
+def restore_stopper(stopper: EarlyStopper, meta: dict) -> None:
+    stopper.best = meta.get("best")
+    stopper.best_step = int(meta.get("best_epoch", -1))
+    stopper.counter = int(meta.get("patience_counter", 0))
+
+
+class GracefulShutdown:
+    """SIGTERM/SIGINT handler for the train loop: the first signal only sets
+    ``requested`` (the loop finishes its update, saves the full train state
+    and exits so ``--resume`` continues where it stopped) and restores the
+    previous handlers, so a second signal behaves as before. install() is a
+    no-op off the main thread."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def _handler(self, signum, frame):
+        import logging
+
+        self.requested = True
+        logging.warning(f"signal {signum} received: finishing the current update, then "
+                        "checkpointing for --resume (signal again to force the previous "
+                        "behavior)")
+        self.uninstall()
+
+    def install(self):
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        for s in (signal.SIGTERM, signal.SIGINT):
+            self._prev[s] = signal.signal(s, self._handler)
+        return self
+
+    def uninstall(self):
+        import signal
+
+        prev, self._prev = self._prev, {}
+        for s, h in prev.items():
+            signal.signal(s, h)

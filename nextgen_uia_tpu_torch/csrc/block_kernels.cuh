@@ -1,0 +1,860 @@
+// The transformer-block building blocks every block kernel of the port is cut
+// from: LayerNorm forward and backward over rows, a GEMM with a fused
+// epilogue (bf16 tensor cores, or float32 SIMT so the float32 path stays
+// exact), attention forward and its backward. The whole-block forward
+// (fused_block.cu) and the split train-path kernels (fused_ln_qkv.cu,
+// fused_attn_o.cu, fused_ln_mlp.cu) launch these, so they share one
+// implementation. Everything here is a template or `static`, so each .cu
+// that includes the header builds on its own (the sources compile in
+// parallel) and the objects link without clashes.
+//
+// Layouts: activations are row-major [rows, cols]; weights are the JAX
+// package's [in, out] row-major. A GEMM reads its weight either as stored
+// (out = A @ W) or transposed (out = A @ W^T, the backward's products), and
+// its A operand and output either row-major or "head-major": the logical
+// column c of a [B*N, S*H*dh] matrix lives in segment t = c / (H*dh) at
+// ptr[t][((b*H + h)*N + n)*dh + e], the [B, H, N, dh] layout the attention
+// kernels exchange (q, k, v and their gradients).
+
+#pragma once
+
+#include <cfloat>
+#include <type_traits>
+
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace nx {
+
+enum Act : int { ACT_NONE = 0, ACT_GELU = 1, ACT_QUICK_GELU = 2 };
+
+__device__ __forceinline__ float act_fwd(int act, float v) {
+  if (act == ACT_GELU) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+  if (act == ACT_QUICK_GELU) return v / (1.f + expf(-1.702f * v));
+  return v;
+}
+
+// d act / d a, exact erf GELU (Phi(a) + a phi(a)) or quick_gelu
+__device__ __forceinline__ float act_grad(int act, float a) {
+  if (act == ACT_GELU) {
+    const float cdf = 0.5f * (1.f + erff(a * 0.7071067811865476f));
+    const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
+    return cdf + a * pdf;
+  }
+  if (act == ACT_QUICK_GELU) {
+    const float s = 1.f / (1.f + expf(-1.702f * a));
+    return s + 1.702f * a * s * (1.f - s);
+  }
+  return 1.f;
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm over rows, float32 statistics: one warp per row
+// ---------------------------------------------------------------------------
+
+template <typename TI>
+__device__ __forceinline__ void row_stats(const TI* xr, int cols, int lane, float eps,
+                                          float& mean, float& rstd) {
+  float s = 0.f;
+  for (int c = lane; c < cols; c += 32) s += to_f32(xr[c]);
+  mean = warp_sum(s) / cols;
+  float v = 0.f;
+  for (int c = lane; c < cols; c += 32) {
+    const float d = to_f32(xr[c]) - mean;
+    v += d * d;
+  }
+  rstd = rsqrtf(warp_sum(v) / cols + eps);
+}
+
+template <typename TI, typename TO>
+__global__ void layernorm_rows(const TI* __restrict__ x, const float* __restrict__ g,
+                               const float* __restrict__ b, TO* __restrict__ out,
+                               int rows, int cols, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const TI* xr = x + (size_t)row * cols;
+  float mean, rstd;
+  row_stats(xr, cols, lane, eps, mean, rstd);
+  TO* orow = out + (size_t)row * cols;
+  for (int c = lane; c < cols; c += 32)
+    orow[c] = from_f32<TO>((to_f32(xr[c]) - mean) * rstd * g[c] + b[c]);
+}
+
+// dx = (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd (+ res),
+// dxhat = dz * gamma, statistics recomputed in float32 from x
+template <typename T>
+__global__ void layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ g,
+                                   const float* __restrict__ dz, const T* __restrict__ res,
+                                   T* __restrict__ dx, int rows, int cols, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * cols;
+  const float* dzr = dz + (size_t)row * cols;
+  float mean, rstd;
+  row_stats(xr, cols, lane, eps, mean, rstd);
+  float m1 = 0.f, m2 = 0.f;
+  for (int c = lane; c < cols; c += 32) {
+    const float dxh = dzr[c] * g[c];
+    m1 += dxh;
+    m2 += dxh * (to_f32(xr[c]) - mean) * rstd;
+  }
+  m1 = warp_sum(m1) / cols;
+  m2 = warp_sum(m2) / cols;
+  T* orow = dx + (size_t)row * cols;
+  const T* rr = res ? res + (size_t)row * cols : nullptr;
+  for (int c = lane; c < cols; c += 32) {
+    const float xhat = (to_f32(xr[c]) - mean) * rstd;
+    float v = (dzr[c] * g[c] - m1 - xhat * m2) * rstd;
+    if (rr) v += to_f32(rr[c]);
+    orow[c] = from_f32<T>(v);
+  }
+}
+
+template <typename TI, typename TO>
+static cudaError_t launch_layernorm(const void* x, const float* g, const float* b, void* out,
+                                    int rows, int cols, float eps, cudaStream_t s) {
+  const int threads = 256, per_block = threads / 32;
+  layernorm_rows<<<(rows + per_block - 1) / per_block, threads, 0, s>>>(
+      static_cast<const TI*>(x), g, b, static_cast<TO*>(out), rows, cols, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_layernorm_bwd(const void* x, const float* g, const float* dz,
+                                        const void* res, void* dx, int rows, int cols,
+                                        float eps, cudaStream_t s) {
+  const int threads = 256, per_block = threads / 32;
+  layernorm_bwd_rows<<<(rows + per_block - 1) / per_block, threads, 0, s>>>(
+      static_cast<const T*>(x), g, dz, static_cast<const T*>(res), static_cast<T*>(dx), rows,
+      cols, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// GEMM operands and epilogue
+// ---------------------------------------------------------------------------
+
+// A logical [rows, cols] matrix: row-major at p0, or head-major segments
+// (see the top of the file): seg = H * dh columns per pointer p0, p1, p2.
+// The layout is a template flag of the kernels (HM), so the row-major path
+// carries no index arithmetic; head_major here only selects the kernel.
+struct Operand {
+  const void* p0;
+  const void* p1;
+  const void* p2;
+  int head_major;
+  int seg, n_tok, heads, dh;
+
+  // element offset of (r, c) in the pointer `base` it lives in
+  template <bool HM>
+  __device__ __forceinline__ size_t index(int r, int c, int cols, const void*& base) const {
+    if (!HM) {
+      base = p0;
+      return (size_t)r * cols + c;
+    }
+    const int t = c / seg;
+    const int cc = c - t * seg, h = cc / dh, e = cc - h * dh;
+    const int b = r / n_tok, n = r - b * n_tok;
+    base = t == 0 ? p0 : (t == 1 ? p1 : p2);
+    return ((size_t)(b * heads + h) * n_tok + n) * dh + e;
+  }
+  template <bool HM, typename T>
+  __device__ __forceinline__ const T* ptr(int r, int c, int cols) const {
+    const void* base;
+    const size_t i = index<HM>(r, c, cols, base);
+    return static_cast<const T*>(base) + i;
+  }
+};
+
+// out = epilogue(acc): v += bias[c]; v *= act'(act_in) (backward, when
+// act_in is given) or v = act(v) (forward); v += res; stored to `out` in
+// out_dtype
+struct Epilogue {
+  const float* bias;    // [N] float32 or null
+  const void* res;      // [M, N] row-major or null
+  int res_dtype;
+  const float* act_in;  // [M, N] float32 pre-activation or null
+  int act;
+  Operand out;          // written through its pointers (const cast away)
+  int out_dtype;
+
+  // OHM: head-major output; DACT: multiply by act'(act_in) (backward) in
+  // place of applying act (forward)
+  template <bool OHM, bool DACT>
+  __device__ __forceinline__ void apply(float v, int r, int c, int n) const {
+    if (bias) v += bias[c];
+    const size_t i = (size_t)r * n + c;
+    if (DACT) v *= act_grad(act, act_in[i]);
+    else v = act_fwd(act, v);
+    if (res) v += load_f32(res, res_dtype, i);
+    const void* base;
+    const size_t o = out.index<OHM>(r, c, n, base);
+    store_f32(const_cast<void*>(base), out_dtype, o, v);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// float32 SIMT GEMM: 64x64 outputs per CTA, 16x16 threads x 4x4 each.
+// out[M, N] = A[M, K] @ B, B = W [K, N] or (BT) W^T with W stored [N, K].
+// Needs N % 64 == 0 and K % 16 == 0.
+// ---------------------------------------------------------------------------
+
+constexpr int SBM = 64, SBN = 64, SBK = 16;
+
+template <bool BT, bool AHM, bool OHM, bool DACT>
+__global__ void __launch_bounds__(256)
+gemm_f32(Operand A, const float* __restrict__ W, Epilogue epi, int M, int N, int K) {
+  __shared__ float As[SBK][SBM + 4];  // A tile, transposed: As[k][row]
+  __shared__ float Ws[SBK][SBN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * SBM, col0 = blockIdx.x * SBN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += SBK) {
+    for (int i = tid; i < SBM * SBK; i += 256) {
+      const int r = i / SBK, c = i % SBK, gr = row0 + r;
+      As[c][r] = gr < M ? *A.ptr<AHM, float>(gr, k0 + c, K) : 0.f;
+    }
+    for (int i = tid; i < SBK * SBN; i += 256) {
+      if (BT) {  // consecutive threads walk W's rows (contiguous in k)
+        const int c = i / SBK, r = i % SBK;
+        Ws[r][c] = W[(size_t)(col0 + c) * K + k0 + r];
+      } else {
+        const int r = i / SBN, c = i % SBN;
+        Ws[r][c] = W[(size_t)(k0 + r) * N + col0 + c];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SBK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) epi.apply<OHM, DACT>(acc[i][j], r, col0 + tx * 4 + j, N);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core GEMM: 128x128 outputs per CTA, 8 warps as 2 (rows) x 4
+// (cols), each warp 64x32 = 4x2 WMMA 16x16x16 fragments, K step 32. The A
+// and W tiles stream through a 3-stage cp.async ring in dynamic shared
+// memory, so the copies of the next two K steps overlap this step's MMAs.
+// BT reads W^T: the tile is staged as W's rows [n][k] and fed to the MMA as
+// a column-major B fragment. Needs K % 32 == 0, N % 8 == 0 and 16-byte
+// aligned operands (head-major A: dh % 8 == 0).
+// ---------------------------------------------------------------------------
+
+constexpr int WBM = 128, WBN = 128, WBK = 32, WSTAGES = 3;
+constexpr int A_LD = WBK + 8, W_LD = WBN + 8, WT_LD = WBK + 8;  // padded (bf16 elements)
+constexpr int A_STAGE = WBM * A_LD;
+constexpr int W_STAGE_MAX = WBN * WT_LD > WBK * W_LD ? WBN * WT_LD : WBK * W_LD;
+constexpr int GEMM_SMEM = WSTAGES * (A_STAGE + W_STAGE_MAX) * 2;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <bool BT, bool AHM, bool OHM, bool DACT>
+__global__ void __launch_bounds__(256)
+gemm_bf16(Operand A, const __nv_bfloat16* __restrict__ W, Epilogue epi, int M, int N, int K) {
+  using namespace nvcuda;
+  using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  constexpr int W_STAGE = BT ? WBN * WT_LD : WBK * W_LD;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(gemm_smem);  // [stage][WBM][A_LD]
+  __nv_bfloat16* Ws = As + WSTAGES * A_STAGE;                         // [stage][W tile]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
+  const int k_tiles = K / WBK;
+
+  // one K step: A 128x32 and W 32x128, 512 16-byte chunks each, 2 + 2 per
+  // thread; rows >= M and columns >= N are zero-filled
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * WBK;
+    __nv_bfloat16* as = As + stage * A_STAGE;
+    __nv_bfloat16* ws = Ws + stage * W_STAGE;
+#pragma unroll
+    for (int v = tid; v < WBM * WBK / 8; v += 256) {
+      const int r = v / (WBK / 8), c = (v % (WBK / 8)) * 8, gr = row0 + r;
+      cp_async16(as + r * A_LD + c, A.ptr<AHM, __nv_bfloat16>(gr < M ? gr : 0, k0 + c, K),
+                 gr < M);
+    }
+#pragma unroll
+    for (int v = tid; v < WBK * WBN / 8; v += 256) {
+      if (BT) {
+        const int r = v / (WBK / 8), c = (v % (WBK / 8)) * 8, gn = col0 + r;
+        cp_async16(ws + r * WT_LD + c, W + (size_t)(gn < N ? gn : 0) * K + k0 + c, gn < N);
+      } else {
+        const int r = v / (WBN / 8), c = (v % (WBN / 8)) * 8, gc = col0 + c;
+        cp_async16(ws + r * W_LD + c, W + (size_t)(k0 + r) * N + (gc < N ? gc : 0), gc < N);
+      }
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < k_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<WSTAGES - 2>();  // this thread's copies of step kt have landed
+    __syncthreads();               // everyone's have; step kt-1's buffer is free
+    const int next = kt + WSTAGES - 1;
+    if (next < k_tiles) load_tile(next % WSTAGES, next);
+    cp_async_commit();
+    const __nv_bfloat16* as = As + (kt % WSTAGES) * A_STAGE;
+    const __nv_bfloat16* ws = Ws + (kt % WSTAGES) * W_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < WBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(a[i], as + (wm * 64 + i * 16) * A_LD + kk, A_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (BT) wmma::load_matrix_sync(b[j], ws + (wn * 32 + j * 16) * WT_LD + kk, WT_LD);
+        else wmma::load_matrix_sync(b[j], ws + kk * W_LD + wn * 32 + j * 16, W_LD);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: each warp stages its fragments in 1 KB of it
+
+  float* wbuf = reinterpret_cast<float*>(gemm_smem) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(wbuf, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r0 = row0 + wm * 64 + i * 16, c0 = col0 + wn * 32 + j * 16;
+      for (int e = lane; e < 256; e += 32) {
+        const int r = r0 + e / 16, c = c0 + e % 16;
+        if (r < M && c < N) epi.apply<OHM, DACT>(wbuf[e], r, c, N);
+      }
+      __syncwarp();
+    }
+}
+
+static inline Operand row_major(const void* p) {
+  return Operand{p, nullptr, nullptr, 0, 0, 0, 0, 0};
+}
+
+static inline Operand head_major(const void* p0, const void* p1, const void* p2, int n_tok,
+                                 int heads, int dh) {
+  return Operand{p0, p1, p2, 1, heads * dh, n_tok, heads, dh};
+}
+
+template <bool BT, bool AHM, bool OHM, bool DACT>
+static cudaError_t launch_gemm_t(const Operand& a, const void* w, int dtype,
+                                 const Epilogue& epi, int M, int N, int K, cudaStream_t s) {
+  if (dtype == BF16) {
+    if (K % WBK || N % 8) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_bf16<BT, AHM, OHM, DACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + WBN - 1) / WBN, (M + WBM - 1) / WBM);
+    gemm_bf16<BT, AHM, OHM, DACT><<<grid, 256, GEMM_SMEM, s>>>(
+        a, static_cast<const __nv_bfloat16*>(w), epi, M, N, K);
+  } else if (dtype == F32) {
+    if (K % SBK || N % SBN) return cudaErrorInvalidValue;
+    const dim3 grid(N / SBN, (M + SBM - 1) / SBM);
+    gemm_f32<BT, AHM, OHM, DACT><<<grid, 256, 0, s>>>(a, static_cast<const float*>(w), epi, M,
+                                                      N, K);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// out[M, N] = epilogue(A @ W) (bt: A @ W^T, W stored [N, K]); A and W in
+// `dtype` (float32 or bf16). The layouts the block kernels use, each its
+// own instantiation: row-major in and out, a head-major output (q/k/v
+// forward), W^T with a head-major A (their backward), and W^T with or
+// without the activation-derivative epilogue; other combinations are
+// refused.
+static cudaError_t launch_gemm(const Operand& a, const void* w, int dtype, bool bt,
+                               const Epilogue& epi, int M, int N, int K, cudaStream_t s) {
+  const bool ahm = a.head_major, ohm = epi.out.head_major, dact = epi.act_in != nullptr;
+  if (!bt && !ahm && !ohm && !dact)
+    return launch_gemm_t<false, false, false, false>(a, w, dtype, epi, M, N, K, s);
+  if (!bt && !ahm && ohm && !dact)
+    return launch_gemm_t<false, false, true, false>(a, w, dtype, epi, M, N, K, s);
+  if (bt && !ahm && !ohm)
+    return dact ? launch_gemm_t<true, false, false, true>(a, w, dtype, epi, M, N, K, s)
+                : launch_gemm_t<true, false, false, false>(a, w, dtype, epi, M, N, K, s);
+  if (bt && ahm && !ohm && !dact)
+    return launch_gemm_t<true, true, false, false>(a, w, dtype, epi, M, N, K, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Attention: q, k, v at base + b*sb + h*sh + n*sn + d (element strides), so
+// one kernel reads both the packed [B*N, 3D] q|k|v rows of the whole-block
+// kernel and the head-major [B, H, N, dh] tensors of the split kernels.
+// ---------------------------------------------------------------------------
+
+struct QKV {
+  const void* q;
+  const void* k;
+  const void* v;
+  int sb, sh, sn;  // element strides; offsets are formed in size_t
+};
+
+// Each warp owns ATT_ROWS rows at once, so every shared-memory element read
+// feeds ATT_ROWS multiply-adds; 8 warps x 4 rows = one 32-row tile per CTA.
+// Needs dh % 4 == 0, 32 <= dh <= 64, n <= 256.
+constexpr int ATT_THREADS = 256, ATT_ROWS = 4, ATT_WARPS = ATT_THREADS / 32;
+constexpr int ATT_QTILE = ATT_WARPS * ATT_ROWS;
+
+// forward shared memory: Qs [warps][rows][dh] f32 | Ps [warps][rows][n] f32 |
+// Kt [dh][n | 1] T | Vs [n][dh] T
+static inline size_t attention_smem(int n, int dh, size_t t_size) {
+  const int nk = n | 1;  // odd stride: the transposed stores hit distinct banks
+  return sizeof(float) * ATT_WARPS * ATT_ROWS * ((size_t)dh + n) +
+         t_size * ((size_t)dh * nk + (size_t)n * dh);
+}
+
+// s[r] = a[r] . bt[:, j] for this warp's ATT_ROWS rows (a [rows][dh] f32)
+// against column j of bt [dh][nk] (transposed, storage type)
+template <typename T>
+__device__ __forceinline__ void scores4(const float* a, const T* bt, int j, int nk, int dh,
+                                        float* s) {
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) s[r] = 0.f;
+  for (int d = 0; d < dh; d += 4) {
+    const float b0 = to_f32(bt[d * nk + j]), b1 = to_f32(bt[(d + 1) * nk + j]);
+    const float b2 = to_f32(bt[(d + 2) * nk + j]), b3 = to_f32(bt[(d + 3) * nk + j]);
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float4 av = *reinterpret_cast<const float4*>(a + r * dh + d);
+      s[r] = fmaf(av.x, b0, s[r]);
+      s[r] = fmaf(av.y, b1, s[r]);
+      s[r] = fmaf(av.z, b2, s[r]);
+      s[r] = fmaf(av.w, b3, s[r]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out, int n,
+                 int heads, int dh, int n_real, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int nk = n | 1;
+  float* Qs = sm;
+  float* Ps = Qs + ATT_WARPS * ATT_ROWS * dh;
+  T* Kt = reinterpret_cast<T*>(Ps + ATT_WARPS * ATT_ROWS * n);
+  T* Vs = Kt + dh * nk;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int d_model = heads * dh;
+  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
+  const T* qb = static_cast<const T*>(in.q) + off;
+  const T* kbase = static_cast<const T*>(in.k) + off;
+  const T* vbase = static_cast<const T*>(in.v) + off;
+  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
+    const int k = i / dh, d = i % dh;
+    Kt[d * nk + k] = kbase[(size_t)k * in.sn + d];
+    Vs[k * dh + d] = vbase[(size_t)k * in.sn + d];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
+  if (i0 >= n) return;  // no block-wide barrier follows
+  const int rows = min(ATT_ROWS, n - i0);
+  float* q = Qs + warp * ATT_ROWS * dh;  // [rows][dh]; rows past n are zero
+  float* p = Ps + warp * ATT_ROWS * n;   // [rows][n]
+  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
+    const int r = e / dh, d = e % dh;
+    q[e] = r < rows ? to_f32(qb[(size_t)(i0 + r) * in.sn + d]) : 0.f;
+  }
+  __syncwarp();
+
+  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
+  float mx[ATT_ROWS], sum[ATT_ROWS];
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = -FLT_MAX, sum[r] = 0.f;
+  for (int k = lane; k < n; k += 32) {
+    float s[ATT_ROWS];
+    scores4(q, Kt, k, nk, dh, s);
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      float v = s[r] * scale;
+      if (k >= n_real) v = -1e30f;
+      if (kb) v += kb[k];
+      p[r * n + k] = v;
+      mx[r] = fmaxf(mx[r], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = warp_max(mx[r]);
+  for (int k = lane; k < n; k += 32) {
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float e = expf(p[r * n + k] - mx[r]);
+      p[r * n + k] = e;
+      sum[r] += e;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) sum[r] = warp_sum(sum[r]);
+  for (int k = lane; k < n; k += 32) {
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) p[r * n + k] = round_to<T>(p[r * n + k] / sum[r]);
+  }
+  __syncwarp();
+
+  // lane owns output columns d = lane and lane + 32
+  const int d0 = lane, d1 = lane + 32;
+  const bool has1 = d1 < dh;
+  float o0[ATT_ROWS] = {}, o1[ATT_ROWS] = {};
+  for (int k = 0; k < n; ++k) {
+    const float v0 = to_f32(Vs[k * dh + d0]);
+    const float v1 = has1 ? to_f32(Vs[k * dh + d1]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float pk = p[r * n + k];
+      o0[r] = fmaf(pk, v0, o0[r]);
+      o1[r] = fmaf(pk, v1, o1[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) {
+    if (r >= rows) break;
+    T* orow = out + ((size_t)b * n + i0 + r) * d_model + h * dh;
+    orow[d0] = from_f32<T>(o0[r]);
+    if (has1) orow[d1] = from_f32<T>(o1[r]);
+  }
+}
+
+static inline bool attention_shape_ok(int n, int dh) {
+  return dh % 4 == 0 && dh <= 64 && dh >= 32 && n >= 1 && n <= 256;
+}
+
+template <typename T>
+static cudaError_t launch_attention(const QKV& in, const float* key_bias, void* out, int b,
+                                    int n, int heads, int dh, int n_real, float scale,
+                                    cudaStream_t stream) {
+  if (!attention_shape_ok(n, dh)) return cudaErrorInvalidValue;
+  const size_t smem = attention_smem(n, dh, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
+  attention_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
+      in, key_bias, static_cast<T*>(out), n, heads, dh, n_real, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Attention backward, in two passes that each recompute their part of P
+// from q and k (nothing [N, N] is kept in device memory):
+//
+//   dq pass, one CTA per (32-query tile, head, image): a query row's P
+//   (softmax in float32), dp = doh v^T, D = rowsum(dp * P),
+//   ds = P * (dp - D) * scale rounded to T, dq = ds k. It writes the row's
+//   max, exp-sum and D to `stats` [B, H, N, 3].
+//   dk/dv pass, one CTA per (32-key tile, head, image): recomputes the
+//   key's column of P from the row statistics, dv = round(P)^T doh,
+//   dk = ds^T q.
+//
+// doh [B*N, H*dh] row-major (heads concatenated); dq, dk, dv head-major
+// [B, H, N, dh]. Rounding points are the JAX kernel's: P and ds are rounded
+// to T before their products.
+// ---------------------------------------------------------------------------
+
+// shared memory of either pass: two transposed [dh][n | 1] T tiles, per warp
+// A [rows][dh] and Bv [rows][dh] f32 and two [rows][n] f32 buffers, and
+// (dk/dv pass) the per-query statistics [3][n]
+static inline size_t attention_bwd_smem(int n, int dh, size_t t_size) {
+  const int nk = n | 1;
+  return sizeof(float) * (ATT_WARPS * ATT_ROWS * (2 * (size_t)dh + 2 * (size_t)n) + 3 * n) +
+         t_size * 2 * (size_t)dh * nk;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_bwd_dq(QKV in, const float* __restrict__ key_bias, const T* __restrict__ doh,
+                 T* __restrict__ dq, float* __restrict__ stats, int n, int heads, int dh,
+                 int n_real, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int nk = n | 1;
+  float* As = sm;                                    // q rows
+  float* Gs = As + ATT_WARPS * ATT_ROWS * dh;        // doh rows
+  float* Ps = Gs + ATT_WARPS * ATT_ROWS * dh;        // P (float32)
+  float* Ds = Ps + ATT_WARPS * ATT_ROWS * n;         // dp, then ds
+  T* Kt = reinterpret_cast<T*>(Ds + ATT_WARPS * ATT_ROWS * n + 3 * n);
+  T* Vt = Kt + dh * nk;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int d_model = heads * dh;
+  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
+  const T* qb = static_cast<const T*>(in.q) + off;
+  const T* kbase = static_cast<const T*>(in.k) + off;
+  const T* vbase = static_cast<const T*>(in.v) + off;
+  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
+    const int k = i / dh, d = i % dh;
+    Kt[d * nk + k] = kbase[(size_t)k * in.sn + d];
+    Vt[d * nk + k] = vbase[(size_t)k * in.sn + d];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
+  if (i0 >= n) return;
+  const int rows = min(ATT_ROWS, n - i0);
+  float* q = As + warp * ATT_ROWS * dh;
+  float* go = Gs + warp * ATT_ROWS * dh;
+  float* p = Ps + warp * ATT_ROWS * n;
+  float* dp = Ds + warp * ATT_ROWS * n;
+  const T* gb = doh + (size_t)b * n * d_model + h * dh;
+  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
+    const int r = e / dh, d = e % dh;
+    const bool ok = r < rows;
+    q[e] = ok ? to_f32(qb[(size_t)(i0 + r) * in.sn + d]) : 0.f;
+    go[e] = ok ? to_f32(gb[(size_t)(i0 + r) * d_model + d]) : 0.f;
+  }
+  __syncwarp();
+
+  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
+  float mx[ATT_ROWS], sum[ATT_ROWS], dsum[ATT_ROWS];
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = -FLT_MAX, sum[r] = 0.f, dsum[r] = 0.f;
+  for (int k = lane; k < n; k += 32) {
+    float s[ATT_ROWS];
+    scores4(q, Kt, k, nk, dh, s);
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      float v = s[r] * scale;
+      if (k >= n_real) v = -1e30f;
+      if (kb) v += kb[k];
+      p[r * n + k] = v;
+      mx[r] = fmaxf(mx[r], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = warp_max(mx[r]);
+  for (int k = lane; k < n; k += 32) {
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float e = expf(p[r * n + k] - mx[r]);
+      p[r * n + k] = e;
+      sum[r] += e;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) sum[r] = warp_sum(sum[r]);
+  for (int k = lane; k < n; k += 32) {
+    float g[ATT_ROWS];
+    scores4(go, Vt, k, nk, dh, g);
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float pk = p[r * n + k] / sum[r];
+      p[r * n + k] = pk;
+      dp[r * n + k] = g[r];
+      dsum[r] = fmaf(g[r], pk, dsum[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) dsum[r] = warp_sum(dsum[r]);
+  for (int k = lane; k < n; k += 32) {
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r)
+      dp[r * n + k] = round_to<T>(p[r * n + k] * (dp[r * n + k] - dsum[r]) * scale);
+  }
+  __syncwarp();
+
+  const int d0 = lane, d1 = lane + 32;
+  const bool has1 = d1 < dh;
+  float o0[ATT_ROWS] = {}, o1[ATT_ROWS] = {};
+  for (int k = 0; k < n; ++k) {
+    const float k0 = to_f32(Kt[d0 * nk + k]);
+    const float k1 = has1 ? to_f32(Kt[d1 * nk + k]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float ds = dp[r * n + k];
+      o0[r] = fmaf(ds, k0, o0[r]);
+      o1[r] = fmaf(ds, k1, o1[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) {
+    if (r >= rows) break;
+    const size_t row = ((size_t)(b * heads + h) * n + i0 + r);
+    T* orow = dq + row * dh;
+    orow[d0] = from_f32<T>(o0[r]);
+    if (has1) orow[d1] = from_f32<T>(o1[r]);
+    if (lane == 0) {
+      stats[row * 3 + 0] = mx[r];
+      stats[row * 3 + 1] = sum[r];
+      stats[row * 3 + 2] = dsum[r];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_bwd_dkdv(QKV in, const float* __restrict__ key_bias, const T* __restrict__ doh,
+                   const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv,
+                   int n, int heads, int dh, int n_real, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int nk = n | 1;
+  float* Ks = sm;                                    // this warp's key rows
+  float* Vs = Ks + ATT_WARPS * ATT_ROWS * dh;        // and value rows
+  float* Ps = Vs + ATT_WARPS * ATT_ROWS * dh;        // round(P) column
+  float* Ds = Ps + ATT_WARPS * ATT_ROWS * n;         // ds column
+  float* St = Ds + ATT_WARPS * ATT_ROWS * n;         // [3][n]: max, sum, D
+  T* Qt = reinterpret_cast<T*>(St + 3 * n);
+  T* Gt = Qt + dh * nk;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int d_model = heads * dh;
+  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
+  const T* qb = static_cast<const T*>(in.q) + off;
+  const T* kbase = static_cast<const T*>(in.k) + off;
+  const T* vbase = static_cast<const T*>(in.v) + off;
+  const T* gb = doh + (size_t)b * n * d_model + h * dh;
+  const float* sb = stats + (size_t)(b * heads + h) * n * 3;
+  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
+    const int k = i / dh, d = i % dh;
+    Qt[d * nk + k] = qb[(size_t)k * in.sn + d];
+    Gt[d * nk + k] = gb[(size_t)k * d_model + d];
+  }
+  for (int i = threadIdx.x; i < 3 * n; i += ATT_THREADS) {
+    const int r = i / 3, c = i % 3;
+    St[c * n + r] = sb[i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
+  if (j0 >= n) return;
+  const int cols = min(ATT_ROWS, n - j0);
+  float* kr = Ks + warp * ATT_ROWS * dh;
+  float* vr = Vs + warp * ATT_ROWS * dh;
+  float* p = Ps + warp * ATT_ROWS * n;
+  float* ds = Ds + warp * ATT_ROWS * n;
+  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
+    const int r = e / dh, d = e % dh;
+    const bool ok = r < cols;
+    kr[e] = ok ? to_f32(kbase[(size_t)(j0 + r) * in.sn + d]) : 0.f;
+    vr[e] = ok ? to_f32(vbase[(size_t)(j0 + r) * in.sn + d]) : 0.f;
+  }
+  __syncwarp();
+
+  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
+  for (int i = lane; i < n; i += 32) {
+    float s[ATT_ROWS], g[ATT_ROWS];
+    scores4(kr, Qt, i, nk, dh, s);
+    scores4(vr, Gt, i, nk, dh, g);
+    const float m = St[i], l = St[n + i], dsum = St[2 * n + i];
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const int j = j0 + r;
+      float v = s[r] * scale;
+      if (j >= n_real) v = -1e30f;
+      if (kb && j < n) v += kb[j];
+      const float pij = expf(v - m) / l;
+      p[r * n + i] = round_to<T>(pij);
+      ds[r * n + i] = round_to<T>(pij * (g[r] - dsum) * scale);
+    }
+  }
+  __syncwarp();
+
+  const int d0 = lane, d1 = lane + 32;
+  const bool has1 = d1 < dh;
+  float a0[ATT_ROWS] = {}, a1[ATT_ROWS] = {}, c0[ATT_ROWS] = {}, c1[ATT_ROWS] = {};
+  for (int i = 0; i < n; ++i) {
+    const float g0 = to_f32(Gt[d0 * nk + i]), q0 = to_f32(Qt[d0 * nk + i]);
+    const float g1 = has1 ? to_f32(Gt[d1 * nk + i]) : 0.f;
+    const float q1 = has1 ? to_f32(Qt[d1 * nk + i]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < ATT_ROWS; ++r) {
+      const float pr = p[r * n + i], dr = ds[r * n + i];
+      a0[r] = fmaf(pr, g0, a0[r]);
+      a1[r] = fmaf(pr, g1, a1[r]);
+      c0[r] = fmaf(dr, q0, c0[r]);
+      c1[r] = fmaf(dr, q1, c1[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) {
+    if (r >= cols) break;
+    const size_t row = ((size_t)(b * heads + h) * n + j0 + r) * dh;
+    dv[row + d0] = from_f32<T>(a0[r]);
+    dk[row + d0] = from_f32<T>(c0[r]);
+    if (has1) {
+      dv[row + d1] = from_f32<T>(a1[r]);
+      dk[row + d1] = from_f32<T>(c1[r]);
+    }
+  }
+}
+
+template <typename T>
+static cudaError_t launch_attention_bwd(const QKV& in, const float* key_bias, const void* doh,
+                                        void* dq, void* dk, void* dv, float* stats, int b,
+                                        int n, int heads, int dh, int n_real, float scale,
+                                        cudaStream_t stream) {
+  if (!attention_shape_ok(n, dh)) return cudaErrorInvalidValue;
+  const size_t smem = attention_bwd_smem(n, dh, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_dkdv<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
+  attention_bwd_dq<T><<<grid, ATT_THREADS, smem, stream>>>(
+      in, key_bias, static_cast<const T*>(doh), static_cast<T*>(dq), stats, n, heads, dh,
+      n_real, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv<T><<<grid, ATT_THREADS, smem, stream>>>(
+      in, key_bias, static_cast<const T*>(doh), stats, static_cast<T*>(dk),
+      static_cast<T*>(dv), n, heads, dh, n_real, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace nx

@@ -1,0 +1,64 @@
+// LayerNorm + q/k/v projection, forward and dx backward, for Hopper (sm_90a):
+//
+//   forward:  z = LN(x) -> T;  [q|k|v] = z @ [Wq|Wk|Wv] + b -> T, written
+//             head-major [B, H, N, dh] by the GEMM's epilogue
+//   backward: dz = [dq|dk|dv] @ [Wq|Wk|Wv]^T (float32, the A operand read
+//             head-major by the GEMM's loader); dx = LN_bwd(dz), statistics
+//             recomputed from x
+//
+// Replaces nextgen_uia_tpu/ops/fused_ln_qkv.py::fused_ln_qkv, pre-norm
+// (ln_params given): the Pallas kernels _fwd_kernel and _bwd_kernel. The
+// weights are frozen: the backward gives dx only, as the TPU kernel does.
+// Rounding points are that kernel's: z and q/k/v rounded to T, dz and the
+// LayerNorm backward in float32, dx rounded once.
+//
+// What bounds it on the H100: at the training shape (B*N = 32*197 rows,
+// D = 768) each direction is one [6304, 768] x [768, 2304] product, 22.3
+// GFLOP against ~45 MB of activations and weights, so it is compute-bound
+// (about 23 us at the bf16 tensor-core peak). The TPU kernel holds a whole
+// image's rows and all three weights in VMEM; here the weights stream
+// through shared memory per 128x128 output tile (block_kernels.cuh's WMMA
+// GEMM) and the head-major relayout is folded into the GEMM's store
+// (forward) and load (backward), so no transpose pass touches device memory.
+// The ragged edge (N = 197) is masked by the GEMM; nothing is padded.
+
+#include "block_kernels.cuh"
+
+using namespace nx;
+
+extern "C" {
+
+// x [B*N, D]; gamma, beta [D] f32; w_qkv [D, 3D] (x's dtype); b_qkv [3D]
+// f32; z scratch [B*N, D]; q, k, v [B, H, N, dh]
+int nx_ln_qkv_fwd(const void* x, const float* gamma, const float* beta, const void* w_qkv,
+                  const float* b_qkv, void* z, void* q, void* k, void* v, int dtype, int b,
+                  int n, int heads, int dh, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = b * n, d = heads * dh;
+  cudaError_t err =
+      dtype == BF16
+          ? launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, z, m, d, eps, s)
+          : launch_layernorm<float, float>(x, gamma, beta, z, m, d, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  const Epilogue epi{b_qkv, nullptr, 0, nullptr, ACT_NONE, head_major(q, k, v, n, heads, dh),
+                     dtype};
+  return (int)launch_gemm(row_major(z), w_qkv, dtype, false, epi, m, 3 * d, d, s);
+}
+
+// dq, dk, dv [B, H, N, dh] (x's dtype); dz scratch [B*N, D] f32;
+// dx [B*N, D]
+int nx_ln_qkv_bwd(const void* x, const float* gamma, const void* w_qkv, const void* dq,
+                  const void* dk, const void* dv, float* dz, void* dx, int dtype, int b, int n,
+                  int heads, int dh, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = b * n, d = heads * dh;
+  const Epilogue epi{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(dz), F32};
+  cudaError_t err = launch_gemm(head_major(dq, dk, dv, n, heads, dh), w_qkv, dtype, true, epi,
+                                m, d, 3 * d, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(dtype == BF16
+                   ? launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, nullptr, dx, m, d, eps, s)
+                   : launch_layernorm_bwd<float>(x, gamma, dz, nullptr, dx, m, d, eps, s));
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-// MONA spatial op forward for Hopper (sm_90a):
+// MONA spatial op, forward and backward, for Hopper (sm_90a):
 //
 //   y[b, i, j, c] = s + bias[b, c]
 //                 + sum_{di, dj < 7} u[b, i + di - 3, j + dj - 3, c] * k[b, di, dj, c]
@@ -9,9 +9,17 @@
 // in (di, dj) row-major order after s + bias, one rounding to the storage
 // type at the end.
 //
+// Backward, with g = dL/dy:
+//
+//   du = 7x7 correlation of g with the flipped kernels (d(conv)/du)
+//   ds = freq * du + g
+//   dk[b, di, dj, c]     = sum_{i, j} g[b, i, j, c] * u[b, i + di - 3, j + dj - 3, c]
+//   dfreq_part[b, c]     = sum_{i, j} s * du   (summed over B by the wrapper)
+//   dbias[b, c]          = sum_{i, j} g
+//
 // Replaces nextgen_uia_tpu/ops/dwconv.py::mona_spatial, forward (the Pallas
-// kernel _mona_fwd_kernel). The TPU kernel's MIN_HW zero-padding was a
-// lowering workaround and is not carried over.
+// kernel _mona_fwd_kernel) and backward (_mona_bwd_kernel). The TPU kernel's
+// MIN_HW zero-padding was a lowering workaround and is not carried over.
 //
 // What bounds it on the H100: 49 multiply-adds per output element against
 // one read of s and one write of y, so it is bound by memory traffic and
@@ -19,13 +27,26 @@
 // the whole op is a few microseconds of device-memory time and launch
 // overhead dominates.
 //
-// Design: one CTA per (channel group of up to 16, sample). The CTA stages
+// Design (forward): one CTA per (channel group of up to 16, sample). The CTA stages
 // the zero-padded (h+6) x (w+6) tile of u for its channels in shared memory
 // in float32 (20 x 20 x 16 x 4 B = 25.6 KB at 14 x 14) and the sample's 49
 // taps, so every input element is read from device memory once; consecutive
 // threads take consecutive channels, so the global reads and writes of a
 // pixel's channel group are contiguous and the shared-memory reads are
 // conflict-free.
+//
+// Design (backward): the same grid and the same staged (h+6) x (w+6) tile
+// of u, plus the zero-haloed tile of g, both float32 in shared memory
+// (51 KB at 14 x 14). On the TPU the grid runs in order and could carry a
+// reduction from one step to the next; Hopper runs blocks in parallel in no
+// order, so every per-sample reduction over h x w (the 49 taps of dk, dfreq
+// and dbias) is finished inside the one CTA that owns that (sample, channel
+// group): a thread's channel is fixed by its index (256 % cg == 0), so ds's
+// grid-stride loop keeps per-thread partials of s*du and g that a
+// deterministic shared-memory pass sums, and each dk output (tap, channel)
+// is one thread's float32 sum over the tile. The sum over the batch of
+// dfreq is left to the wrapper, as the TPU kernel leaves it outside. Bound
+// by latency and launch overhead at this size, like the forward.
 
 #include "common.cuh"
 
@@ -93,6 +114,102 @@ cudaError_t launch_mona_spatial(const void* s, const void* freq, const void* ker
   return cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(MS_THREADS)
+mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
+                        const T* __restrict__ kern, const T* __restrict__ g,
+                        T* __restrict__ ds, float* __restrict__ dk,
+                        float* __restrict__ dfreq_part, float* __restrict__ dbias, int h,
+                        int w, int c_total, int cg) {
+  extern __shared__ float sm[];
+  const int hp = h + 2 * MS_HALO, wp = w + 2 * MS_HALO;
+  float* u = sm;                     // [hp * wp][cg]  s * freq, zero halo
+  float* gp = u + hp * wp * cg;      // [hp * wp][cg]  g, zero halo
+  float* taps = gp + hp * wp * cg;   // [49][cg]
+  float* red = taps + MS_K * MS_K * cg;  // [2][MS_THREADS] partial sums
+  const int b = blockIdx.y, c0 = blockIdx.x * cg, tid = threadIdx.x;
+  const size_t base = (size_t)b * h * w * c_total;
+
+  for (int i = tid; i < hp * wp * cg; i += MS_THREADS) {
+    const int c = i % cg, pix = i / cg;
+    const int y = pix / wp - MS_HALO, x = pix % wp - MS_HALO;
+    float uv = 0.f, gv = 0.f;
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const size_t gi = base + ((size_t)y * w + x) * c_total + c0 + c;
+      uv = to_f32(s[gi]) * to_f32(freq[c0 + c]);
+      gv = to_f32(g[gi]);
+    }
+    u[i] = uv;
+    gp[i] = gv;
+  }
+  for (int i = tid; i < MS_K * MS_K * cg; i += MS_THREADS) {
+    const int c = i % cg, t = i / cg;
+    taps[i] = to_f32(kern[((size_t)b * MS_K * MS_K + t) * c_total + c0 + c]);
+  }
+  __syncthreads();
+
+  // ds = freq * du + g, with this thread's partials of s * du and g (its
+  // channel is c = tid % cg throughout the loop)
+  float part_f = 0.f, part_b = 0.f;
+  for (int i = tid; i < h * w * cg; i += MS_THREADS) {
+    const int c = i % cg, pix = i / cg;
+    const int y = pix / w, x = pix % w;
+    float du = 0.f;
+#pragma unroll
+    for (int di = 0; di < MS_K; ++di)
+#pragma unroll
+      for (int dj = 0; dj < MS_K; ++dj)
+        du += gp[((y + 2 * MS_HALO - di) * wp + x + 2 * MS_HALO - dj) * cg + c] *
+              taps[(di * MS_K + dj) * cg + c];
+    const float gv = gp[((y + MS_HALO) * wp + x + MS_HALO) * cg + c];
+    const size_t gi = base + (size_t)pix * c_total + c0 + c;
+    const float f = to_f32(freq[c0 + c]);
+    ds[gi] = from_f32<T>(f * du + gv);
+    part_f += to_f32(s[gi]) * du;
+    part_b += gv;
+  }
+  red[tid] = part_f;
+  red[MS_THREADS + tid] = part_b;
+  __syncthreads();
+  if (tid < cg) {
+    float sf = 0.f, sb = 0.f;
+    for (int t = tid; t < MS_THREADS; t += cg) sf += red[t], sb += red[MS_THREADS + t];
+    dfreq_part[(size_t)b * c_total + c0 + tid] = sf;
+    dbias[(size_t)b * c_total + c0 + tid] = sb;
+  }
+
+  // dk: one (tap, channel) output per thread and step, summed over the map
+  for (int i = tid; i < MS_K * MS_K * cg; i += MS_THREADS) {
+    const int c = i % cg, t = i / cg, di = t / MS_K, dj = t % MS_K;
+    float acc = 0.f;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        acc += gp[((y + MS_HALO) * wp + x + MS_HALO) * cg + c] *
+               u[((y + di) * wp + x + dj) * cg + c];
+    dk[((size_t)b * MS_K * MS_K + t) * c_total + c0 + c] = acc;
+  }
+}
+
+template <typename T>
+cudaError_t launch_mona_spatial_bwd(const void* s, const void* freq, const void* kern,
+                                    const void* g, void* ds, float* dk, float* dfreq_part,
+                                    float* dbias, int b, int h, int w, int c,
+                                    cudaStream_t stream) {
+  int cg = 16;
+  while (c % cg) cg /= 2;
+  const size_t smem = sizeof(float) * (2 * (size_t)(h + 2 * MS_HALO) * (w + 2 * MS_HALO) * cg +
+                                       MS_K * MS_K * cg + 2 * MS_THREADS);
+  cudaError_t err = cudaFuncSetAttribute(mona_spatial_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(c / cg, b);
+  mona_spatial_bwd_kernel<T><<<grid, MS_THREADS, smem, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(freq), static_cast<const T*>(kern),
+      static_cast<const T*>(g), static_cast<T*>(ds), dk, dfreq_part, dbias, h, w, c, cg);
+  return cudaGetLastError();
+}
+
 }  // namespace nx
 
 extern "C" {
@@ -107,6 +224,21 @@ int nx_mona_spatial(const void* s, const void* freq, const void* kernels, const 
                                                        w, c, st);
   if (dtype == nx::F32)
     return (int)nx::launch_mona_spatial<float>(s, freq, kernels, bias, out, b, h, w, c, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// s, g, ds [B, H, W, C] and freq [C], kernels [B, 7, 7, C] in `dtype`;
+// dk [B, 7, 7, C], dfreq_part [B, C] and dbias [B, C] float32
+int nx_mona_spatial_bwd(const void* s, const void* freq, const void* kernels, const void* g,
+                        void* ds, float* dk, float* dfreq_part, float* dbias, int dtype,
+                        int b, int h, int w, int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == nx::BF16)
+    return (int)nx::launch_mona_spatial_bwd<__nv_bfloat16>(s, freq, kernels, g, ds, dk,
+                                                           dfreq_part, dbias, b, h, w, c, st);
+  if (dtype == nx::F32)
+    return (int)nx::launch_mona_spatial_bwd<float>(s, freq, kernels, g, ds, dk, dfreq_part,
+                                                   dbias, b, h, w, c, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,50 @@
-"""Host -> device feed (counterpart of nextgen_uia_tpu/data/pipeline.py's
-``prefetch_to_device``)."""
+"""Host -> device feed (counterpart of nextgen_uia_tpu/data/pipeline.py):
+threaded batch assembly (``collate``, ``batches``, in the JAX package's
+seeded order) and ``prefetch_to_device``."""
 
 from __future__ import annotations
 
 import collections
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+
+def collate(items):
+    """Stack item dicts into a batch dict of arrays (strings to lists)."""
+    out = {}
+    for k in items[0]:
+        vals = [it[k] for it in items]
+        if isinstance(vals[0], (np.ndarray, int, float)) or np.isscalar(vals[0]):
+            out[k] = np.stack([np.asarray(v) for v in vals])
+        else:
+            out[k] = vals
+    return out
+
+
+def batches(dataset, batch_size: int, *, shuffle: bool, drop_last: bool,
+            seed: int | None = None, workers: int = 8, skip_batches: int = 0):
+    """Yield collated batches; item loading is parallelised across threads.
+    The order is ``np.random.RandomState(seed).shuffle`` of the indices, the
+    JAX package's, so both packages see the same batches.
+
+    ``skip_batches`` drops the first N batches at the index level - no item
+    is decoded for them (mid-epoch resume replays the seeded order from N).
+    """
+    n = len(dataset)
+    order = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    limit = (n // batch_size) * batch_size if drop_last else n
+    starts = range(skip_batches * batch_size, limit, batch_size)
+    if workers <= 0:  # synchronous load (reference num_workers=0 semantics)
+        for start in starts:
+            yield collate([dataset[i] for i in order[start:start + batch_size]])
+        return
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for start in starts:
+            yield collate(list(pool.map(dataset.__getitem__, order[start:start + batch_size])))
 
 
 def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):

@@ -1,9 +1,7 @@
 """CLIP assembly, vision side (counterpart of nextgen_uia_tpu/models/clip.py).
 
 BiomedCLIP's image tower is the timm ViT-B/16. The PubMedBERT text tower
-(``encode_text``) is not ported yet: ROADMAP.md, section A, item 10. The
-JAX package's ``infer_cfg`` has no counterpart: every block of the port's
-tower already runs the forward-only block kernel.
+(``encode_text``) is not ported yet: ROADMAP.md, section A, item 10.
 """
 
 from __future__ import annotations
@@ -58,10 +56,19 @@ def clip_init(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
     return CLIP(gen, cfg)
 
 
-def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), ops=KERNELS):
-    """images [B, H, W, 3] -> ([B, embed], activations)."""
+def infer_cfg(cfg: CLIPConfig) -> CLIPConfig:
+    """Forward-only variant of a config: every tower block runs through the
+    whole-block kernel (ops/fused_block.py). Use it only on paths autograd
+    never differentiates (eval, serving): that kernel has no backward."""
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, block_impl="fused_infer"))
+
+
+def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), ops=KERNELS,
+                 gen=None):
+    """images [B, H, W, 3] -> ([B, embed], activations). ``gen``: the
+    dropout generator of a train forward (None: eval)."""
     return vit_apply(params.visual, cfg.vision, images, dtype=cfg.dtype,
-                     extract_layers=extract_layers, ops=ops)
+                     extract_layers=extract_layers, ops=ops, gen=gen)
 
 
 def normalize(x, dim=-1, eps=1e-12):

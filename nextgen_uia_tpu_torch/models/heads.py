@@ -1,8 +1,8 @@
 """Feature-pyramid adapter head (counterpart of nextgen_uia_tpu/models/heads.py's
 PyramidHead): tap ViT activations, reduce each D -> reduce_dim, process with
 LN-MLP blocks deep to shallow, sum into a grid x grid map, then a seg head
-(1x1 conv, then bilinear upsample) or a cls head (GAP -> linear). Eval mode:
-the cls head's dropout is the training path's.
+(1x1 conv, then bilinear upsample) or a cls head (GAP -> dropout 0.5 ->
+linear; the dropout in train mode only).
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..nn.layers import Conv, LayerNorm, Linear, gelu, layernorm, linear, resize_bilinear
+from ..nn.layers import (Conv, LayerNorm, Linear, dropout, gelu, layernorm, linear,
+                         resize_bilinear)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +52,15 @@ def pyramid_head_init(gen: torch.Generator, cfg: PyramidHeadConfig) -> PyramidHe
     return PyramidHead(gen, cfg)
 
 
-def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, dtype=None):
+def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, dtype=None,
+                       gen=None):
     """activations: list of [B, N, D] token states (shallow-to-deep order).
 
     Returns [B, num_classes, H, W] for seg (NCHW) or [B, num_classes] for cls.
     Without ``dtype`` the products run in the promoted type, so bf16 tower
-    activations meet the float32 head weights in float32.
+    activations meet the float32 head weights in float32. Train mode (a
+    dropout generator ``gen``) drops the cls head's pooled features at rate
+    0.5; the seg head has no dropout.
     """
     fused = None
     # deep to shallow; zip pairs the taps with the reduces from the end
@@ -77,4 +81,5 @@ def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, d
         logits = fmap @ seg.w[0, 0].to(fmap.dtype) + seg.b.to(fmap.dtype)
         logits = resize_bilinear(logits, (cfg.img_size, cfg.img_size))
         return logits.permute(0, 3, 1, 2)
-    return linear(p.cls_head, fmap.mean(dim=(1, 2)), dtype=dtype)
+    pooled = dropout(fmap.mean(dim=(1, 2)), 0.5, gen=gen)
+    return linear(p.cls_head, pooled, dtype=dtype)

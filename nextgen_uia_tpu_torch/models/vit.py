@@ -1,9 +1,13 @@
-"""Vision Transformer, serving route (counterpart of nextgen_uia_tpu/models/vit.py).
+"""Vision Transformer (counterpart of nextgen_uia_tpu/models/vit.py).
 
-Every block runs forward-only through ``fused_block_infer`` (the JAX
-package's ``block_impl='fused_infer'`` route), then its MONA adapter when
-the block carries one. The token sequence runs unpadded (N = grid^2 + 1):
-the kernels mask their ragged edges themselves.
+Two block routes, as in the JAX package's ``ViTConfig.block_impl``:
+``'fused_infer'`` runs each block forward-only through the whole-block
+kernel (eval and serving forwards, models/clip.py::infer_cfg); ``'auto'``
+composes the LN+QKV, attention+o-projection+residual and LN+MLP+residual
+kernels, which have backward kernels, so the train step differentiates
+through them (frozen tower, trainable adapters). Either route then applies
+the block's MONA adapter. The token sequence runs unpadded
+(N = grid^2 + 1): the kernels mask their ragged edges themselves.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..adapters.mona import mona_apply
-from ..nn.attention import Attention
+from ..nn.attention import Attention, mha
 from ..nn.layers import Conv, LayerNorm, Linear, layernorm, linear, normal, param
 from ..ops import KERNELS
 
@@ -32,6 +36,9 @@ class ViTConfig:
     proj_dim: int | None = 512
     ln_eps: float = 1e-5           # timm uses 1e-6
     mona_variant: str = "hybrid"
+    # 'auto': the composed block kernels (differentiable); 'fused_infer': the
+    # forward-only whole-block kernel, for paths never differentiated
+    block_impl: str = "auto"
 
     @property
     def grid(self) -> int:
@@ -92,26 +99,34 @@ def embed_patches(p: ViT, cfg: ViTConfig, images, *, dtype=None):
     return x + p.pos.to(x.dtype)
 
 
-def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS):
-    """Pre-norm block (fused_infer route), then the block's MONA adapter."""
+def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=None):
+    """Pre-norm block, then the block's MONA adapter (in train mode when a
+    dropout generator ``gen`` is given)."""
     x = x if dtype is None else x.to(dtype)
-    out = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
-                                eps=cfg.ln_eps)
+    if cfg.block_impl == "fused_infer":
+        x = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
+                                  eps=cfg.ln_eps)
+    elif cfg.block_impl == "auto":
+        x = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, residual=x,
+                ops=ops)
+        x = ops.fused_ln_mlp_residual(x, p.ln2, p.mlp, act=cfg.act, eps=cfg.ln_eps)
+    else:
+        raise ValueError(f"unknown block_impl {cfg.block_impl!r} ('auto' or 'fused_infer')")
     if hasattr(p, "mona"):
-        out = mona_apply(p.mona, out, (cfg.grid, cfg.grid), variant=cfg.mona_variant,
-                         ops=ops)
-    return out
+        x = mona_apply(p.mona, x, (cfg.grid, cfg.grid), variant=cfg.mona_variant, ops=ops,
+                       gen=gen)
+    return x
 
 
 def vit_apply(p: ViT, cfg: ViTConfig, images, *, dtype=None, extract_layers=(),
-              ops=KERNELS):
+              ops=KERNELS, gen=None):
     """Run the tower. Returns (pooled_embedding, activations), where
     ``activations`` are the post-block token states of the blocks in
-    ``extract_layers``."""
+    ``extract_layers``. ``gen``: the dropout generator of a train forward."""
     x = embed_patches(p, cfg, images, dtype=dtype)
     activations = []
     for i, blk in enumerate(p.blocks):
-        x = block_apply(blk, x, cfg, dtype=dtype, ops=ops)
+        x = block_apply(blk, x, cfg, dtype=dtype, ops=ops, gen=gen)
         if i in extract_layers:
             activations.append(x)
     pooled = layernorm(p.norm, x, eps=cfg.ln_eps)[:, 0, :]

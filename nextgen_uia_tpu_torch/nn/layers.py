@@ -30,8 +30,9 @@ def normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A float32 parameter. The ported slice is forward-only, so parameters
-    take no gradient and the kernels' outputs carry no autograd graph."""
+    """A float32 parameter, frozen until a trainer marks it trainable
+    (core/partition.py::set_trainable): serving runs without gradients, and
+    the frozen-weight block kernels refuse weights that train."""
     return nn.Parameter(t.to(torch.float32), requires_grad=False)
 
 
@@ -99,6 +100,27 @@ class Conv(nn.Module):
         bound = 1.0 / math.sqrt(kh * kw * (in_ch // groups))
         self.w = param(uniform(gen, (kh, kw, in_ch // groups, out_ch), bound))
         self.b = param(uniform(gen, (out_ch,), bound))
+
+
+def dropout_mask(gen: torch.Generator, rate: float, shape, device=None) -> torch.Tensor:
+    """Pre-scaled dropout mask (0 or 1/keep), float32, drawn from ``gen``
+    (a generator on ``device``). The stream is torch's, not jax.random's:
+    tests that compare with the JAX package hand both the same mask."""
+    keep = 1.0 - rate
+    u = torch.rand(shape, generator=gen, device=device)
+    return (u < keep).to(torch.float32) / keep
+
+
+def dropout(x: torch.Tensor, rate: float, *, gen: torch.Generator | None = None,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout: ``x * mask`` with a given pre-scaled mask, else a
+    mask drawn from ``gen``; identity without either (eval mode) or at
+    rate 0."""
+    if mask is None:
+        if gen is None or rate <= 0.0:
+            return x
+        mask = dropout_mask(gen, rate, x.shape, device=x.device)
+    return (x * mask.to(x.device)).to(x.dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:

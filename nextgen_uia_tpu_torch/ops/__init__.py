@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-``KERNELS`` is the serving path's set of block ops; ``PLAIN`` runs the same
-math through the plain versions on any device and is what a reference run
-on the card compares against (it launches no kernel and counts nothing).
+``KERNELS`` is the set of block ops the models call: on a CUDA tensor each
+launches its kernel (forward, and backward through autograd), on a CPU
+tensor it runs its plain versions. ``PLAIN`` runs the same math through the
+plain forwards on any device, differentiated by autograd; it is what a
+reference run on the card compares against (it launches no kernel and
+counts nothing).
 """
 
 from __future__ import annotations
@@ -10,15 +13,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from .dwconv import mona_spatial, mona_spatial_plain
-from .fused_block import fused_block_infer, fused_block_infer_plain
+# modules, not their functions: fused_ln_qkv is both a module and its op
+from . import dwconv, fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockOps:
     fused_block_infer: Callable
     mona_spatial: Callable
+    fused_ln_qkv: Callable
+    fused_attn_o_residual: Callable
+    fused_ln_mlp_residual: Callable
 
 
-KERNELS = BlockOps(fused_block_infer, mona_spatial)
-PLAIN = BlockOps(fused_block_infer_plain, mona_spatial_plain)
+KERNELS = BlockOps(fused_block.fused_block_infer, dwconv.mona_spatial,
+                   fused_ln_qkv.fused_ln_qkv, fused_attn_o.fused_attn_o_residual,
+                   fused_ln_mlp.fused_ln_mlp_residual)
+PLAIN = BlockOps(fused_block.fused_block_infer_plain, dwconv.mona_spatial_plain,
+                 fused_ln_qkv.fused_ln_qkv_plain, fused_attn_o.fused_attn_o_residual_plain,
+                 fused_ln_mlp.fused_ln_mlp_residual_plain)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) at first use.
 
-``nvcc`` compiles every source under csrc/ into one shared library with a
+``nvcc`` compiles every source under csrc/ into an object of its own, all
+sources at once in parallel, and links them into one shared library with a
 plain C interface, bound here with ctypes. The library goes to
 ``build/nextgen_uia_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and the compiler flags, so an edited source rebuilds
@@ -20,10 +21,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nextgen_uia_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ACT_CODES = {"gelu": 1, "quick_gelu": 2}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
@@ -36,6 +42,22 @@ SIGNATURES = {
     "nx_attention": [P, P, P, I, I, I, I, I, I, F, P],
     # s, freq, kernels, bias, out, dtype, B, H, W, C, stream
     "nx_mona_spatial": [P, P, P, P, P, I, I, I, I, I, P],
+    # s, freq, kernels, g, ds, dk, dfreq_part, dbias, dtype, B, H, W, C, stream
+    "nx_mona_spatial_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, gamma, beta, w_qkv, b_qkv, z, q, k, v, dtype, B, N, H, dh, eps, stream
+    "nx_ln_qkv_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # x, gamma, w_qkv, dq, dk, dv, dz, dx, dtype, B, N, H, dh, eps, stream
+    "nx_ln_qkv_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # q, k, v, x, key_bias, wo, bo, cat, out, dtype, B, N, H, dh, n_real, scale, stream
+    "nx_attn_o_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k, v, key_bias, wo, g, doh, stats, dq, dk, dv, dtype, B, N, H, dh, n_real,
+    # scale, stream
+    "nx_attn_o_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # x, gamma, beta, w1, b1, w2, b2, z, h, out, dtype, M, D, hidden, act, eps, stream
+    "nx_ln_mlp_fwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # x, gamma, beta, w1, b1, w2, g, z, a, dpre, dz, dx, dtype, M, D, hidden, act,
+    # eps, stream
+    "nx_ln_mlp_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
 }
 
 
@@ -53,7 +75,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ["-shared"]).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -61,23 +83,43 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile csrc/*.cu unless the hashed library exists. Returns (path,
-    seconds spent compiling, 0.0 when it was already built). The compiler's
-    output, register and shared-memory use included, goes to build.log."""
+    """Compile csrc/*.cu unless the hashed library exists: one ``nvcc -c``
+    per source, all started together, then one link. Returns (path, seconds
+    spent compiling and linking, 0.0 when it was already built). The
+    compiler's output, register and shared-memory use included, goes to
+    build.log."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc, tag = nvcc_path(), f"{out.stem}.{os.getpid()}"
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    objects = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                        for s, o in zip(sources, objects))]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for o in objects:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-4000:] for f in failed))
     os.replace(tmp, out)
     return out, seconds
 
@@ -101,3 +143,20 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().nx_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor | None, what: str = "operand") -> int | None:
+    """A contiguous tensor's address for a C entry (16-byte aligned, as the
+    kernels' vector loads need); None passes through as a null pointer."""
+    if t is None:
+        return None
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} is not 16-byte aligned")
+    return t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the C entries take it."""
+    return torch.cuda.current_stream(device).cuda_stream

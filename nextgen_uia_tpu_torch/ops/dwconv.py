@@ -1,12 +1,15 @@
-"""Fused MONA spatial op, forward (counterpart of
+"""Fused MONA spatial op, forward and backward (counterpart of
 nextgen_uia_tpu/ops/dwconv.py::mona_spatial):
 
     y = dwconv7(s * freq) + bias + s
 
-with per-sample depthwise 7x7 'SAME' kernels. ``mona_spatial`` launches the
-hand-written kernel of csrc/mona_spatial.cu for a CUDA tensor and runs
-``mona_spatial_plain`` for a CPU tensor only. The backward comes with
-training.
+with per-sample depthwise 7x7 'SAME' kernels. ``mona_spatial`` is
+differentiable in all four inputs: on a CUDA tensor its forward and backward
+launch the hand-written kernels of csrc/mona_spatial.cu (counted in
+``mona_spatial.launches`` and ``mona_spatial_backward.launches``); on a CPU
+tensor they run ``mona_spatial_plain`` and ``mona_spatial_backward_plain``.
+The backward recomputes from the saved s, freq and kernels, as the JAX
+custom VJP does.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import torch.nn.functional as F
 
 from . import build
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+def _grouped(t, c, b):
+    """[B, h, w, C] -> [1, C*B, h, w]: one conv group per (channel, sample)."""
+    return t.permute(3, 0, 1, 2).reshape(1, c * b, *t.shape[1:3])
 
 
 def mona_spatial_plain(s, freq, kernels, bias):
@@ -28,47 +34,121 @@ def mona_spatial_plain(s, freq, kernels, bias):
     b, h, w, c = s.shape
     f32 = torch.float32
     s32 = s.to(f32)
-    u = (s32 * freq.to(f32)).permute(3, 0, 1, 2).reshape(1, c * b, h, w)  # channel-major
+    u = _grouped(s32 * freq.to(f32), c, b)
     k = kernels.to(f32).permute(3, 0, 1, 2).reshape(c * b, 1, 7, 7)
     y = F.conv2d(u, k, padding=3, groups=c * b)
     y = y.reshape(c, b, h, w).permute(1, 2, 3, 0)
     return (y + bias.to(f32)[:, None, None, :] + s32).to(s.dtype)
 
 
-def mona_spatial(s, freq, kernels, bias):
-    """MONA spatial chain ``dwconv7(s * freq) + bias + s``.
-
-    s: [B, h, w, C]; freq: [C]; kernels: [B, 7, 7, C]; bias: [B, C], all of
-    one dtype (float32 or bfloat16). On a CUDA tensor this launches the
-    kernel of csrc/mona_spatial.cu (and counts one launch in
-    ``mona_spatial.launches``); on a CPU tensor it runs
-    ``mona_spatial_plain``. Any other device raises.
-    """
-    if s.device.type == "cpu":
-        return mona_spatial_plain(s, freq, kernels, bias)
-    if s.device.type != "cuda":
-        raise ValueError(f"mona_spatial: unsupported device {s.device}")
+def mona_spatial_backward_plain(s, freq, kernels, g):
+    """Plain (ds, dfreq, dkernels, dbias) of the JAX kernel's
+    ``_mona_bwd_kernel``, float32 throughout: du is g correlated with the
+    flipped kernels, ds = freq * du + g, dk[b, di, dj, c] = sum of g times
+    the (di, dj)-shifted u = s * freq, dfreq = sum over (B, h, w) of s * du,
+    dbias = sum over (h, w) of g. ds, dfreq and dk take their inputs' dtypes;
+    dbias stays float32, as the TPU kernel returns it."""
     b, h, w, c = s.shape
-    expect = {"freq": (c,), "kernels": (b, 7, 7, c), "bias": (b, c)}
-    for name, t in (("freq", freq), ("kernels", kernels), ("bias", bias)):
+    f32 = torch.float32
+    s32, g32, f = s.to(f32), g.to(f32), freq.to(f32)
+    k = kernels.to(f32).permute(3, 0, 1, 2).reshape(c * b, 1, 7, 7)
+    # d(correlation)/du is the correlation with the 180-degree-rotated kernel
+    du = F.conv2d(_grouped(g32, c, b), k.flip(-1, -2), padding=3, groups=c * b)
+    du = du.reshape(c, b, h, w).permute(1, 2, 3, 0)
+    up = F.pad(s32 * f, (0, 0, 3, 3, 3, 3))
+    dk = torch.stack([torch.stack([(g32 * up[:, di:di + h, dj:dj + w]).sum((1, 2))
+                                   for dj in range(7)], 1) for di in range(7)], 1)
+    ds = (f * du + g32).to(s.dtype)
+    dfreq = (s32 * du).sum((0, 1, 2)).to(freq.dtype)
+    return ds, dfreq, dk.to(kernels.dtype), g32.sum((1, 2))
+
+
+def _check_cuda(s, **named):
+    b, h, w, c = s.shape
+    expect = {"freq": (c,), "kernels": (b, 7, 7, c), "bias": (b, c), "g": (b, h, w, c)}
+    for name, t in named.items():
         if tuple(t.shape) != expect[name] or t.device != s.device or t.dtype != s.dtype:
             raise ValueError(f"mona_spatial: {name} {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}; expected {expect[name]} {s.dtype} on {s.device}")
         if not t.is_contiguous():
             raise ValueError(f"mona_spatial: {name} is not contiguous")
-    if s.dtype not in DTYPE_CODES or not s.is_contiguous():
+    if s.dtype not in build.DTYPE_CODES or not s.is_contiguous():
         raise ValueError(f"mona_spatial: s must be contiguous float32 or bfloat16, "
                          f"got {s.dtype}")
+
+
+def _check_device(s):
+    if s.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mona_spatial: unsupported device {s.device}")
+
+
+def _forward_cuda(s, freq, kernels, bias):
+    b, h, w, c = s.shape
+    _check_cuda(s, freq=freq, kernels=kernels, bias=bias)
     out = torch.empty_like(s)
     lib = build.library()
     with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
         build.check(lib.nx_mona_spatial(s.data_ptr(), freq.data_ptr(), kernels.data_ptr(),
                                         bias.data_ptr(), out.data_ptr(),
-                                        DTYPE_CODES[s.dtype], b, h, w, c, stream),
+                                        build.DTYPE_CODES[s.dtype], b, h, w, c,
+                                        build.stream(s.device)),
                     "mona_spatial")
     mona_spatial.launches += 1
     return out
 
 
+def mona_spatial_backward(s, freq, kernels, g):
+    """(ds, dfreq, dkernels, dbias) for the output gradient g: on a CUDA
+    tensor the backward kernel of csrc/mona_spatial.cu (counted in
+    ``mona_spatial_backward.launches``; dfreq's per-sample partials summed
+    here), on a CPU tensor ``mona_spatial_backward_plain``."""
+    _check_device(s)
+    if s.device.type == "cpu":
+        return mona_spatial_backward_plain(s, freq, kernels, g)
+    b, h, w, c = s.shape
+    g = g.to(s.dtype).contiguous()
+    _check_cuda(s, freq=freq, kernels=kernels, g=g)
+    f32 = torch.float32
+    ds = torch.empty_like(s)
+    dk = torch.empty(b, 7, 7, c, device=s.device, dtype=f32)
+    dfreq_part = torch.empty(b, c, device=s.device, dtype=f32)
+    dbias = torch.empty(b, c, device=s.device, dtype=f32)
+    lib = build.library()
+    with torch.cuda.device(s.device):
+        build.check(lib.nx_mona_spatial_bwd(
+            s.data_ptr(), freq.data_ptr(), kernels.data_ptr(), g.data_ptr(), ds.data_ptr(),
+            dk.data_ptr(), dfreq_part.data_ptr(), dbias.data_ptr(),
+            build.DTYPE_CODES[s.dtype], b, h, w, c, build.stream(s.device)),
+            "mona_spatial backward")
+    mona_spatial_backward.launches += 1
+    return ds, dfreq_part.sum(0).to(freq.dtype), dk.to(kernels.dtype), dbias
+
+
+class _MonaSpatial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, freq, kernels, bias):
+        _check_device(s)
+        ctx.save_for_backward(s, freq, kernels)
+        if s.device.type == "cpu":
+            return mona_spatial_plain(s, freq, kernels, bias)
+        return _forward_cuda(s, freq, kernels, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, freq, kernels = ctx.saved_tensors
+        ds, dfreq, dk, dbias = mona_spatial_backward(s, freq, kernels, g)
+        return ds, dfreq, dk, dbias.to(s.dtype)
+
+
+def mona_spatial(s, freq, kernels, bias):
+    """MONA spatial chain ``dwconv7(s * freq) + bias + s``, differentiable.
+
+    s: [B, h, w, C]; freq: [C]; kernels: [B, 7, 7, C]; bias: [B, C], all of
+    one dtype (float32 or bfloat16). Any device other than CPU and CUDA
+    raises.
+    """
+    return _MonaSpatial.apply(s, freq, kernels, bias)
+
+
 mona_spatial.launches = 0
+mona_spatial_backward.launches = 0

@@ -21,9 +21,7 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-
-ACT_CODES = {"gelu": 1, "quick_gelu": 2}
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from .build import ACT_CODES, DTYPE_CODES
 
 
 def _check_layout(layout: str, causal: bool, act: str):
@@ -97,12 +95,6 @@ def _check_cuda_shapes(x, p, heads, key_bias, n_real):
         raise ValueError("fused_block_infer CUDA kernel does not take: " + "; ".join(problems))
 
 
-def _ptr(t: torch.Tensor) -> int:
-    if t.data_ptr() % 16:
-        raise ValueError("fused_block_infer: operand is not 16-byte aligned")
-    return t.data_ptr()
-
-
 def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
                       key_bias=None, n_real: int | None = None, causal: bool = False,
                       layout: str = "prenorm"):
@@ -152,23 +144,25 @@ def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
 
     lib = build.library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = build.stream(x.device)
         build.check(lib.nx_layernorm(x.data_ptr(), code, g1.data_ptr(), be1.data_ptr(),
                                      z.data_ptr(), code, m, d, eps, stream), "LN1")
-        build.check(lib.nx_gemm(_ptr(z), _ptr(w_qkv), code, b_qkv.data_ptr(), None, 0,
-                                qkv.data_ptr(), code, 0, m, 3 * d, d, stream), "qkv")
+        build.check(lib.nx_gemm(build.ptr(z), build.ptr(w_qkv), code, b_qkv.data_ptr(), None,
+                                0, qkv.data_ptr(), code, 0, m, 3 * d, d, stream), "qkv")
         build.check(lib.nx_attention(qkv.data_ptr(), None if kb is None else kb.data_ptr(),
                                      cat.data_ptr(), code, b, n, heads, dh, n_real,
                                      1.0 / math.sqrt(dh), stream), "attention")
-        build.check(lib.nx_gemm(_ptr(cat), _ptr(wo), code, bo.data_ptr(), x.data_ptr(),
-                                code, y32.data_ptr(), 0, 0, m, d, d, stream), "o-proj")
+        build.check(lib.nx_gemm(build.ptr(cat), build.ptr(wo), code, bo.data_ptr(),
+                                x.data_ptr(), code, y32.data_ptr(), 0, 0, m, d, d, stream),
+                    "o-proj")
         build.check(lib.nx_layernorm(y32.data_ptr(), 0, g2.data_ptr(), be2.data_ptr(),
                                      z2.data_ptr(), code, m, d, eps, stream), "LN2")
-        build.check(lib.nx_gemm(_ptr(z2), _ptr(w1), code, b1.data_ptr(), None, 0,
+        build.check(lib.nx_gemm(build.ptr(z2), build.ptr(w1), code, b1.data_ptr(), None, 0,
                                 h.data_ptr(), code, ACT_CODES[act], m, hidden, d, stream),
                     "fc1")
-        build.check(lib.nx_gemm(_ptr(h), _ptr(w2), code, b2.data_ptr(), y32.data_ptr(), 0,
-                                out.data_ptr(), code, 0, m, d, hidden, stream), "fc2")
+        build.check(lib.nx_gemm(build.ptr(h), build.ptr(w2), code, b2.data_ptr(),
+                                y32.data_ptr(), 0, out.data_ptr(), code, 0, m, d, hidden,
+                                stream), "fc2")
     fused_block_infer.launches += 1
     return out
 

@@ -1,0 +1,150 @@
+"""LayerNorm + q/k/v projection with frozen weights (counterpart of
+nextgen_uia_tpu/ops/fused_ln_qkv.py::fused_ln_qkv, pre-norm):
+
+    q, k, v = LN(x) @ W{q,k,v} + b{q,k,v}, head-major [B, H, N, dh]
+
+Backward gives dx only: the LayerNorm and projection weights are frozen, as
+in the JAX kernel's custom VJP. ``fused_ln_qkv`` is differentiable in x: on
+a CUDA tensor its forward and backward launch the hand-written kernels of
+csrc/fused_ln_qkv.cu (counted in ``fused_ln_qkv.launches`` and
+``fused_ln_qkv_backward.launches``); on a CPU tensor they run
+``fused_ln_qkv_plain`` and ``fused_ln_qkv_backward_plain``. The backward
+recomputes from the saved x.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from ._frozen import check_frozen, layernorm_parts
+
+
+def _weights(ln, attn, dt):
+    """(gamma, beta, w_qkv [D, 3D] in dt, b_qkv [3D]) as the kernels take
+    them; float32 vectors, detached (the weights are frozen)."""
+    f32 = torch.float32
+    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
+    b = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(f32).contiguous()
+    return ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(), w, b
+
+
+def fused_ln_qkv_plain(x, ln, attn, *, heads: int, eps: float = 1e-5):
+    """Plain PyTorch version, differentiable by autograd: float32 LayerNorm
+    statistics and products, z and q/k/v rounded to x.dtype (the kernel's
+    rounding points)."""
+    b, n, d = x.shape
+    dt, f32 = x.dtype, torch.float32
+    x32 = x.to(f32)
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    z = ((x32 - mu) * torch.rsqrt(var + eps) * ln.scale + ln.bias).to(dt)
+    return tuple((z.to(f32) @ lin.w.to(dt).to(f32) + lin.b.to(f32)).to(dt)
+                 .reshape(b, n, heads, d // heads).transpose(1, 2).contiguous()
+                 for lin in (attn.q, attn.k, attn.v))
+
+
+def fused_ln_qkv_backward_plain(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-5):
+    """Plain dx of the JAX kernel's ``_bwd_kernel``: dz = sum over q/k/v of
+    dy @ W^T (dy = heads concatenated, rounded to x.dtype; float32 sums),
+    then the LayerNorm backward with statistics recomputed from x.
+
+    x [B, N, D]; gamma [D]; w_qkv [D, 3D]; dq, dk, dv [B, H, N, dh].
+    """
+    b, n, d = x.shape
+    dt, f32 = x.dtype, torch.float32
+    dy = torch.cat([g.transpose(1, 2).reshape(b, n, d) for g in (dq, dk, dv)], dim=-1)
+    dz = dy.to(dt).to(f32) @ w_qkv.to(dt).to(f32).T
+    xhat, rstd = layernorm_parts(x, eps)
+    dxhat = dz * gamma.to(f32)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return ((dxhat - m1 - xhat * m2) * rstd).to(dt)
+
+
+def _check_cuda(x, heads):
+    b, n, d = x.shape
+    dh = d // heads if d % heads == 0 else 0
+    problems = []
+    if x.dtype not in build.DTYPE_CODES:
+        problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
+    if d % 64 or not dh or dh % 8:
+        problems.append(f"width {d} with {heads} heads (width % 64 == 0, head dim % 8 == 0)")
+    if problems:
+        raise ValueError("fused_ln_qkv CUDA kernel does not take: " + "; ".join(problems))
+
+
+def _forward_cuda(x, gamma, beta, w_qkv, b_qkv, heads, eps):
+    b, n, d = x.shape
+    _check_cuda(x, heads)
+    dt, dh = x.dtype, d // heads
+    z = torch.empty(b * n, d, device=x.device, dtype=dt)
+    q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_ln_qkv_fwd(
+            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w_qkv),
+            build.ptr(b_qkv), build.ptr(z), build.ptr(q), build.ptr(k), build.ptr(v),
+            build.DTYPE_CODES[dt], b, n, heads, dh, eps, build.stream(x.device)),
+            "fused_ln_qkv")
+    fused_ln_qkv.launches += 1
+    return q, k, v
+
+
+def fused_ln_qkv_backward(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-5):
+    """dx for (dq, dk, dv): on a CUDA tensor the backward kernel of
+    csrc/fused_ln_qkv.cu (counted in ``fused_ln_qkv_backward.launches``), on
+    a CPU tensor ``fused_ln_qkv_backward_plain``."""
+    if x.device.type == "cpu":
+        return fused_ln_qkv_backward_plain(x, gamma, w_qkv, dq, dk, dv, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ln_qkv: unsupported device {x.device}")
+    b, n, d = x.shape
+    heads = dq.shape[1]
+    _check_cuda(x, heads)
+    dt = x.dtype
+    dq, dk, dv = (t.to(dt).contiguous() for t in (dq, dk, dv))
+    gamma, w_qkv = gamma.to(torch.float32).contiguous(), w_qkv.to(dt).contiguous()
+    dz = torch.empty(b * n, d, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_ln_qkv_bwd(
+            build.ptr(x, "x"), build.ptr(gamma), build.ptr(w_qkv), build.ptr(dq),
+            build.ptr(dk), build.ptr(dv), build.ptr(dz), build.ptr(dx),
+            build.DTYPE_CODES[dt], b, n, heads, d // heads, eps, build.stream(x.device)),
+            "fused_ln_qkv backward")
+    fused_ln_qkv_backward.launches += 1
+    return dx
+
+
+class _FusedLnQkv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln, attn, heads, eps):
+        ctx.save_for_backward(x)
+        ctx.ln, ctx.attn, ctx.eps = ln, attn, eps
+        if x.device.type == "cpu":
+            return fused_ln_qkv_plain(x, ln, attn, heads=heads, eps=eps)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_ln_qkv: unsupported device {x.device}")
+        return _forward_cuda(x.contiguous(), *_weights(ln, attn, x.dtype), heads, eps)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        (x,) = ctx.saved_tensors
+        gamma, _, w_qkv, _ = _weights(ctx.ln, ctx.attn, x.dtype)
+        dx = fused_ln_qkv_backward(x.contiguous(), gamma, w_qkv, dq, dk, dv, eps=ctx.eps)
+        return dx, None, None, None, None
+
+
+def fused_ln_qkv(x, ln, attn, *, heads: int, eps: float = 1e-5):
+    """x [B, N, D] -> (q, k, v), each [B, H, N, D/H], with the LayerNorm
+    fused in; differentiable in x only (frozen weights: raises if any of
+    them requires grad)."""
+    check_frozen("fused_ln_qkv", ln.scale, ln.bias,
+                 *(t for lin in (attn.q, attn.k, attn.v) for t in (lin.w, lin.b)))
+    return _FusedLnQkv.apply(x, ln, attn, heads, eps)
+
+
+fused_ln_qkv.launches = 0
+fused_ln_qkv_backward.launches = 0

@@ -1,7 +1,8 @@
-"""Supervised seg/cls model for the CLIP families, serving side (counterpart of
+"""Supervised seg/cls for the CLIP families (counterpart of
 nextgen_uia_tpu/tasks/clip_tasks.py): the backbone with its adapters plus a
-PyramidHead, and the eval forward over decoded uint8 images. Zero-shot and
-training come with later slices (ROADMAP.md, section A)."""
+PyramidHead, the train and eval forwards over decoded uint8 images, and the
+supervised trainer's entry point. Zero-shot comes with a later slice
+(ROADMAP.md, section A, item 10)."""
 
 from __future__ import annotations
 
@@ -11,10 +12,14 @@ import torch
 from torch import nn
 
 from ..core import checkpoint as ckpt
+from ..core.experiment import model_summary
+from ..core.partition import by_keywords
+from ..data import datasets as D
 from ..models import clip as clip_mod
 from ..models.heads import PyramidHeadConfig, pyramid_head_apply, pyramid_head_init
 from ..ops import KERNELS
-from .common import build_clip_model, not_ported
+from .common import (base_parser, build_clip_model, not_ported, resolve_device,
+                     seed_everything, setup_run)
 
 
 def extract_layers_for(depth: int):
@@ -43,17 +48,77 @@ def _build_supervised(args, family: str, task: str, gen: torch.Generator):
 
 
 def _make_forward(cfg, hcfg, *, train: bool):
-    """Eval forward: (params, images_u8 [B, H, W]) -> logits; images are
-    scaled to [0, 1] and the grayscale channel repeated to 3. (The JAX
-    package's ``args`` carry only the training augmentation flags.)"""
-    if train:
-        raise not_ported("The training forward", "section A, items 6-9")
+    """The model forward over uint8 images [B, H, W], scaled to [0, 1] and
+    the grayscale channel repeated to 3.
 
-    def forward(params, images_u8, ops=KERNELS):
-        x = (images_u8.to(torch.float32) / 255.0)[..., None].expand(-1, -1, -1, 3)
-        _, acts = clip_mod.encode_image(params["backbone"], cfg, x,
-                                        extract_layers=extract_layers_for(cfg.vision.depth),
-                                        ops=ops)
-        return pyramid_head_apply(params["head"], hcfg, acts)
+    Eval (``train=False``): (params, images_u8) -> logits, every tower block
+    through the forward-only whole-block kernel (``infer_cfg``).
+    Train: (params, images_u8, masks_u8 or None, gen) -> (logits, masks
+    NCHW int64 or None), the blocks through the differentiable block
+    kernels, with dropout drawn from the generator ``gen`` (None: no
+    dropout). On-device augmentation is not ported (ROADMAP.md, section A,
+    item 8): callers refuse its flags.
+    """
+    taps = extract_layers_for(cfg.vision.depth)
 
-    return forward
+    def images(u8):
+        return (u8.to(torch.float32) / 255.0)[..., None].expand(-1, -1, -1, 3)
+
+    if not train:
+        ecfg = clip_mod.infer_cfg(cfg)
+
+        def forward(params, images_u8, ops=KERNELS):
+            _, acts = clip_mod.encode_image(params["backbone"], ecfg, images(images_u8),
+                                            extract_layers=taps, ops=ops)
+            return pyramid_head_apply(params["head"], hcfg, acts)
+
+        return forward
+
+    def forward_train(params, images_u8, masks_u8=None, gen=None, ops=KERNELS):
+        _, acts = clip_mod.encode_image(params["backbone"], cfg, images(images_u8),
+                                        extract_layers=taps, ops=ops, gen=gen)
+        logits = pyramid_head_apply(params["head"], hcfg, acts, gen=gen)
+        masks = None if masks_u8 is None else masks_u8[:, None].long()
+        return logits, masks
+
+    return forward_train
+
+
+def supervised_main(family: str, task: str, argv=None):
+    """The supervised seg/cls trainer (reference CLI defaults: 200 epochs,
+    batch 32, hybrid MONA for biomedclip, augmentation on - which the port
+    refuses until data/augment.py is ported: pass --no-strong_augs
+    --no-weak_augs)."""
+    from .supervised import Bundle, run_supervised
+
+    if family not in clip_mod.FAMILIES:
+        raise not_ported(f"Supervised training of the {family} family",
+                         "section A, items 10-13")
+    p = base_parser(f"{family}_{task}", epochs=200, batch_size=32, strong_augs=True,
+                    weak_augs=True, mona_variant="hybrid")
+    args = p.parse_args(argv)
+    if args.strong_augs or args.weak_augs:
+        raise not_ported("on-device augmentation (data/augment.py, K13; run with "
+                         "--no-strong_augs --no-weak_augs)", "section A, item 8")
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+
+    run_path = setup_run(args, "test" if args.test else "train")
+    cfg, hcfg, params = _build_supervised(args, family, task, gen)
+    trainable_pred = by_keywords("head", "mona", "lora")
+    logging.info(model_summary({"model": params}, trainable_pred=trainable_pred))
+    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size,
+                               task="seg" if task == "seg" else "cls",
+                               cache=args.cache_images)
+    params.to(device)
+    fwd_train = _make_forward(cfg, hcfg, train=True)
+    fwd_eval = _make_forward(cfg, hcfg, train=False)
+
+    def forward_train(params, batch, gen):
+        return fwd_train(params, batch["image"], batch.get("mask"), gen)
+
+    bundle = Bundle(task=task, params=params, trainable_pred=trainable_pred,
+                    forward_train=forward_train, forward_eval=fwd_eval)
+    return run_supervised(args, bundle, datasets, run_path, f"{family}_{task}", device)

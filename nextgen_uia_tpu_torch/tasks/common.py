@@ -2,7 +2,7 @@
 flags, seeding, device choice and model assembly.
 
 The flags keep the JAX package's names and defaults for what the serving
-path reads. ``--device`` selects the torch device here (default ``cuda``);
+and supervised-training paths read. ``--device`` selects the torch device here (default ``cuda``);
 asking for CUDA where there is none raises, and nothing falls back to the
 CPU. Features outside the ported serving slice raise NotImplementedError
 naming their ROADMAP.md item.
@@ -38,11 +38,32 @@ def not_ported(what: str, item: str):
 def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(name, conflict_handler="resolve")
     p.add_argument("--exp", type=str, default=defaults.get("exp", name))
+    p.add_argument("--dataset", type=str, default=defaults.get("dataset", "BUSI"))
+    p.add_argument("--data_root", type=str,
+                   default=os.environ.get("NEXTGEN_UIA_DATA", "../data/NextGen-UIA"))
     p.add_argument("--img_size", type=int, default=defaults.get("img_size", 224))
     p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--strong_augs", default=defaults.get("strong_augs", False),
+                   action=argparse.BooleanOptionalAction)
+    p.add_argument("--weak_augs", default=defaults.get("weak_augs", False),
+                   action=argparse.BooleanOptionalAction)
     p.add_argument("--num_classes", type=int, default=2)
     p.add_argument("--seed", type=int, default=defaults.get("seed", 1))
     p.add_argument("--batch_size", type=int, default=defaults.get("batch_size", 32))
+    p.add_argument("--epochs", type=int, default=defaults.get("epochs", 200))
+    p.add_argument("--lr", type=float, default=defaults.get("lr", 1e-4))
+    p.add_argument("--lr_min", type=float, default=1e-8)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--beta1", type=float, default=0.9)
+    p.add_argument("--beta2", type=float, default=0.95)
+    p.add_argument("--patience", type=int, default=defaults.get("patience", 15))
+    p.add_argument("--val_interval", type=int, default=defaults.get("val_interval", 10))
+    p.add_argument("--test", default=False, action="store_true",
+                   help="skip training; evaluate an existing checkpoint")
+    p.add_argument("--resume", default=False, action="store_true",
+                   help="resume from the run dir's last_state.npz")
+    p.add_argument("--cache_images", default=True, action=argparse.BooleanOptionalAction,
+                   help="cache decoded images in RAM")
     p.add_argument("--mona_weights", type=str, default=None)
     p.add_argument("--mona_variant", type=str,
                    default=defaults.get("mona_variant", "freq_enhanced"),
@@ -86,6 +107,14 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device {name}: only cuda and cpu are supported")
     return device
+
+
+def setup_run(args, subdir: str) -> str:
+    """runs/<exp>/<dataset>/<train|test> with its log file, as the JAX
+    package lays a run out."""
+    path = os.path.join("runs", args.exp, args.dataset, subdir)
+    setup_logging(path, args)
+    return path
 
 
 def setup_logging(log_path: str, args) -> None:
@@ -153,6 +182,13 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
                            num_layers=args.mona_layers)
         logging.info(f"Injected {variant} MONA into {n} blocks")
         if args.mona_weights:
-            _, n = ckpt.load_into(args.mona_weights, params)
+            try:
+                _, n = ckpt.load_into(args.mona_weights, params)
+            except ckpt.NoMatch:
+                # the supervised trainer's best_model.npz roots the backbone at
+                # params/backbone/ (the JAX package's layout of that file)
+                rooted = torch.nn.ModuleDict(
+                    {"params": torch.nn.ModuleDict({"backbone": params})})
+                _, n = ckpt.load_into(args.mona_weights, rooted)
             logging.info(f"Loaded {n} MONA tensors from {args.mona_weights}")
     return cfg, params

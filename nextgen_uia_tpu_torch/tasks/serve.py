@@ -48,8 +48,7 @@ def _batches(paths, batch_size, img_size, workers):
     mask (status=decode_error in the output csv)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    # host decode is the JAX package's (numpy + PIL, or its native loader)
-    from nextgen_uia_tpu.data.datasets import load_image
+    from ..data.datasets import load_image
 
     def safe_load(p):
         try:

@@ -2,11 +2,13 @@
 
 These need an NVIDIA GPU with nvcc (sm_90a): a CUDA kernel has no CPU mode,
 so here they skip. Run them there with
-``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``. Tolerances:
-float32 inputs, block max|d| <= 1e-4 * max|ref| and spatial op <= 1e-5
-(the same float32 math summed in another order); bfloat16 inputs against
-the float32 plain version, block max|d| <= 3e-2 at unit scale and spatial op
-<= one bf16 ulp at the output's scale.
+``python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest``.
+Tolerances: float32 inputs, block max|d| <= 1e-4 * max|ref| and spatial op
+<= 1e-5 (the same float32 math summed in another order); bfloat16 inputs
+against the float32 plain version, block max|d| <= 3e-2 at unit scale and
+spatial op <= one bf16 ulp at the output's scale. The train path's kernels
+(forward and backward): float32 max|d| <= 1e-4 * max|ref|, bfloat16
+<= 3e-2 * max(1, max|ref|), for every output.
 """
 
 import pytest
@@ -100,3 +102,98 @@ def test_mona_spatial_kernel_matches_plain(cuda, shape):
     got_b = dwconv.mona_spatial(*args_b)
     ulp = 2.0 ** (torch.floor(torch.log2(ref_b.abs().max())) - 7)
     assert (got_b.float() - ref_b).abs().max() <= ulp
+
+
+def _check(kern, plain, args, args_plain=None):
+    """Every output of kern(*args) against plain(*args_plain): float32
+    max|d| <= 1e-4 max|ref|, bfloat16 <= 3e-2 max(1, max|ref|)."""
+    got, ref = kern(*args), plain(*(args_plain or args))
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        bf16 = g.dtype == torch.bfloat16
+        bound = 3e-2 * max(1.0, r.abs().max().item()) if bf16 else 1e-4 * r.abs().max().item()
+        assert (g.float() - r.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("b,n,width,heads,act", [
+    (2, 17, 128, 2, "gelu"), (3, 50, 128, 2, "quick_gelu"), (2, 197, 768, 12, "gelu")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_path_kernels_match_plain(cuda, b, n, width, heads, act, dtype):
+    """K5, K6 and K8 forward and backward, and K3, against their plain
+    versions; bfloat16 inputs against the float32 plain version on the
+    bf16-rounded inputs."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
+
+    blk = _block(cuda, width, heads)
+    gen = torch.Generator().manual_seed(n + width)
+    dh = width // heads
+
+    def rnd(*shape):
+        t = torch.randn(*shape, generator=gen).to(cuda)
+        return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+    def low(ts):
+        return [t.to(dtype) for t in ts]
+
+    x, g = rnd(b, n, width), rnd(b, n, width)
+    q, k, v = (rnd(b, heads, n, dh) for _ in range(3))
+    with torch.no_grad():
+        before = (fused_ln_qkv.fused_ln_qkv.launches, fused_ln_qkv.fused_ln_qkv_backward.launches)
+        _check(lambda t: fused_ln_qkv.fused_ln_qkv(t, blk.ln1, blk.attn, heads=heads),
+               lambda t: fused_ln_qkv.fused_ln_qkv_plain(t, blk.ln1, blk.attn, heads=heads),
+               low([x]), [x])
+        gamma, _, w_qkv, _ = fused_ln_qkv._weights(blk.ln1, blk.attn, torch.float32)
+        w_qkv = w_qkv.to(dtype).float()
+        _check(lambda *t: fused_ln_qkv.fused_ln_qkv_backward(t[0], gamma, w_qkv, *t[1:]),
+               lambda *t: fused_ln_qkv.fused_ln_qkv_backward_plain(t[0], gamma, w_qkv, *t[1:]),
+               low([x, q, k, v]), [x, q, k, v])
+        assert (fused_ln_qkv.fused_ln_qkv.launches, fused_ln_qkv.fused_ln_qkv_backward.launches) \
+            == (before[0] + 1, before[1] + 1)
+
+        o = blk.attn.o
+        _check(lambda *t: fused_attn_o.fused_attn_o_residual(*t, o, heads=heads),
+               lambda *t: fused_attn_o.fused_attn_o_residual_plain(*t, o, heads=heads),
+               low([q, k, v, x]), [q, k, v, x])
+        wo = o.w.to(dtype).float()
+        _check(lambda *t: fused_attn_o.fused_attn_o_residual_backward(*t[:3], wo, t[3]),
+               lambda *t: fused_attn_o.fused_attn_o_residual_backward_plain(*t[:3], wo, t[3]),
+               low([q, k, v, g]), [q, k, v, g])
+
+        _check(lambda t: fused_ln_mlp.fused_ln_mlp_residual(t, blk.ln2, blk.mlp, act=act),
+               lambda t: fused_ln_mlp.fused_ln_mlp_residual_plain(t, blk.ln2, blk.mlp, act=act),
+               low([x]), [x])
+        ws = list(fused_ln_mlp._weights(blk.ln2, blk.mlp, torch.float32)[:5])
+        ws[2], ws[4] = ws[2].to(dtype).float(), ws[4].to(dtype).float()
+        _check(lambda t, gg: fused_ln_mlp.fused_ln_mlp_residual_backward(t, *ws, gg, act=act),
+               lambda t, gg: fused_ln_mlp.fused_ln_mlp_residual_backward_plain(t, *ws, gg,
+                                                                               act=act),
+               low([x, g]), [x, g])
+
+
+@pytest.mark.parametrize("shape", [(32, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mona_spatial_backward_kernel_matches_plain(cuda, shape, dtype):
+    b, _, _, c = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    ins = [torch.randn(shape, generator=gen), 1 + 0.3 * torch.randn(c, generator=gen),
+           0.2 * torch.randn(b, 7, 7, c, generator=gen), torch.randn(shape, generator=gen)]
+    ins = [t.to(cuda).to(dtype) for t in ins]
+    before = dwconv.mona_spatial_backward.launches
+    _check(dwconv.mona_spatial_backward, dwconv.mona_spatial_backward_plain, ins,
+           [t.float() for t in ins])
+    assert dwconv.mona_spatial_backward.launches == before + 1
+
+
+def test_train_path_refuses_trainable_weights_on_the_card(cuda):
+    from nextgen_uia_tpu_torch.ops import fused_ln_mlp, fused_ln_qkv
+
+    blk = _block(cuda, 128, 2)
+    x = torch.randn(2, 17, 128, device=cuda)
+    blk.ln1.scale.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="frozen"):
+        fused_ln_qkv.fused_ln_qkv(x, blk.ln1, blk.attn, heads=2)
+    blk.mlp.fc1.w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="frozen"):
+        fused_ln_mlp.fused_ln_mlp_residual(x, blk.ln2, blk.mlp)
