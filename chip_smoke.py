@@ -8,12 +8,17 @@
    per source, sm_90a, all started together).
 3. Kernel phase: each kernel, forward and backward, against its plain
    PyTorch version on the card, at the main paths' shapes ([32, 197, 768],
-   12 heads, hidden 3072; MONA [32, 14, 14, 64]) and at one odd shape
-   (50 tokens, 2 heads, quick_gelu), with CUDA-event times and the bound
-   from the card's peak rates: float32 max|d| <= 1e-4 * max|ref| for every
-   output; bfloat16 against the float32 plain version on the bf16-rounded
-   inputs max|d| <= 3e-2 * max(1, max|ref|).
-4. Serving phase: BiomedCLIP ViT-B/16 at 224 px with hybrid MONA in all 12
+   12 heads, hidden 3072; MONA [32, 14, 14, 64]; flash attention [24, 12,
+   1370, 64] and the fused MLP [32880, 768] x 3072, DINOv2-B/14 at 518 px;
+   the lookup and histogram [24, 518, 518]) and at one odd shape each, with
+   CUDA-event times and the bound from the card's peak rates: float32
+   max|d| <= 1e-4 * max|ref| for every output; bfloat16 against the float32
+   plain version on the bf16-rounded inputs max|d| <= 3e-2 * max(1,
+   max|ref|); the lookup and histogram exactly equal.
+4. Augmentation phase: one strong+weak plan at [32, 224, 224] and at [24,
+   518, 518] through the kernels and through the plain versions (images and
+   masks equal; lookup/histogram launches = the slots that drew equalize).
+5. Serving phase: BiomedCLIP ViT-B/16 at 224 px with hybrid MONA in all 12
    blocks and a 2-class seg PyramidHead, seeded random weights written to
    .npz and loaded back through --backbone_ckpt/--mona_weights/--head_weights,
    served over 3 batches of 32 and a ragged batch of 5 seeded uint8 images
@@ -21,7 +26,16 @@
    outputs of the right shape, that each block kernel launched once per
    block and batch, and the logits against a plain-path run on the card;
    prints img/s at batch 32.
-5. Prints one JSON line of per-kernel results, then the final status line.
+6. Train phase: the BiomedCLIP seg step at batch 32 (launch counts, loss
+   and gradients against the plain path, the loss falling over 10 steps),
+   timed with augmentation off and on.
+7. DINOv2 phase: the seg step at ViT-B/14, 518 px, batch 24, UNet decoder,
+   augmentation on, bf16 encoder, float32 head (launch counts, loss and head
+   gradients against the plain path, BatchNorm statistics moving, the loss
+   falling, times, peak memory, a profiler table, the eval forward's img/s).
+8. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
+   augmentation, and the predict CLIs on their best_model.npz.
+9. Prints one JSON line of per-kernel results, then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it.
 """
@@ -37,6 +51,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEG_CLASSES, IMG, BATCH, RAGGED, N_BATCHES = 2, 224, 32, 5, 4
+DINO_IMG, DINO_BATCH, DINO_TOKENS = 518, 24, 37 * 37 + 1
 
 
 def require(cond, msg):
@@ -83,7 +98,8 @@ def kernel_phase(dev):
     """Every kernel (forward and backward) against its plain version on the
     card: float32 at the main path's shape and at an odd one (max|d| <= 1e-4
     max|ref|), bfloat16 against the float32 plain version on the
-    bf16-rounded inputs (max|d| <= 3e-2 max(1, max|ref|)); CUDA-event times
+    bf16-rounded inputs (max|d| <= 3e-2 max(1, max|ref|), or 3e-2 max|ref|
+    for attention, whose outputs lie far below 1); CUDA-event times
     of kernel, plain version and (where one exists) the one PyTorch call
     computing the same function, at the main path's shape in bfloat16."""
     import torch
@@ -111,9 +127,10 @@ def kernel_phase(dev):
     def rounded(t):
         return t.to(bf16).float() if t.is_floating_point() else t
 
-    def check(name, kern, plain, inputs, odd_inputs, cost, library=None):
+    def check(name, kern, plain, inputs, odd_inputs, cost, library=None, scaled=False):
         """kern/plain(*inputs) -> tensor or tuple; inputs float32 on the
-        card (the first `main` shape, then the odd one)."""
+        card (the first `main` shape, then the odd one). ``scaled`` holds
+        bf16 to 3e-2 max|ref| instead of 3e-2 max(1, max|ref|)."""
         with torch.no_grad():
             rels = [max(d / scale for d, scale in errors(kern(*args), plain(*args)))
                     for args in (inputs, odd_inputs)]
@@ -121,14 +138,16 @@ def kernel_phase(dev):
             errs_b = errors(kern(*args_b), plain(*[rounded(t) for t in inputs]))
             torch.cuda.synchronize()
             # each output against its own scale; report the worst ratio's pair
-            err_b, scale_b = max(errs_b, key=lambda e: e[0] / max(1.0, e[1]))
-            lim_b = BF16_BOUND * max(1.0, scale_b)
+            def unit(scale):
+                return scale if scaled else max(1.0, scale)
+            err_b, scale_b = max(errs_b, key=lambda e: e[0] / unit(e[1]))
+            lim_b = BF16_BOUND * unit(scale_b)
             ms = cuda_ms(lambda: kern(*args_b), 20)
             plain_ms = cuda_ms(lambda: plain(*args_b), 5, warmup=1)
             lib_ms = cuda_ms(lambda: library(*args_b), 20) if library else None
         b_ms, b_by = bound(*cost)
         print(f"{name}: f32 rel max|d| {rels[0]:.3e} (odd shape {rels[1]:.3e}; <= 1e-4); "
-              f"bf16 max|d| {err_b:.3e} (<= {lim_b:.3e}); kernel {ms:.4f} ms, plain "
+              f"bf16 max|d| {err_b:.3e} (<= {lim_b:.3e}, max|ref| {scale_b:.3e}); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
               f"bound {b_ms:.4f} ms ({b_by})")
         require(max(rels) <= F32_BOUND, f"{name} float32 mismatch")
@@ -260,7 +279,119 @@ def kernel_phase(dev):
           dwconv.mona_spatial_backward_plain,
           mona_args(b, g2, g2, 64, lambda *sh: sh), mona_args(3, 9, 11, 24, lambda *sh: sh),
           (4 * 49 * px, 2 * 3 * px + 4 * b * 51 * 64 + 2 * 64))
+
+    # K7: flash attention forward at DINOv2-B/14's 518 px shape, and an odd
+    # float32 shape with a key bias and the causal mask. Unit-variance q, k
+    # and v spread each softmax row over ~500 keys, so outputs are ~0.04 and
+    # bf16 is held to 3e-2 max|ref| (a limit of 3e-2 would pass a kernel
+    # that dropped a key tile)
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+    from nextgen_uia_tpu_torch.ops import lut
+
+    db, dn = DINO_BATCH, DINO_TOKENS
+    fkw = dict(bias=randn(2, 77), causal=True)
+    check("flash_attention",
+          lambda q, k, v, odd=False: fa.flash_attention(q, k, v, layout="bhnd",
+                                                        **(fkw if odd else {})),
+          lambda q, k, v, odd=False: fa.flash_attention_plain(q, k, v, layout="bhnd",
+                                                              **(fkw if odd else {})),
+          [randn(db, h, dn, dh) for _ in range(3)],
+          [randn(2, 3, 77, 64) for _ in range(3)] + [True],
+          (4 * db * h * dn * dn * dh, 2 * 4 * db * h * dn * dh),
+          library=lambda q, k, v: F.scaled_dot_product_attention(q, k, v), scaled=True)
+
+    # the bf16 tensor-core kernel with a key bias and the causal mask at a
+    # ragged N, reading q, k, v as views of one packed [B, N, 3, H, 64]
+    # projection, as mha's N > 512 route hands them over
+    qkv, kbias = randn(2, 333, 3, h, dh), randn(2, 333)
+    with torch.no_grad():
+        got = fa.flash_attention(*qkv.to(bf16).unbind(2), bias=kbias, causal=True)
+        want = fa.flash_attention_plain(*rounded(qkv).unbind(2), bias=kbias, causal=True)
+        torch.cuda.synchronize()
+    (err, scale), = errors(got, want)
+    print(f"flash_attention: bf16 packed [2, 333, 3, {h}, {dh}] with key bias and causal: "
+          f"max|d| {err:.3e} (<= {BF16_BOUND * scale:.3e}, max|ref| {scale:.3e})")
+    require(err <= BF16_BOUND * scale, "flash_attention bfloat16 with bias and causal mismatch")
+
+    # K10: the fused MLP forward, [24 * 1370, 768] x 3072 gelu, and an odd
+    # float32 [77, 128] x 512 quick_gelu
+    dm = db * dn
+
+    def mlp_only(fn):
+        def run(x, odd=False):
+            mod = (small if odd else blk).mlp
+            return fn(x, mod.fc1.w, mod.fc1.b, mod.fc2.w, mod.fc2.b,
+                      act="quick_gelu" if odd else cfg.act)
+        return run
+
+    check("fused_mlp", mlp_only(fm.fused_mlp), mlp_only(fm.fused_mlp_plain), [randn(dm, d)],
+          [randn(77, 128), True], (4 * dm * d * hid, 2 * (2 * dm * d + 2 * d * hid)))
+
+    # K13: the table lookup and the histogram, exactly equal to their plain
+    # versions at [24, 518, 518] and an odd [3, 37, 41]
+    def exact(name, kern, plain, inputs, odd_inputs, nbytes):
+        with torch.no_grad():
+            for args in (inputs, odd_inputs):
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"{name} differs from its plain version")
+            ms = cuda_ms(lambda: kern(*inputs), 20)
+            plain_ms = cuda_ms(lambda: plain(*inputs), 5, warmup=1)
+        b_ms, b_by = bound(0, nbytes)
+        print(f"{name}: equal to the plain version (main and odd shape); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library -, bound {b_ms:.4f} ms ({b_by})")
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by)
+
+    def images(shape):
+        x = torch.rand(shape, generator=gen).to(dev)
+        return torch.round(x * 255) / 255  # on the byte grid, as augmentation keeps them
+
+    big, odd = images((db, DINO_IMG, DINO_IMG)), images((3, 37, 41))
+    hw = DINO_IMG * DINO_IMG
+    exact("hist256", lut.hist256, lut.hist256_plain, [big], [odd], db * hw * 4 + db * 256 * 4)
+    tables = [torch.randint(0, 256, (n, 256), generator=gen, dtype=torch.int32).to(dev)
+              for n in (db, 3)]
+    exact("lut_apply", lut.lut_apply, lut.lut_apply_plain, [big, tables[0]], [odd, tables[1]],
+          2 * db * hw * 4 + db * 256 * 4)
     return results
+
+
+def augment_phase(dev):
+    """One strong+weak plan per shape through the kernels and through the
+    plain versions: images and masks equal, the lookup and histogram
+    launched once per slot that drew equalize; ms per batch (CUDA events
+    around augment_batch, the plan's host read included)."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.data import augment as aug
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    for b, size in ((BATCH, IMG), (DINO_BATCH, DINO_IMG)):
+        imgs, masks = disc_batch(np.random.default_rng(size), b, size)
+        x = (torch.from_numpy(imgs).to(dev).float() / 255.0)[..., None]
+        m = torch.from_numpy(masks).to(dev).float()[..., None]
+        plan = aug.sample_plan(torch.Generator(device=dev).manual_seed(size), b)
+        slots = int((plan.strong_ids == 2).any(0).sum())
+        reset_counts()
+        got = aug.apply_plan(plan, x, m, out_size=size, ops=KERNELS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = aug.apply_plan(plan, x, m, out_size=size, ops=PLAIN)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"augmentation at {size} px: the kernel path differs from the plain path")
+        require(counts["lut_apply"] == counts["hist256"] == slots,
+                f"augmentation at {size} px launched lut_apply {counts['lut_apply']} and "
+                f"hist256 {counts['hist256']} times for {slots} equalize slots")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ms = cuda_ms(lambda: aug.augment_batch(gen, x, m, out_size=size), 10)
+        plain_ms = cuda_ms(lambda: aug.augment_batch(gen, x, m, out_size=size, ops=PLAIN), 5,
+                           warmup=1)
+        print(f"augment [{b}, {size}, {size}]: kernel path equals plain path; {slots} equalize "
+              f"slots, lookup/histogram launches {counts['lut_apply']}/{counts['hist256']}; "
+              f"{ms:.2f} ms per batch (plain lookups {plain_ms:.2f} ms)")
 
 
 def slice_phase(dev, work):
@@ -353,17 +484,17 @@ def slice_phase(dev, work):
     return launches, files
 
 
-def disc_batch(rng, n):
-    """Seeded uint8 images [n, IMG, IMG] with a brighter disc of seeded
+def disc_batch(rng, n, size=IMG):
+    """Seeded uint8 images [n, size, size] with a brighter disc of seeded
     centre and radius, and its 0/1 mask: foreground the seg loss can see."""
     import numpy as np
 
-    yy, xx = np.mgrid[:IMG, :IMG]
-    imgs = rng.integers(0, 120, (n, IMG, IMG)).astype(np.int32)
-    masks = np.zeros((n, IMG, IMG), np.uint8)
+    yy, xx = np.mgrid[:size, :size]
+    imgs = rng.integers(0, 120, (n, size, size)).astype(np.int32)
+    masks = np.zeros((n, size, size), np.uint8)
     for i in range(n):
-        cy, cx = rng.integers(IMG // 4, 3 * IMG // 4, 2)
-        r = rng.integers(IMG // 9, IMG // 4)
+        cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+        r = rng.integers(size // 9, size // 4)
         disc = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
         masks[i][disc] = 1
         imgs[i][disc] += 100
@@ -373,18 +504,23 @@ def disc_batch(rng, n):
 TRAIN_LAUNCHES = {  # per train step: see PERF.md (blocks 1-9 backward, MONA 0-9)
     "fused_ln_qkv": 12, "fused_attn_o_residual": 12, "fused_ln_mlp_residual": 12,
     "mona_spatial": 12, "fused_ln_qkv_backward": 9, "fused_attn_o_residual_backward": 9,
-    "fused_ln_mlp_residual_backward": 9, "mona_spatial_backward": 10, "fused_block_infer": 0}
+    "fused_ln_mlp_residual_backward": 9, "mona_spatial_backward": 10, "fused_block_infer": 0,
+    "flash_attention": 0, "fused_mlp": 0}
+NEW_KERNELS = ("flash_attention", "fused_mlp", "lut_apply", "hist256")  # the DINOv2 path's
+DINO_LAUNCHES = {"flash_attention": 12, "fused_mlp": 12, "fused_ln_qkv": 0,
+                 "fused_attn_o_residual": 0, "fused_ln_mlp_residual": 0, "fused_block_infer": 0}
 
 
 def launch_counters():
     """name -> the function whose ``launches`` counts that kernel."""
-    from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_block, fused_ln_mlp
-    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+    from nextgen_uia_tpu_torch.ops import dwconv, flash_attention, fused_attn_o, fused_block
+    from nextgen_uia_tpu_torch.ops import fused_ln_mlp, fused_ln_qkv, fused_mlp, lut
 
     fns = [fused_block.fused_block_infer, dwconv.mona_spatial, dwconv.mona_spatial_backward,
            fused_ln_qkv.fused_ln_qkv, fused_ln_qkv.fused_ln_qkv_backward,
            fused_attn_o.fused_attn_o_residual, fused_attn_o.fused_attn_o_residual_backward,
-           fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward]
+           fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward,
+           flash_attention.flash_attention, fused_mlp.fused_mlp, lut.lut_apply, lut.hist256]
     return {f.__name__: f for f in fns}
 
 
@@ -408,6 +544,7 @@ def train_phase(dev, files):
 
     from nextgen_uia_tpu_torch.core import train as T
     from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.data.augment import augment_batch
     from nextgen_uia_tpu_torch.losses import dice_ce_loss
     from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
     from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
@@ -487,13 +624,176 @@ def train_phase(dev, files):
           f"{plain_ms:.2f} ms = {BATCH * 1000 / plain_ms:.1f} img/s); peak device memory "
           f"{peak_gb:.2f} GB")
     profile_steps(lambda: step(batch, gen), 3, ms)
+
+    # the same step with the trainer's default strong+weak augmentation
+    forward_aug = _make_forward(cfg, hcfg, train=True, strong=True, weak=True)
+
+    def aug_loss(mb, gen_):
+        logits, m = forward_aug(params, mb["image"], mb["mask"], gen_)
+        return dice_ce_loss(logits, m)
+
+    aug_step = T.TrainStep(aug_loss, opt, tcfg)
+    reset_counts()
+    aug_loss_value = aug_step(batch, gen)["loss"]
+    torch.cuda.synchronize()
+    aug_counts = read_counts()
+    require(np.isfinite(aug_loss_value), "non-finite augmented train loss")
+    for name, want in TRAIN_LAUNCHES.items():
+        require(aug_counts[name] == want, f"{name} launched {aug_counts[name]} times in an "
+                                          f"augmented train step, want {want}")
+    aug_ms = cuda_ms(lambda: aug_step(batch, gen), 10, warmup=1)
+    x01 = (batch["image"][0].float() / 255.0)[..., None]
+    m01 = batch["mask"][0].float()[..., None]
+    alone_ms = cuda_ms(lambda: augment_batch(gen, x01, m01, out_size=IMG), 10)
+    print(f"train: batch {BATCH} step with augmentation on {aug_ms:.2f} ms = "
+          f"{BATCH * 1000 / aug_ms:.1f} img/s (off: {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s; "
+          f"augment_batch alone {alone_ms:.2f} ms); one step's launches {aug_counts}")
+    profile_steps(lambda: aug_step(batch, gen), 3, aug_ms)
+    return launches
+
+
+def dino_phase(dev):
+    """The DINOv2 seg step at ViT-B/14, 518 px, batch 24: UNet decoder, 2
+    classes, strong+weak augmentation, bf16 encoder, float32 head, AdamW as
+    run_supervised sets it. LayerScale is drawn from U[0.5, 1.5] (the init's
+    1e-5 would hide any attention or MLP error). Checks one step's launches
+    (K7 and K10 12 each, K5 0, the lookup and histogram once per slot that
+    drew equalize), the first step's loss and every head gradient against
+    the plain path, that the BatchNorm running statistics moved and that
+    the loss falls over 10 steps on one batch; times the step and the eval
+    forward. Returns the step's launch counts."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.data.augment import sample_plan
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks import other_tasks as OT
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    p = base_parser("chip_smoke_dino", batch_size=DINO_BATCH, strong_augs=True, weak_augs=True)
+    OT.add_dino_flags(p, seg=True)
+    args = p.parse_args(["--num_classes", str(SEG_CLASSES)])
+    require(args.img_size == DINO_IMG and args.compute_dtype == "bfloat16"
+            and args.decoder_type == "unet" and args.head_dtype == "float32",
+            f"dino defaults changed: {args}")
+    cpu_gen = torch.Generator().manual_seed(3)
+    bundle = OT.build_dino_seg_bundle(args, cpu_gen)
+    params, bn = bundle.params, bundle.bn_state
+    with torch.no_grad():
+        for blk in params["encoder"].blocks:
+            blk.ls1.uniform_(0.5, 1.5, generator=cpu_gen)
+            blk.ls2.uniform_(0.5, 1.5, generator=cpu_gen)
+    trainable, frozen = partition(params, by_keywords("head"))
+    params.to(dev)
+    bn.to(dev)
+    imgs, masks = disc_batch(np.random.default_rng(4), DINO_BATCH, DINO_IMG)
+    batch = {"image": torch.from_numpy(imgs).to(dev)[None],
+             "mask": torch.from_numpy(masks).to(dev)[None]}
+    print(f"dino: {len(trainable)} trainable tensors "
+          f"({sum(t.numel() for t in trainable.values())} values), {len(frozen)} frozen")
+
+    def loss_fn(ops):
+        def fn(mb, gen):
+            logits, m = bundle.forward_train(params, mb, gen, ops=ops)
+            return dice_ce_loss(logits, m)
+        return fn
+
+    def grads(ops):
+        for t in trainable.values():
+            t.grad = None
+        loss = loss_fn(ops)({k: v[0] for k, v in batch.items()},
+                            torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        out = {k: t.grad.float().clone() for k, t in trainable.items()}
+        for t in trainable.values():
+            t.grad = None
+        return loss.item(), out
+
+    # the plan the step draws first from its generator (nothing draws before it)
+    plan = sample_plan(torch.Generator(device=dev).manual_seed(7), DINO_BATCH)
+    eq_slots = int((plan.strong_ids == 2).any(0).sum())
+    bn_before = {k: v.clone() for k, v in bn.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss_k, g_k = grads(KERNELS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_k = torch.cuda.max_memory_allocated() / 1e9
+    print(f"dino: one step's launches {launches} ({eq_slots} slots drew equalize)")
+    want = {**DINO_LAUNCHES, "lut_apply": eq_slots, "hist256": eq_slots}
+    for name, n in want.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times in a dino step, "
+                                     f"want {n}")
+    moved = max((bn.state_dict()[k] - v).abs().max().item() for k, v in bn_before.items())
+    require(moved > 0, "the BatchNorm running statistics did not move")
+    torch.cuda.reset_peak_memory_stats()
+    loss_p, g_p = grads(PLAIN)
+    peak_p = torch.cuda.max_memory_allocated() / 1e9
+    worst, worst_name = 0.0, None
+    for k, ref in g_p.items():
+        ratio = (g_k[k] - ref).abs().max().item() / (BF16_BOUND * max(1.0, ref.abs().max().item()))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"dino: first-step loss kernel {loss_k:.6f} plain {loss_p:.6f}; head gradients worst "
+          f"max|d| / (3e-2 max(1, max|ref|)) = {worst:.3f} ({worst_name}); BatchNorm running "
+          f"statistics moved by up to {moved:.3e}; peak device memory kernel path "
+          f"{peak_k:.2f} GB, plain path {peak_p:.2f} GB")
+    require(np.isfinite(loss_k), "non-finite dino loss")
+    require(abs(loss_k - loss_p) <= BF16_BOUND * max(1.0, abs(loss_p)),
+            "dino loss disagrees with the plain path")
+    require(worst <= 1.0, f"dino gradient of {worst_name} disagrees with the plain path")
+
+    tcfg = T.TrainConfig(lr=1e-3, lr_min=1e-8, weight_decay=0.01, beta1=0.9, beta2=0.95,
+                         total_updates=25)
+    opt = T.make_optimizer(trainable.values(), tcfg)
+    step = T.TrainStep(loss_fn(KERNELS), opt, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(123)
+    losses = [step(batch, gen)["loss"] for _ in range(10)]
+    print("dino: losses over 10 steps on one batch (augmented anew each step) "
+          + " ".join(f"{v:.4f}" for v in losses))
+    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+            "the dino train loss did not fall")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_step = T.TrainStep(loss_fn(PLAIN), opt, tcfg)
+    plain_ms = cuda_ms(lambda: plain_step(batch, gen), 2, warmup=1)
+    # the same step under PyTorch's default backend settings, as the CLI runs
+    # it: cuDNN may then use TF32 in the decoder's float32 convolutions
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cli_ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"dino: batch {DINO_BATCH} step with TF32 off {ms:.2f} ms = "
+          f"{DINO_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
+          f"{DINO_BATCH * 1000 / plain_ms:.1f} img/s; cuDNN TF32 on, as the CLI runs, "
+          f"{cli_ms:.2f} ms = {DINO_BATCH * 1000 / cli_ms:.1f} img/s); peak device memory "
+          f"{peak_gb:.2f} GB")
+    profile_steps(lambda: step(batch, gen), 2, ms)
+
+    with torch.inference_mode():
+        x = batch["image"][0]
+        eval_ms = cuda_ms(lambda: bundle.forward_eval(params, x), 5, warmup=1)
+        out = bundle.forward_eval(params, x)
+        require(out.shape == (DINO_BATCH, SEG_CLASSES, DINO_IMG, DINO_IMG)
+                and bool(torch.isfinite(out).all()), f"dino eval logits {tuple(out.shape)}")
+    print(f"dino: eval forward batch {DINO_BATCH} {eval_ms:.2f} ms = "
+          f"{DINO_BATCH * 1000 / eval_ms:.1f} img/s")
     return launches
 
 
 def profile_steps(fn, steps, step_ms):
     """torch.profiler over ``steps`` calls: device time per call by kernel
     (top 14) and in all, and the share of ``step_ms`` (the call's time
-    without the profiler) that the card was busy (kernel times summed)."""
+    without the profiler) that the card was busy (kernel times summed); the
+    host time per call blocked on the device and inside the 'augment' range
+    (tasks/supervised.py::preprocess)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,25 +817,38 @@ def profile_steps(fn, steps, step_ms):
             rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    # the host blocked on the device: .item(), .cpu() and explicit syncs
+    waits = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU and "Synchronize" in e.key]
+    wait_ms = sum(e.cpu_time_total for e in waits) / 1e3 / steps
+    aug_ms = sum(e.cpu_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key == "augment") / 1e3 / steps
     print(f"profile: kernels {total:.2f} ms of device time per step; busy "
           f"{100 * total / step_ms:.1f}% of the {step_ms:.2f} ms step (host clock under the "
-          f"profiler {host_ms:.2f} ms)")
+          f"profiler {host_ms:.2f} ms; host blocked in {sum(e.count for e in waits) // steps} "
+          f"cuda*Synchronize calls {wait_ms:.2f} ms; in the augment range {aug_ms:.2f} ms)")
     for ms_, count, key in rows[:14]:
         print(f"profile:   {ms_:8.3f} ms {100 * ms_ / max(total, 1e-9):5.1f}%  x{count:<4d} "
               f"{key[:90]}")
 
 
 def cli_phase(dev, work, files):
-    """The trainer CLI (python -m ...segmentation) on a synthetic dataset in
-    the reference layout, 224 px, batch 32, 2 updates, then the predict CLI
-    on its best_model.npz."""
+    """The trainer CLIs on a synthetic dataset in the reference layout, at
+    their default strong+weak augmentation: BiomedCLIP seg (224 px, batch
+    32, 2 updates) and DINOv2 seg (518 px, batch 24, 2 updates), each
+    followed by its predict CLI on its best_model.npz, then the BiomedCLIP
+    and DINOv2 classification CLIs (one epoch each)."""
     import csv
     import glob
 
     import numpy as np
     from PIL import Image
 
-    from nextgen_uia_tpu_torch.tasks.biomedclip import predict, segmentation
+    from nextgen_uia_tpu_torch.tasks.biomedclip import classification, predict, segmentation
+    from nextgen_uia_tpu_torch.tasks.dino import classification as dino_classification
+    from nextgen_uia_tpu_torch.tasks.dino import predict as dino_predict
+    from nextgen_uia_tpu_torch.tasks.dino import segmentation as dino_segmentation
 
     data = os.path.join(work, "data")
     split_dir = os.path.join(data, "classification", "SYNTH")
@@ -549,6 +862,8 @@ def cli_phase(dev, work, files):
     for split, part in (("train", names[:64]), ("val", names[64:72]), ("test", names[72:])):
         with open(os.path.join(split_dir, f"{split}.txt"), "w") as f:
             f.write("\n".join(part))
+    with open(os.path.join(split_dir, "labels.csv"), "w") as f:  # large disc: class 1
+        f.write("\n".join(f"{n},{int(m.mean() > 0.1)}" for n, m in zip(names, masks)))
 
     cwd = os.getcwd()
     os.chdir(work)
@@ -558,16 +873,15 @@ def cli_phase(dev, work, files):
         stats = segmentation.main([
             "--dataset", "SYNTH", "--data_root", data, "--exp", "chip_cli", "--epochs", "1",
             "--val_interval", "1", "--img_size", str(IMG), "--batch_size", str(BATCH),
-            "--num_workers", "4", "--device", "cuda", "--no-strong_augs", "--no-weak_augs",
-            "--mona_variant", "hybrid", "--backbone_ckpt", files["backbone"],
+            "--num_workers", "4", "--device", "cuda", "--mona_variant", "hybrid", "--backbone_ckpt", files["backbone"],
             "--mona_weights", files["mona"], "--head_weights", files["head"]])
         seconds = time.perf_counter() - t0
         counts = read_counts()
         run = os.path.join(work, "runs", "chip_cli", "SYNTH", "train")
         best = os.path.join(run, "best_model.npz")
         results = glob.glob(os.path.join(run, "*_iou=*", "results.csv"))
-        print(f"cli: trained 2 updates + val/test evaluation in {seconds:.1f} s (host clock, "
-              f"data decode included); dice_mean {stats['dice_mean']:.4f}; launches {counts}")
+        print(f"cli: trained 2 augmented updates + val/test evaluation in {seconds:.1f} s (host "
+              f"clock, data decode included); dice_mean {stats['dice_mean']:.4f}; launches {counts}")
         require(np.isfinite(stats["loss"]) and np.isfinite(stats["dice_mean"]),
                 f"trainer CLI stats {stats}")
         require(counts["fused_ln_qkv_backward"] == 2 * 9 and counts["mona_spatial_backward"]
@@ -588,6 +902,54 @@ def cli_phase(dev, work, files):
                 "predict CLI on best_model.npz failed")
         print(f"cli: predict loaded best_model.npz as --head_weights and --mona_weights and "
               f"wrote {len(rows)} masks")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = dino_segmentation.main([
+            "--dataset", "SYNTH", "--data_root", data, "--exp", "chip_dino", "--epochs", "1",
+            "--val_interval", "1", "--num_workers", "4", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        best = os.path.join(work, "runs", "chip_dino", "SYNTH", "train", "best_model.npz")
+        print(f"cli: dino seg trained 2 augmented updates at {DINO_IMG} px + val/test "
+              f"evaluation in {seconds:.1f} s (host clock, data decode included); dice_mean "
+              f"{stats['dice_mean']:.4f}; launches {counts}")
+        require(np.isfinite(stats["loss"]) and np.isfinite(stats["dice_mean"]),
+                f"dino trainer CLI stats {stats}")
+        require(counts["flash_attention"] > 0 and counts["fused_mlp"] > 0
+                and counts["fused_ln_qkv"] == 0, "the dino CLI did not run through K7 and K10")
+        require(os.path.exists(best), "dino best_model.npz missing")
+        out = dino_predict.main([
+            "--task", "seg", "--images", listing, "--batch_size", str(DINO_BATCH),
+            "--num_workers", "4", "--device", "cuda", "--head_weights", best,
+            "--out", os.path.join(work, "dino_predict_out")])["out"]
+        with open(os.path.join(out, "index.csv")) as f:
+            rows = list(csv.DictReader(f))
+        require(len(rows) == 8 and all(r["status"] == "ok" for r in rows),
+                "dino predict CLI on best_model.npz failed")
+        print(f"cli: dino predict loaded best_model.npz (head and BatchNorm statistics) and "
+              f"wrote {len(rows)} masks")
+
+        for name, fn, argv in (
+                ("biomedclip cls", classification.main,
+                 ["--img_size", str(IMG), "--batch_size", str(BATCH), "--mona_variant", "hybrid",
+                  "--backbone_ckpt", files["backbone"], "--mona_weights", files["mona"]]),
+                ("dino cls", dino_classification.main, [])):
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = fn(["--dataset", "SYNTH", "--data_root", data, "--exp",
+                        f"chip_{name.replace(' ', '_')}",
+                        "--epochs", "1", "--val_interval", "1", "--num_workers", "4",
+                        "--device", "cuda", *argv])
+            counts = {k: v for k, v in read_counts().items() if v}
+            print(f"cli: {name} trained one augmented epoch + val/test evaluation in "
+                  f"{time.perf_counter() - t0:.1f} s; acc {stats['acc']:.4f}; launches {counts}")
+            require(np.isfinite(stats["loss"]) and np.isfinite(stats["acc"]),
+                    f"{name} CLI stats {stats}")
+            want = ("fused_ln_qkv_backward", "fused_block_infer") if name == "biomedclip cls" \
+                else ("flash_attention", "fused_mlp")
+            require(all(counts.get(k, 0) > 0 for k in want),
+                    f"the {name} CLI did not run through {want}")
     finally:
         os.chdir(cwd)
 
@@ -626,11 +988,14 @@ def main():
                 print(f"  ptxas: {line.strip()}")
 
     results = kernel_phase(dev)
+    augment_phase(dev)
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
         launches, files = slice_phase(dev, work)
         launches = {**train_phase(dev, files), **launches}
+        dino = dino_phase(dev)
+        launches.update({k: dino[k] for k in NEW_KERNELS})
         cli_phase(dev, work, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -644,7 +1009,11 @@ def main():
               "fused_attn_o_residual": ("fused_attn_o.cu", "fused_attn_o.py:51"),
               "fused_attn_o_residual_backward": ("fused_attn_o.cu", "fused_attn_o.py:83"),
               "fused_ln_mlp_residual": ("fused_ln_mlp.cu", "fused_ln_mlp.py:29"),
-              "fused_ln_mlp_residual_backward": ("fused_ln_mlp.cu", "fused_ln_mlp.py:49")}
+              "fused_ln_mlp_residual_backward": ("fused_ln_mlp.cu", "fused_ln_mlp.py:49"),
+              "flash_attention": ("flash_attention.cu", "flash_attention.py:64"),
+              "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:64"),
+              "lut_apply": ("lut.cu", "lut.py:53"),
+              "hist256": ("lut.cu", "lut.py:143")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]

@@ -6,8 +6,12 @@ kernel (eval and serving forwards, models/clip.py::infer_cfg); ``'auto'``
 composes the LN+QKV, attention+o-projection+residual and LN+MLP+residual
 kernels, which have backward kernels, so the train step differentiates
 through them (frozen tower, trainable adapters). Either route then applies
-the block's MONA adapter. The token sequence runs unpadded
-(N = grid^2 + 1): the kernels mask their ragged edges themselves.
+the block's MONA adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``)
+take their own route at any ``block_impl``: attention without the residual
+(``mha``'s LayerScale routes, through the flash-attention kernel), then the
+MLP through the fused-MLP kernel, each scaled before its residual add. The
+token sequence runs unpadded (N = grid^2 + 1): the kernels mask their ragged
+edges themselves.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ class ViTConfig:
     heads: int = 12
     mlp_ratio: float = 4.0
     act: str = "gelu"              # 'gelu' (timm/BiomedCLIP) | 'quick_gelu' (OpenAI)
+    ffn: str = "mlp"               # 'mlp' | 'swiglufused' (DINOv2 giant2)
     proj_dim: int | None = 512
     ln_eps: float = 1e-5           # timm uses 1e-6
     mona_variant: str = "hybrid"
@@ -50,18 +55,28 @@ class ViTConfig:
 
 
 class Block(nn.Module):
-    """Pre-norm block parameters: ln1, attn (q/k/v/o), ln2, mlp (fc1/fc2),
-    and ``mona`` once an adapter is injected."""
+    """Pre-norm block parameters: ln1, attn (q/k/v/o), ln2, mlp (fc1/fc2, or
+    SwiGLU's w12/w3 for ``ffn='swiglufused'``: hidden round8(2/3 * 4d)),
+    LayerScale ``ls1``/``ls2`` [D] when ``layerscale`` gives their initial
+    value, and ``mona`` once an adapter is injected."""
 
-    def __init__(self, gen, cfg: ViTConfig):
+    def __init__(self, gen, cfg: ViTConfig, *, layerscale: float | None = None):
         super().__init__()
         hidden = int(cfg.width * cfg.mlp_ratio)
         self.ln1 = LayerNorm(cfg.width)
         self.attn = Attention(gen, cfg.width)
         self.ln2 = LayerNorm(cfg.width)
         self.mlp = nn.Module()
-        self.mlp.fc1 = Linear(gen, cfg.width, hidden)
-        self.mlp.fc2 = Linear(gen, hidden, cfg.width)
+        if cfg.ffn == "swiglufused":
+            hidden = (int(hidden * 2 / 3) + 7) // 8 * 8
+            self.mlp.w12 = Linear(gen, cfg.width, 2 * hidden)
+            self.mlp.w3 = Linear(gen, hidden, cfg.width)
+        else:
+            self.mlp.fc1 = Linear(gen, cfg.width, hidden)
+            self.mlp.fc2 = Linear(gen, hidden, cfg.width)
+        if layerscale is not None:
+            self.ls1 = param(torch.full((cfg.width,), layerscale))
+            self.ls2 = param(torch.full((cfg.width,), layerscale))
 
 
 class ViT(nn.Module):
@@ -99,11 +114,26 @@ def embed_patches(p: ViT, cfg: ViTConfig, images, *, dtype=None):
     return x + p.pos.to(x.dtype)
 
 
+def run_mlp(mlp, h_in, act: str, *, dtype=None, ops=KERNELS):
+    """fc1 -> act -> fc2 through ``ops.fused_mlp``, or SwiGLU (silu(x1) * x2
+    -> w3) as plain products when the block carries w12/w3."""
+    if hasattr(mlp, "w12"):
+        x1, x2 = linear(mlp.w12, h_in, dtype=dtype).chunk(2, dim=-1)
+        return linear(mlp.w3, F.silu(x1) * x2, dtype=dtype)
+    x = h_in if dtype is None else h_in.to(dtype)
+    return ops.fused_mlp(x, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b, act=act)
+
+
 def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=None):
     """Pre-norm block, then the block's MONA adapter (in train mode when a
     dropout generator ``gen`` is given)."""
     x = x if dtype is None else x.to(dtype)
-    if cfg.block_impl == "fused_infer":
+    if hasattr(p, "ls1"):
+        a = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, ops=ops)
+        x = x + a * p.ls1.to(a.dtype)
+        m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops)
+        x = x + m * p.ls2.to(m.dtype)
+    elif cfg.block_impl == "fused_infer":
         x = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
                                   eps=cfg.ln_eps)
     elif cfg.block_impl == "auto":

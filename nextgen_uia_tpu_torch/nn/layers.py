@@ -14,8 +14,10 @@ comparisons go through the weight bridge (core/checkpoint.py).
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -130,3 +132,166 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1)
+
+
+def conv2d(p: Conv, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """NHWC x, HWIO weight, stride 1, SAME padding; returns NHWC."""
+    w = p.w
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding="same")
+    y = y.permute(0, 2, 3, 1)
+    return y + p.b.to(y.dtype)
+
+
+def conv2d_cat(p: Conv, x: torch.Tensor, sk: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """``conv2d(p, cat([x, sk], -1))`` without the concat: the kernel split
+    along its input channels, the two partial convolutions summed."""
+    c = x.shape[-1]
+    w = p.w if dtype is None else p.w.to(dtype)
+    xx, ss = (x, sk) if dtype is None else (x.to(dtype), sk.to(dtype))
+    y = F.conv2d(xx.permute(0, 3, 1, 2), w[:, :, :c].permute(3, 2, 0, 1), padding="same")
+    y = y + F.conv2d(ss.permute(0, 3, 1, 2), w[:, :, c:].permute(3, 2, 0, 1), padding="same")
+    y = y.permute(0, 2, 3, 1)
+    return y + p.b.to(y.dtype)
+
+
+def conv_transpose2d(p: Conv, x: torch.Tensor, *, stride: int, dtype=None) -> torch.Tensor:
+    """torch ConvTranspose2d semantics on NHWC with the JAX package's weight
+    [kh, kw, in, out] (torch's [in, out, kh, kw] is its transpose(2, 3, 0, 1))."""
+    w = p.w
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1), stride=stride)
+    y = y.permute(0, 2, 3, 1)
+    return y + p.b.to(y.dtype)
+
+
+class BatchNorm(nn.Module):
+    """``batchnorm_init``'s parameters: scale ones, bias zeros."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = param(torch.ones(dim))
+        self.bias = param(torch.zeros(dim))
+
+
+class BatchNormState(nn.Module):
+    """``batchnorm_init``'s running statistics: buffers ``mean`` (zeros) and
+    ``var`` (ones), saved beside the parameters but never trained."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+
+def batchnorm(p: BatchNorm, state: BatchNormState, x: torch.Tensor, *, train: bool,
+              momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """Channel-last BatchNorm. Train mode normalizes by the batch statistics
+    (differentiable) and updates ``state`` in place with the unbiased
+    variance, as the JAX package's returned state; eval mode uses ``state``."""
+    x32 = x.to(torch.float32)
+    if train:
+        axes = tuple(range(x.dim() - 1))
+        mean = x32.mean(axes)
+        var = x32.var(axes, unbiased=False)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            state.mean.copy_((1 - momentum) * state.mean + momentum * mean)
+            state.var.copy_((1 - momentum) * state.var + momentum * (var * n / max(n - 1, 1)))
+    else:
+        mean, var = state.mean, state.var
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
+
+
+def _bilinear_ac_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] taps of torch bilinear align_corners=True."""
+    dst = np.arange(n_out, dtype=np.float64)
+    src = dst * 0.0 if (n_out == 1 or n_in == 1) else dst * (n_in - 1) / (n_out - 1)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    t = src - i0
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0), (1.0 - t).astype(np.float32))
+    np.add.at(m, (rows, i1), t.astype(np.float32))
+    return m
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """torch ``nn.Upsample(mode='bilinear', align_corners=True)`` on NHWC, as
+    two float32 products with static tap matrices."""
+    (h_in, w_in), (h_out, w_out) = x.shape[1:3], out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    dt, y = x.dtype, x.to(torch.float32)
+    if h_in != h_out:
+        m = torch.from_numpy(_bilinear_ac_matrix(h_in, h_out)).to(x.device)
+        y = torch.einsum("oi,biwc->bowc", m, y)
+    if w_in != w_out:
+        m = torch.from_numpy(_bilinear_ac_matrix(w_in, w_out)).to(x.device)
+        y = torch.einsum("oi,bhic->bhoc", m, y)
+    return y.to(dt)
+
+
+def triangle_kernel(x: torch.Tensor) -> torch.Tensor:
+    """jax.image's 'bilinear' (triangle) kernel."""
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+def keys_cubic_kernel(x: torch.Tensor) -> torch.Tensor:
+    """jax.image's 'bicubic' kernel: Keys cubic with a = -0.5 (torch's
+    bicubic uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def scale_translate_weights(n_in: int, n_out: int, inv_scale: torch.Tensor,
+                            translation: torch.Tensor, kernel) -> torch.Tensor:
+    """[n, n_in, n_out] float32 weight matrices of jax.image.scale_and_translate
+    with antialias on, one per entry of ``inv_scale`` (1 / scale) and
+    ``translation`` [n] (the formula of jax._src.image.scale.compute_weight_mat):
+    when downsampling the kernel is widened by 1 / scale; the weights are
+    renormalized where taps fall outside the input, and zero for samples
+    outside it."""
+    f32 = torch.float32
+    dev = inv_scale.device
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    sample = ((torch.arange(n_out, dtype=f32, device=dev)[None, :] + 0.5) * inv_scale[:, None]
+              - (translation * inv_scale)[:, None] - 0.5)                  # [n, out]
+    src = torch.arange(n_in, dtype=f32, device=dev)
+    w = kernel((sample[:, None, :] - src[None, :, None]).abs()
+               / kernel_scale[:, None, None])                                # [n, in, out]
+    total = w.sum(1, keepdim=True)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), zero)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None, :], w, zero)
+
+
+@functools.lru_cache(maxsize=16)
+def _bicubic_aa_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_in, n_out] weights of jax.image.resize(method='bicubic') with its
+    default antialias=True; jax.image.resize takes 1 / scale of a Python
+    float, rounded to float32 once."""
+    inv = torch.tensor([1.0 / (n_out / n_in)], dtype=torch.float32)
+    return scale_translate_weights(n_in, n_out, inv, torch.zeros(1), keys_cubic_kernel)[0]
+
+
+def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """jax.image.resize(x, ..., 'bicubic') on NHWC float32 (antialiased when
+    downsampling; not torch's bicubic, whose a is -0.75 and which does not
+    widen the kernel), as two products."""
+    (h_in, w_in), (h_out, w_out) = x.shape[1:3], out_hw
+    y = x
+    if h_in != h_out:
+        m = _bicubic_aa_matrix(h_in, h_out).to(x.device, x.dtype)
+        y = torch.einsum("io,biwc->bowc", m, y)
+    if w_in != w_out:
+        m = _bicubic_aa_matrix(w_in, w_out).to(x.device, x.dtype)
+        y = torch.einsum("io,bhic->bhoc", m, y)
+    return y

@@ -14,7 +14,8 @@ import dataclasses
 from typing import Callable
 
 # modules, not their functions: fused_ln_qkv is both a module and its op
-from . import dwconv, fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
+from . import dwconv, flash_attention, fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
+from . import fused_mlp, lut
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,11 +25,17 @@ class BlockOps:
     fused_ln_qkv: Callable
     fused_attn_o_residual: Callable
     fused_ln_mlp_residual: Callable
+    flash_attention: Callable
+    fused_mlp: Callable
+    lut_apply: Callable
+    hist256: Callable
 
 
 KERNELS = BlockOps(fused_block.fused_block_infer, dwconv.mona_spatial,
                    fused_ln_qkv.fused_ln_qkv, fused_attn_o.fused_attn_o_residual,
-                   fused_ln_mlp.fused_ln_mlp_residual)
+                   fused_ln_mlp.fused_ln_mlp_residual, flash_attention.flash_attention,
+                   fused_mlp.fused_mlp, lut.lut_apply, lut.hist256)
 PLAIN = BlockOps(fused_block.fused_block_infer_plain, dwconv.mona_spatial_plain,
                  fused_ln_qkv.fused_ln_qkv_plain, fused_attn_o.fused_attn_o_residual_plain,
-                 fused_ln_mlp.fused_ln_mlp_residual_plain)
+                 fused_ln_mlp.fused_ln_mlp_residual_plain, flash_attention.flash_attention_plain,
+                 fused_mlp.fused_mlp_plain, lut.lut_apply_plain, lut.hist256_plain)

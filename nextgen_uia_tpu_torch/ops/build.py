@@ -58,6 +58,14 @@ SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, g, z, a, dpre, dz, dx, dtype, M, D, hidden, act,
     # eps, stream
     "nx_ln_mlp_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # q, k, v, o, bias, dtype, B, H, N, dh, sb, sh, sn, osb, osh, osn, causal, scale, stream
+    "nx_flash_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, P],
+    # x, w1, b1, w2, b2, h, out, dtype, M, D, hidden, act, stream
+    "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # img, lut, out, B, HW, stream
+    "nx_lut_apply": [P, P, P, I, I, P],
+    # img, hist, B, HW, stream
+    "nx_hist256": [P, P, I, I, P],
 }
 
 

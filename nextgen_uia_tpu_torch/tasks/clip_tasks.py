@@ -7,6 +7,7 @@ supervised trainer's entry point. Zero-shot comes with a later slice
 from __future__ import annotations
 
 import logging
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -20,6 +21,7 @@ from ..models.heads import PyramidHeadConfig, pyramid_head_apply, pyramid_head_i
 from ..ops import KERNELS
 from .common import (base_parser, build_clip_model, not_ported, resolve_device,
                      seed_everything, setup_run)
+from .supervised import Bundle, preprocess, run_supervised
 
 
 def extract_layers_for(depth: int):
@@ -47,59 +49,50 @@ def _build_supervised(args, family: str, task: str, gen: torch.Generator):
     return cfg, hcfg, params
 
 
-def _make_forward(cfg, hcfg, *, train: bool):
+def _make_forward(cfg, hcfg, *, train: bool, strong: bool = False, weak: bool = False):
     """The model forward over uint8 images [B, H, W], scaled to [0, 1] and
-    the grayscale channel repeated to 3.
+    the grayscale channel repeated to 3 (tasks/supervised.py::preprocess).
 
     Eval (``train=False``): (params, images_u8) -> logits, every tower block
     through the forward-only whole-block kernel (``infer_cfg``).
     Train: (params, images_u8, masks_u8 or None, gen) -> (logits, masks
-    NCHW int64 or None), the blocks through the differentiable block
-    kernels, with dropout drawn from the generator ``gen`` (None: no
-    dropout). On-device augmentation is not ported (ROADMAP.md, section A,
-    item 8): callers refuse its flags.
+    NCHW int64 or None), the batch first augmented on the device (``strong``
+    / ``weak``, at the head's image size), the blocks through the
+    differentiable block kernels, the augmentation plan and the dropout
+    drawn from the generator ``gen`` (None: no dropout).
     """
     taps = extract_layers_for(cfg.vision.depth)
-
-    def images(u8):
-        return (u8.to(torch.float32) / 255.0)[..., None].expand(-1, -1, -1, 3)
+    augs = SimpleNamespace(strong_augs=strong, weak_augs=weak, img_size=hcfg.img_size)
 
     if not train:
         ecfg = clip_mod.infer_cfg(cfg)
 
         def forward(params, images_u8, ops=KERNELS):
-            _, acts = clip_mod.encode_image(params["backbone"], ecfg, images(images_u8),
-                                            extract_layers=taps, ops=ops)
+            x, _ = preprocess(images_u8, None, augs, train=False)
+            _, acts = clip_mod.encode_image(params["backbone"], ecfg, x, extract_layers=taps,
+                                            ops=ops)
             return pyramid_head_apply(params["head"], hcfg, acts)
 
         return forward
 
     def forward_train(params, images_u8, masks_u8=None, gen=None, ops=KERNELS):
-        _, acts = clip_mod.encode_image(params["backbone"], cfg, images(images_u8),
-                                        extract_layers=taps, ops=ops, gen=gen)
-        logits = pyramid_head_apply(params["head"], hcfg, acts, gen=gen)
-        masks = None if masks_u8 is None else masks_u8[:, None].long()
-        return logits, masks
+        x, masks = preprocess(images_u8, masks_u8, augs, train=True, gen=gen, ops=ops)
+        _, acts = clip_mod.encode_image(params["backbone"], cfg, x, extract_layers=taps,
+                                        ops=ops, gen=gen)
+        return pyramid_head_apply(params["head"], hcfg, acts, gen=gen), masks
 
     return forward_train
 
 
 def supervised_main(family: str, task: str, argv=None):
     """The supervised seg/cls trainer (reference CLI defaults: 200 epochs,
-    batch 32, hybrid MONA for biomedclip, augmentation on - which the port
-    refuses until data/augment.py is ported: pass --no-strong_augs
-    --no-weak_augs)."""
-    from .supervised import Bundle, run_supervised
-
+    batch 32, hybrid MONA for biomedclip, strong and weak augmentation on)."""
     if family not in clip_mod.FAMILIES:
         raise not_ported(f"Supervised training of the {family} family",
                          "section A, items 10-13")
     p = base_parser(f"{family}_{task}", epochs=200, batch_size=32, strong_augs=True,
                     weak_augs=True, mona_variant="hybrid")
     args = p.parse_args(argv)
-    if args.strong_augs or args.weak_augs:
-        raise not_ported("on-device augmentation (data/augment.py, K13; run with "
-                         "--no-strong_augs --no-weak_augs)", "section A, item 8")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
     device = resolve_device(args.device)
@@ -113,7 +106,8 @@ def supervised_main(family: str, task: str, argv=None):
                                task="seg" if task == "seg" else "cls",
                                cache=args.cache_images)
     params.to(device)
-    fwd_train = _make_forward(cfg, hcfg, train=True)
+    fwd_train = _make_forward(cfg, hcfg, train=True, strong=args.strong_augs,
+                              weak=args.weak_augs)
     fwd_eval = _make_forward(cfg, hcfg, train=False)
 
     def forward_train(params, batch, gen):

@@ -42,6 +42,7 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--data_root", type=str,
                    default=os.environ.get("NEXTGEN_UIA_DATA", "../data/NextGen-UIA"))
     p.add_argument("--img_size", type=int, default=defaults.get("img_size", 224))
+    p.add_argument("--patch_size", type=int, default=16)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--strong_augs", default=defaults.get("strong_augs", False),
                    action=argparse.BooleanOptionalAction)

@@ -1,0 +1,170 @@
+"""Trainers for the supervised engine's other families (counterpart of
+nextgen_uia_tpu/tasks/other_tasks.py). Ported: DINOv2 - a frozen DINOv2
+encoder with the 4-layer classification head, or the linear or UNet
+decoder (``--decoder_type``), trained by the supervised engine with its
+default augmentation, and the bundles the predict CLI serves. CLIPSeg and
+the ResNet/UNet baselines come with later slices (ROADMAP.md, section A,
+items 12-13); the dino few-shot trainers are refused (item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import torch
+from torch import nn
+
+from ..core import checkpoint as ckpt
+from ..core.experiment import model_summary
+from ..core.partition import by_keywords
+from ..data import datasets as D
+from ..models import dinov2 as DV
+from ..ops import KERNELS
+from .common import base_parser, not_ported, resolve_device, seed_everything, setup_run
+from .supervised import Bundle, preprocess, run_supervised
+
+
+def _dino_compute_dtype(args):
+    """--compute_dtype for the frozen encoder; the trainable heads stay
+    float32."""
+    return torch.bfloat16 if args.compute_dtype == "bfloat16" else None
+
+
+def _build_dino(args, gen: torch.Generator):
+    """(cfg, encoder on the CPU): the arch's config (``--debug_tiny``:
+    width 64, depth 5, 4 heads), seeded random or ``--backbone_ckpt``
+    weights (rooted at 'encoder/' or bare)."""
+    cfg = DV.dinov2_config(getattr(args, "dino_arch", None) or "vit_base")
+    if args.debug_tiny:
+        cfg = dataclasses.replace(cfg, width=64, depth=5, heads=4)
+    encoder = DV.dinov2_init(gen, cfg)
+    if args.backbone_ckpt:
+        try:
+            _, n = ckpt.load_into(args.backbone_ckpt, nn.ModuleDict({"encoder": encoder}))
+        except ckpt.NoMatch:
+            _, n = ckpt.load_into(args.backbone_ckpt, encoder)
+        logging.info(f"Loaded {n} DINOv2 tensors from {args.backbone_ckpt}")
+    else:
+        logging.warning("No --backbone_ckpt: DINOv2 weights are RANDOM (convert with "
+                        "nextgen_uia_tpu.convert dinov2)")
+    return cfg, encoder
+
+
+def add_dino_flags(p, *, seg: bool = False):
+    """The dino trainers' flags: 518 px, patch 14, --dino_arch, and for seg
+    --decoder_type and --head_dtype."""
+    p.set_defaults(patch_size=14, img_size=518)
+    p.add_argument("--dino_arch", type=str, default="vit_base", choices=sorted(DV.DINOV2_ARCHS))
+    if seg:
+        p.add_argument("--decoder_type", type=str, default="unet", choices=["linear", "unet"])
+        p.add_argument("--head_dtype", type=str, default="float32",
+                       choices=["float32", "bfloat16"])
+
+
+def _features(encoder, cfg, x, n, dt, ops):
+    """The frozen encoder's last-n layers, without autograd (the
+    counterpart of the JAX trainer's stop_gradient)."""
+    with torch.no_grad():
+        return DV.get_intermediate_layers(encoder, x, n, cfg, dtype=dt, ops=ops)
+
+
+def build_dino_cls_bundle(args, gen: torch.Generator) -> Bundle:
+    """Frozen DINOv2 encoder + 4-layer cls head (dataset-free: the train
+    trainer and the predict CLI share it)."""
+    cfg, encoder = _build_dino(args, gen)
+    head = DV.ClsHead(gen, cfg.width, num_classes=args.num_classes, layers=4)
+    params = nn.ModuleDict({"encoder": encoder, "head": head})
+    logging.info(model_summary({"model": params}, trainable_pred=by_keywords("head")))
+    dt = _dino_compute_dtype(args)
+
+    def logits_fn(params, x, ops):
+        feats = _features(params["encoder"], cfg, x, 4, dt, ops)
+        feats = [(p.float(), c.float()) for p, c in feats]
+        return DV.cls_head_apply(params["head"], feats, layers=4)
+
+    def forward_train(params, batch, gen, ops=KERNELS):
+        x, _ = preprocess(batch["image"], None, args, train=True, gen=gen, ops=ops)
+        return logits_fn(params, x, ops), None
+
+    def forward_eval(params, images_u8, ops=KERNELS):
+        x, _ = preprocess(images_u8, None, args, train=False)
+        return logits_fn(params, x, ops)
+
+    return Bundle(task="cls", params=params, trainable_pred=by_keywords("head"),
+                  forward_train=forward_train, forward_eval=forward_eval)
+
+
+def build_dino_seg_bundle(args, gen: torch.Generator) -> Bundle:
+    """Frozen DINOv2 encoder + linear or UNet decoder (dataset-free). The
+    UNet's BatchNorm running statistics are the bundle's ``bn_state``."""
+    cfg, encoder = _build_dino(args, gen)
+    bn = None
+    if args.decoder_type == "unet":
+        head = DV.UNetDecoder(gen, cfg.width, num_classes=args.num_classes)
+        bn = DV.unet_decoder_state(cfg.width, num_classes=args.num_classes)
+    else:
+        head = DV.LinearDecoder(gen, cfg.width, num_classes=args.num_classes)
+    params = nn.ModuleDict({"encoder": encoder, "head": head})
+    logging.info(model_summary({"model": params}, trainable_pred=by_keywords("head")))
+    n_layers = 5 if args.decoder_type == "unet" else 1
+    dt = _dino_compute_dtype(args)
+    head_dt = (torch.bfloat16 if args.head_dtype == "bfloat16" and args.decoder_type == "unet"
+               else None)
+
+    def logits_fn(params, x, train, ops):
+        feats = _features(params["encoder"], cfg, x, n_layers, dt, ops)
+        if head_dt is None:
+            feats = [(p.float(), c.float()) for p, c in feats]
+        if args.decoder_type == "unet":
+            return DV.unet_decoder_apply(params["head"], bn, feats, image_size=args.img_size,
+                                         patch_size=args.patch_size, train=train,
+                                         dtype=head_dt)
+        return DV.linear_decoder_apply(params["head"], feats[-1][0], image_size=args.img_size,
+                                       patch_size=args.patch_size)
+
+    def forward_train(params, batch, gen, ops=KERNELS):
+        x, m = preprocess(batch["image"], batch.get("mask"), args, train=True, gen=gen, ops=ops)
+        return logits_fn(params, x, True, ops), m
+
+    def forward_eval(params, images_u8, ops=KERNELS):
+        x, _ = preprocess(images_u8, None, args, train=False)
+        return logits_fn(params, x, False, ops)
+
+    return Bundle(task="seg", params=params, trainable_pred=by_keywords("head"),
+                  forward_train=forward_train, forward_eval=forward_eval, bn_state=bn)
+
+
+def _dino_main(task: str, argv, fewshot: bool):
+    if fewshot:
+        raise not_ported("The dino few-shot trainers", "section A, item 11")
+    # reference dino CLI defaults: 1000 epochs, batch 24 (dino/classification.py:50-51,
+    # dino/segmentation.py:49-50)
+    p = base_parser(f"dino_{'classification' if task == 'cls' else 'segmentation'}",
+                    epochs=1000, batch_size=24, strong_augs=True, weak_augs=True)
+    add_dino_flags(p, seg=task == "seg")
+    args = p.parse_args(argv)
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+    if args.lora_weights:
+        raise not_ported("LoRA", "section A, item 4")
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = setup_run(args, "test" if args.test else "train")
+    build = build_dino_cls_bundle if task == "cls" else build_dino_seg_bundle
+    bundle = build(args, gen)
+    bundle.params.to(device)
+    if bundle.bn_state is not None:
+        bundle.bn_state.to(device)
+    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task=task,
+                               cache=args.cache_images)
+    tag = "dino_classification" if task == "cls" else "dino_segmentation"
+    return run_supervised(args, bundle, datasets, run_path, tag, device)
+
+
+def dino_classification_main(argv=None, *, fewshot: bool = False):
+    return _dino_main("cls", argv, fewshot)
+
+
+def dino_segmentation_main(argv=None, *, fewshot: bool = False):
+    return _dino_main("seg", argv, fewshot)

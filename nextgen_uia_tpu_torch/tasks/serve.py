@@ -1,5 +1,7 @@
-"""Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py), the
-supervised ``--task cls`` / ``--task seg`` route of the CLIP families.
+"""Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py): the
+supervised ``--task cls`` / ``--task seg`` route of the CLIP families, and
+the supervised-engine bundles of the DINOv2 family (served through the same
+``forward_eval`` the trainer evaluates with).
 
 Point it at a directory (or a .txt list) of images; it decodes them to
 uint8 grayscale batches, stages them on the device, runs the PyramidHead
@@ -18,12 +20,21 @@ import os
 import numpy as np
 import torch
 
+from ..core import checkpoint as ckpt
 from ..core import train as T
 from ..data import pipeline as P
 from ..models import clip as clip_mod
 from ..ops import KERNELS
+from . import other_tasks as OT
 from .clip_tasks import _build_supervised, _make_forward
 from .common import base_parser, not_ported, resolve_device, seed_everything, setup_logging
+
+# supervised-engine families: (family, task) -> (dataset-free bundle factory,
+# the flag adder its parser needs); CLIPSeg and the baselines come later
+BUNDLE_FAMILIES = {
+    ("dino", "cls"): (OT.build_dino_cls_bundle, OT.add_dino_flags),
+    ("dino", "seg"): (OT.build_dino_seg_bundle, OT.add_dino_flags),
+}
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 
@@ -78,17 +89,24 @@ def make_infer(forward, params, device):
 def predict_main(family: str = "biomedclip", argv=None):
     import argparse
 
-    if family not in clip_mod.FAMILIES:
-        raise not_ported(f"Serving the {family} family", "section A, items 11-13")
+    is_clip = family in clip_mod.FAMILIES
+    if not is_clip and not any(f == family for f, _ in BUNDLE_FAMILIES):
+        raise not_ported(f"Serving the {family} family", "section A, items 10-13")
+    default_task = "zero_shot" if is_clip else "cls"
+    tasks = ["zero_shot", "cls", "seg"] if is_clip else ["cls", "seg"]
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--task", type=str, default="zero_shot")
-    if pre.parse_known_args(argv)[0].task == "zero_shot":
+    pre.add_argument("--task", type=str, default=default_task)
+    task = pre.parse_known_args(argv)[0].task
+    if task == "zero_shot":
         raise not_ported("--task zero_shot (BERT text tower and tokenizer)",
                          "section A, item 10")
+    if task not in tasks:
+        raise SystemExit(f"{family} predict supports --task {tasks}, not {task!r}")
 
     p = base_parser(f"{family}_predict", batch_size=32)
-    p.add_argument("--task", type=str, default="zero_shot",
-                   choices=["zero_shot", "cls", "seg"])
+    p.add_argument("--task", type=str, default=default_task, choices=tasks)
+    if not is_clip:
+        BUNDLE_FAMILIES[(family, task)][1](p, seg=task == "seg")
     p.add_argument("--images", type=str, required=True,
                    help="directory of images or a .txt list of paths")
     p.add_argument("--out", type=str, default=None,
@@ -113,13 +131,25 @@ def predict_main(family: str = "biomedclip", argv=None):
         raise SystemExit(f"no images found under {args.images}")
     logging.info(f"Serving {len(paths)} images -> {out_dir} on {device}")
 
-    cfg, hcfg, params = _build_supervised(args, family, args.task, gen)
+    if is_clip:
+        cfg, hcfg, params = _build_supervised(args, family, args.task, gen)
+        forward = _make_forward(cfg, hcfg, train=False)
+    else:
+        bundle = BUNDLE_FAMILIES[(family, task)][0](args, gen)
+        params, forward = bundle.params, bundle.forward_eval
+        if args.head_weights:
+            tree = {"params": params}
+            if bundle.bn_state is not None:
+                tree["bn"] = bundle.bn_state.to(device)
+            _, n = ckpt.load_into(args.head_weights, torch.nn.ModuleDict(tree))
+            logging.info(f"Loaded {n} tensors from {args.head_weights}")
+        elif bundle.bn_state is not None:
+            bundle.bn_state.to(device)
     if not args.head_weights:
         logging.warning("serving a supervised head without --head_weights: head is RANDOM")
-    infer = make_infer(_make_forward(cfg, hcfg, train=False), params.to(device),
-                       device)
+    infer = make_infer(forward, params.to(device), device)
     if args.task == "cls":
-        names = _names(args, [str(i) for i in range(hcfg.num_classes)])
+        names = _names(args, [str(i) for i in range(args.num_classes)])
         _run_cls(paths, args, infer, device, names, out_dir)
     else:
         _run_seg(paths, args, infer, device, out_dir)

@@ -9,9 +9,14 @@ A bundle provides:
   task            'cls' | 'seg'
   params          the model (nn.ModuleDict of backbone and head)
   trainable_pred  path predicate for the trainable subset
-  forward_train(params, batch, gen) -> (logits, masks NCHW int or None)
+  forward_train(params, batch, gen) -> (logits, augmented masks NCHW int or None)
   forward_eval(params, images_u8)   -> logits
-Logits are [B, C] (cls) or [B, C, H, W] (seg).
+  bn_state        BatchNorm running statistics (a module of buffers) or None
+Logits are [B, C] (cls) or [B, C, H, W] (seg). Where the JAX engine threads
+the BatchNorm state through the step (forward_train returns it), the port's
+train forward updates ``bn_state``'s buffers in place; it is saved beside
+the trainable parameters (``bn/...`` in best_model.npz and the resumable
+state, the JAX package's names) and the eval forward reads it.
 """
 
 from __future__ import annotations
@@ -27,11 +32,32 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core import train as T
 from ..core.experiment import TBWriter, archive_log, backup_folder, save_results_csv
-from ..core.partition import partition
+from ..core.partition import flatten_with_paths, partition
 from ..data import pipeline as P
+from ..data.augment import augment_batch
 from ..losses import dice_ce_loss, focal_loss
 from ..metrics.segmentation import ClsAccumulator, SegAccumulator, one_hot_argmax
+from ..ops import KERNELS
 from ..utils.viz import plot_roc, roc_figure, visualize_seg
+
+
+def preprocess(images_u8, masks_u8, args, *, train: bool, gen=None, ops=KERNELS):
+    """uint8 [B, H, W] -> float NHWC in [0, 1], augmented on the device in
+    train mode when ``args.strong_augs``/``args.weak_augs`` ask for it (from
+    the generator ``gen``), the grayscale channel repeated to 3. Returns (x,
+    masks NCHW int64 or None)."""
+    x = (images_u8.to(torch.float32) / 255.0)[..., None]
+    m = None if masks_u8 is None else masks_u8.to(torch.float32)[..., None]
+    if train and (args.strong_augs or args.weak_augs):
+        if gen is None:
+            raise ValueError("augmentation needs a generator on the batch's device")
+        with torch.profiler.record_function("augment"):  # a host-time range for profiles
+            x, m = augment_batch(gen, x, m, strong=args.strong_augs, weak=args.weak_augs,
+                                 out_size=args.img_size, ops=ops)
+    x = x.expand(-1, -1, -1, 3)
+    if m is not None:
+        m = m.permute(0, 3, 1, 2).long()
+    return x, m
 
 
 @dataclass
@@ -41,6 +67,7 @@ class Bundle:
     trainable_pred: Callable[[str], bool]
     forward_train: Callable
     forward_eval: Callable
+    bn_state: torch.nn.Module | None = None
 
 
 def np_criterion_for(task: str):
@@ -84,9 +111,12 @@ def finish_seg(args, stats, names, vis, run_path):
 
 def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
                    device: torch.device):
-    task, params = bundle.task, bundle.params
+    task, params, bn = bundle.task, bundle.params, bundle.bn_state
     trainable, _ = partition(params, bundle.trainable_pred)
     names = list(trainable)
+
+    def bn_flat():
+        return {} if bn is None else {f"bn/{k}": v for k, v in flatten_with_paths(bn)}
 
     def loss_fn(mb, gen):
         logits, masks = bundle.forward_train(params, mb, gen)
@@ -135,7 +165,10 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
         start_epoch, skip_updates = 0, 0
         if args.resume and os.path.exists(last_path):
             flat, meta = ckpt.load_train_state(last_path)
-            step.load_state({k[len("train/"):]: v for k, v in flat.items()}, names)
+            step.load_state({k[len("train/"):]: v for k, v in flat.items()
+                             if k.startswith("train/")}, names)
+            if bn is not None:
+                ckpt.merge_flat(flat, torch.nn.ModuleDict({"bn": bn}), source=last_path)
             start_epoch = int(meta.get("epoch", 0))
             skip_updates = int(meta.get("updates_into_epoch", 0))
             T.restore_stopper(stopper, meta)
@@ -144,6 +177,7 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
 
         def save_last(epoch_, updates_into_epoch_):
             flat = {f"train/{k}": v for k, v in step.state(names).items()}
+            flat.update({k: v.detach().cpu().numpy() for k, v in bn_flat().items()})
             ckpt.save_train_state(last_path, flat, extra={
                 "epoch": epoch_, "updates_into_epoch": updates_into_epoch_,
                 "applied_updates": step.applied, **T.stopper_meta(stopper)})
@@ -213,7 +247,8 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
                                  f"val {key_metric}={val_metric:.4f}")
                     if stopper.update(val_metric, epoch):
                         n = ckpt.save_flat(best_path,
-                                           {f"params/{k}": v for k, v in trainable.items()})
+                                           {**{f"params/{k}": v for k, v in trainable.items()},
+                                            **bn_flat()})
                         logging.info(f"Best model saved ({n} tensors) at epoch {epoch + 1}")
                     taccum, _, _ = evaluate("test")
                     logging.info(f"  [test during training] {key_metric}="
@@ -231,7 +266,8 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
             return {"preempted": True}
 
     if os.path.exists(best_path):
-        _, n = ckpt.load_into(best_path, torch.nn.ModuleDict({"params": params}))
+        tree = {"params": params, **({"bn": bn} if bn is not None else {})}
+        _, n = ckpt.load_into(best_path, torch.nn.ModuleDict(tree))
         logging.info(f"Loaded {n} tensors from {best_path}")
 
     accum, names_out, vis = evaluate("test")

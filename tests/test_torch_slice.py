@@ -170,7 +170,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from nextgen_uia_tpu_torch.tasks.serve import predict_main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict_main("dino", base + ["--task", "cls"])
+        predict_main("clipseg", base + ["--task", "seg"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--images", str(tmp_path / "imgs"), "--task", "seg", "--debug_tiny"])

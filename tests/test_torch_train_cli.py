@@ -2,9 +2,10 @@
 imports nothing of the JAX package.
 
 The trainer runs ``--debug_tiny --img_size 32`` on tests/synth_data.py's
-dataset with augmentation off and hybrid MONA: it writes results.csv in the
-JAX CLI's layout, a best_model.npz that the JAX package loads into its own
-trainable tree, and a last_state.npz that ``--resume`` continues from.
+dataset with hybrid MONA, augmentation off and (a run of its own) at its
+default augmentation: it writes results.csv in the JAX CLI's layout, a
+best_model.npz that the JAX package loads into its own trainable tree, and a
+last_state.npz that ``--resume`` continues from.
 """
 
 import ast
@@ -98,20 +99,39 @@ def test_trainer_cli_writes_what_the_jax_package_reads(synth, tmp_path):
 
 
 def test_trainer_cli_refuses_what_is_not_ported(synth):
-    from nextgen_uia_tpu_torch.tasks.biomedclip import classification, segmentation
+    from nextgen_uia_tpu_torch.tasks import other_tasks
+    from nextgen_uia_tpu_torch.tasks.biomedclip import segmentation
+    from nextgen_uia_tpu_torch.tasks.dino import classification as dino_cls
 
     root, mona = synth
     base = _argv(root, mona, "--epochs", "1")
-    augs_default = [a for a in base if a not in ("--no-strong_augs", "--no-weak_augs")]
-    for argv in (augs_default, base + ["--strong_augs"], base + ["--weak_augs"],
-                 base + ["--n_data", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            segmentation.main(argv)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        classification.main(base + ["--strong_augs"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        segmentation.main(base + ["--n_data", "2"])
+    dino = ["--dataset", "BUSI", "--data_root", root, "--debug_tiny", "--img_size", "28",
+            "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        other_tasks.dino_segmentation_main(dino, fewshot=True)
+    with pytest.raises(NotImplementedError, match="LoRA.*ROADMAP"):
+        dino_cls.main(dino + ["--lora_weights", "x.npz"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             segmentation.main([a for a in base if a not in ("--device", "cpu")])
+
+
+def test_trainer_cli_runs_with_default_augmentation(synth, tmp_path):
+    """The trainer's defaults (--strong_augs --weak_augs) on the CPU: the
+    batch is augmented on the device before the forward, and the run ends
+    with finite stats and its best_model.npz."""
+    from nextgen_uia_tpu_torch.tasks.biomedclip import classification, segmentation
+
+    root, mona = synth
+    augs_default = [a for a in _argv(root, mona, "--epochs", "1")
+                    if a not in ("--no-strong_augs", "--no-weak_augs")]
+    stats = segmentation.main(augs_default)
+    assert np.isfinite(stats["loss"]) and np.isfinite(stats["dice_mean"])
+    assert (tmp_path / "runs" / "pseg" / "BUSI" / "train" / "best_model.npz").exists()
+    stats = classification.main(augs_default + ["--exp", "pcls"])
+    assert np.isfinite(stats["acc"])
 
 
 def _imports(path):
