@@ -10,11 +10,14 @@
    PyTorch version on the card, at the main paths' shapes ([32, 197, 768],
    12 heads, hidden 3072; MONA [32, 14, 14, 64]; flash attention [24, 12,
    1370, 64] and the fused MLP [32880, 768] x 3072, DINOv2-B/14 at 518 px;
-   the lookup and histogram [24, 518, 518]) and at one odd shape each, with
-   CUDA-event times and the bound from the card's peak rates: float32
-   max|d| <= 1e-4 * max|ref| for every output; bfloat16 against the float32
-   plain version on the bf16-rounded inputs max|d| <= 3e-2 * max(1,
-   max|ref|); the lookup and histogram exactly equal.
+   the flash-attention backward at the LoRA fine-tune's [16, 197, 12, 64]
+   and at [24, 12, 1370, 64]; the causal text block [256, 77, 512], 8
+   heads; the lookup and histogram [24, 518, 518]) and at one odd shape
+   each, with CUDA-event times and the bound from the card's peak rates:
+   float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
+   the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
+   max(1, max|ref|) (3e-2 * max|ref| for the flash-attention output and
+   gradients); the lookup and histogram exactly equal.
 4. Augmentation phase: one strong+weak plan at [32, 224, 224] and at [24,
    518, 518] through the kernels and through the plain versions (images and
    masks equal; lookup/histogram launches = the slots that drew equalize).
@@ -33,9 +36,16 @@
    augmentation on, bf16 encoder, float32 head (launch counts, loss and head
    gradients against the plain path, BatchNorm statistics moving, the loss
    falling, times, peak memory, a profiler table, the eval forward's img/s).
-8. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
-   augmentation, and the predict CLIs on their best_model.npz.
-9. Prints one JSON line of per-kernel results, then the final status line.
+8. Fine-tune phase: the OpenAI CLIP LoRA contrastive fine-tune at full
+   width (ViT-B/16 with LoRA in 12 blocks, the 12-layer causal text tower,
+   bf16, batch 64 in 4 microbatches): 512 captions tokenized and cached
+   through the causal text blocks, one update's launch counts, loss and
+   LoRA/bias gradients against the plain path, the loss falling over 10
+   updates, ms per update, a profiler table.
+9. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
+   augmentation, the predict CLIs on their best_model.npz, both cls
+   trainers, and the OpenAI LoRA fine-tune CLI (one epoch).
+10. Prints one JSON line of per-kernel results, then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it.
 """
@@ -52,6 +62,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEG_CLASSES, IMG, BATCH, RAGGED, N_BATCHES = 2, 224, 32, 5, 4
 DINO_IMG, DINO_BATCH, DINO_TOKENS = 518, 24, 37 * 37 + 1
+FT_BATCH, FT_ACCUM, FT_MICRO = 64, 4, 16     # the fine-tune's batch, accumulation, microbatch
+TEXT_CHUNK, N_CAPTIONS = 256, 512            # the text cache's chunk, captions cached
 
 
 def require(cond, msg):
@@ -105,7 +117,8 @@ def kernel_phase(dev):
     import torch
     import torch.nn.functional as F
 
-    from nextgen_uia_tpu_torch.models.vit import VIT_B16_TIMM, Block, ViTConfig
+    from nextgen_uia_tpu_torch.models.text_clip import TextConfig
+    from nextgen_uia_tpu_torch.models.vit import VIT_B16_OPENAI, VIT_B16_TIMM, Block, ViTConfig
     from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_block, fused_ln_mlp
     from nextgen_uia_tpu_torch.ops import fused_ln_qkv
 
@@ -314,6 +327,100 @@ def kernel_phase(dev):
           f"max|d| {err:.3e} (<= {BF16_BOUND * scale:.3e}, max|ref| {scale:.3e})")
     require(err <= BF16_BOUND * scale, "flash_attention bfloat16 with bias and causal mismatch")
 
+    # K7 backward: the LoRA fine-tune's shape [16, 197, 12, 64] (bnhd, as
+    # mha's LoRA route hands it over) with a key bias, float32 and bf16; odd
+    # cases: float32 causal N = 77 with the bias's gradient, bf16 causal N =
+    # 333 with a bias; and DINOv2's long N [24, 12, 1370, 64]. Every gradient
+    # against flash_attention_backward_plain on the same (bf16-rounded)
+    # inputs: float32 1e-4 * max|ref|, bf16 3e-2 * max|ref| (outputs ~0.1)
+    fb_n, fb_b = VIT_B16_OPENAI.seq_len, FT_MICRO
+
+    def k7_bwd_case(shape, layout, causal, bias, bias_grad, dtype):
+        bb, nn_ = shape[0], shape[1] if layout == "bnhd" else shape[2]
+        q, k, v, g = (randn(*shape) for _ in range(4))
+        if dtype == bf16:
+            q, k, v, g = (rounded(t) for t in (q, k, v, g))
+        kb = randn(bb, nn_) if bias else None
+        args = [t.to(dtype) for t in (q, k, v)]
+        with torch.no_grad():
+            out, lse = fa.flash_attention_forward(*args, bias=kb, causal=causal, layout=layout)
+            got = fa.flash_attention_backward(*args, out, g.to(dtype), lse, bias=kb,
+                                              causal=causal, layout=layout, bias_grad=bias_grad)
+            want = fa.flash_attention_backward_plain(q, k, v, kb, g, causal=causal, layout=layout)
+            torch.cuda.synchronize()
+        n_out = 4 if bias_grad else 3
+        errs = errors(tuple(got[:n_out]), tuple(want[:n_out]))
+        lim = F32_BOUND if dtype == f32 else BF16_BOUND
+        ratio = max(d / (lim * s) for d, s in errs)
+        require(ratio <= 1.0, f"flash_attention_backward {dtype} {shape} {layout} causal={causal} "
+                              f"bias={bias}: max|d| / limit = {ratio:.3f}")
+        return ratio, errs, (args, out, lse, g.to(dtype), kb)
+
+    cases = [((fb_b, fb_n, h, dh), "bnhd", False, True, False, bf16),
+             ((fb_b, fb_n, h, dh), "bnhd", False, True, True, f32),
+             ((2, 3, 77, 64), "bhnd", True, True, True, f32),
+             ((2, 333, h, dh), "bnhd", True, True, False, bf16),
+             ((db, h, dn, dh), "bhnd", False, False, False, bf16)]
+    outs = [k7_bwd_case(*c) for c in cases]
+    for c, (ratio, errs, _) in zip(cases, outs):
+        print(f"flash_attention_backward: {c[5]} {list(c[0])} {c[1]} causal={c[2]} bias={c[3]} "
+              f"bias_grad={c[4]}: max|d| / limit {ratio:.3e} (dq, dk, dv"
+              f"{', dbias' if c[4] else ''} max|d| "
+              + ", ".join(f"{d:.2e}" for d, _ in errs) + ")")
+
+    def sdpa_backward(args, g, kb, layout):
+        """scaled_dot_product_attention's backward through autograd on the
+        same inputs, [B, H, N, dh] views, the bias as a float mask."""
+        def bhnd(t):
+            return t.transpose(1, 2) if layout == "bnhd" else t
+        qs = [bhnd(t).detach().requires_grad_() for t in args]
+        gs = bhnd(g)
+        mask = None if kb is None else kb[:, None, None, :].to(qs[0].dtype)
+        o = F.scaled_dot_product_attention(*qs, attn_mask=mask)
+        return lambda: torch.autograd.grad(o, qs, gs, retain_graph=True)
+
+    def k7_bwd_cost(bb, nn_):
+        return (10 * bb * h * nn_ * nn_ * dh,
+                8 * bb * h * nn_ * dh * 2 + 4 * bb * h * nn_ + 4 * bb * nn_)
+
+    (args, out, lse, gb, kb) = outs[0][2]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fa.flash_attention_backward(*args, out, gb, lse, bias=kb,
+                                                         layout="bnhd", bias_grad=False), 20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(*args, kb, gb,
+                                                                     layout="bnhd"), 5, warmup=1)
+    lib_ms = cuda_ms(sdpa_backward(args, gb, kb, "bnhd"), 20)
+    b_ms, b_by = bound(*k7_bwd_cost(fb_b, fb_n))
+    results["flash_attention_backward"] = dict(
+        max_abs_err=max(d for d, _ in outs[0][1]), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    (args, out, lse, gb, kb) = outs[4][2]
+    with torch.no_grad():
+        long_ms = cuda_ms(lambda: fa.flash_attention_backward(*args, out, gb, lse,
+                                                              layout="bhnd"), 10)
+    long_lib = cuda_ms(sdpa_backward(args, gb, None, "bhnd"), 10)
+    long_b, long_by = bound(*k7_bwd_cost(db, dn))
+    print(f"flash_attention_backward: [{fb_b}, {h}, {fb_n}, {dh}] bf16 with key bias: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (scaled_dot_product_attention "
+          f"backward) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); [{db}, {h}, {dn}, {dh}]: "
+          f"kernel {long_ms:.4f} ms, library {long_lib:.4f} ms, bound {long_b:.4f} ms ({long_by})")
+
+    # K1 with the causal mask: the CLIP text block (width 512, 8 heads,
+    # hidden 2048, quick_gelu) at the text cache's chunk [256, 77, 512], and
+    # an odd [3, 50, 128] with 2 heads and a key bias
+    tcfg = TextConfig()
+    tb, tn, td, th = TEXT_CHUNK, tcfg.context_length, tcfg.width, tcfg.heads
+    tblk, tdh, tm = block(td, th), td // th, TEXT_CHUNK * tcfg.context_length
+    ckw = dict(heads=th, act=tcfg.act, eps=tcfg.ln_eps, causal=True)
+    cokw = dict(heads=oh, act="quick_gelu", causal=True, key_bias=randn(ob, on))
+    check("fused_block_infer_causal",
+          lambda x, p=None: fused_block.fused_block_infer(x, p or tblk, **(cokw if p else ckw)),
+          lambda x, p=None: fused_block.fused_block_infer_plain(x, p or tblk,
+                                                                **(cokw if p else ckw)),
+          [randn(tb, tn, td)], [randn(ob, on, 128), small],
+          (2 * tm * 12 * td * td + 4 * tb * th * tdh * tn * (tn + 1) // 2,
+           2 * (2 * tm * td + 12 * td * td)))
+
     # K10: the fused MLP forward, [24 * 1370, 768] x 3072 gelu, and an odd
     # float32 [77, 128] x 512 quick_gelu
     dm = db * dn
@@ -520,7 +627,8 @@ def launch_counters():
            fused_ln_qkv.fused_ln_qkv, fused_ln_qkv.fused_ln_qkv_backward,
            fused_attn_o.fused_attn_o_residual, fused_attn_o.fused_attn_o_residual_backward,
            fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward,
-           flash_attention.flash_attention, fused_mlp.fused_mlp, lut.lut_apply, lut.hist256]
+           flash_attention.flash_attention, flash_attention.flash_attention_backward,
+           fused_mlp.fused_mlp, lut.lut_apply, lut.hist256]
     return {f.__name__: f for f in fns}
 
 
@@ -788,6 +896,174 @@ def dino_phase(dev):
     return launches
 
 
+FT_LAUNCHES = {  # per fine-tune update: 12 LoRA blocks x 4 microbatches
+    "flash_attention": 48, "flash_attention_backward": 48, "fused_ln_mlp_residual": 48,
+    "fused_ln_mlp_residual_backward": 48, "fused_ln_qkv": 0, "fused_attn_o_residual": 0,
+    "fused_block_infer": 0}
+
+
+def synthetic_captions(n, seed):
+    """``n`` distinct seeded captions of 5-60 words, some longer than the
+    77-token context (truncated with EOT by the tokenizer)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ("ultrasound image of a hypoechoic lesion with irregular margins posterior "
+             "acoustic shadowing benign malignant breast thyroid liver kidney cyst solid "
+             "mass calcification vascularity doppler transverse longitudinal view probe "
+             "left right lobe measured mm cm 1 2 3 4 5 -- ; ( ) % \u00b1 !").split()
+    return [f"case {i}: " + " ".join(rng.choice(words, rng.integers(5, 61)))
+            for i in range(n)]
+
+
+def finetune_phase(dev):
+    """The OpenAI CLIP LoRA contrastive fine-tune at full width (ViT-B/16 at
+    224 px with LoRA r=16, alpha 32, dropout 0.1 in all 12 blocks; the
+    12-layer causal text tower at width 512; bf16 towers; batch 64,
+    accumulation 4, clip 1.0, InfoNCE at 0.07), seeded random weights with
+    the LoRA b matrices drawn nonzero. Caches 512 synthetic captions through
+    the text tower (K1 with the causal mask, 12 launches per chunk of 256),
+    timed and checked against the plain path; one update's launch counts,
+    loss and trainable gradients (LoRA a/b, q/k/v/o biases) against the
+    plain path; the loss falling over 10 updates on one batch; ms per
+    update and img/s; a profiler table. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import partition
+    from nextgen_uia_tpu_torch.data.tokenizer import ClipTokenizer
+    from nextgen_uia_tpu_torch.losses import info_nce
+    from nextgen_uia_tpu_torch.models import clip as clip_mod
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import build_clip_model
+
+    args = ft._finetune_parser("openai").parse_args(["--method", "lora", "--seed", "5"])
+    require(args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM
+            and args.grad_clip == 1.0 and args.compute_dtype == "bfloat16"
+            and args.lora_r == 16 and args.lora_alpha == 32 and args.lora_dropout == 0.1,
+            f"fine-tune defaults changed: {args}")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    cfg, params = build_clip_model(args, "openai", adapter="lora", gen=gen)
+    with torch.no_grad():
+        for blk in params.visual.blocks:
+            for pair in blk.attn.lora.children():
+                pair.b.normal_(0.0, 0.02, generator=gen)
+    trainable, frozen = partition(params, ft.lora_trainable_predicate(params))
+    params.to(dev)
+    print(f"finetune: built OpenAI CLIP (ViT-B/16 + 12-layer text) with LoRA in "
+          f"{sum(1 for b in params.visual.blocks if hasattr(b.attn, 'lora'))} blocks in "
+          f"{time.perf_counter() - t0:.1f} s; {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen")
+
+    # the text cache: tokenize, then 12 causal K1 launches per chunk of 256
+    captions = synthetic_captions(N_CAPTIONS, 5)
+    tokenizer = ClipTokenizer()
+    t0 = time.perf_counter()
+    tokens = tokenizer(captions, 77)
+    tok_s = time.perf_counter() - t0
+    encode = ft.make_text_encoder(params, cfg, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = ft.cache_text_features(encode, lambda texts, ctx: tokenizer(texts, ctx), captions,
+                                   77, chunk=TEXT_CHUNK)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    text_launches = read_counts()["fused_block_infer"]
+    chunks = [tokens[s:s + TEXT_CHUNK] for s in range(0, N_CAPTIONS, TEXT_CHUNK)]
+    encode_ms = cuda_ms(lambda: [encode(c) for c in chunks], 5, warmup=1)
+    n_chunks = (N_CAPTIONS + TEXT_CHUNK - 1) // TEXT_CHUNK
+    feats = torch.from_numpy(np.stack([cache[c] for c in captions]))
+    plain = ft.make_text_encoder(params, cfg, dev, ops=PLAIN)(tokens[:TEXT_CHUNK]).cpu()
+    err = (feats[:TEXT_CHUNK] - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    print(f"finetune: text cache of {N_CAPTIONS} captions: tokenized in {tok_s:.2f} s "
+          f"({int((tokens != 0).sum(1).max())} tokens at most); cache_text_features (tokenizing "
+          f"again, BPE words cached, then encoding) {cache_s:.3f} s (host clock, first call); "
+          f"the {n_chunks} chunks of {TEXT_CHUNK} tokens encoded in {encode_ms:.2f} ms (CUDA "
+          f"events); K1 causal launches {text_launches}; features vs plain path max|d| "
+          f"{err:.3e} (<= {BF16_BOUND * max(1.0, scale):.3e}, max|ref| {scale:.3f})")
+    require(feats.shape == (N_CAPTIONS, cfg.text.embed_dim) and bool(torch.isfinite(feats).all()),
+            f"text features {tuple(feats.shape)}")
+    require(text_launches == cfg.text.depth * n_chunks,
+            f"the text cache launched K1 {text_launches} times, want {cfg.text.depth * n_chunks}")
+    require(err <= BF16_BOUND * max(1.0, scale), "text features disagree with the plain path")
+
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (FT_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = T.stack_microbatches({"image": torch.from_numpy(images).to(dev),
+                                  "txt_feat": feats[:FT_BATCH].to(dev)}, FT_ACCUM)
+
+    def loss_fn(ops):
+        def fn(mb, g):
+            img, _ = clip_mod.encode_image(params, cfg, mb["image"].float() / 255.0, ops=ops,
+                                           gen=g)
+            return info_nce(img, mb["txt_feat"], temperature=args.temperature)
+        return fn
+
+    def update(ops, lr):
+        tcfg = T.TrainConfig(lr=lr, lr_min=1e-8, weight_decay=0.01, beta1=0.9, beta2=0.95,
+                             total_updates=25)
+        return T.TrainStep(loss_fn(ops), T.make_optimizer(trainable.values(), tcfg), tcfg,
+                           accum_steps=FT_ACCUM, grad_clip=args.grad_clip)
+
+    def first_update(ops):
+        """One update at lr 0 (the parameters stay): metrics and the
+        averaged, clipped gradient of every trainable tensor."""
+        m = update(ops, 0.0)(batch, torch.Generator(device=dev).manual_seed(7))
+        return m, {k: p.grad.float().clone() for k, p in trainable.items()}
+
+    reset_counts()
+    m_k, g_k = first_update(KERNELS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"finetune: one update's launches {launches}")
+    for name, want in FT_LAUNCHES.items():
+        require(launches[name] == want, f"{name} launched {launches[name]} times in a fine-tune "
+                                        f"update, want {want}")
+    m_p, g_p = first_update(PLAIN)
+    worst, worst_name = 0.0, None
+    for k, ref in g_p.items():
+        ratio = (g_k[k] - ref).abs().max().item() / (BF16_BOUND * max(1.0, ref.abs().max().item()))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"finetune: first update loss kernel {m_k['loss']:.6f} plain {m_p['loss']:.6f}, "
+          f"gradient norm {m_k['grad_norm']:.4f} / {m_p['grad_norm']:.4f} (clipped to 1.0); "
+          f"LoRA a/b and q/k/v/o-bias gradients worst max|d| / (3e-2 max(1, max|ref|)) = "
+          f"{worst:.3f} ({worst_name})")
+    require(np.isfinite(m_k["loss"]) and m_k["skipped"] == 0, f"fine-tune update {m_k}")
+    require(abs(m_k["loss"] - m_p["loss"]) <= BF16_BOUND * max(1.0, abs(m_p["loss"])),
+            "fine-tune loss disagrees with the plain path")
+    require(worst <= 1.0, f"fine-tune gradient of {worst_name} disagrees with the plain path")
+    require(min(g.abs().max().item() for k, g in g_k.items() if k.endswith("/a")) > 0,
+            "a LoRA a matrix got no gradient")
+
+    step = update(KERNELS, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(123)
+    losses = [step(batch, gen)["loss"] for _ in range(10)]
+    print("finetune: losses over 10 updates on one batch (lr 1e-3, LoRA dropout on) "
+          + " ".join(f"{v:.4f}" for v in losses))
+    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+            "the fine-tune loss did not fall")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_ms = cuda_ms(lambda: update(PLAIN, 1e-3)(batch, gen), 2, warmup=1)
+    with torch.no_grad():
+        ecfg = clip_mod.infer_cfg(cfg)
+        x = batch["image"][0].float() / 255.0
+        eval_ms = cuda_ms(lambda: clip_mod.encode_image(params, ecfg, x), 5, warmup=1)
+    print(f"finetune: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) {ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / plain_ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; "
+          f"eval forward of {FT_MICRO} images {eval_ms:.2f} ms")
+    profile_steps(lambda: step(batch, gen), 2, ms)
+    return {**launches, "fused_block_infer_causal": text_launches}
+
+
 def profile_steps(fn, steps, step_ms):
     """torch.profiler over ``steps`` calls: device time per call by kernel
     (top 14) and in all, and the share of ``step_ms`` (the call's time
@@ -831,6 +1107,12 @@ def profile_steps(fn, steps, step_ms):
     for ms_, count, key in rows[:14]:
         print(f"profile:   {ms_:8.3f} ms {100 * ms_ / max(total, 1e-9):5.1f}%  x{count:<4d} "
               f"{key[:90]}")
+    # where the host's time goes: the operators with the most self CPU time
+    cpu = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    print("profile: host self time per step: " + "; ".join(
+        f"{key[:40]} {ms_:.2f} ms x{count}" for ms_, count, key in cpu[:8]))
 
 
 def cli_phase(dev, work, files):
@@ -954,6 +1236,57 @@ def cli_phase(dev, work, files):
         os.chdir(cwd)
 
 
+def finetune_cli_phase(work):
+    """``python -m nextgen_uia_tpu_torch.tasks.clip.finetune --method lora
+    --epochs 1`` on the card, on 160 seeded 224 px images with synthetic
+    captions in the MedPix/PMC-CURD CSV layout (144 train: 2 updates at
+    batch 64; 16 val): its best_model.npz holds only the LoRA tensors."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.clip.finetune import main as finetune_main
+
+    data = os.path.join(work, "ft")
+    os.makedirs(os.path.join(data, "images"), exist_ok=True)
+    rng = np.random.default_rng(6)
+    captions = synthetic_captions(160, 6)
+    with open(os.path.join(data, "captions.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["filename", "Caption"])
+        for i, caption in enumerate(captions):
+            name = f"ft_{i:03d}.png"
+            Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)).save(
+                os.path.join(data, "images", name))
+            w.writerow([name, caption])
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = finetune_main(["--method", "lora", "--epochs", "1", "--exp", "chip_ft",
+                             "--finetune_csvs", os.path.join(data, "captions.csv"),
+                             "--finetune_img_dirs", os.path.join(data, "images"),
+                             "--num_workers", "4", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        os.chdir(cwd)
+    best = os.path.join(work, "runs", "chip_ft", "best_model.npz")
+    keys = ckpt.peek_keys(best) if os.path.exists(best) else []
+    print(f"cli: openai LoRA fine-tune, one epoch (2 updates + validation) in {seconds:.1f} s "
+          f"(host clock: build, text cache and data decode included); best val loss "
+          f"{out['best_val_loss']:.4f}; best_model.npz {len(keys)} tensors; launches {counts}")
+    require(np.isfinite(out["best_val_loss"]), f"fine-tune CLI result {out}")
+    require(len(keys) == 12 * 4 * 2 and all("/attn/lora/" in k for k in keys),
+            "best_model.npz does not hold exactly the LoRA tensors")
+    require(counts.get("flash_attention_backward", 0) == 2 * FT_LAUNCHES["flash_attention_backward"]
+            and counts.get("fused_block_infer", 0) == 12,
+            "the fine-tune CLI did not run through K7 backward and K1 causal")
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -996,7 +1329,11 @@ def main():
         launches = {**train_phase(dev, files), **launches}
         dino = dino_phase(dev)
         launches.update({k: dino[k] for k in NEW_KERNELS})
+        finetune = finetune_phase(dev)
+        launches.update({k: finetune[k] for k in ("flash_attention_backward",
+                                                  "fused_block_infer_causal")})
         cli_phase(dev, work, files)
+        finetune_cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1011,6 +1348,8 @@ def main():
               "fused_ln_mlp_residual": ("fused_ln_mlp.cu", "fused_ln_mlp.py:29"),
               "fused_ln_mlp_residual_backward": ("fused_ln_mlp.cu", "fused_ln_mlp.py:49"),
               "flash_attention": ("flash_attention.cu", "flash_attention.py:64"),
+              "flash_attention_backward": ("flash_attention.cu", "flash_attention.py:73"),
+              "fused_block_infer_causal": ("fused_block.cu", "fused_block.py:78"),
               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:64"),
               "lut_apply": ("lut.cu", "lut.py:53"),
               "hist256": ("lut.cu", "lut.py:143")}

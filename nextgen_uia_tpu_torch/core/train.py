@@ -6,8 +6,12 @@ Reference training semantics, as the JAX engine reproduces them:
     from lr to lr_min over the run: optax's ``adamw(cosine_decay_schedule)``,
     which ``torch.optim.AdamW`` equals when its rate is set to
     ``cosine_lr_value(cfg, k)`` before update k;
-  - an update whose loss is not finite changes neither the parameters nor
-    the optimizer state nor the schedule count.
+  - gradient accumulation over ``accum_steps`` microbatches: a microbatch
+    whose loss is not finite is skipped (its gradients dropped), the kept
+    ones' gradients are summed and divided by their count, then clipped to
+    the global norm ``grad_clip`` (0: off);
+  - an update whose microbatches were all skipped changes neither the
+    parameters nor the optimizer state nor the schedule count.
 """
 
 from __future__ import annotations
@@ -48,40 +52,67 @@ def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
 
 
 class TrainStep:
-    """One optimizer update over a stacked batch, without gradient
-    accumulation or clipping (run_supervised's settings: accum_steps 1,
-    grad_clip 0; the others are ROADMAP.md, section A, item 6).
+    """One optimizer update over a stacked batch (``make_train_step``).
 
     ``loss_fn(microbatch, gen) -> scalar loss`` runs the forward of the
     trainable parameters the optimizer holds; ``step(batch, gen)`` takes
-    batch leaves shaped [1, batch, ...] (``stack_microbatches``) and returns
-    {'loss': the loss, or 0.0 when it is not finite, 'skipped': 1 when it
-    is not finite}. The backward is queued before the loss is read, so the
-    host does not wait for the forward. ``applied`` counts the updates taken
-    (the schedule's count), and is part of the resumable state.
+    batch leaves shaped [accum_steps, microbatch, ...]
+    (``stack_microbatches``) and returns {'loss': the mean loss of the kept
+    microbatches (0.0 when none was kept), 'skipped': how many were not
+    finite, 'grad_norm': the global norm before clipping}. Each
+    microbatch's gradients are flattened into one float32 buffer and added
+    to the running sum where its loss is finite, on the device; the host
+    reads the kept count and the loss sum once per update, after every
+    backward is queued. After a call each parameter's ``grad`` holds the
+    update's gradient (averaged and clipped). ``applied`` counts the updates
+    taken (the schedule's count), and is part of the resumable state.
     """
 
     def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer,
-                 cfg: TrainConfig):
+                 cfg: TrainConfig, *, accum_steps: int = 1, grad_clip: float = 0.0):
         self.loss_fn, self.optimizer, self.cfg = loss_fn, optimizer, cfg
+        self.accum_steps, self.grad_clip = accum_steps, grad_clip
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.applied = 0
 
     def __call__(self, batch: dict, gen=None) -> dict:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn({k: v[0] for k, v in batch.items()}, gen)
-        loss.backward()
-        value = float(loss.detach())
-        ok = math.isfinite(value)
-        if ok:
-            for p in self.params:  # optax sees zeros where the loss does not reach
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        lead = {v.shape[0] for v in batch.values()}
+        if lead != {self.accum_steps}:
+            raise ValueError(f"batch leaves lead with {lead}, want accum_steps "
+                             f"{self.accum_steps} (stack_microbatches)")
+        params = self.params
+        dev = params[0].device
+        sizes = [p.numel() for p in params]
+        zeros = torch.zeros(max(sizes), device=dev)  # stands in for unreached tensors
+        total = torch.zeros(sum(sizes), device=dev)
+        loss_sum = torch.zeros((), device=dev)
+        kept = torch.zeros((), device=dev)
+        for i in range(self.accum_steps):
+            for p in params:
+                p.grad = None
+            loss = self.loss_fn({k: v[i] for k, v in batch.items()}, gen)
+            loss.backward()
+            ok = torch.isfinite(loss.detach())
+            flat = torch.cat([zeros[:n] if p.grad is None else p.grad.reshape(-1).float()
+                              for p, n in zip(params, sizes)])
+            total += torch.where(ok, flat, torch.zeros_like(flat))
+            loss_sum += torch.where(ok, loss.detach().float(), torch.zeros_like(loss_sum))
+            kept += ok.float()
+        total /= torch.clamp(kept, min=1.0)
+        grad_norm = torch.linalg.vector_norm(total)
+        if self.grad_clip > 0:
+            total *= torch.clamp(self.grad_clip / torch.clamp(grad_norm, min=1e-12), max=1.0)
+        n_kept, loss_total, norm = torch.stack([kept, loss_sum, grad_norm]).tolist()
+        n_kept = int(n_kept)
+        for p, g in zip(params, torch.split(total, sizes)):
+            p.grad = g.view_as(p).to(p.dtype)
+        if n_kept:
             for group in self.optimizer.param_groups:
                 group["lr"] = cosine_lr_value(self.cfg, self.applied)
             self.optimizer.step()
             self.applied += 1
-        return {"loss": value if ok else 0.0, "skipped": int(not ok)}
+        return {"loss": loss_total / max(n_kept, 1), "skipped": self.accum_steps - n_kept,
+                "grad_norm": norm}
 
     def state(self, names) -> dict:
         """Flat path -> array of the resumable state: the trainable

@@ -441,7 +441,10 @@ struct QKV {
 
 // Each warp owns ATT_ROWS rows at once, so every shared-memory element read
 // feeds ATT_ROWS multiply-adds; 8 warps x 4 rows = one 32-row tile per CTA.
-// Needs dh % 4 == 0, 32 <= dh <= 64, n <= 256.
+// Needs dh % 4 == 0, 32 <= dh <= 64, n <= 256. Masking is the JAX kernels':
+// -1e30 for keys >= n_real, then the key bias, then (``causal``, the CLIP
+// text tower) -1e30 where key > row; with ``causal`` a CTA loads and a warp
+// scores only the keys up to its last row.
 constexpr int ATT_THREADS = 256, ATT_ROWS = 4, ATT_WARPS = ATT_THREADS / 32;
 constexpr int ATT_QTILE = ATT_WARPS * ATT_ROWS;
 
@@ -477,7 +480,7 @@ __device__ __forceinline__ void scores4(const float* a, const T* bt, int j, int 
 template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out, int n,
-                 int heads, int dh, int n_real, float scale) {
+                 int heads, int dh, int n_real, float scale, int causal) {
   extern __shared__ __align__(16) float sm[];
   const int nk = n | 1;
   float* Qs = sm;
@@ -491,7 +494,9 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
   const T* qb = static_cast<const T*>(in.q) + off;
   const T* kbase = static_cast<const T*>(in.k) + off;
   const T* vbase = static_cast<const T*>(in.v) + off;
-  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
+  // causal: keys past the tile's last query are masked for all its rows
+  const int n_cta = causal ? min(n, (int)(blockIdx.x + 1) * ATT_QTILE) : n;
+  for (int i = threadIdx.x; i < n_cta * dh; i += ATT_THREADS) {
     const int k = i / dh, d = i % dh;
     Kt[d * nk + k] = kbase[(size_t)k * in.sn + d];
     Vs[k * dh + d] = vbase[(size_t)k * in.sn + d];
@@ -502,6 +507,7 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
   const int i0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
   if (i0 >= n) return;  // no block-wide barrier follows
   const int rows = min(ATT_ROWS, n - i0);
+  const int n_keys = causal ? min(n, i0 + ATT_ROWS) : n;  // and past the warp's last row
   float* q = Qs + warp * ATT_ROWS * dh;  // [rows][dh]; rows past n are zero
   float* p = Ps + warp * ATT_ROWS * n;   // [rows][n]
   for (int e = lane; e < ATT_ROWS * dh; e += 32) {
@@ -514,7 +520,7 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
   float mx[ATT_ROWS], sum[ATT_ROWS];
 #pragma unroll
   for (int r = 0; r < ATT_ROWS; ++r) mx[r] = -FLT_MAX, sum[r] = 0.f;
-  for (int k = lane; k < n; k += 32) {
+  for (int k = lane; k < n_keys; k += 32) {
     float s[ATT_ROWS];
     scores4(q, Kt, k, nk, dh, s);
 #pragma unroll
@@ -522,13 +528,14 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
       float v = s[r] * scale;
       if (k >= n_real) v = -1e30f;
       if (kb) v += kb[k];
+      if (causal && k > i0 + r) v = -1e30f;
       p[r * n + k] = v;
       mx[r] = fmaxf(mx[r], v);
     }
   }
 #pragma unroll
   for (int r = 0; r < ATT_ROWS; ++r) mx[r] = warp_max(mx[r]);
-  for (int k = lane; k < n; k += 32) {
+  for (int k = lane; k < n_keys; k += 32) {
 #pragma unroll
     for (int r = 0; r < ATT_ROWS; ++r) {
       const float e = expf(p[r * n + k] - mx[r]);
@@ -538,7 +545,7 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
   }
 #pragma unroll
   for (int r = 0; r < ATT_ROWS; ++r) sum[r] = warp_sum(sum[r]);
-  for (int k = lane; k < n; k += 32) {
+  for (int k = lane; k < n_keys; k += 32) {
 #pragma unroll
     for (int r = 0; r < ATT_ROWS; ++r) p[r * n + k] = round_to<T>(p[r * n + k] / sum[r]);
   }
@@ -548,7 +555,7 @@ attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out
   const int d0 = lane, d1 = lane + 32;
   const bool has1 = d1 < dh;
   float o0[ATT_ROWS] = {}, o1[ATT_ROWS] = {};
-  for (int k = 0; k < n; ++k) {
+  for (int k = 0; k < n_keys; ++k) {
     const float v0 = to_f32(Vs[k * dh + d0]);
     const float v1 = has1 ? to_f32(Vs[k * dh + d1]) : 0.f;
 #pragma unroll
@@ -574,7 +581,7 @@ static inline bool attention_shape_ok(int n, int dh) {
 template <typename T>
 static cudaError_t launch_attention(const QKV& in, const float* key_bias, void* out, int b,
                                     int n, int heads, int dh, int n_real, float scale,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream, int causal = 0) {
   if (!attention_shape_ok(n, dh)) return cudaErrorInvalidValue;
   const size_t smem = attention_smem(n, dh, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
@@ -583,7 +590,7 @@ static cudaError_t launch_attention(const QKV& in, const float* key_bias, void* 
   if (err != cudaSuccess) return err;
   dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
   attention_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
-      in, key_bias, static_cast<T*>(out), n, heads, dh, n_real, scale);
+      in, key_bias, static_cast<T*>(out), n, heads, dh, n_real, scale, causal);
   return cudaGetLastError();
 }
 

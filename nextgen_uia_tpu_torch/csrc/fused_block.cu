@@ -10,7 +10,8 @@
 //   out = h @ W2 + b2 + y32            gemm               -> T
 //
 // Replaces nextgen_uia_tpu/ops/fused_block.py::fused_block_infer (the Pallas
-// kernel _fwd_kernel), pre-norm and non-causal only. The rounding points are
+// kernel _fwd_kernel), pre-norm, with or without the causal mask (the CLIP
+// text tower: 77 tokens, width 512, 8 heads, quick_gelu, run unpadded). The rounding points are
 // that kernel's: z, q/k/v, the probabilities, the head concat, z2 and h are
 // rounded to the storage type T; y32 and the fc2 accumulation stay float32
 // and the output is rounded once.
@@ -72,9 +73,10 @@ int nx_gemm(const void* a, const void* w, int dtype, const float* bias, const vo
 }
 
 // out[B*N, H*dh] = per-head softmax(q k^T * scale + mask + key_bias) v over
-// qkv[B*N, 3*H*dh] (q | k | v); key_bias [B, N] float32 or null
+// qkv[B*N, 3*H*dh] (q | k | v); key_bias [B, N] float32 or null; causal:
+// keys after the query row masked (the CLIP text tower)
 int nx_attention(const void* qkv, const float* key_bias, void* out, int dtype, int b,
-                 int n, int heads, int dh, int n_real, float scale, void* stream) {
+                 int n, int heads, int dh, int n_real, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = heads * dh;
   const size_t t_size = dtype == BF16 ? 2 : 4;
@@ -82,9 +84,10 @@ int nx_attention(const void* qkv, const float* key_bias, void* out, int dtype, i
   const QKV in{base, base + d * t_size, base + 2 * d * t_size, n * 3 * d, dh, 3 * d};
   if (dtype == BF16)
     return (int)launch_attention<__nv_bfloat16>(in, key_bias, out, b, n, heads, dh, n_real,
-                                                scale, s);
+                                                scale, s, causal);
   if (dtype == F32)
-    return (int)launch_attention<float>(in, key_bias, out, b, n, heads, dh, n_real, scale, s);
+    return (int)launch_attention<float>(in, key_bias, out, b, n, heads, dh, n_real, scale, s,
+                                        causal);
   return (int)cudaErrorInvalidValue;
 }
 

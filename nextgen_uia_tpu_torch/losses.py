@@ -1,7 +1,9 @@
-"""Supervised losses (counterpart of nextgen_uia_tpu/losses.py's
-``focal_loss`` and ``dice_ce_loss``): MONAI semantics, logits and integer
-labels in, a float32 scalar out.
+"""Losses (counterpart of nextgen_uia_tpu/losses.py's ``info_nce``,
+``focal_loss`` and ``dice_ce_loss``), a float32 scalar out.
 
+  - InfoNCE: the symmetric cross-entropy over the cosine-similarity matrix
+    of paired image and text features, divided by the temperature, with
+    the pairs on the diagonal.
   - FocalLoss(to_onehot_y=True): each class channel an independent binary
     problem, BCE-with-logits weighted by (1 - p_t)^gamma, mean over all
     elements.
@@ -14,6 +16,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def info_nce(image_features, text_features, temperature: float = 0.07):
+    """Symmetric InfoNCE over a batch of paired embeddings [B, D]."""
+    img = image_features.to(torch.float32)
+    txt = text_features.to(torch.float32)
+    img = img / torch.clamp(torch.linalg.vector_norm(img, dim=1, keepdim=True), min=1e-12)
+    txt = txt / torch.clamp(torch.linalg.vector_norm(txt, dim=1, keepdim=True), min=1e-12)
+    logits = img @ txt.T / temperature
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)) / 2.0
 
 
 def _to_onehot_channels(labels, num_classes: int, target_ndim: int):

@@ -1,7 +1,13 @@
-"""CLIP assembly, vision side (counterpart of nextgen_uia_tpu/models/clip.py).
+"""CLIP assembly (counterpart of nextgen_uia_tpu/models/clip.py).
 
-BiomedCLIP's image tower is the timm ViT-B/16. The PubMedBERT text tower
-(``encode_text``) is not ported yet: ROADMAP.md, section A, item 10.
+  family       vision layout            text tower
+  ----------   ----------------------   ---------------------------------
+  biomedclip   timm ViT-B/16 (gelu)     PubMedBERT (not ported)
+  openai       OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
+  metaclip     OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
+
+BiomedCLIP's BERT text tower (``encode_text`` of a 'bert' config) and the
+unimedclip family are not ported yet: ROADMAP.md, section A, items 5 and 10.
 """
 
 from __future__ import annotations
@@ -14,16 +20,19 @@ from torch import nn
 
 from ..nn.layers import param
 from ..ops import KERNELS
-from .vit import VIT_B16_TIMM, ViTConfig, vit_apply, vit_init
+from .text_clip import TextConfig, text_apply, text_init
+from .vit import VIT_B16_OPENAI, VIT_B16_TIMM, ViTConfig, vit_apply, vit_init
 
-FAMILIES = ("biomedclip",)
+FAMILIES = ("biomedclip", "openai", "metaclip")
 
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     family: str
     vision: ViTConfig
-    compute_dtype: str = "float32"      # 'bfloat16' for the serving path on the card
+    compute_dtype: str = "float32"      # 'bfloat16' for the paths on the card
+    text_kind: str = "bert"             # 'clip' | 'bert' (not ported)
+    text: TextConfig | None = None      # the CLIP text tower's config ('clip')
 
     @property
     def dtype(self):
@@ -33,22 +42,29 @@ class CLIPConfig:
         return dataclasses.replace(self, **kw)
 
 
-def clip_config(family: str, *, compute_dtype: str = "float32",
-                mona_variant: str = "hybrid") -> CLIPConfig:
+def clip_config(family: str, *, compute_dtype: str = "float32", mona_variant: str = "hybrid",
+                lora_alpha: float = 32.0, lora_dropout: float = 0.0) -> CLIPConfig:
     if family not in FAMILIES:
         raise NotImplementedError(
             f"CLIP family {family!r} is not ported yet (ROADMAP.md, section A, "
             f"item 10); ported: {FAMILIES}")
-    vision = dataclasses.replace(VIT_B16_TIMM, mona_variant=mona_variant)
-    return CLIPConfig(family, vision, compute_dtype=compute_dtype)
+    adapters = dict(mona_variant=mona_variant, lora_alpha=lora_alpha, lora_dropout=lora_dropout)
+    if family == "biomedclip":
+        return CLIPConfig(family, dataclasses.replace(VIT_B16_TIMM, **adapters),
+                          compute_dtype=compute_dtype)
+    return CLIPConfig(family, dataclasses.replace(VIT_B16_OPENAI, **adapters),
+                      compute_dtype=compute_dtype, text_kind="clip", text=TextConfig())
 
 
 class CLIP(nn.Module):
-    """``clip_init``'s tree without the text tower: visual, logit_scale."""
+    """``clip_init``'s tree: visual, text (the CLIP text tower; none for
+    BiomedCLIP, whose BERT tower is not ported), logit_scale."""
 
     def __init__(self, gen, cfg: CLIPConfig):
         super().__init__()
         self.visual = vit_init(gen, cfg.vision)
+        if cfg.text_kind == "clip":
+            self.text = text_init(gen, cfg.text)
         self.logit_scale = param(torch.tensor(math.log(1.0 / 0.07)))
 
 
@@ -56,11 +72,17 @@ def clip_init(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
     return CLIP(gen, cfg)
 
 
-def infer_cfg(cfg: CLIPConfig) -> CLIPConfig:
-    """Forward-only variant of a config: every tower block runs through the
-    whole-block kernel (ops/fused_block.py). Use it only on paths autograd
-    never differentiates (eval, serving): that kernel has no backward."""
-    return cfg.replace(vision=dataclasses.replace(cfg.vision, block_impl="fused_infer"))
+def infer_cfg(cfg: CLIPConfig, *, vision: bool = True, text: bool = True) -> CLIPConfig:
+    """Forward-only variant of a config: the chosen towers' blocks run
+    through the whole-block kernel (ops/fused_block.py; LoRA blocks decline
+    it). Use it only on paths autograd never differentiates (eval, serving,
+    the frozen text tower): that kernel has no backward."""
+    kw = {}
+    if vision:
+        kw["vision"] = dataclasses.replace(cfg.vision, block_impl="fused_infer")
+    if text and cfg.text is not None:
+        kw["text"] = dataclasses.replace(cfg.text, block_impl="fused_infer")
+    return cfg.replace(**kw)
 
 
 def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), ops=KERNELS,
@@ -69,6 +91,15 @@ def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), op
     dropout generator of a train forward (None: eval)."""
     return vit_apply(params.visual, cfg.vision, images, dtype=cfg.dtype,
                      extract_layers=extract_layers, ops=ops, gen=gen)
+
+
+def encode_text(params: CLIP, cfg: CLIPConfig, token_ids, *, ops=KERNELS):
+    """token_ids [B, L] -> [B, embed] (the CLIP text tower, frozen)."""
+    if cfg.text_kind != "clip":
+        raise NotImplementedError(
+            "encode_text: the BERT text tower is not ported to the PyTorch package yet "
+            "(ROADMAP.md, section A, item 5)")
+    return text_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)
 
 
 def normalize(x, dim=-1, eps=1e-12):

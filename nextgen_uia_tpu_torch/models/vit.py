@@ -1,17 +1,25 @@
 """Vision Transformer (counterpart of nextgen_uia_tpu/models/vit.py).
 
+Both reference layouts: timm/BiomedCLIP (patch bias, final norm over all
+tokens, gelu) and OpenAI CLIP (no patch bias, ``ln_pre`` after the
+positional embedding, ``ln_post`` on the CLS token only, quick_gelu).
+
 Two block routes, as in the JAX package's ``ViTConfig.block_impl``:
 ``'fused_infer'`` runs each block forward-only through the whole-block
 kernel (eval and serving forwards, models/clip.py::infer_cfg); ``'auto'``
 composes the LN+QKV, attention+o-projection+residual and LN+MLP+residual
 kernels, which have backward kernels, so the train step differentiates
-through them (frozen tower, trainable adapters). Either route then applies
-the block's MONA adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``)
-take their own route at any ``block_impl``: attention without the residual
-(``mha``'s LayerScale routes, through the flash-attention kernel), then the
-MLP through the fused-MLP kernel, each scaled before its residual add. The
-token sequence runs unpadded (N = grid^2 + 1): the kernels mask their ragged
-edges themselves.
+through them (frozen tower, trainable adapters). A block whose attention
+holds LoRA pairs takes ``mha``'s LoRA route at either ``block_impl`` (the
+whole-block kernel declines it, as the JAX one does): LayerNorm, the
+projections with their LoRA updates, the flash-attention kernel, then the
+LN+MLP+residual kernel. Either route then applies the block's MONA
+adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``) take their own
+route at any ``block_impl``: attention without the residual (``mha``'s
+LayerScale routes, through the flash-attention kernel), then the MLP
+through the fused-MLP kernel, each scaled before its residual add. The
+token sequence runs unpadded (N = grid^2 + 1): the kernels mask their
+ragged edges themselves.
 """
 
 from __future__ import annotations
@@ -38,9 +46,15 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     act: str = "gelu"              # 'gelu' (timm/BiomedCLIP) | 'quick_gelu' (OpenAI)
     ffn: str = "mlp"               # 'mlp' | 'swiglufused' (DINOv2 giant2)
+    use_ln_pre: bool = False       # True for the OpenAI/MetaCLIP layout
+    patch_bias: bool = True        # False for OpenAI/MetaCLIP conv1
+    final_norm: str = "all"        # 'all' (timm) | 'cls' (OpenAI ln_post on CLS only)
     proj_dim: int | None = 512
     ln_eps: float = 1e-5           # timm uses 1e-6
     mona_variant: str = "hybrid"
+    lora_alpha: float = 32.0
+    # dropout on the LoRA branch's input in train mode (a dropout generator given)
+    lora_dropout: float = 0.0
     # 'auto': the composed block kernels (differentiable); 'fused_infer': the
     # forward-only whole-block kernel, for paths never differentiated
     block_impl: str = "auto"
@@ -80,19 +94,21 @@ class Block(nn.Module):
 
 
 class ViT(nn.Module):
-    """``vit_init``, timm layout: patch conv (HWIO, with bias), cls [D],
-    pos [N, D], blocks, final norm over all tokens, optional bias-free
-    projection. The OpenAI layout (ln_pre, CLS-only final norm, bias-free
-    patch conv) comes with the other CLIP families."""
+    """``vit_init``: patch conv (HWIO, with bias unless ``patch_bias`` is
+    off), cls [D], pos [N, D], blocks, final norm, ``ln_pre`` when
+    ``use_ln_pre``, optional bias-free projection."""
 
     def __init__(self, gen, cfg: ViTConfig):
         super().__init__()
         scale = cfg.width ** -0.5
-        self.patch = Conv(gen, cfg.patch_size, cfg.patch_size, 3, cfg.width)
+        self.patch = Conv(gen, cfg.patch_size, cfg.patch_size, 3, cfg.width,
+                          bias=cfg.patch_bias)
         self.cls = param(normal(gen, (cfg.width,), scale))
         self.pos = param(normal(gen, (cfg.seq_len, cfg.width), scale))
         self.blocks = nn.ModuleList(Block(gen, cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(cfg.width)
+        if cfg.use_ln_pre:
+            self.ln_pre = LayerNorm(cfg.width)
         if cfg.proj_dim is not None:
             self.proj = Linear(gen, cfg.width, cfg.proj_dim, bias=False, std=scale)
 
@@ -102,16 +118,21 @@ def vit_init(gen: torch.Generator, cfg: ViTConfig) -> ViT:
 
 
 def embed_patches(p: ViT, cfg: ViTConfig, images, *, dtype=None):
-    """images [B, H, W, 3] -> tokens [B, N, D] with CLS + positional embedding."""
+    """images [B, H, W, 3] -> tokens [B, N, D] with CLS + positional
+    embedding (then ``ln_pre`` in the OpenAI layout)."""
     w = p.patch.w
     if dtype is not None:
         images, w = images.to(dtype), w.to(dtype)
     x = F.conv2d(images.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.patch_size)
     x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, D]
-    x = x + p.patch.b.to(x.dtype)
+    if p.patch.b is not None:
+        x = x + p.patch.b.to(x.dtype)
     b = x.shape[0]
     x = torch.cat([p.cls.to(x.dtype).expand(b, 1, cfg.width), x], dim=1)
-    return x + p.pos.to(x.dtype)
+    x = x + p.pos.to(x.dtype)
+    if cfg.use_ln_pre:
+        x = layernorm(p.ln_pre, x, eps=cfg.ln_eps)
+    return x
 
 
 def run_mlp(mlp, h_in, act: str, *, dtype=None, ops=KERNELS):
@@ -125,23 +146,24 @@ def run_mlp(mlp, h_in, act: str, *, dtype=None, ops=KERNELS):
 
 
 def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=None):
-    """Pre-norm block, then the block's MONA adapter (in train mode when a
-    dropout generator ``gen`` is given)."""
+    """Pre-norm block, then the block's MONA adapter (in train mode, with
+    MONA's and LoRA's dropout, when a dropout generator ``gen`` is given)."""
     x = x if dtype is None else x.to(dtype)
+    if cfg.block_impl not in ("auto", "fused_infer"):
+        raise ValueError(f"unknown block_impl {cfg.block_impl!r} ('auto' or 'fused_infer')")
+    lora = dict(lora_alpha=cfg.lora_alpha, lora_dropout=cfg.lora_dropout, gen=gen)
     if hasattr(p, "ls1"):
-        a = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, ops=ops)
+        a = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, ops=ops, **lora)
         x = x + a * p.ls1.to(a.dtype)
         m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops)
         x = x + m * p.ls2.to(m.dtype)
-    elif cfg.block_impl == "fused_infer":
+    elif cfg.block_impl == "fused_infer" and "lora" not in p.attn._modules:
         x = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
                                   eps=cfg.ln_eps)
-    elif cfg.block_impl == "auto":
-        x = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, residual=x,
-                ops=ops)
-        x = ops.fused_ln_mlp_residual(x, p.ln2, p.mlp, act=cfg.act, eps=cfg.ln_eps)
     else:
-        raise ValueError(f"unknown block_impl {cfg.block_impl!r} ('auto' or 'fused_infer')")
+        x = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, residual=x,
+                ops=ops, **lora)
+        x = ops.fused_ln_mlp_residual(x, p.ln2, p.mlp, act=cfg.act, eps=cfg.ln_eps)
     if hasattr(p, "mona"):
         x = mona_apply(p.mona, x, (cfg.grid, cfg.grid), variant=cfg.mona_variant, ops=ops,
                        gen=gen)
@@ -159,10 +181,16 @@ def vit_apply(p: ViT, cfg: ViTConfig, images, *, dtype=None, extract_layers=(),
         x = block_apply(blk, x, cfg, dtype=dtype, ops=ops, gen=gen)
         if i in extract_layers:
             activations.append(x)
-    pooled = layernorm(p.norm, x, eps=cfg.ln_eps)[:, 0, :]
+    if cfg.final_norm == "all":
+        pooled = layernorm(p.norm, x, eps=cfg.ln_eps)[:, 0, :]
+    else:  # 'cls': OpenAI's ln_post on the CLS token only
+        pooled = layernorm(p.norm, x[:, 0, :], eps=cfg.ln_eps)
     if hasattr(p, "proj"):
         pooled = linear(p.proj, pooled, dtype=pooled.dtype)
     return pooled, activations
 
 
-VIT_B16_TIMM = ViTConfig(act="gelu", proj_dim=512, ln_eps=1e-6)
+VIT_B16_TIMM = ViTConfig(act="gelu", use_ln_pre=False, patch_bias=True, final_norm="all",
+                         proj_dim=512, ln_eps=1e-6)
+VIT_B16_OPENAI = ViTConfig(act="quick_gelu", use_ln_pre=True, patch_bias=False,
+                           final_norm="cls", proj_dim=512, ln_eps=1e-5)

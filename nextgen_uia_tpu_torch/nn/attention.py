@@ -3,12 +3,19 @@ nextgen_uia_tpu/nn/attention.py's ``attention_init`` and ``mha``).
 
 The serving path's attention lives in the whole-block kernel
 (ops/fused_block.py). ``mha`` ports the routes of the JAX ``mha`` that take
-the pre-attention LayerNorm (``ln=``), without LoRA or a generic mask, as
-the JAX package dispatches them on its kernel path:
-  - with ``residual`` (pre-norm blocks): the LN+QKV kernel, then the
-    attention+o-projection+residual kernel;
-  - without it (LayerScale blocks, DINOv2), N <= 512: the LN+QKV kernel,
-    then the flash-attention kernel, then the o-projection;
+the pre-attention LayerNorm (``ln=``), without a generic mask, as the JAX
+package dispatches them on its kernel path:
+  - with ``residual`` and no LoRA (pre-norm blocks): the LN+QKV kernel,
+    then the attention+o-projection+residual kernel;
+  - with LoRA (``p.lora`` holds q/k/v/o pairs; the JAX package turns the
+    LN+QKV and attention+o kernels off for it): LayerNorm, q/k/v as plain
+    products plus ``(drop(z) @ a) @ b * alpha / sqrt(r)``, the
+    flash-attention kernel (forward and backward; the key bias a constant),
+    the o-projection plus its LoRA update on the head concat, then the
+    residual. Dropout reaches only the LoRA branch's input, one mask per
+    projection, drawn from ``gen`` in train mode or given as ``lora_masks``;
+  - without residual (LayerScale blocks, DINOv2), N <= 512: the LN+QKV
+    kernel, then the flash-attention kernel, then the o-projection;
   - without it, N > 512 (DINOv2 at 518 px, 1370 tokens): LayerNorm, the
     q/k/v projections as one plain product, the flash-attention kernel
     reading q, k, v as strided views of it, then the o-projection.
@@ -16,11 +23,13 @@ the JAX package dispatches them on its kernel path:
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from ..ops import KERNELS
-from .layers import Linear, layernorm
+from .layers import Linear, dropout, dropout_mask, layernorm
 
 
 class Attention(nn.Module):
@@ -34,18 +43,65 @@ class Attention(nn.Module):
         self.o = Linear(gen, dim, dim, bias=bias)
 
 
-def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, residual=None,
-        mask=None, key_padding_bias=None, causal: bool = False, ops=KERNELS):
-    """``[residual +] o(attention(q, k, v))`` with ``q, k, v = LN(x) W + b``.
+def _lora_delta(pair, x, mask, scale):
+    """``(drop(x) @ a) @ b * scale`` in x's dtype; ``mask`` pre-scaled or None."""
+    xl = dropout(x, 0.0, mask=mask)
+    return (xl @ pair.a.to(x.dtype)) @ pair.b.to(x.dtype) * scale
 
-    x [B, N, D]; frozen projections and LayerNorm (the kernels give no
-    weight gradients). The routes are the module docstring's; every other
-    route of the JAX ``mha`` raises.
+
+def _mha_lora(p: Attention, x, *, num_heads, ln, ln_eps, residual, key_padding_bias,
+              lora_alpha, lora_dropout, gen, lora_masks, ops):
+    b, n, d = x.shape
+    lora = p.lora
+    pairs = dict(lora.named_children())
+    scale = (lora_alpha if lora_alpha is not None else 1.0) / math.sqrt(
+        next(iter(pairs.values())).a.shape[1])
+    masks = dict(lora_masks or {})
+    if not masks and gen is not None and lora_dropout > 0.0:
+        masks = {t: dropout_mask(gen, lora_dropout, (b, n, d), device=x.device) for t in pairs}
+    z = layernorm(ln, x, eps=ln_eps)
+    dt = z.dtype
+
+    def proj(name):
+        lin = getattr(p, name)
+        y = z @ lin.w.to(dt)
+        if lin.b is not None:
+            y = y + lin.b.to(dt)
+        if name in pairs:
+            y = y + _lora_delta(pairs[name], z, masks.get(name), scale)
+        return y.reshape(b, n, num_heads, d // num_heads)
+
+    out = ops.flash_attention(proj("q"), proj("k"), proj("v"), bias=key_padding_bias,
+                              layout="bnhd", bias_grad=False)
+    cat = out.reshape(b, n, d)
+    y = cat @ p.o.w.to(dt)
+    if p.o.b is not None:
+        y = y + p.o.b.to(dt)
+    if "o" in pairs:
+        y = y + _lora_delta(pairs["o"], cat, masks.get("o"), scale)
+    return y if residual is None else residual + y
+
+
+def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, residual=None,
+        mask=None, key_padding_bias=None, causal: bool = False, lora_alpha=None,
+        lora_dropout: float = 0.0, gen=None, lora_masks=None, ops=KERNELS):
+    """``[residual +] o(attention(q, k, v))`` with ``q, k, v = LN(x) W + b``
+    (plus each projection's LoRA update when ``p`` holds ``lora``, scaled by
+    ``lora_alpha / sqrt(r)``).
+
+    x [B, N, D]. Without LoRA the projections and the LayerNorm are frozen
+    (the kernels give no weight gradients); with LoRA, autograd reaches the
+    pairs, the projection biases and x. The routes are the module
+    docstring's; every other route of the JAX ``mha`` raises.
     """
-    if ln is None or mask is not None or causal or "lora" in p._modules:
+    if ln is None or mask is not None or causal:
         raise NotImplementedError(
-            "mha: only the LayerNorm routes without LoRA, mask or causal attention are "
-            "ported to the PyTorch package yet (ROADMAP.md, section A, items 3 and 4)")
+            "mha: only the LayerNorm routes without a generic mask or causal attention are "
+            "ported to the PyTorch package yet (ROADMAP.md, section A, item 3)")
+    if "lora" in p._modules:
+        return _mha_lora(p, x, num_heads=num_heads, ln=ln, ln_eps=ln_eps, residual=residual,
+                         key_padding_bias=key_padding_bias, lora_alpha=lora_alpha,
+                         lora_dropout=lora_dropout, gen=gen, lora_masks=lora_masks, ops=ops)
     if residual is not None:
         q, k, v = ops.fused_ln_qkv(x, ln, p, heads=num_heads, eps=ln_eps)
         return ops.fused_attn_o_residual(q, k, v, residual, p.o, heads=num_heads,

@@ -95,13 +95,30 @@ ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
 class Conv(nn.Module):
-    """``conv_init``: HWIO weight and bias, torch nn.Conv2d's default bounds."""
+    """``conv_init``: HWIO weight and bias (``bias=False``: none, as OpenAI
+    CLIP's patch embedding), torch nn.Conv2d's default bounds."""
 
-    def __init__(self, gen, kh: int, kw: int, in_ch: int, out_ch: int, *, groups: int = 1):
+    def __init__(self, gen, kh: int, kw: int, in_ch: int, out_ch: int, *, groups: int = 1,
+                 bias: bool = True):
         super().__init__()
         bound = 1.0 / math.sqrt(kh * kw * (in_ch // groups))
         self.w = param(uniform(gen, (kh, kw, in_ch // groups, out_ch), bound))
-        self.b = param(uniform(gen, (out_ch,), bound))
+        self.b = param(uniform(gen, (out_ch,), bound)) if bias else None
+
+
+class Embedding(nn.Module):
+    """``embedding_init``: ``w`` [vocab, dim], normal of ``std``."""
+
+    def __init__(self, gen, vocab: int, dim: int, *, std: float = 0.02):
+        super().__init__()
+        self.w = param(normal(gen, (vocab, dim), std))
+
+
+def embedding(p: Embedding, ids: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Rows of ``w`` at integer ``ids``; ids outside the vocabulary are
+    clamped to its ends (jnp.take's mode='clip')."""
+    w = p.w if dtype is None else p.w.to(dtype)
+    return F.embedding(ids.long().clamp(0, w.shape[0] - 1), w)
 
 
 def dropout_mask(gen: torch.Generator, rate: float, shape, device=None) -> torch.Tensor:

@@ -38,8 +38,8 @@ SIGNATURES = {
     "nx_layernorm": [P, I, P, P, P, I, I, I, F, P],
     # a, w, dtype, bias, res, res_dtype, out, out_dtype, act, M, N, K, stream
     "nx_gemm": [P, P, I, P, P, I, P, I, I, I, I, I, P],
-    # qkv, key_bias, out, dtype, B, N, H, dh, n_real, scale, stream
-    "nx_attention": [P, P, P, I, I, I, I, I, I, F, P],
+    # qkv, key_bias, out, dtype, B, N, H, dh, n_real, causal, scale, stream
+    "nx_attention": [P, P, P, I, I, I, I, I, I, I, F, P],
     # s, freq, kernels, bias, out, dtype, B, H, W, C, stream
     "nx_mona_spatial": [P, P, P, P, P, I, I, I, I, I, P],
     # s, freq, kernels, g, ds, dk, dfreq_part, dbias, dtype, B, H, W, C, stream
@@ -58,8 +58,12 @@ SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, g, z, a, dpre, dz, dx, dtype, M, D, hidden, act,
     # eps, stream
     "nx_ln_mlp_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-    # q, k, v, o, bias, dtype, B, H, N, dh, sb, sh, sn, osb, osh, osn, causal, scale, stream
-    "nx_flash_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, P],
+    # q, k, v, o, bias, lse, dtype, B, H, N, dh, sb, sh, sn, osb, osh, osn, causal, scale,
+    # stream
+    "nx_flash_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, P],
+    # q, k, v, o, g, lse, bias, dq, dk, dv, dbias, delta, dtype, B, H, N, dh, sb, sh, sn,
+    # osb, osh, osn, causal, scale, stream
+    "nx_flash_attention_bwd": [P] * 12 + [I] * 12 + [F, P],
     # x, w1, b1, w2, b2, h, out, dtype, M, D, hidden, act, stream
     "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # img, lut, out, B, HW, stream

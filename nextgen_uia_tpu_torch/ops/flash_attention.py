@@ -1,17 +1,20 @@
-"""Attention forward for any sequence length (counterpart of
+"""Attention for any sequence length, forward and backward (counterpart of
 nextgen_uia_tpu/ops/flash_attention.py::flash_attention):
 
     o = softmax(q k^T / sqrt(dh) + bias[b, key], causal) v
 
 float32 scores and softmax, the probabilities rounded to the input type
 before the product with v, the output in the input type. ``layout``
-'bnhd' takes q, k, v [B, N, H, dh], 'bhnd' [B, H, N, dh]; the output has
-the input's layout. On a CUDA tensor the hand-written kernel of
-csrc/flash_attention.cu runs (counted in ``flash_attention.launches``),
+'bnhd' takes q, k, v [B, N, H, dh], 'bhnd' [B, H, N, dh]; the output and
+the gradients have the input's layout. On a CUDA tensor the hand-written
+kernels of csrc/flash_attention.cu run (counted in
+``flash_attention.launches`` and ``flash_attention_backward.launches``),
 reading strided views (a packed q|k|v projection, either layout) without a
-copy; on a CPU tensor ``flash_attention_plain`` runs and autograd
-differentiates it. The backward kernel is not ported: on the card, autograd
-reaching it raises.
+copy; the forward saves each row's log-sum-exp for the backward kernel. On
+a CPU tensor ``flash_attention_plain`` and ``flash_attention_backward_plain``
+run. The backward follows the JAX kernel's rounding points; the key bias
+gets a gradient when ``bias_grad`` (the JAX default), else it is a
+constant.
 """
 
 from __future__ import annotations
@@ -29,22 +32,55 @@ def _to_bhnd(t, layout):
     return t.transpose(1, 2) if layout == "bnhd" else t
 
 
-def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd"):
-    """Plain PyTorch version, differentiable by autograd: the JAX kernel's
-    masking (the bias added to the scores, then -1e30 above the diagonal
-    when causal), float32 softmax, P rounded to q.dtype before P v."""
-    dt, f32 = q.dtype, torch.float32
-    q, k, v = (_to_bhnd(t, layout) for t in (q, k, v))
-    n = q.shape[2]
+def _probs(q, k, bias, causal):
+    """float32 softmax of the scaled scores of [B, H, N, dh] q and k, masked
+    as the JAX kernel masks: the bias added, then -1e30 above the diagonal
+    when causal."""
+    f32, n = torch.float32, q.shape[2]
     s = (q.to(f32) @ k.to(f32).transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if bias is not None:
         s = s + bias.to(f32)[:, None, None, :]
     if causal:
         pos = torch.arange(n, device=q.device)
         s = torch.where(pos[None, :] > pos[:, None], torch.full_like(s, NEG_INF), s)
-    p = torch.softmax(s, dim=-1).to(dt)
+    return torch.softmax(s, dim=-1)
+
+
+def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd",
+                          bias_grad: bool = True):
+    """Plain PyTorch version, differentiable by autograd (in the bias only
+    with ``bias_grad``): the JAX kernel's masking, float32 softmax, P
+    rounded to q.dtype before P v."""
+    dt, f32 = q.dtype, torch.float32
+    if bias is not None and not bias_grad:
+        bias = bias.detach()
+    q, k, v = (_to_bhnd(t, layout) for t in (q, k, v))
+    p = _probs(q, k, bias, causal).to(dt)
     o = (p.to(f32) @ v.to(f32)).to(dt)
     return o.transpose(1, 2) if layout == "bnhd" else o
+
+
+def flash_attention_backward_plain(q, k, v, bias, g, *, causal: bool = False,
+                                   layout: str = "bnhd"):
+    """The JAX ``_bwd_kernel`` in PyTorch: P recomputed in float32,
+    dv = round(P)^T g, dp = g v^T, ds_raw = P (dp - rowsum(dp P)),
+    ds = round(ds_raw * scale), dq = ds k, dk = ds^T q, each product
+    accumulated in float32 and rounded to q.dtype once. Returns (dq, dk, dv)
+    in the input's layout and dbias [B, N] float32 (the sum of ds_raw over
+    heads and queries; None without a bias)."""
+    dt, f32 = q.dtype, torch.float32
+    q, k, v, g = (_to_bhnd(t, layout) for t in (q, k, v, g))
+    p = _probs(q, k, bias, causal)
+    g32 = g.to(f32)
+    dv = p.to(dt).to(f32).transpose(-1, -2) @ g32
+    dp = g32 @ v.to(f32).transpose(-1, -2)
+    ds_raw = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds_raw * (1.0 / math.sqrt(q.shape[-1]))).to(dt).to(f32)
+    dq, dk = ds @ k.to(f32), ds.transpose(-1, -2) @ q.to(f32)
+    grads = [t.to(dt) for t in (dq, dk, dv)]
+    if layout == "bnhd":
+        grads = [t.transpose(1, 2) for t in grads]
+    return (*grads, None if bias is None else ds_raw.sum((1, 2)))
 
 
 def _strides(t, layout):
@@ -81,45 +117,113 @@ def _check_cuda(q, k, v, bias, layout):
     return b, n, h, dh
 
 
-def _forward_cuda(q, k, v, bias, causal, layout):
+def _key_bias(bias):
+    return None if bias is None else bias.detach().to(torch.float32).contiguous()
+
+
+def _forward_cuda(q, k, v, bias, causal, layout, with_lse):
+    """(out, lse [B, H, N] float32 or None) from the forward kernel."""
     b, n, h, dh = _check_cuda(q, k, v, bias, layout)
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    kb = None if bias is None else bias.detach().to(torch.float32).contiguous()
+    lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32) if with_lse else None
     sb, sh, sn = _strides(q, layout)
     osb, osh, osn = _strides(out, layout)
     lib = build.library()
     with torch.cuda.device(q.device):
         build.check(lib.nx_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), build.ptr(kb),
-            build.DTYPE_CODES[q.dtype], b, h, n, dh, sb, sh, sn, osb, osh, osn, int(causal),
-            1.0 / math.sqrt(dh), build.stream(q.device)), "flash_attention")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), build.ptr(_key_bias(bias)),
+            build.ptr(lse), build.DTYPE_CODES[q.dtype], b, h, n, dh, sb, sh, sn, osb, osh, osn,
+            int(causal), 1.0 / math.sqrt(dh), build.stream(q.device)), "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_forward(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd"):
+    """(out, lse): the forward kernel's output and each row's float32
+    log-sum-exp [B, H, N], the saved state ``flash_attention_backward``
+    takes. CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_forward: CUDA tensors only, got {q.device}")
+    return _forward_cuda(q, k, v, bias, causal, layout, True)
+
+
+def flash_attention_backward(q, k, v, out, g, lse, *, bias=None, causal: bool = False,
+                             layout: str = "bnhd", bias_grad: bool = True):
+    """(dq, dk, dv, dbias) for the output gradient g of ``out = attention(q,
+    k, v)``: on a CUDA tensor the backward kernels of
+    csrc/flash_attention.cu (``out`` and ``lse`` from the forward kernel;
+    counted in ``flash_attention_backward.launches``), on a CPU tensor
+    ``flash_attention_backward_plain`` (``out`` and ``lse`` unused). dbias
+    [B, N] float32 when ``bias_grad`` and a bias is given, else None."""
+    if q.device.type == "cpu":
+        *grads, dbias = flash_attention_backward_plain(q, k, v, bias, g, causal=causal,
+                                                       layout=layout)
+        return (*grads, dbias if bias_grad else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, n, h, dh = _check_cuda(q, k, v, bias, layout)
+    g = g.to(q.dtype).contiguous()
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
+    ostrides = _strides(out, layout)
+    if (_strides(g, layout) != ostrides or _strides(dq, layout) != ostrides
+            or tuple(lse.shape) != (b, h, n) or lse.dtype != torch.float32
+            or any(t.data_ptr() % 16 for t in (out, g))):
+        raise ValueError("flash_attention backward: out, g and the gradients need one "
+                         "16-byte aligned layout and lse [B, H, N] float32")
+    if q.dtype == torch.bfloat16 and any(s % 8 for s in ostrides):
+        raise ValueError("flash_attention backward: bfloat16 rows not 16-byte aligned")
+    delta = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    dbias = (torch.zeros(b, n, device=q.device, dtype=torch.float32)
+             if bias_grad and bias is not None else None)
+    sb, sh, sn = _strides(q, layout)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        build.check(lib.nx_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            build.ptr(lse.contiguous()), build.ptr(_key_bias(bias)), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), build.ptr(dbias), build.ptr(delta),
+            build.DTYPE_CODES[q.dtype], b, h, n, dh, sb, sh, sn, *ostrides, int(causal),
+            1.0 / math.sqrt(dh), build.stream(q.device)), "flash_attention backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv, dbias
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, layout):
-        return _forward_cuda(q, k, v, bias, causal, layout)
+    def forward(ctx, q, k, v, bias, causal, layout, bias_grad):
+        ctx.causal, ctx.layout = causal, layout
+        ctx.bias_grad = bias_grad and bias is not None
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, bias=bias, causal=causal,
+                                             layout=layout), None
+        else:
+            out, lse = _forward_cuda(q, k, v, bias, causal, layout,
+                                     any(ctx.needs_input_grad[:4]))
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention: the backward kernel (K7 backward) is not ported yet; it comes "
-            "with the LoRA slice (ROADMAP.md, section B, K7, and section A, item 4)")
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_backward(
+            q, k, v, out, g, lse, bias=bias, causal=ctx.causal, layout=ctx.layout,
+            bias_grad=ctx.bias_grad)
+        return dq, dk, dv, None if dbias is None else dbias.to(bias.dtype), None, None, None
 
 
-def flash_attention(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd"):
+def flash_attention(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd",
+                    bias_grad: bool = True):
     """Attention of q, k, v in ``layout`` with an optional additive key bias
-    [B, N] (a constant: no gradient) and causal masking; the kernel on a CUDA
-    tensor, ``flash_attention_plain`` on a CPU tensor."""
+    [B, N] and causal masking; differentiable in q, k, v and, when
+    ``bias_grad`` (the JAX default), in the bias; pass ``bias_grad=False``
+    for a constant mask. The kernels on a CUDA tensor, the plain versions on
+    a CPU tensor."""
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r} ('bnhd' or 'bhnd')")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias=bias, causal=causal, layout=layout)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _Flash.apply(q, k, v, bias, causal, layout)
+    return _Flash.apply(q, k, v, bias, causal, layout, bias_grad)
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

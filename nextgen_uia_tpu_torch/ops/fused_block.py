@@ -9,8 +9,9 @@ csrc/fused_block.cu for a CUDA tensor and runs ``fused_block_infer_plain``
 for a CPU tensor only. The plain version follows the JAX package's
 ``_xla_reference`` and keeps the kernel's rounding points.
 
-Forward only, pre-norm, non-causal: the post-norm BERT layout and the causal
-mask come with the text towers.
+Forward only, pre-norm, with or without the causal mask (``causal=True``:
+the CLIP text tower, -1e30 where key > row, applied after ``key_bias``).
+The post-norm BERT layout comes with the BERT text tower.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ from . import build
 from .build import ACT_CODES, DTYPE_CODES
 
 
-def _check_layout(layout: str, causal: bool, act: str):
-    if layout != "prenorm" or causal:
+def _check_layout(layout: str, act: str):
+    if layout != "prenorm":
         raise NotImplementedError(
-            "fused_block_infer: only the pre-norm, non-causal block is ported "
-            "(post-norm BERT and causal text blocks: ROADMAP.md, section B)")
+            "fused_block_infer: only the pre-norm block is ported "
+            "(post-norm BERT blocks: ROADMAP.md, section B, K1)")
     if act not in ACT_CODES:
         raise ValueError(f"fused_block_infer: unsupported activation {act!r}")
 
@@ -39,7 +40,7 @@ def fused_block_infer_plain(x, p, *, heads: int, act: str = "gelu", eps: float =
     """Plain PyTorch version of the block: float32 products with the
     kernel's rounding points (z, q/k/v, probabilities, head concat, z2 and h
     rounded to x.dtype; y32 and the fc2 sum in float32)."""
-    _check_layout(layout, causal, act)
+    _check_layout(layout, act)
     b, n, d = x.shape
     hd = d // heads
     dt = x.dtype
@@ -63,6 +64,8 @@ def fused_block_infer_plain(x, p, *, heads: int, act: str = "gelu", eps: float =
     s = torch.where(col >= n_real, torch.full_like(s, -1e30), s)
     if key_bias is not None:
         s = s + key_bias.to(f32)[:, None, None, :]
+    if causal:
+        s = torch.where(col[None, :] > col[:, None], torch.full_like(s, -1e30), s)
     prob = torch.softmax(s, dim=-1).to(dt)
     oh = prob.to(f32) @ v.to(f32)
     cat = oh.transpose(1, 2).reshape(b, n, d).to(dt)
@@ -102,15 +105,16 @@ def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
 
     x: [B, N, D] float32 or bfloat16; p: a models.vit.Block (ln1, attn,
     ln2, mlp). key_bias [B, N] float32 is added to the scores; keys at or
-    beyond ``n_real`` are masked. On a CUDA tensor this launches the kernels
+    beyond ``n_real`` are masked, and with ``causal`` the keys after each
+    query row. On a CUDA tensor this launches the kernels
     of csrc/fused_block.cu (and counts one launch in
     ``fused_block_infer.launches``); on a CPU tensor it runs
     ``fused_block_infer_plain``. Any other device raises.
     """
-    _check_layout(layout, causal, act)
+    _check_layout(layout, act)
     if x.device.type == "cpu":
         return fused_block_infer_plain(x, p, heads=heads, act=act, eps=eps,
-                                       key_bias=key_bias, n_real=n_real)
+                                       key_bias=key_bias, n_real=n_real, causal=causal)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_infer: unsupported device {x.device}")
     b, n, d = x.shape
@@ -151,7 +155,7 @@ def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
                                 0, qkv.data_ptr(), code, 0, m, 3 * d, d, stream), "qkv")
         build.check(lib.nx_attention(qkv.data_ptr(), None if kb is None else kb.data_ptr(),
                                      cat.data_ptr(), code, b, n, heads, dh, n_real,
-                                     1.0 / math.sqrt(dh), stream), "attention")
+                                     int(causal), 1.0 / math.sqrt(dh), stream), "attention")
         build.check(lib.nx_gemm(build.ptr(cat), build.ptr(wo), code, bo.data_ptr(),
                                 x.data_ptr(), code, y32.data_ptr(), 0, 0, m, d, d, stream),
                     "o-proj")

@@ -1,0 +1,310 @@
+"""Contrastive fine-tuning of the CLIP families on one device (counterpart
+of nextgen_uia_tpu/tasks/clip_finetune.py::finetune_main).
+
+Methods ``lora`` (LoRA pairs in every vision block, trained with the
+q/k/v/o biases of the blocks that hold them) and ``mona`` (MONA adapters);
+AdamW(0.9, 0.95) with weight decay 0.01 and a cosine rate per applied
+update over ceil(steps / accum) * epochs updates; gradient accumulation
+(default 4) with the non-finite skip and a global-norm clip of 1.0; InfoNCE
+at the fixed ``--temperature``; the frozen text tower's caption features
+cached once (or encoded in the step with ``--no-cache_text_features``, under
+no_grad, through the whole-block kernel with the causal mask); validation
+each epoch through the forward-only kernels; the best-by-validation-loss
+checkpoint holding only the adapter tensors; early stop; ``--resume`` from
+the full train state and SIGTERM preemption.
+
+Not ported, each refused naming its ROADMAP.md item: ``--method full``,
+``--tune_text_encoder``, ``--chain_zero_shot``, ``--n_data``/``--n_model``,
+the BiomedCLIP/UniMedCLIP text towers and retrieval.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+
+import numpy as np
+import torch
+
+from ..core import checkpoint as ckpt
+from ..core import train as T
+from ..core.experiment import TBWriter, model_summary
+from ..core.partition import by_keywords, partition, path_str
+from ..data import datasets as D
+from ..data import pipeline as P
+from ..losses import info_nce
+from ..models import clip as clip_mod
+from ..ops import KERNELS
+from .common import (base_parser, build_clip_model, get_text_tokenizer, not_ported,
+                     resolve_device, seed_everything, setup_logging)
+
+
+def _finetune_parser(family: str):
+    # reference CLI defaults: biomedclip 32 epochs + freq_enhanced MONA, the
+    # OpenAI-layout families 1000 epochs + noise_aware
+    p = base_parser(f"{family}_finetune", batch_size=64,
+                    epochs=32 if family == "biomedclip" else 1000, patience=10,
+                    mona_variant="freq_enhanced" if family == "biomedclip" else "noise_aware")
+    p.add_argument("--method", type=str, default="full", choices=["full", "mona", "lora"])
+    p.add_argument("--tune_text_encoder", default=False, action="store_true")
+    p.add_argument("--tune_layers", type=str, default="all",
+                   choices=["last3", "last6", "last9", "all"])
+    p.add_argument("--temperature", type=float, default=0.07)
+    p.add_argument("--beta1_adam", type=float, default=0.9)
+    p.add_argument("--beta2_adam", type=float, default=0.95)
+    p.add_argument("--accumulation_steps", type=int, default=4)
+    p.add_argument("--grad_clip", type=float, default=1.0)
+    p.add_argument("--uniformity_weight", type=float, default=0,
+                   help="accepted for reference CLI parity; never consumed")
+    p.add_argument("--trim_text_padding", default=True, action=argparse.BooleanOptionalAction,
+                   help="trim in-step text batches to the real max caption length "
+                        "(32-token buckets; exact, see trim_token_padding)")
+    p.add_argument("--finetune_csvs", type=str, nargs="*", default=None,
+                   help="caption CSVs (default: MedPix + PMC-CURD under data_root)")
+    p.add_argument("--finetune_img_dirs", type=str, nargs="*", default=None)
+    p.add_argument("--cache_text_features", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="encode every caption once with the frozen text tower and reuse "
+                        "the features every step (exact: the tower has no dropout)")
+    p.add_argument("--chain_zero_shot", type=str, nargs="*", default=None,
+                   help="not ported: zero-shot evaluation after fine-tuning")
+    return p
+
+
+def lora_trainable_predicate(params: torch.nn.Module):
+    """Trainable = every 'lora' tensor plus the q/k/v/o biases of each
+    attention that holds LoRA pairs: the reference re-registers only the
+    wrapped projections' weights as frozen, so their biases train (they are
+    not saved in the adapter checkpoint, which keeps 'lora' names only)."""
+    paths = [path_str(k) for k, _ in params.named_parameters()]
+    lora_attn = {p.split("/lora/")[0] for p in paths if "/lora/" in p}
+    bias_paths = {f"{a}/{proj}/b" for a in lora_attn for proj in ("q", "k", "v", "o")}
+    base = by_keywords("lora")
+    return lambda path: base(path) or path in bias_paths
+
+
+def trim_token_padding(tokens: np.ndarray, *, enabled: bool = True,
+                       multiple: int = 32) -> np.ndarray:
+    """Trim a padded token batch [B, ctx] to the batch's real max length,
+    rounded up to ``multiple``. Exact: under the causal mask no real token
+    reads a padding column, and EOT pooling never reads a padding row. The
+    length is the last nonzero position + 1 (the CLIP BPE emits real id 0
+    for '!'), so trailing zeros are the only thing cut."""
+    if not enabled:
+        return tokens
+    nz = tokens != 0
+    lengths = np.where(nz.any(axis=1), tokens.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+    lmax = int(lengths.max()) if tokens.size else 0
+    bucket = max(((lmax + multiple - 1) // multiple) * multiple, multiple)
+    return tokens[:, : min(bucket, tokens.shape[1])]
+
+
+def _refuse_unported(args, family):
+    if args.method == "full":
+        raise not_ported("--method full (the eager block route that trains the tower's "
+                         "weights)", "section A, item 3")
+    if args.tune_text_encoder:
+        raise not_ported("--tune_text_encoder (the differentiable text tower, K10 backward)",
+                         "section A, item 10")
+    if args.chain_zero_shot:
+        raise not_ported("--chain_zero_shot (zero-shot of the CLIP families)",
+                         "section A, item 10")
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+    if family not in ("openai", "metaclip"):
+        raise not_ported(f"Fine-tuning the {family} family (its BERT text tower)",
+                         "section A, item 5")
+
+
+def make_text_encoder(params, cfg, device, ops=KERNELS):
+    """tokens (numpy or tensor) -> float32 features [B, embed] of the frozen
+    text tower, forward only: every block through the whole-block kernel
+    with the causal mask."""
+    ecfg = clip_mod.infer_cfg(cfg, vision=False)
+
+    @torch.no_grad()
+    def encode(tokens):
+        toks = tokens if torch.is_tensor(tokens) else torch.from_numpy(np.asarray(tokens))
+        return clip_mod.encode_text(params, ecfg, toks.to(device), ops=ops).float()
+
+    return encode
+
+
+def cache_text_features(encode, tokenizer, captions, ctx: int, chunk: int = 256) -> dict:
+    """caption -> float32 feature (numpy) for every caption, ``chunk`` at a
+    time through ``encode``."""
+    cache = {}
+    for s in range(0, len(captions), chunk):
+        part = captions[s:s + chunk]
+        feats = encode(tokenizer(part, ctx)).cpu().numpy()
+        cache.update(zip(part, feats))
+    return cache
+
+
+def finetune_main(family: str, argv=None):
+    args = _finetune_parser(family).parse_args(argv)
+    _refuse_unported(args, family)
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = os.path.join("runs", args.exp)
+    setup_logging(run_path, args)
+
+    cfg, params = build_clip_model(args, family, adapter=args.method, gen=gen)
+    tokenizer = get_text_tokenizer(args, family)
+    pred = by_keywords("mona") if args.method == "mona" else lora_trainable_predicate(params)
+    trainable, _ = partition(params, pred)
+    names = list(trainable)
+    logging.info(model_summary({"model": params}, trainable_pred=pred))
+
+    csvs, img_dirs = args.finetune_csvs, args.finetune_img_dirs
+    if not csvs:
+        base = os.path.join(args.data_root, "finetune")
+        csvs = [os.path.join(base, "medpix_dataset", "medpix_dataset.csv"),
+                os.path.join(base, "pmc_curd_dataset", "pmc_curd_dataset.csv")]
+        img_dirs = [os.path.join(base, "medpix_dataset", "images"),
+                    os.path.join(base, "pmc_curd_dataset", "images")]
+        csvs = [c for c in csvs if os.path.exists(c)]
+    train_rows, val_rows = D.load_finetune_rows(csvs, img_dirs, seed=args.seed)
+    train_ds = D.FinetuneDataset(train_rows, args.img_size)
+    val_ds = D.FinetuneDataset(val_rows, args.img_size)
+    logging.info(f"Train samples: {len(train_ds)}, Val samples: {len(val_ds)}")
+
+    ctx = cfg.text.context_length
+    accum = args.accumulation_steps
+    steps = max(len(train_ds) // args.batch_size, 1)
+    total_updates = math.ceil(steps / accum) * args.epochs
+    logging.info(f"Updates per epoch: {math.ceil(steps / accum)}; total: {total_updates}")
+    tcfg = T.TrainConfig(lr=args.lr, lr_min=args.lr_min, weight_decay=args.weight_decay,
+                         beta1=args.beta1_adam, beta2=args.beta2_adam,
+                         total_updates=total_updates)
+    params.to(device)
+    eval_cfg = clip_mod.infer_cfg(cfg)
+    encode_text = make_text_encoder(params, cfg, device)
+    text_cache = {}
+    if args.cache_text_features:
+        captions = sorted({c for rows in (train_rows, val_rows) for _, c in rows})
+        text_cache = cache_text_features(encode_text, tokenizer, captions, ctx)
+        logging.info(f"Cached text features for {len(captions)} captions")
+
+    def text_features(batch):
+        return batch["txt_feat"] if args.cache_text_features else encode_text(batch["tokens"])
+
+    def loss_fn(mb, g):
+        x = mb["image"].to(torch.float32) / 255.0
+        img_feats, _ = clip_mod.encode_image(params, cfg, x, gen=g)
+        return info_nce(img_feats, text_features(mb), temperature=args.temperature)
+
+    @torch.no_grad()
+    def val_loss(batch):
+        x = batch["image"].to(torch.float32) / 255.0
+        img_feats, _ = clip_mod.encode_image(params, eval_cfg, x)
+        return float(info_nce(img_feats, text_features(batch), temperature=args.temperature))
+
+    step = T.TrainStep(loss_fn, T.make_optimizer(trainable.values(), tcfg), tcfg,
+                       accum_steps=accum, grad_clip=args.grad_clip)
+
+    def tokenized_batches(ds, shuffle, drop_last, seed, skip_batches=0):
+        for b in P.batches(ds, args.batch_size, shuffle=shuffle, drop_last=drop_last,
+                           seed=seed, workers=args.num_workers, skip_batches=skip_batches):
+            if args.cache_text_features:
+                b["txt_feat"] = np.stack([text_cache[c] for c in b["caption"]])
+            else:
+                b["tokens"] = trim_token_padding(np.asarray(tokenizer(b["caption"], ctx)),
+                                                 enabled=args.trim_text_padding)
+            del b["caption"]
+            yield b
+
+    writer = TBWriter(os.path.join(run_path, "log"))
+    stopper = T.EarlyStopper(args.patience, mode="min")
+    best_path = os.path.join(run_path, "best_model.npz")
+    last_path = os.path.join(run_path, "last_state.npz")
+    # the dropout stream: torch's, seeded like the JAX package's key
+    drop_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    update_count, start_epoch, skip_updates = 0, 0, 0
+    if args.resume and os.path.exists(last_path):
+        flat, meta = ckpt.load_train_state(last_path)
+        step.load_state(flat, names)
+        start_epoch = int(meta.get("epoch", 0))
+        skip_updates = int(meta.get("updates_into_epoch", 0))
+        update_count = int(meta.get("update_count", 0))
+        T.restore_stopper(stopper, meta)
+        logging.info(f"Resumed from {last_path} at epoch {start_epoch} "
+                     f"({step.applied} updates applied)")
+
+    def save_last(epoch_, updates_into_epoch_):
+        ckpt.save_train_state(last_path, step.state(names), extra={
+            "epoch": epoch_, "updates_into_epoch": updates_into_epoch_,
+            "update_count": update_count, "applied_count": step.applied,
+            **T.stopper_meta(stopper)})
+
+    shutdown = T.GracefulShutdown().install()
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            epoch_loss, nb = 0.0, 0
+            # mid-epoch resume: the epoch's batch order is seeded, so skipping
+            # at the index level replays exactly the batches not yet consumed
+            skip = skip_updates if epoch == start_epoch else 0
+            updates_this_epoch = skip
+            if skip:
+                logging.info(f"Mid-epoch resume: skipping {skip} already-applied updates of "
+                             f"epoch {epoch + 1}")
+            batches = (T.stack_microbatches(b, accum) for b in tokenized_batches(
+                train_ds, True, True, args.seed + epoch, skip_batches=skip))
+            for mb in P.prefetch_to_device(batches, device=device):
+                m = step(mb, drop_gen)
+                update_count += 1
+                updates_this_epoch += 1
+                epoch_loss += m["loss"]
+                nb += 1
+                writer.scalar("train/loss_per_update", m["loss"], update_count)
+                writer.scalar("train/lr", T.cosine_lr_value(tcfg, step.applied - 1),
+                              update_count)
+                if m["skipped"]:
+                    logging.warning(f"{m['skipped']} non-finite microbatches skipped at "
+                                    f"update {update_count}")
+                if shutdown.requested:
+                    break
+            if shutdown.requested:
+                save_last(epoch, updates_this_epoch)
+                logging.warning(f"Preempted at epoch {epoch + 1} after {updates_this_epoch} "
+                                f"updates; train state saved to {last_path} - rerun with "
+                                "--resume to continue")
+                break
+
+            val_losses = [val_loss(b) for b in P.prefetch_to_device(
+                tokenized_batches(val_ds, False, False, None), device=device)]
+            val_losses = [v for v in val_losses if np.isfinite(v)]
+            avg_val = float(np.mean(val_losses)) if val_losses else float("inf")
+            if not val_losses:
+                logging.warning("All validation losses non-finite this epoch")
+            writer.scalar("val/loss_per_epoch", avg_val, epoch + 1)
+            if nb:
+                writer.scalar("train/loss_per_epoch", epoch_loss / nb, epoch + 1)
+            train_str = f"{epoch_loss / nb:.4f}" if nb else "n/a (resumed at boundary)"
+            best = stopper.best if stopper.best is not None else float("inf")
+            logging.info(f"Epoch {epoch + 1}: Train={train_str}, Val={avg_val:.4f}, "
+                         f"Best={best:.4f}")
+            if stopper.update(avg_val, epoch):
+                n = ckpt.save(best_path, params, keyword_filter=[args.method])
+                logging.info(f"Best model saved ({n} tensors) at epoch {epoch + 1} with "
+                             f"validation loss {stopper.best:.4f}")
+            save_last(epoch + 1, 0)
+            if stopper.should_stop:
+                logging.info(f"Early stopping at epoch {epoch + 1}")
+                break
+    finally:
+        shutdown.uninstall()
+    writer.close()
+    if shutdown.requested:
+        return {"preempted": True, "best_val_loss": stopper.best,
+                "best_epoch": stopper.best_step}
+    logging.info(f"Training completed. Best val loss {stopper.best:.4f} at epoch "
+                 f"{stopper.best_step + 1}")
+    return {"best_val_loss": stopper.best, "best_epoch": stopper.best_step}
+
+
+def retrieval_main(family: str, argv=None):
+    raise not_ported("Image-text retrieval", "section A, item 7")

@@ -95,6 +95,8 @@ def supervised_main(family: str, task: str, argv=None):
     args = p.parse_args(argv)
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+    if args.lora_weights:
+        raise not_ported("LoRA weights in the supervised trainers", "section A, item 4")
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
 

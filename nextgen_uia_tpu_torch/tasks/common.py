@@ -1,11 +1,11 @@
 """Shared task scaffolding (counterpart of nextgen_uia_tpu/tasks/common.py):
 flags, seeding, device choice and model assembly.
 
-The flags keep the JAX package's names and defaults for what the serving
-and supervised-training paths read. ``--device`` selects the torch device here (default ``cuda``);
-asking for CUDA where there is none raises, and nothing falls back to the
-CPU. Features outside the ported serving slice raise NotImplementedError
-naming their ROADMAP.md item.
+The flags keep the JAX package's names and defaults for what the serving,
+supervised-training and contrastive fine-tune paths read. ``--device``
+selects the torch device here (default ``cuda``); asking for CUDA where
+there is none raises, and nothing falls back to the CPU. Features outside
+the ported slices raise NotImplementedError naming their ROADMAP.md item.
 
 Without converted pretrained weights the backbone initialises randomly from
 ``--seed`` with a loud warning.
@@ -18,13 +18,16 @@ import dataclasses
 import logging
 import os
 import random
+import re
 import sys
 
 import numpy as np
 import torch
 
+from ..adapters.lora import inject_lora
 from ..adapters.mona import inject_mona
 from ..core import checkpoint as ckpt
+from ..data.tokenizer import ClipTokenizer
 from ..models import clip as clip_mod
 
 MONA_CHOICES = ["baseline", "noise_aware", "freq_enhanced", "hybrid"]
@@ -72,6 +75,10 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--mona_bottleneck", type=int, default=64)
     p.add_argument("--mona_layers", type=int, default=None)
     p.add_argument("--lora_weights", type=str, default=None)
+    p.add_argument("--lora_r", type=int, default=16)
+    p.add_argument("--lora_alpha", type=int, default=32)
+    p.add_argument("--lora_dropout", type=float, default=0.1)
+    p.add_argument("--lora_layers", type=int, default=None)
     p.add_argument("--reduce_dim", type=int, default=512,
                    help="pyramid-head reduce width")
     p.add_argument("--device", type=str, default="cuda",
@@ -141,33 +148,63 @@ def resolve_mona_variant(variant: str) -> str:
 
 def sniff_adapter_kind(path: str):
     """Which adapter family a component checkpoint holds, by its flat key
-    paths: 'lora', 'mona' or None."""
+    paths: ('lora', {'r', 'num_layers'} recovered from the file), ('mona',
+    None) or (None, None)."""
     keys = ckpt.peek_keys(path)
-    has_lora = any("/lora/" in k for k in keys)
+    has_lora = [k for k in keys if "/lora/" in k]
     has_mona = any("/mona/" in k for k in keys)
     if has_lora and not has_mona:
-        return "lora"
+        with np.load(path) as data:
+            r = int(data[has_lora[0].rsplit("/", 1)[0] + "/a"].shape[1])
+        blocks = {int(m.group(1)) for k in has_lora
+                  if (m := re.search(r"/(?:blocks|layers)/(\d+)/", k))}
+        return "lora", {"r": r, "num_layers": (max(blocks) + 1) if blocks else None}
     if has_mona and not has_lora:
-        return "mona"
-    return None
+        return "mona", None
+    return None, None
 
 
 def build_clip_model(args, family: str, *, adapter: str | None = None,
                      gen: torch.Generator | None = None):
     """Assemble (cfg, CLIP module on CPU): config, random or converted
-    weights, MONA injection and the optional adapter weight load."""
+    weights, LoRA or MONA injection and the optional adapter weight load.
+
+    An adapter checkpoint passed through the other adapter's flag is routed
+    by its key paths, and a LoRA checkpoint's rank and layer count override
+    ``--lora_r``/``--lora_layers``, as the JAX package does."""
     gen = gen if gen is not None else torch.Generator().manual_seed(args.seed)
-    if args.lora_weights or adapter == "lora" or (
-            args.mona_weights and os.path.exists(args.mona_weights)
-            and sniff_adapter_kind(args.mona_weights) == "lora"):
-        raise not_ported("LoRA", "section A, item 4")
-    use_mona = adapter == "mona" or bool(args.mona_weights)
+    lora_r, lora_layers = args.lora_r, args.lora_layers
+    adapter_ckpt = args.mona_weights or args.lora_weights
+    if adapter_ckpt and os.path.exists(adapter_ckpt):
+        detected, meta = sniff_adapter_kind(adapter_ckpt)
+        flag = "mona" if args.mona_weights else "lora"
+        if detected is not None and detected != flag:
+            logging.info(f"--{flag}_weights {adapter_ckpt} holds {detected.upper()} parameters: "
+                         f"routing it to {detected} injection")
+            if detected == "lora":
+                args.lora_weights, args.mona_weights = adapter_ckpt, None
+            else:
+                args.mona_weights, args.lora_weights = adapter_ckpt, None
+        if detected == "lora":
+            if meta["r"] != lora_r:
+                logging.info(f"LoRA checkpoint rank r={meta['r']} overrides --lora_r {lora_r}")
+                lora_r = meta["r"]
+            if meta["num_layers"] is not None and meta["num_layers"] != lora_layers:
+                logging.info(f"LoRA checkpoint covers {meta['num_layers']} layers; overriding "
+                             f"--lora_layers {lora_layers}")
+                lora_layers = meta["num_layers"]
+    use_lora = adapter == "lora" or bool(args.lora_weights)
+    use_mona = not use_lora and (adapter == "mona" or bool(args.mona_weights))
     variant = resolve_mona_variant(args.mona_variant) if use_mona else "hybrid"
-    cfg = clip_mod.clip_config(family, compute_dtype=args.compute_dtype,
-                               mona_variant=variant)
+    cfg = clip_mod.clip_config(family, compute_dtype=args.compute_dtype, mona_variant=variant,
+                               lora_alpha=float(args.lora_alpha),
+                               lora_dropout=float(args.lora_dropout) if use_lora else 0.0)
     if args.debug_tiny:
         cfg = cfg.replace(vision=dataclasses.replace(
             cfg.vision, image_size=args.img_size, width=96, depth=4, heads=4, proj_dim=64))
+        if cfg.text is not None:
+            cfg = cfg.replace(text=dataclasses.replace(cfg.text, width=96, depth=2, heads=4,
+                                                       embed_dim=64))
     params = clip_mod.clip_init(gen, cfg)
 
     if args.backbone_ckpt:
@@ -177,7 +214,14 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
         logging.warning("No --backbone_ckpt given: backbone weights are RANDOM. Run the "
                         "checkpoint converter (nextgen_uia_tpu.convert) for pretrained "
                         "towers.")
-    if use_mona:
+    if use_lora:
+        _, n = inject_lora(gen, params.visual, dim=cfg.vision.width, r=lora_r,
+                           num_layers=lora_layers)
+        logging.info(f"Injected LoRA into {n} blocks (r={lora_r}, alpha={args.lora_alpha})")
+        if args.lora_weights:
+            _, n = ckpt.load_into(args.lora_weights, params)
+            logging.info(f"Loaded {n} LoRA tensors from {args.lora_weights}")
+    elif use_mona:
         _, n = inject_mona(gen, params.visual, dim=cfg.vision.width,
                            bottleneck=args.mona_bottleneck, variant=variant,
                            num_layers=args.mona_layers)
@@ -193,3 +237,13 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
                 _, n = ckpt.load_into(args.mona_weights, rooted)
             logging.info(f"Loaded {n} MONA tensors from {args.mona_weights}")
     return cfg, params
+
+
+def get_text_tokenizer(args, family: str):
+    """The text tokenizer of a family: the CLIP BPE (context 77) for openai
+    and metaclip. BiomedCLIP's and UniMedCLIP's BERT tokenizers are not
+    ported."""
+    if family in ("openai", "metaclip"):
+        tok = ClipTokenizer()
+        return lambda texts, ctx=77: tok(texts, context_length=ctx)
+    raise not_ported(f"The {family} text tokenizer (BERT WordPiece)", "section A, item 5")

@@ -120,6 +120,8 @@ def predict_main(family: str = "biomedclip", argv=None):
         raise not_ported("--export", "section A, item 14")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_model/--n_data (multi-device serving)", "section A, item 14")
+    if args.lora_weights:
+        raise not_ported("LoRA weights in the serving CLIs", "section A, item 4")
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
 

@@ -121,7 +121,7 @@ def test_unported_layouts_and_devices_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fb.fused_block_infer(x, blk, heads=HEADS, layout="postnorm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fb.fused_block_infer(x, blk, heads=HEADS, causal=True)
+        fb.fused_block_infer(x, blk, heads=HEADS, causal=True, layout="postnorm")
     with pytest.raises(ValueError, match="device"):
         fb.fused_block_infer(x.to("meta"), blk, heads=HEADS)
     launches = fb.fused_block_infer.launches

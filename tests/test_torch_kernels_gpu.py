@@ -7,10 +7,11 @@ Tolerances: float32 inputs, block max|d| <= 1e-4 * max|ref| and spatial op
 <= 1e-5 (the same float32 math summed in another order); bfloat16 inputs
 against the float32 plain version, block max|d| <= 3e-2 at unit scale and
 spatial op <= one bf16 ulp at the output's scale. The train path's kernels
-(forward and backward), the flash-attention (K7) and fused-MLP (K10)
-forwards: float32 max|d| <= 1e-4 * max|ref|, bfloat16 <= 3e-2 * max(1,
-max|ref|), for every output; K7's bfloat16 output, ~0.04 for unit-variance
-inputs, <= 3e-2 * max|ref|. The lookup and histogram kernels (K13) and an
+(forward and backward), the flash-attention (K7, forward and backward) and
+fused-MLP (K10) forwards, K1 with the causal mask: float32 max|d| <= 1e-4 *
+max|ref|, bfloat16 <= 3e-2 * max(1, max|ref|), for every output; K7's
+bfloat16 output (~0.04 for unit-variance inputs) and gradients <= 3e-2 *
+max|ref|. The lookup and histogram kernels (K13) and an
 augmentation plan through them: equal to their plain versions.
 """
 
@@ -283,14 +284,147 @@ def test_augmentation_plan_kernel_path_equals_plain_path(cuda):
 
 
 def test_k7_k10_backward_refuses_on_the_card(cuda):
+    """K10's backward is not ported: autograd reaching it on the card
+    raises. K7's backward kernel is ported; it refuses saved state it does
+    not take (here an lse of the wrong shape) instead of falling back."""
     from nextgen_uia_tpu_torch.ops import flash_attention as fa
     from nextgen_uia_tpu_torch.ops import fused_mlp as fm
 
-    q = torch.randn(1, 2, 20, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(q, q, q, layout="bhnd").sum().backward()
+    q = torch.randn(1, 2, 20, 64, device=cuda)
+    out, lse = fa.flash_attention_forward(q, q, q, layout="bhnd")
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward(q, q, q, out, out, lse[:, :1], layout="bhnd")
     x = torch.randn(8, 64, device=cuda, requires_grad=True)
     w1, w2 = torch.randn(64, 128, device=cuda), torch.randn(128, 64, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fm.fused_mlp(x, w1, torch.zeros(128, device=cuda), w2,
                      torch.zeros(64, device=cuda)).sum().backward()
+
+
+@pytest.mark.parametrize("layout,b,h,n,bias,causal,dtype,bias_grad", [
+    ("bnhd", 16, 12, 197, True, False, torch.bfloat16, False),
+    ("bhnd", 2, 12, 1370, False, False, torch.bfloat16, False),
+    ("bnhd", 2, 4, 300, True, True, torch.bfloat16, True),
+    ("bhnd", 2, 2, 77, True, True, torch.bfloat16, False),
+    ("bhnd", 2, 3, 77, True, True, torch.float32, True),
+    ("bnhd", 1, 2, 530, False, True, torch.float32, False),
+    ("bnhd", 2, 3, 197, True, False, torch.float32, True)])
+def test_flash_attention_backward_kernel_matches_plain(cuda, layout, b, h, n, bias, causal,
+                                                       dtype, bias_grad):
+    """Autograd through K7 on the card reaches the backward kernel (its
+    launch counter moves once; nothing runs the plain version) and the
+    gradients of q, k, v (the bnhd cases: of one packed [B, N, 3, H, 64]
+    leaf, read as strided views) and of the key bias match
+    flash_attention_backward_plain on the same (rounded) inputs: float32
+    1e-4 * max|ref|, bfloat16 3e-2 * max|ref| (the kernel also rounds P and
+    dS to bfloat16, as the JAX kernel does; the plain reference in float32
+    does not)."""
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(n + h)
+    if layout == "bnhd":
+        qkv = _rounded(torch.randn(b, n, 3, h, 64, generator=gen).to(cuda), dtype)
+        leaf = qkv.to(dtype).requires_grad_()
+        q, k, v = leaf.unbind(2)
+        refs = qkv.unbind(2)
+    else:
+        refs = [_rounded(torch.randn(b, h, n, 64, generator=gen).to(cuda), dtype)
+                for _ in range(3)]
+        leaves = [t.to(dtype).requires_grad_() for t in refs]
+        q, k, v = leaves
+    kb = torch.randn(b, n, generator=gen).to(cuda) if bias else None
+    kb_leaf = kb.clone().requires_grad_() if bias and bias_grad else kb
+    cot = _rounded(torch.randn(q.shape, generator=gen).to(cuda), dtype)
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    out = fa.flash_attention(q, k, v, bias=kb_leaf, causal=causal, layout=layout,
+                             bias_grad=bias_grad)
+    out.backward(cot.to(dtype))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == fwd + 1
+    assert fa.flash_attention_backward.launches == bwd + 1
+    want = fa.flash_attention_backward_plain(*refs, kb, cot, causal=causal, layout=layout)
+    got = (leaf.grad.unbind(2) if layout == "bnhd" else [t.grad for t in leaves])
+    if bias and bias_grad:
+        got = [*got, kb_leaf.grad]
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        bound = (1e-4 if dtype == torch.float32 else 3e-2) * scale
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= bound, f"max|d| {err:.3e} > {bound:.3e} (max|ref| {scale:.3e})"
+
+
+@pytest.mark.parametrize("b,n,width,heads,dtype,bias", [
+    (4, 77, 512, 8, torch.float32, False), (4, 77, 512, 8, torch.bfloat16, False),
+    (2, 50, 128, 2, torch.float32, True), (3, 200, 128, 2, torch.bfloat16, True)])
+def test_fused_block_causal_matches_plain(cuda, b, n, width, heads, dtype, bias):
+    """K1 with the causal mask (the CLIP text block: 77 tokens, width 512,
+    8 heads, quick_gelu) against its plain version: float32 1e-4 *
+    max|ref|, bfloat16 3e-2 * max(1, max|ref|)."""
+    blk = _block(cuda, width, heads)
+    gen = torch.Generator().manual_seed(n)
+    x = _rounded(torch.randn(b, n, width, generator=gen).to(cuda), dtype)
+    kw = dict(heads=heads, act="quick_gelu", causal=True,
+              key_bias=torch.randn(b, n, generator=gen).to(cuda) if bias else None)
+    before = fb.fused_block_infer.launches
+    with torch.no_grad():
+        _check(lambda t: fb.fused_block_infer(t, blk, **kw),
+               lambda t: fb.fused_block_infer_plain(t, blk, **kw), [x.to(dtype)], [x])
+        # the causal mask is in force: the first row does not see the others
+        y = fb.fused_block_infer(x.to(dtype), blk, **kw)
+        x2 = x.clone()
+        x2[:, 1:] += 1.0
+        y2 = fb.fused_block_infer(x2.to(dtype), blk, **kw)
+    assert fb.fused_block_infer.launches == before + 3
+    assert torch.equal(y[:, 0], y2[:, 0]) and not torch.equal(y[:, 1], y2[:, 1])
+
+
+def test_mha_lora_route_runs_the_flash_kernels_forward_and_backward(cuda):
+    """The LoRA route of mha on the card (bf16, width 768, 12 heads, r=16,
+    nonzero b, a key bias, dropout masks given): the flash-attention kernel
+    forward and backward launch once each and no K5/K6 kernel; the output
+    and the gradients of x, the LoRA pairs and the projection biases match
+    the plain ops on the card within 3e-2 * max(1, max|ref|)."""
+    from nextgen_uia_tpu_torch.adapters.lora import inject_lora
+    from nextgen_uia_tpu_torch.nn.attention import mha
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_qkv
+
+    width, heads, n = 768, 12, 197
+    blk = _block(cuda, width, heads).cpu()
+    holder = torch.nn.Module()
+    holder.blocks = torch.nn.ModuleList([blk])
+    gen = torch.Generator().manual_seed(3)
+    inject_lora(gen, holder, dim=width, r=16)
+    with torch.no_grad():
+        for pair in blk.attn.lora.children():
+            pair.b.normal_(0.0, 0.05, generator=gen)
+    blk.to(cuda)
+    train = [t for name, t in blk.attn.named_parameters() if "lora" in name or name.endswith(".b")]
+    for t in train:
+        t.requires_grad_(True)
+    x = torch.randn(4, n, width, generator=gen).to(cuda)
+    kb = torch.randn(4, n, generator=gen).to(cuda)
+    masks = {t: (torch.rand(4, n, width, generator=gen) > 0.1).float().div(0.9).to(cuda)
+             for t in "qkvo"}
+
+    def run(ops):
+        xx = x.to(torch.bfloat16).requires_grad_()
+        for t in train:
+            t.grad = None
+        out = mha(blk.attn, xx, num_heads=heads, ln=blk.ln1, residual=xx,
+                  key_padding_bias=kb, lora_alpha=32.0, lora_masks=masks, ops=ops)
+        out.float().square().mean().backward()
+        return [out, xx.grad] + [t.grad.clone() for t in train]
+
+    counts = (fa.flash_attention.launches, fa.flash_attention_backward.launches,
+              fused_ln_qkv.fused_ln_qkv.launches, fused_attn_o.fused_attn_o_residual.launches)
+    got = run(KERNELS)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention.launches, fa.flash_attention_backward.launches,
+             fused_ln_qkv.fused_ln_qkv.launches, fused_attn_o.fused_attn_o_residual.launches)
+    assert [a - c for a, c in zip(after, counts)] == [1, 1, 0, 0]
+    want = run(PLAIN)
+    for g, w in zip(got, want):
+        err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        assert err <= 3e-2 * max(1.0, scale), (err, scale)
