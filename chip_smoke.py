@@ -12,7 +12,9 @@
    1370, 64] and the fused MLP [32880, 768] x 3072, DINOv2-B/14 at 518 px;
    the flash-attention backward at the LoRA fine-tune's [16, 197, 12, 64]
    and at [24, 12, 1370, 64]; the causal text block [256, 77, 512], 8
-   heads; the lookup and histogram [24, 518, 518]) and at one odd shape
+   heads; the lookup and histogram [24, 518, 518]; BERT's post-norm
+   kernels at the text cache's chunk [256, 256, 768], 12 heads, with a
+   key-padding bias that leaves rows wholly padded) and at one odd shape
    each, with CUDA-event times and the bound from the card's peak rates:
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
@@ -42,10 +44,19 @@
    through the causal text blocks, one update's launch counts, loss and
    LoRA/bias gradients against the plain path, the loss falling over 10
    updates, ms per update, a profiler table.
-9. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
+9. BiomedCLIP phase: the MONA contrastive fine-tune at full width (ViT-B/16
+   with hybrid MONA in 12 blocks, the frozen 12-layer PubMedBERT at ctx
+   256, bf16, batch 64 in 4 microbatches): 512 captions cached through
+   BERT's three-kernel chain and through the whole-layer kernel (opted in),
+   a full-context chunk timed, one update with cached and one with in-step
+   text (launch counts, text features, loss and gradient norm against the
+   plain path; in float32 the loss and every MONA gradient), the loss
+   falling over 10 updates, ms per update, a profiler table.
+10. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
-   trainers, and the OpenAI LoRA fine-tune CLI (one epoch).
-10. Prints one JSON line of per-kernel results, then the final status line.
+   trainers, the OpenAI LoRA fine-tune CLI and the BiomedCLIP MONA
+   fine-tune CLI (one epoch each).
+11. Prints one JSON line of per-kernel results, then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it.
 """
@@ -462,7 +473,83 @@ def kernel_phase(dev):
               for n in (db, 3)]
     exact("lut_apply", lut.lut_apply, lut.lut_apply_plain, [big, tables[0]], [odd, tables[1]],
           2 * db * hw * 4 + db * 256 * 4)
+    bert_kernel_rows(dev, gen, check)
     return results
+
+
+def bert_kernel_rows(dev, gen, check):
+    """BERT's post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) at
+    the text cache's chunk [256, 256, 768], 12 heads, hidden 3072, eps
+    1e-12, with a key-padding bias (-1e9) of seeded caption lengths that
+    leaves the last two rows wholly padded, and at an odd [7, 96, 768]
+    bucket; the wholly padded rows must come out finite."""
+    import torch
+
+    from nextgen_uia_tpu_torch.models.bert import BertConfig, BertLayer
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
+
+    cfg = BertConfig()
+    b, n, d, h, hid, eps = TEXT_CHUNK, cfg.context_length, cfg.width, cfg.heads, \
+        cfg.intermediate, cfg.ln_eps
+    m, dh = b * n, d // h
+    layer = BertLayer(gen, cfg)
+    with torch.no_grad():
+        for ln in (layer.attn_ln, layer.ffn_ln):
+            ln.scale.add_(0.2 * torch.randn(d, generator=gen))
+            ln.bias.add_(0.2 * torch.randn(d, generator=gen))
+    layer.to(dev)
+
+    def pad_bias(bb, nn_):
+        lengths = torch.randint(2, nn_ + 1, (bb,), generator=gen)
+        lengths[-2:] = 0
+        return ((torch.arange(nn_)[None] >= lengths[:, None]).float() * -1e9).to(dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    bias, odd_bias = pad_bias(b, n), pad_bias(7, 96)
+    x, odd_x = randn(b, n, d), randn(7, 96, d)
+    with torch.no_grad():
+        y = fused_block.fused_block_infer(x.to(torch.bfloat16), layer, heads=h, eps=eps,
+                                          key_bias=bias, layout="postnorm")
+        require(bool(torch.isfinite(y[-2:]).all()), "a wholly padded row came out non-finite")
+    qkv_bytes = 2 * (4 * m * d + 3 * d * d)
+    # the library's call: one GEMM on the concatenated weights, q/k/v being
+    # head-major views of its [m, 3d] output
+    lins = (layer.attn.q, layer.attn.k, layer.attn.v)
+    w_qkv = torch.cat([lin.w for lin in lins], 1).to(torch.bfloat16)
+    b_qkv = torch.cat([lin.b for lin in lins]).to(torch.bfloat16)
+    check("fused_ln_qkv_rawx",
+          lambda t: fused_ln_qkv.fused_ln_qkv(t, None, layer.attn, heads=h),
+          lambda t: fused_ln_qkv.fused_ln_qkv_plain(t, None, layer.attn, heads=h),
+          [x], [odd_x], (2 * m * d * 3 * d, qkv_bytes),
+          library=lambda t: torch.addmm(b_qkv, t.view(-1, d), w_qkv))
+
+    def attn(fn):
+        return lambda q, k, v, t, odd=False: fn(q, k, v, t, layer.attn.o, heads=h,
+                                                bias=odd_bias if odd else bias,
+                                                post_ln=layer.attn_ln, ln_eps=eps)
+
+    def qkv_x(bb, nn_, t):
+        return [randn(bb, h, nn_, dh) for _ in range(3)] + [t]
+
+    check("fused_attn_o_residual_postln", attn(fused_attn_o.fused_attn_o_residual),
+          attn(fused_attn_o.fused_attn_o_residual_plain), qkv_x(b, n, x),
+          qkv_x(7, 96, odd_x) + [True],
+          (4 * b * h * n * n * dh + 2 * m * d * d, 2 * (5 * m * d + d * d) + 4 * b * n))
+    check("fused_postnorm_mlp_ln",
+          lambda t: fused_ln_mlp.fused_postnorm_mlp_ln(t, layer.ffn, layer.ffn_ln, eps=eps),
+          lambda t: fused_ln_mlp.fused_postnorm_mlp_ln_plain(t, layer.ffn, layer.ffn_ln,
+                                                             eps=eps),
+          [x], [odd_x], (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)))
+
+    def whole(fn):
+        return lambda t, odd=False: fn(t, layer, heads=h, eps=eps, layout="postnorm",
+                                       key_bias=odd_bias if odd else bias)
+
+    check("fused_block_infer_postnorm", whole(fused_block.fused_block_infer),
+          whole(fused_block.fused_block_infer_plain), [x], [odd_x, True],
+          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d) + 4 * b * n))
 
 
 def augment_phase(dev):
@@ -628,7 +715,9 @@ def launch_counters():
            fused_attn_o.fused_attn_o_residual, fused_attn_o.fused_attn_o_residual_backward,
            fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward,
            flash_attention.flash_attention, flash_attention.flash_attention_backward,
-           fused_mlp.fused_mlp, lut.lut_apply, lut.hist256]
+           fused_mlp.fused_mlp, lut.lut_apply, lut.hist256, fused_ln_qkv.fused_ln_qkv_rawx,
+           fused_attn_o.fused_attn_o_residual_postln, fused_ln_mlp.fused_postnorm_mlp_ln,
+           fused_block.fused_block_infer_postnorm]
     return {f.__name__: f for f in fns}
 
 
@@ -1064,6 +1153,252 @@ def finetune_phase(dev):
     return {**launches, "fused_block_infer_causal": text_launches}
 
 
+BERT_CHAIN = ("fused_ln_qkv_rawx", "fused_attn_o_residual_postln", "fused_postnorm_mlp_ln")
+
+
+def worst_ratio(got, ref, own_exempt):
+    """Float32 gradients, kernel path against plain path: (worst ratio, its
+    name) of max|d| to 1e-4 * the largest max|ref| of all the tensors, and
+    to 3e-2 * the tensor's own max|ref| (but for the names ``own_exempt``
+    takes, which reach no feature). The first holds the large gradients
+    tightly; the second, loose enough for the smallest (differences of
+    large terms, which amplify float32 rounding by 1e3 and more), fails a
+    tensor that is zeroed (by 33x) or of the wrong sign."""
+    top = max(r.abs().max().item() for r in ref.values())
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        diff, own = (got[k] - r).abs().max().item(), r.abs().max().item()
+        ratio = diff / (F32_BOUND * top)
+        if not own_exempt(k):
+            ratio = max(ratio, (diff / (BF16_BOUND * own) if own
+                                 else float("inf") if diff else 0.0))
+        if ratio > worst:
+            worst, name = ratio, k
+    return worst, name
+
+
+def biomedclip_finetune_phase(dev):
+    """The BiomedCLIP MONA contrastive fine-tune at full width: ViT-B/16 at
+    224 px with hybrid MONA in all 12 blocks, the frozen 12-layer PubMedBERT
+    (width 768, ctx 256, vocabulary 30522), bf16, batch 64 in 4
+    microbatches, AdamW (0.9, 0.95), clip 1.0, InfoNCE at 0.07, seeded random
+    weights. Caches 512 synthetic captions (the folded CLIP-BPE tokenizer at
+    ctx 256) through the three-kernel chain (12 launches of each per chunk
+    of 256), then through the whole-layer kernel (opted in), each against
+    the plain path; times a full-context chunk of random ids [1, 30000);
+    one update with cached text and one with in-step text (trimmed to
+    32-token buckets): launch counts derived from the code, the text
+    features, loss and gradient norm against the plain path, and the same
+    update in float32, its loss and each MONA gradient against the plain
+    path's; the loss falling over 10 updates; ms per update, img/s, peak
+    memory, a profiler table. Returns the launch counts of the chain's and
+    of the whole-layer cache."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.losses import info_nce
+    from nextgen_uia_tpu_torch.models import clip as clip_mod
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import build_clip_model, get_text_tokenizer
+
+    parser = ft._finetune_parser("biomedclip")
+    ref_defaults = parser.parse_args([])
+    args = parser.parse_args(["--method", "mona", "--mona_variant", "hybrid", "--seed", "5"])
+    require(ref_defaults.epochs == 32 and ref_defaults.mona_variant == "freq_enhanced"
+            and args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM
+            and args.grad_clip == 1.0 and args.compute_dtype == "bfloat16"
+            and (args.beta1_adam, args.beta2_adam) == (0.9, 0.95) and args.temperature == 0.07,
+            f"biomedclip fine-tune defaults changed: {args}")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    cfg, params = build_clip_model(args, "biomedclip", adapter="mona", gen=gen)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    tc = cfg.text
+    require(cfg.text_kind == "bert" and (tc.depth, tc.width, tc.heads, tc.intermediate,
+                                         tc.context_length, tc.vocab_size, tc.ln_eps)
+            == (12, 768, 12, 3072, 256, 30522, 1e-12), f"BERT config {tc}")
+    trainable, frozen = partition(params, by_keywords("mona"))
+    params.to(dev)
+    print(f"biomedclip: built ViT-B/16 with hybrid MONA in 12 blocks and the 12-layer "
+          f"PubMedBERT in {time.perf_counter() - t0:.1f} s; {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen "
+          f"({sum(p.numel() for p in params.text.parameters())} values in the text tower)")
+
+    captions = synthetic_captions(N_CAPTIONS, 7)
+    tokenizer = get_text_tokenizer(args, "biomedclip")
+    ctx, depth_t = tc.context_length, tc.depth
+    t0 = time.perf_counter()
+    tokens = tokenizer(captions, ctx)
+    tok_s = time.perf_counter() - t0
+    n_chunks = -(-N_CAPTIONS // TEXT_CHUNK)
+    encode = ft.make_text_encoder(params, cfg, dev)
+    plain_encode = ft.make_text_encoder(params, cfg, dev, ops=PLAIN)
+    ids = torch.randint(1, 30000, (TEXT_CHUNK, ctx),
+                        generator=torch.Generator().manual_seed(9)).to(dev)
+    print(f"biomedclip: {N_CAPTIONS} captions tokenized in {tok_s:.2f} s "
+          f"({'folded CLIP-BPE fallback' if getattr(tokenizer, 'is_fallback', False) else 'HF'}"
+          f" tokenizer; {int((tokens != 0).sum(1).max())} tokens at most)")
+
+    def cache_run(route, kernels):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = ft.cache_text_features(encode, tokenizer, captions, ctx, chunk=TEXT_CHUNK)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        feats = torch.from_numpy(np.stack([cache[c] for c in captions]))
+        ref = plain_encode(tokens[:TEXT_CHUNK]).cpu()
+        err, scale = (feats[:TEXT_CHUNK] - ref).abs().max().item(), ref.abs().max().item()
+        full_ms = cuda_ms(lambda: encode(ids), 5, warmup=1)
+        plain_full_ms = cuda_ms(lambda: plain_encode(ids), 2, warmup=1)
+        full_err = (encode(ids) - plain_encode(ids)).abs().max().item()
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"biomedclip: text cache by the {route}: {N_CAPTIONS} captions in {seconds:.3f} s "
+              f"(host clock, tokenizing included, first call); launches {launched}; features "
+              f"vs plain path max|d| {err:.3e} (<= {BF16_BOUND * max(1.0, scale):.3e}, max|ref| "
+              f"{scale:.3f}); a full-context chunk [{TEXT_CHUNK}, {ctx}] of random ids "
+              f"{full_ms:.2f} ms = {TEXT_CHUNK * 1000 / full_ms:.0f} captions/s (plain path "
+              f"{plain_full_ms:.2f} ms; max|d| {full_err:.3e})")
+        require(feats.shape == (N_CAPTIONS, tc.embed_dim) and bool(torch.isfinite(feats).all()),
+                f"text features {tuple(feats.shape)}")
+        require(launched == {k: depth_t * n_chunks for k in kernels},
+                f"the text cache by the {route} launched {launched}, want "
+                f"{depth_t * n_chunks} of each of {kernels} and nothing else")
+        require(err <= BF16_BOUND * max(1.0, scale) and full_err <= BF16_BOUND * max(1.0, scale),
+                f"text features by the {route} disagree with the plain path")
+        return counts, feats
+
+    chain_counts, feats = cache_run("three-kernel chain", BERT_CHAIN)
+    os.environ["NEXTGEN_UIA_FUSED_BLOCK_BERT"] = "1"
+    try:
+        whole_counts, _ = cache_run("whole-layer kernel (NEXTGEN_UIA_FUSED_BLOCK_BERT=1)",
+                                    ("fused_block_infer_postnorm",))
+    finally:
+        del os.environ["NEXTGEN_UIA_FUSED_BLOCK_BERT"]
+
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (FT_BATCH, IMG, IMG, 3), dtype=np.uint8))
+    batch = T.stack_microbatches({"image": images.to(dev), "txt_feat": feats[:FT_BATCH].to(dev)},
+                                 FT_ACCUM)
+    step_tokens = ft.trim_token_padding(tokens[TEXT_CHUNK:TEXT_CHUNK + FT_BATCH])
+    batch_t = T.stack_microbatches({"image": images.to(dev),
+                                    "tokens": torch.from_numpy(step_tokens).to(dev)}, FT_ACCUM)
+
+    def loss_fn(ops, text, seen=None, c=cfg):
+        enc = ft.make_text_encoder(params, c, dev, ops=ops)
+
+        def fn(mb, g):
+            img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
+                                           gen=g)
+            txt = mb["txt_feat"] if text == "cached" else enc(mb["tokens"])
+            if seen is not None:
+                seen.append(txt.detach().float())
+            return info_nce(img, txt, temperature=args.temperature)
+        return fn
+
+    def update(ops, lr, text="cached", seen=None, c=cfg):
+        tcfg = T.TrainConfig(lr=lr, lr_min=1e-8, weight_decay=args.weight_decay,
+                             beta1=args.beta1_adam, beta2=args.beta2_adam, total_updates=25)
+        return T.TrainStep(loss_fn(ops, text, seen, c), T.make_optimizer(trainable.values(), tcfg),
+                           tcfg, accum_steps=FT_ACCUM, grad_clip=args.grad_clip)
+
+    def first_update(ops, b, text, c=cfg):
+        """One update at lr 0 (the parameters stay): metrics, the averaged,
+        clipped gradient of every MONA tensor, and the text features the
+        step's microbatches met, in order."""
+        seen = []
+        m = update(ops, 0.0, text, seen, c)(b, torch.Generator(device=dev).manual_seed(7))
+        return m, {k: p.grad.float().clone() for k, p in trainable.items()}, torch.cat(seen)
+
+    # per update: every block's forward kernels and MONA once per microbatch;
+    # block 0's input needs no gradient, so its three block kernels run no
+    # backward, while every MONA (block 0's too) trains
+    depth, n_mb = cfg.vision.depth, FT_ACCUM
+    # only the CLS token is pooled, so the last block's patch tokens reach
+    # no feature: its spatial op's tensors alone get no gradient
+    last = f"visual/blocks/{depth - 1}/mona/"
+
+    def reaches_no_feature(k):
+        return k.startswith(last) and not k.startswith((last + "down/", last + "up/"))
+
+    want = {"fused_ln_qkv": depth * n_mb, "fused_attn_o_residual": depth * n_mb,
+            "fused_ln_mlp_residual": depth * n_mb, "mona_spatial": depth * n_mb,
+            "fused_ln_qkv_backward": (depth - 1) * n_mb,
+            "fused_attn_o_residual_backward": (depth - 1) * n_mb,
+            "fused_ln_mlp_residual_backward": (depth - 1) * n_mb,
+            "mona_spatial_backward": depth * n_mb}
+    for text, b in (("cached", batch), ("in-step", batch_t)):
+        reset_counts()
+        m_k, g_k, t_k = first_update(KERNELS, b, text)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_counts().items() if v}
+        expect = {**want, **({k: depth_t * n_mb for k in BERT_CHAIN} if text == "in-step" else {})}
+        m_p, g_p, t_p = first_update(PLAIN, b, text)
+        t_err, t_scale = (t_k - t_p).abs().max().item(), t_p.abs().max().item()
+        flat_k, flat_p = (torch.cat([g[k].flatten() for k in g_p]) for g in (g_k, g_p))
+        rel_l2 = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+        # in bf16 the MONA gradients differ by rounding alone by up to ~5% of
+        # their largest entry, so each tensor is held to the plain path in
+        # the same update in float32
+        m32_k, g32_k, _ = first_update(KERNELS, b, text, cfg32)
+        m32_p, g32_p, _ = first_update(PLAIN, b, text, cfg32)
+        worst, worst_name = worst_ratio(g32_k, g32_p, reaches_no_feature)
+        print(f"biomedclip: one update with {text} text: launches {launched}; text features "
+              f"{tuple(t_k.shape)} vs plain path max|d| {t_err:.3e} (<= "
+              f"{BF16_BOUND * max(1.0, t_scale):.3e}, max|ref| {t_scale:.3f}); loss kernel "
+              f"{m_k['loss']:.6f} plain {m_p['loss']:.6f}, gradient norm {m_k['grad_norm']:.4f} "
+              f"/ {m_p['grad_norm']:.4f} (clipped to 1.0; whole MONA gradient's relative L2 "
+              f"distance {rel_l2:.3e}); float32: loss {m32_k['loss']:.7f} / "
+              f"{m32_p['loss']:.7f}, MONA gradients worst max|d| / min(1e-4 max|ref| of all, "
+              f"3e-2 its own max|ref|) = {worst:.3f} ({worst_name})")
+        require(launched == expect, f"an update with {text} text launched {launched}, want "
+                                    f"{expect}")
+        require(t_k.shape == (FT_BATCH, tc.embed_dim) and bool(torch.isfinite(t_k).all())
+                and t_err <= BF16_BOUND * max(1.0, t_scale),
+                f"the text features of an update with {text} text disagree with the plain path")
+        require(np.isfinite(m_k["loss"]) and m_k["skipped"] == 0, f"biomedclip update {m_k}")
+        require(abs(m_k["loss"] - m_p["loss"]) <= BF16_BOUND * max(1.0, abs(m_p["loss"]))
+                and abs(m_k["grad_norm"] - m_p["grad_norm"]) <= BF16_BOUND * m_p["grad_norm"],
+                f"the loss or gradient norm with {text} text disagrees with the plain path")
+        require(abs(m32_k["loss"] - m32_p["loss"]) <= F32_BOUND * abs(m32_p["loss"]),
+                f"the float32 loss with {text} text disagrees with the plain path")
+        require(worst <= 1.0, f"the float32 gradient of {worst_name} ({text} text) disagrees "
+                              f"with the plain path")
+        zero = [k for k, g in g_k.items() if g.abs().max().item() == 0]
+        require(all(map(reaches_no_feature, zero)), f"MONA tensors with no gradient: {zero}")
+
+    # the same dropout masks in every update, so that their noise does not
+    # hide the small steps the adapters take
+    step = update(KERNELS, 1e-3)
+    losses = [step(batch, torch.Generator(device=dev).manual_seed(123))["loss"]
+              for _ in range(10)]
+    print("biomedclip: losses over 10 updates on one batch (lr 1e-3, MONA dropout on, the "
+          "same masks each update) " + " ".join(f"{v:.4f}" for v in losses))
+    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+            "the biomedclip fine-tune loss did not fall")
+    gen = torch.Generator(device=dev).manual_seed(123)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_ms = cuda_ms(lambda: update(PLAIN, 1e-3)(batch, gen), 2, warmup=1)
+    step_t = update(KERNELS, 1e-3, "in-step")
+    torch.cuda.reset_peak_memory_stats()
+    in_step_ms = cuda_ms(lambda: step_t(batch_t, gen), 3, warmup=1)
+    in_step_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"biomedclip: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) with cached text "
+          f"{ms:.2f} ms = {FT_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / plain_ms:.1f} img/s), peak device memory {peak_gb:.2f} GB; with "
+          f"in-step text ({step_tokens.shape[1]}-token bucket) {in_step_ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / in_step_ms:.1f} img/s, peak {in_step_gb:.2f} GB")
+    profile_steps(lambda: step(batch, gen), 2, ms)
+    return {**{k: chain_counts[k] for k in BERT_CHAIN},
+            "fused_block_infer_postnorm": whole_counts["fused_block_infer_postnorm"]}
+
+
 def profile_steps(fn, steps, step_ms):
     """torch.profiler over ``steps`` calls: device time per call by kernel
     (top 14) and in all, and the share of ``step_ms`` (the call's time
@@ -1236,20 +1571,18 @@ def cli_phase(dev, work, files):
         os.chdir(cwd)
 
 
-def finetune_cli_phase(work):
-    """``python -m nextgen_uia_tpu_torch.tasks.clip.finetune --method lora
-    --epochs 1`` on the card, on 160 seeded 224 px images with synthetic
-    captions in the MedPix/PMC-CURD CSV layout (144 train: 2 updates at
-    batch 64; 16 val): its best_model.npz holds only the LoRA tensors."""
+def caption_data(work):
+    """160 seeded 224 px images with synthetic captions in the MedPix/PMC-CURD
+    CSV layout under ``work``/ft (written once): 144 train pairs, 2 updates
+    at batch 64; 16 val."""
     import csv
 
     import numpy as np
     from PIL import Image
 
-    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
-    from nextgen_uia_tpu_torch.tasks.clip.finetune import main as finetune_main
-
     data = os.path.join(work, "ft")
+    if os.path.exists(os.path.join(data, "captions.csv")):
+        return data
     os.makedirs(os.path.join(data, "images"), exist_ok=True)
     rng = np.random.default_rng(6)
     captions = synthetic_captions(160, 6)
@@ -1261,6 +1594,20 @@ def finetune_cli_phase(work):
             Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)).save(
                 os.path.join(data, "images", name))
             w.writerow([name, caption])
+    return data
+
+
+def finetune_cli_phase(work):
+    """``python -m nextgen_uia_tpu_torch.tasks.clip.finetune --method lora
+    --epochs 1`` on the card, on 160 seeded 224 px images with synthetic
+    captions in the MedPix/PMC-CURD CSV layout (144 train: 2 updates at
+    batch 64; 16 val): its best_model.npz holds only the LoRA tensors."""
+    import numpy as np
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.clip.finetune import main as finetune_main
+
+    data = caption_data(work)
     cwd = os.getcwd()
     os.chdir(work)
     try:
@@ -1285,6 +1632,52 @@ def finetune_cli_phase(work):
     require(counts.get("flash_attention_backward", 0) == 2 * FT_LAUNCHES["flash_attention_backward"]
             and counts.get("fused_block_infer", 0) == 12,
             "the fine-tune CLI did not run through K7 backward and K1 causal")
+
+
+def biomedclip_finetune_cli_phase(work):
+    """``python -m nextgen_uia_tpu_torch.tasks.biomedclip.finetune --method
+    mona --mona_variant hybrid --epochs 1`` on the card, with
+    NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1 (no HF tokenizer files), on the
+    seeded caption data: its best_model.npz holds the MONA tensors of all 12
+    blocks and nothing else; the captions were cached through BERT's chain
+    and the updates ran the backward kernels."""
+    import numpy as np
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.biomedclip.finetune import main as finetune_main
+
+    data = caption_data(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    os.environ["NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK"] = "1"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = finetune_main(["--method", "mona", "--mona_variant", "hybrid", "--epochs", "1",
+                             "--exp", "chip_bm_ft",
+                             "--finetune_csvs", os.path.join(data, "captions.csv"),
+                             "--finetune_img_dirs", os.path.join(data, "images"),
+                             "--num_workers", "4", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        del os.environ["NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK"]
+        os.chdir(cwd)
+    best = os.path.join(work, "runs", "chip_bm_ft", "best_model.npz")
+    keys = ckpt.peek_keys(best) if os.path.exists(best) else []
+    blocks = {k.split("/")[2] for k in keys if k.startswith("visual/blocks/")}
+    print(f"cli: biomedclip MONA fine-tune, one epoch (2 updates + validation) in {seconds:.1f} s "
+          f"(host clock: build, text cache and data decode included); best val loss "
+          f"{out['best_val_loss']:.4f}; best_model.npz {len(keys)} tensors in {len(blocks)} "
+          f"blocks; launches {counts}")
+    require(np.isfinite(out["best_val_loss"]), f"biomedclip fine-tune CLI result {out}")
+    require(keys and all("/mona/" in k for k in keys) and len(blocks) == 12,
+            "best_model.npz does not hold exactly the MONA tensors of the 12 blocks")
+    require(all(counts.get(k, 0) == 12 for k in BERT_CHAIN)
+            and counts.get("fused_ln_qkv_backward", 0) == 2 * 11 * FT_ACCUM
+            and counts.get("mona_spatial_backward", 0) == 2 * 12 * FT_ACCUM,
+            "the biomedclip fine-tune CLI did not cache its captions through BERT's chain "
+            "or did not train through the backward kernels")
 
 
 def main():
@@ -1332,8 +1725,10 @@ def main():
         finetune = finetune_phase(dev)
         launches.update({k: finetune[k] for k in ("flash_attention_backward",
                                                   "fused_block_infer_causal")})
+        launches.update(biomedclip_finetune_phase(dev))
         cli_phase(dev, work, files)
         finetune_cli_phase(work)
+        biomedclip_finetune_cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1352,7 +1747,11 @@ def main():
               "fused_block_infer_causal": ("fused_block.cu", "fused_block.py:78"),
               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:64"),
               "lut_apply": ("lut.cu", "lut.py:53"),
-              "hist256": ("lut.cu", "lut.py:143")}
+              "hist256": ("lut.cu", "lut.py:143"),
+              "fused_ln_qkv_rawx": ("fused_ln_qkv.cu", "fused_ln_qkv.py:36"),
+              "fused_attn_o_residual_postln": ("fused_attn_o.cu", "fused_attn_o.py:73"),
+              "fused_postnorm_mlp_ln": ("fused_ln_mlp.cu", "fused_ln_mlp.py:144"),
+              "fused_block_infer_postnorm": ("fused_block.cu", "fused_block.py:78")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]

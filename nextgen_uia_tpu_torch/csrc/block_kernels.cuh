@@ -82,6 +82,26 @@ __global__ void layernorm_rows(const TI* __restrict__ x, const float* __restrict
     orow[c] = from_f32<TO>((to_f32(xr[c]) - mean) * rstd * g[c] + b[c]);
 }
 
+// The post-norm residual stream: LN of float32 rows into float32 `out32` and,
+// when `out_t` is given, the same values rounded to T (the next product's
+// operand) in the same pass
+template <typename T>
+__global__ void layernorm_rows_dual(const float* __restrict__ x, const float* __restrict__ g,
+                                    const float* __restrict__ b, float* __restrict__ out32,
+                                    T* __restrict__ out_t, int rows, int cols, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* xr = x + (size_t)row * cols;
+  float mean, rstd;
+  row_stats(xr, cols, lane, eps, mean, rstd);
+  for (int c = lane; c < cols; c += 32) {
+    const float v = (xr[c] - mean) * rstd * g[c] + b[c];
+    out32[(size_t)row * cols + c] = v;
+    if (out_t) out_t[(size_t)row * cols + c] = from_f32<T>(v);
+  }
+}
+
 // dx = (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd (+ res),
 // dxhat = dz * gamma, statistics recomputed in float32 from x
 template <typename T>
@@ -119,6 +139,16 @@ static cudaError_t launch_layernorm(const void* x, const float* g, const float* 
   const int threads = 256, per_block = threads / 32;
   layernorm_rows<<<(rows + per_block - 1) / per_block, threads, 0, s>>>(
       static_cast<const TI*>(x), g, b, static_cast<TO*>(out), rows, cols, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_layernorm_dual(const float* x, const float* g, const float* b,
+                                         float* out32, void* out_t, int rows, int cols,
+                                         float eps, cudaStream_t s) {
+  const int threads = 256, per_block = threads / 32;
+  layernorm_rows_dual<T><<<(rows + per_block - 1) / per_block, threads, 0, s>>>(
+      x, g, b, out32, static_cast<T*>(out_t), rows, cols, eps);
   return cudaGetLastError();
 }
 

@@ -29,6 +29,20 @@
 // tensor-core attention backward is a later step). Tokens run unpadded
 // (N = 197); keys >= n_real and the ragged query/key tiles are masked in
 // the kernels, so padded keys get zero dk/dv and leak into no dq.
+//
+// Post-LN variant (nx_attn_o_postln_fwd), forward only: out = LN(x + cat @
+// Wo + bo) -> T, eps 1e-12 for BERT. It replaces the same Pallas kernel with
+// post_ln given (the epilogue of _fwd_kernel), which the frozen PubMedBERT
+// text tower runs. The TPU kernel keeps the pre-LN sum in VMEM; here the
+// o-projection's epilogue writes it to a float32 scratch (never rounded to
+// T), and layernorm_rows reads it back and writes the output in T: one
+// [M, D] float32 round trip (~200 MB at the text cache's [256, 256, 768]
+// chunk, which L2 does not hold) in place of a fused row-LayerNorm epilogue,
+// which a GEMM tile of 128 columns cannot do alone. The key-padding bias
+// (-1e9 for padded keys) is added after the -1e30 of keys >= n_real, as on
+// the TPU; a row whose keys are all padding gets equal scores and comes out
+// finite. The TPU variant's backward is an XLA recomposition and is not
+// ported: autograd reaching it on the card raises.
 
 #include "block_kernels.cuh"
 
@@ -79,6 +93,29 @@ int nx_attn_o_bwd(const void* q, const void* k, const void* v, const float* key_
                                                          b, n, heads, dh, n_real, scale, s)
                    : launch_attention_bwd<float>(in, key_bias, doh, dq, dk, dv, stats, b, n,
                                                  heads, dh, n_real, scale, s));
+}
+
+// as nx_attn_o_fwd, then out = LN(y32) -> T: gamma, beta [D] f32; y32
+// scratch [B*N, D] f32
+int nx_attn_o_postln_fwd(const void* q, const void* k, const void* v, const void* x,
+                         const float* key_bias, const void* wo, const float* bo,
+                         const float* gamma, const float* beta, void* cat, float* y32,
+                         void* out, int dtype, int b, int n, int heads, int dh, int n_real,
+                         float scale, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = b * n, d = heads * dh;
+  const QKV in = head_major_qkv(q, k, v, n, heads, dh);
+  cudaError_t err =
+      dtype == BF16
+          ? launch_attention<__nv_bfloat16>(in, key_bias, cat, b, n, heads, dh, n_real, scale, s)
+          : launch_attention<float>(in, key_bias, cat, b, n, heads, dh, n_real, scale, s);
+  if (err != cudaSuccess) return (int)err;
+  const Epilogue epi{bo, x, dtype, nullptr, ACT_NONE, row_major(y32), F32};
+  err = launch_gemm(row_major(cat), wo, dtype, false, epi, m, d, d, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(dtype == BF16
+                   ? launch_layernorm<float, __nv_bfloat16>(y32, gamma, beta, out, m, d, eps, s)
+                   : launch_layernorm<float, float>(y32, gamma, beta, out, m, d, eps, s));
 }
 
 }  // extern "C"

@@ -37,6 +37,23 @@
 // key_bias added, attention on SIMT cores. The ragged edges (N = 197,
 // M = 6304) are masked in the kernels; nothing is padded. Still simple: no
 // TMA, no wgmma, no warp specialisation, attention off the tensor cores.
+//
+// Post-norm layout (BERT, layout="postnorm"), the same kernels in another
+// order:
+//
+//   qkv = x @ [Wq|Wk|Wv] + b           gemm (raw x, no LayerNorm) -> T
+//   cat = softmax(q k^T / sqrt(dh) + key bias) v                   -> T
+//   s32 = cat @ Wo + bo + x            gemm               -> f32 scratch
+//   y32 = LN_a(s32), z2 = y32 -> T     layernorm_rows_dual (f32 and T)
+//   h   = act(z2 @ W1 + b1)            gemm               -> T
+//   s32 = h @ W2 + b2 + y32            gemm               -> f32 scratch
+//   out = LN_b(s32)                    layernorm_rows     -> T
+//
+// Rounding points are the Pallas kernel's post-norm branch, which differ
+// from the three-kernel chain's: y32 stays float32 as the MLP's residual,
+// and only its copy z2 that feeds fc1 is rounded. At the text cache's chunk
+// ([256, 256, 768], 12 heads, hidden 3072) the block is ~0.98 TFLOP:
+// compute-bound (~0.99 ms at the bf16 peak).
 
 #include "block_kernels.cuh"
 
@@ -59,6 +76,19 @@ int nx_layernorm(const void* x, int x_dtype, const float* gamma, const float* be
                                                        s);
   if (x_dtype == F32 && out_dtype == F32)
     return (int)launch_layernorm<float, float>(x, gamma, beta, out, rows, cols, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out32[rows, cols] = LN(x) * gamma + beta from float32 x, and (out_t not
+// null) the same rounded to `dtype` in out_t
+int nx_layernorm_dual(const float* x, const float* gamma, const float* beta, float* out32,
+                      void* out_t, int dtype, int rows, int cols, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == BF16)
+    return (int)launch_layernorm_dual<__nv_bfloat16>(x, gamma, beta, out32, out_t, rows, cols,
+                                                     eps, s);
+  if (dtype == F32)
+    return (int)launch_layernorm_dual<float>(x, gamma, beta, out32, out_t, rows, cols, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,16 @@
 // GEMM) and the head-major relayout is folded into the GEMM's store
 // (forward) and load (backward), so no transpose pass touches device memory.
 // The ragged edge (N = 197) is masked by the GEMM; nothing is padded.
+//
+// Raw-x variant (nx_qkv_rawx_fwd), forward only: [q|k|v] = x @ [Wq|Wk|Wv]
+// + b -> T, head-major, with no LayerNorm. It replaces the same Pallas
+// kernel with ln_params=None (has_ln=False), which post-norm towers run: the
+// frozen PubMedBERT text tower of BiomedCLIP, whose q/k/v project the raw
+// residual stream. At the text cache's chunk (B*N = 256*256 rows, D = 768)
+// it is one [65536, 768] x [768, 2304] product, 232 GFLOP against ~400 MB
+// of x, q, k, v and weights in bf16: compute-bound (~0.23 ms at the bf16
+// peak). It is one launch of the same WMMA GEMM with the head-major store;
+// the TPU kernel's raw-x backward is reached by no path and is not ported.
 
 #include "block_kernels.cuh"
 
@@ -59,6 +69,16 @@ int nx_ln_qkv_bwd(const void* x, const float* gamma, const void* w_qkv, const vo
   return (int)(dtype == BF16
                    ? launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, nullptr, dx, m, d, eps, s)
                    : launch_layernorm_bwd<float>(x, gamma, dz, nullptr, dx, m, d, eps, s));
+}
+
+// x [B*N, D]; w_qkv [D, 3D] (x's dtype); b_qkv [3D] f32; q, k, v [B, H, N, dh]
+int nx_qkv_rawx_fwd(const void* x, const void* w_qkv, const float* b_qkv, void* q, void* k,
+                    void* v, int dtype, int b, int n, int heads, int dh, void* stream) {
+  const int m = b * n, d = heads * dh;
+  const Epilogue epi{b_qkv, nullptr, 0, nullptr, ACT_NONE, head_major(q, k, v, n, heads, dh),
+                     dtype};
+  return (int)launch_gemm(row_major(x), w_qkv, dtype, false, epi, m, 3 * d, d,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

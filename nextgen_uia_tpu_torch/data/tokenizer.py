@@ -5,8 +5,11 @@ greedy merge by rank over the bundled OpenAI vocabulary
 package's), and ``clip.tokenize`` semantics: a 77-token context, SOT ... EOT,
 zero padding, over-length captions truncated with EOT as the last token.
 
-BiomedCLIP's PubMedBERT WordPiece tokenizer (``BertTokenizer``,
-``load_hf_tokenizer``) is not ported: it comes with the BERT text tower.
+BiomedCLIP's PubMedBERT tokenizer: ``BertTokenizer`` (WordPiece over a
+vocab.txt, lowercased, [CLS] ... [SEP], [PAD] padding, context 256) and
+``load_hf_tokenizer``, which wraps a HuggingFace tokenizer only when its
+files are already cached locally (nothing is downloaded) and returns None
+otherwise.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import functools
 import gzip
 import html
+import os
 import pathlib
 import re
 
@@ -127,10 +131,97 @@ class ClipTokenizer:
         return out
 
 
-def _bert_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "The BERT WordPiece tokenizer is not ported to the PyTorch package yet "
-        "(ROADMAP.md, section A, item 5: the BERT text tower)")
+# ---------------------------------------------------------------------------
+# BERT WordPiece
+# ---------------------------------------------------------------------------
+
+_PUNCT = re.compile(r"([^\w\s]|_)")
 
 
-BertTokenizer = load_hf_tokenizer = _bert_not_ported
+class BertTokenizer:
+    def __init__(self, vocab, *, context_length: int = 256, lowercase: bool = True):
+        """vocab: dict token -> id, list of tokens, or path to vocab.txt."""
+        if isinstance(vocab, (str, pathlib.Path)):
+            tokens = pathlib.Path(vocab).read_text().splitlines()
+            vocab = {t: i for i, t in enumerate(tokens)}
+        elif isinstance(vocab, (list, tuple)):
+            vocab = {t: i for i, t in enumerate(vocab)}
+        self.vocab = vocab
+        self.context_length = context_length
+        self.lowercase = lowercase
+        self.cls = vocab["[CLS]"]
+        self.sep = vocab["[SEP]"]
+        self.pad = vocab.get("[PAD]", 0)
+        self.unk = vocab.get("[UNK]", 1)
+
+    def _wordpiece(self, word: str):
+        """Greedy longest-match-first pieces ('##' marks a continuation);
+        [UNK] for the whole word when a piece is missing."""
+        if word in self.vocab:
+            return [self.vocab[word]]
+        ids, start = [], 0
+        while start < len(word):
+            end, cur = len(word), None
+            while start < end:
+                piece = word[start:end] if start == 0 else "##" + word[start:end]
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def encode(self, text: str):
+        if self.lowercase:
+            text = text.lower()
+        text = _PUNCT.sub(r" \1 ", text)
+        return [i for word in text.split() for i in self._wordpiece(word)]
+
+    def __call__(self, texts, context_length: int | None = None) -> np.ndarray:
+        """[N, context] int32: [CLS] ids [SEP], truncated to fit, [PAD] after."""
+        if isinstance(texts, str):
+            texts = [texts]
+        ctx = context_length or self.context_length
+        out = np.full((len(texts), ctx), self.pad, dtype=np.int32)
+        for i, text in enumerate(texts):
+            ids = [self.cls] + self.encode(text)[: ctx - 2] + [self.sep]
+            out[i, : len(ids)] = ids
+        return out
+
+
+def _hf_files_present(name_or_path: str) -> bool:
+    """A local tokenizer directory, or the model's folder in the HuggingFace
+    hub cache: checked before importing ``transformers``, which is slow."""
+    if os.path.isdir(name_or_path):
+        return True
+    hf_home = os.environ.get("HF_HOME", os.path.join(os.path.expanduser("~"), ".cache",
+                                                     "huggingface"))
+    cache = os.environ.get("HF_HUB_CACHE", os.path.join(hf_home, "hub"))
+    return os.path.isdir(os.path.join(cache, "models--" + name_or_path.replace("/", "--")))
+
+
+def load_hf_tokenizer(name_or_path: str, context_length: int = 256):
+    """A HuggingFace tokenizer as a ``(texts, ctx) -> [N, ctx] int32``
+    callable when ``transformers`` and the tokenizer's files are available
+    locally (``local_files_only``: nothing is fetched); None otherwise, so
+    that callers can fall back."""
+    if not _hf_files_present(name_or_path):
+        return None
+    try:
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+    except Exception:
+        return None
+
+    def call(texts, ctx=context_length):
+        if isinstance(texts, str):
+            texts = [texts]
+        enc = tok(texts, padding="max_length", truncation=True, max_length=ctx,
+                  return_tensors="np")
+        return enc["input_ids"].astype(np.int32)
+
+    return call

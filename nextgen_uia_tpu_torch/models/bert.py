@@ -1,0 +1,121 @@
+"""BERT text tower, PubMedBERT for BiomedCLIP (counterpart of
+nextgen_uia_tpu/models/bert.py): a BERT-base encoder (12 post-norm layers,
+width 768, 12 heads, intermediate 3072, vocabulary 30522, context 256,
+LayerNorm eps 1e-12), CLS pooling of the last hidden state and an MLP
+projection 768 -> (768 + 512) // 2 -> 512 with no biases.
+
+The tower runs frozen and forward only. Each layer takes the JAX package's
+route on its chip: by default the three-kernel chain (q/k/v on the raw x,
+``fused_ln_qkv`` with ``ln=None``; attention + o-projection + residual +
+LayerNorm, ``fused_attn_o_residual`` with ``post_ln``; MLP + residual +
+LayerNorm, ``fused_postnorm_mlp_ln``); with ``block_impl='fused_infer'``
+and ``ops.fused_block.bert_block_opted_in()`` the whole layer in one call of
+the post-norm whole-block kernel. Padded keys carry a -1e9 score bias. The
+differentiable route that ``--tune_text_encoder`` trains (``mlp_impl='xla'``,
+LoRA in the text tower) is not ported and refuses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..nn.attention import Attention
+from ..nn.layers import Embedding, LayerNorm, Linear, embedding, gelu, layernorm, linear
+from ..ops import KERNELS
+from ..ops.fused_block import bert_block_opted_in
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    width: int = 768
+    depth: int = 12
+    heads: int = 12
+    intermediate: int = 3072
+    max_positions: int = 512
+    type_vocab: int = 2
+    context_length: int = 256
+    embed_dim: int = 512          # the CLIP space
+    ln_eps: float = 1e-12
+    pad_id: int = 0
+    # 'auto': the frozen kernels; 'xla' (weights that train) is not ported
+    mlp_impl: str = "auto"
+    # 'fused_infer': the whole-layer kernel where opted in; 'auto': the chain
+    block_impl: str = "auto"
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, gen, cfg: BertConfig):
+        super().__init__()
+        self.word = Embedding(gen, cfg.vocab_size, cfg.width)
+        self.position = Embedding(gen, cfg.max_positions, cfg.width)
+        self.token_type = Embedding(gen, cfg.type_vocab, cfg.width)
+        self.ln = LayerNorm(cfg.width)
+
+
+class BertLayer(nn.Module):
+    """One post-norm layer: attn (q/k/v/o), attn_ln, ffn (fc1/fc2), ffn_ln."""
+
+    def __init__(self, gen, cfg: BertConfig):
+        super().__init__()
+        self.attn = Attention(gen, cfg.width)
+        self.attn_ln = LayerNorm(cfg.width)
+        self.ffn = nn.Module()
+        self.ffn.fc1 = Linear(gen, cfg.width, cfg.intermediate)
+        self.ffn.fc2 = Linear(gen, cfg.intermediate, cfg.width)
+        self.ffn_ln = LayerNorm(cfg.width)
+
+
+class Bert(nn.Module):
+    """``bert_init``'s tree: embeddings, layers, proj (fc1/fc2, no biases)."""
+
+    def __init__(self, gen, cfg: BertConfig):
+        super().__init__()
+        hidden = (cfg.width + cfg.embed_dim) // 2
+        self.embeddings = BertEmbeddings(gen, cfg)
+        self.layers = nn.ModuleList(BertLayer(gen, cfg) for _ in range(cfg.depth))
+        self.proj = nn.Module()
+        self.proj.fc1 = Linear(gen, cfg.width, hidden, bias=False)
+        self.proj.fc2 = Linear(gen, hidden, cfg.embed_dim, bias=False)
+
+
+def bert_init(gen: torch.Generator, cfg: BertConfig) -> Bert:
+    return Bert(gen, cfg)
+
+
+def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS):
+    """token_ids [B, L] -> CLS-pooled, projected embedding [B, embed_dim];
+    the ids equal to ``pad_id`` are the padding."""
+    if cfg.mlp_impl != "auto" or any("lora" in layer.attn._modules for layer in p.layers):
+        raise NotImplementedError(
+            "bert_apply: only the frozen forward of the BERT text tower is ported; the "
+            "differentiable route that --tune_text_encoder trains is not (ROADMAP.md, "
+            "section A, item 10)")
+    token_ids = token_ids.long()
+    emb = p.embeddings
+    x = embedding(emb.word, token_ids, dtype=dtype)
+    positions = torch.arange(token_ids.shape[1], device=token_ids.device)
+    x = x + embedding(emb.position, positions, dtype=x.dtype)[None]
+    x = x + embedding(emb.token_type, torch.zeros_like(token_ids), dtype=x.dtype)
+    x = layernorm(emb.ln, x, eps=cfg.ln_eps)
+    # additive key-padding bias [B, L]: 0 where attended, -1e9 where padded
+    pad_bias = (token_ids == cfg.pad_id).to(torch.float32) * -1e9
+
+    whole_layer = cfg.block_impl == "fused_infer" and bert_block_opted_in()
+    for layer in p.layers:
+        x = x.contiguous()
+        if whole_layer:
+            x = ops.fused_block_infer(x, layer, heads=cfg.heads, act="gelu", eps=cfg.ln_eps,
+                                      key_bias=pad_bias, layout="postnorm")
+            continue
+        q, k, v = ops.fused_ln_qkv(x, None, layer.attn, heads=cfg.heads)
+        y = ops.fused_attn_o_residual(q, k, v, x, layer.attn.o, heads=cfg.heads, bias=pad_bias,
+                                      post_ln=layer.attn_ln, ln_eps=cfg.ln_eps)
+        x = ops.fused_postnorm_mlp_ln(y, layer.ffn, layer.ffn_ln, act="gelu", eps=cfg.ln_eps)
+
+    pooled = x[:, 0, :]
+    h = gelu(linear(p.proj.fc1, pooled, dtype=pooled.dtype))
+    return linear(p.proj.fc2, h, dtype=h.dtype)

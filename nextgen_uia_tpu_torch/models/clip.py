@@ -2,12 +2,11 @@
 
   family       vision layout            text tower
   ----------   ----------------------   ---------------------------------
-  biomedclip   timm ViT-B/16 (gelu)     PubMedBERT (not ported)
+  biomedclip   timm ViT-B/16 (gelu)     PubMedBERT + MLP proj, ctx 256
   openai       OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
   metaclip     OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
 
-BiomedCLIP's BERT text tower (``encode_text`` of a 'bert' config) and the
-unimedclip family are not ported yet: ROADMAP.md, section A, items 5 and 10.
+The unimedclip family is not ported yet: ROADMAP.md, section A, item 10.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from torch import nn
 
 from ..nn.layers import param
 from ..ops import KERNELS
+from .bert import BertConfig, bert_apply, bert_init
 from .text_clip import TextConfig, text_apply, text_init
 from .vit import VIT_B16_OPENAI, VIT_B16_TIMM, ViTConfig, vit_apply, vit_init
 
@@ -31,8 +31,8 @@ class CLIPConfig:
     family: str
     vision: ViTConfig
     compute_dtype: str = "float32"      # 'bfloat16' for the paths on the card
-    text_kind: str = "bert"             # 'clip' | 'bert' (not ported)
-    text: TextConfig | None = None      # the CLIP text tower's config ('clip')
+    text_kind: str = "bert"             # 'clip' | 'bert'
+    text: TextConfig | BertConfig | None = None
 
     @property
     def dtype(self):
@@ -51,20 +51,20 @@ def clip_config(family: str, *, compute_dtype: str = "float32", mona_variant: st
     adapters = dict(mona_variant=mona_variant, lora_alpha=lora_alpha, lora_dropout=lora_dropout)
     if family == "biomedclip":
         return CLIPConfig(family, dataclasses.replace(VIT_B16_TIMM, **adapters),
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, text_kind="bert", text=BertConfig())
     return CLIPConfig(family, dataclasses.replace(VIT_B16_OPENAI, **adapters),
                       compute_dtype=compute_dtype, text_kind="clip", text=TextConfig())
 
 
 class CLIP(nn.Module):
-    """``clip_init``'s tree: visual, text (the CLIP text tower; none for
-    BiomedCLIP, whose BERT tower is not ported), logit_scale."""
+    """``clip_init``'s tree: visual, text (the CLIP text tower, or BERT for
+    BiomedCLIP), logit_scale."""
 
     def __init__(self, gen, cfg: CLIPConfig):
         super().__init__()
         self.visual = vit_init(gen, cfg.vision)
-        if cfg.text_kind == "clip":
-            self.text = text_init(gen, cfg.text)
+        if cfg.text is not None:
+            self.text = (bert_init if cfg.text_kind == "bert" else text_init)(gen, cfg.text)
         self.logit_scale = param(torch.tensor(math.log(1.0 / 0.07)))
 
 
@@ -75,8 +75,9 @@ def clip_init(gen: torch.Generator, cfg: CLIPConfig) -> CLIP:
 def infer_cfg(cfg: CLIPConfig, *, vision: bool = True, text: bool = True) -> CLIPConfig:
     """Forward-only variant of a config: the chosen towers' blocks run
     through the whole-block kernel (ops/fused_block.py; LoRA blocks decline
-    it). Use it only on paths autograd never differentiates (eval, serving,
-    the frozen text tower): that kernel has no backward."""
+    it; BERT's layers take it only where opted in, models/bert.py). Use it
+    only on paths autograd never differentiates (eval, serving, the frozen
+    text tower): that kernel has no backward."""
     kw = {}
     if vision:
         kw["vision"] = dataclasses.replace(cfg.vision, block_impl="fused_infer")
@@ -94,11 +95,9 @@ def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), op
 
 
 def encode_text(params: CLIP, cfg: CLIPConfig, token_ids, *, ops=KERNELS):
-    """token_ids [B, L] -> [B, embed] (the CLIP text tower, frozen)."""
-    if cfg.text_kind != "clip":
-        raise NotImplementedError(
-            "encode_text: the BERT text tower is not ported to the PyTorch package yet "
-            "(ROADMAP.md, section A, item 5)")
+    """token_ids [B, L] -> [B, embed] (the frozen text tower)."""
+    if cfg.text_kind == "bert":
+        return bert_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)
     return text_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)
 
 

@@ -25,6 +25,7 @@ class BlockOps:
     fused_ln_qkv: Callable
     fused_attn_o_residual: Callable
     fused_ln_mlp_residual: Callable
+    fused_postnorm_mlp_ln: Callable
     flash_attention: Callable
     fused_mlp: Callable
     lut_apply: Callable
@@ -33,9 +34,11 @@ class BlockOps:
 
 KERNELS = BlockOps(fused_block.fused_block_infer, dwconv.mona_spatial,
                    fused_ln_qkv.fused_ln_qkv, fused_attn_o.fused_attn_o_residual,
-                   fused_ln_mlp.fused_ln_mlp_residual, flash_attention.flash_attention,
+                   fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_postnorm_mlp_ln,
+                   flash_attention.flash_attention,
                    fused_mlp.fused_mlp, lut.lut_apply, lut.hist256)
 PLAIN = BlockOps(fused_block.fused_block_infer_plain, dwconv.mona_spatial_plain,
                  fused_ln_qkv.fused_ln_qkv_plain, fused_attn_o.fused_attn_o_residual_plain,
-                 fused_ln_mlp.fused_ln_mlp_residual_plain, flash_attention.flash_attention_plain,
+                 fused_ln_mlp.fused_ln_mlp_residual_plain,
+                 fused_ln_mlp.fused_postnorm_mlp_ln_plain, flash_attention.flash_attention_plain,
                  fused_mlp.fused_mlp_plain, lut.lut_apply_plain, lut.hist256_plain)

@@ -1,5 +1,5 @@
-"""Helpers the frozen-weight block kernels share: the weight contract and
-the LayerNorm backward's recomputed statistics."""
+"""Helpers the frozen-weight block kernels share: the weight contract, the
+forward-only contract and the LayerNorm backward's recomputed statistics."""
 
 from __future__ import annotations
 
@@ -24,3 +24,25 @@ def layernorm_parts(x, eps: float):
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     return (x32 - mu) * rstd, rstd
+
+
+class _ForwardOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, name, fn, *inputs):
+        ctx.name = name
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name}: forward only on the card; its backward kernel is not ported "
+            "(ROADMAP.md, section B)")
+
+
+def forward_only(name: str, fn, *inputs):
+    """``fn(*inputs)``, a kernel launch with no backward: when autograd
+    records it, differentiating through it raises rather than returning
+    nothing for inputs that need a gradient."""
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in inputs):
+        return _ForwardOnly.apply(name, fn, *inputs)
+    return fn(*inputs)

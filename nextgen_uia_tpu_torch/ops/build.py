@@ -36,6 +36,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, x_dtype, gamma, beta, out, out_dtype, rows, cols, eps, stream
     "nx_layernorm": [P, I, P, P, P, I, I, I, F, P],
+    # x, gamma, beta, out32, out_t, dtype, rows, cols, eps, stream
+    "nx_layernorm_dual": [P, P, P, P, P, I, I, I, F, P],
     # a, w, dtype, bias, res, res_dtype, out, out_dtype, act, M, N, K, stream
     "nx_gemm": [P, P, I, P, P, I, P, I, I, I, I, I, P],
     # qkv, key_bias, out, dtype, B, N, H, dh, n_real, causal, scale, stream
@@ -46,10 +48,15 @@ SIGNATURES = {
     "nx_mona_spatial_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, beta, w_qkv, b_qkv, z, q, k, v, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # x, w_qkv, b_qkv, q, k, v, dtype, B, N, H, dh, stream
+    "nx_qkv_rawx_fwd": [P, P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, w_qkv, dq, dk, dv, dz, dx, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     # q, k, v, x, key_bias, wo, bo, cat, out, dtype, B, N, H, dh, n_real, scale, stream
     "nx_attn_o_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k, v, x, key_bias, wo, bo, gamma, beta, cat, y32, out, dtype, B, N, H, dh, n_real,
+    # scale, eps, stream
+    "nx_attn_o_postln_fwd": [P] * 12 + [I] * 6 + [F, F, P],
     # q, k, v, key_bias, wo, g, doh, stats, dq, dk, dv, dtype, B, N, H, dh, n_real,
     # scale, stream
     "nx_attn_o_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
@@ -64,6 +71,8 @@ SIGNATURES = {
     # q, k, v, o, g, lse, bias, dq, dk, dv, dbias, delta, dtype, B, H, N, dh, sb, sh, sn,
     # osb, osh, osn, causal, scale, stream
     "nx_flash_attention_bwd": [P] * 12 + [I] * 12 + [F, P],
+    # x, w1, b1, w2, b2, gamma, beta, h, y32, out, dtype, M, D, hidden, act, eps, stream
+    "nx_postnorm_mlp_ln_fwd": [P] * 10 + [I] * 5 + [F, P],
     # x, w1, b1, w2, b2, h, out, dtype, M, D, hidden, act, stream
     "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # img, lut, out, B, HW, stream

@@ -11,6 +11,15 @@ kernels of csrc/fused_attn_o.cu (counted in ``fused_attn_o_residual.launches``
 and ``fused_attn_o_residual_backward.launches``); on a CPU tensor they run
 the plain versions below. The backward recomputes the probabilities from the
 saved q, k, v.
+
+With ``post_ln`` (BERT's post-norm layout) the output is LayerNormed:
+
+    out = LN(x + concat_h(softmax(q k^T / sqrt(dh) + bias) v) @ Wo + bo)
+
+with the pre-LN sum in float32 until the LayerNorm. On a CUDA tensor
+``fused_attn_o_residual_postln`` launches its forward kernel (counted in
+``fused_attn_o_residual_postln.launches``); its backward is not ported, so
+autograd reaching it on the card raises.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import math
 import torch
 
 from . import build
-from ._frozen import check_frozen
+from ._frozen import check_frozen, forward_only, layernorm_parts
 
 
 def _weights(o, dt):
@@ -41,15 +50,20 @@ def _probs(q, k, bias, n_real):
 
 
 def fused_attn_o_residual_plain(q, k, v, x, o, *, heads: int, bias=None,
-                                n_real: int | None = None):
+                                n_real: int | None = None, post_ln=None,
+                                ln_eps: float = 1e-12):
     """Plain PyTorch version, differentiable by autograd: float32 scores,
     softmax and products; the probabilities and the head concat rounded to
-    x.dtype, the sum rounded once (the kernel's rounding points)."""
+    x.dtype, the sum (with ``post_ln``: its LayerNorm, float32 statistics)
+    rounded once (the kernel's rounding points)."""
     b, h, n, dh = q.shape
     dt, f32 = x.dtype, torch.float32
     p = _probs(q, k, bias, n if n_real is None else n_real).to(dt)
     cat = (p.to(f32) @ v.to(f32)).transpose(1, 2).reshape(b, n, h * dh).to(dt)
-    return (cat.to(f32) @ o.w.to(dt).to(f32) + o.b.to(f32) + x.to(f32)).to(dt)
+    y = cat.to(f32) @ o.w.to(dt).to(f32) + o.b.to(f32) + x.to(f32)
+    if post_ln is not None:
+        y = layernorm_parts(y, ln_eps)[0] * post_ln.scale + post_ln.bias
+    return y.to(dt)
 
 
 def fused_attn_o_residual_backward_plain(q, k, v, wo, g, *, bias=None,
@@ -113,6 +127,46 @@ def _forward_cuda(q, k, v, x, wo, bo, bias, n_real):
     return out
 
 
+def _postln_cuda(q, k, v, x, wo, bo, gamma, beta, bias, n_real, eps):
+    b, h, n, dh = q.shape
+    _check_cuda(q, x, bias, n_real)
+    dt, d = x.dtype, h * dh
+    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
+    x = x.contiguous()
+    cat = torch.empty(b * n, d, device=x.device, dtype=dt)
+    y32 = torch.empty(b * n, d, device=x.device, dtype=torch.float32)
+    out = torch.empty(b, n, d, device=x.device, dtype=dt)
+    kb = _key_bias(bias)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_attn_o_postln_fwd(
+            build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(x, "x"),
+            build.ptr(kb), build.ptr(wo), build.ptr(bo), build.ptr(gamma), build.ptr(beta),
+            build.ptr(cat), build.ptr(y32), build.ptr(out), build.DTYPE_CODES[dt], b, n, h, dh,
+            n_real, 1.0 / math.sqrt(dh), eps, build.stream(x.device)),
+            "fused_attn_o_residual_postln")
+    fused_attn_o_residual_postln.launches += 1
+    return out
+
+
+def fused_attn_o_residual_postln(q, k, v, x, o, ln, *, heads: int, bias=None,
+                                 n_real: int | None = None, eps: float = 1e-12):
+    """LN(x + Wo(attention(q, k, v)) + bo), the post-norm epilogue; the
+    kernel on a CUDA tensor (forward only), the plain version on a CPU
+    tensor."""
+    n_real = q.shape[2] if n_real is None else n_real
+    if x.device.type == "cpu":
+        return fused_attn_o_residual_plain(q, k, v, x, o, heads=heads, bias=bias,
+                                           n_real=n_real, post_ln=ln, ln_eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attn_o_residual_postln: unsupported device {x.device}")
+    wo, bo = _weights(o, x.dtype)
+    gamma, beta = (t.detach().to(torch.float32).contiguous() for t in (ln.scale, ln.bias))
+    return forward_only(
+        "fused_attn_o_residual_postln",
+        lambda *t: _postln_cuda(*t, wo, bo, gamma, beta, bias, n_real, eps), q, k, v, x)
+
+
 def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | None = None):
     """(dq, dk, dv) for the output gradient g: on a CUDA tensor the
     backward kernels of csrc/fused_attn_o.cu (counted in
@@ -167,24 +221,26 @@ class _FusedAttnO(torch.autograd.Function):
 
 
 def fused_attn_o_residual(q, k, v, x, o, *, heads: int, bias=None,
-                          n_real: int | None = None, post_ln=None):
-    """(q, k, v [B, H, N, dh], x [B, N, D]) -> x + Wo(attention(q, k, v)) + bo.
+                          n_real: int | None = None, post_ln=None, ln_eps: float = 1e-12):
+    """(q, k, v [B, H, N, dh], x [B, N, D]) -> x + Wo(attention(q, k, v)) + bo,
+    LayerNormed with ``post_ln`` (``fused_attn_o_residual_postln``).
 
     bias: optional additive [B, N] key bias (constant: no gradient); keys at
-    or beyond ``n_real`` are masked. Differentiable in q, k, v and x; the
-    o-projection is frozen (raises if it requires grad). The post-norm (BERT)
-    epilogue is not ported yet.
+    or beyond ``n_real`` are masked. Differentiable in q, k, v and x without
+    ``post_ln``; the o-projection (and the LayerNorm) are frozen (raises if
+    one requires grad).
     """
-    if post_ln is not None:
-        raise NotImplementedError(
-            "fused_attn_o_residual: the post-LN (BERT) epilogue is not ported yet "
-            "(ROADMAP.md, section B)")
     if q.shape[1] != heads:
         raise ValueError(f"fused_attn_o_residual: q has {q.shape[1]} heads, not {heads}")
-    check_frozen("fused_attn_o_residual", o.w, o.b)
+    check_frozen("fused_attn_o_residual", o.w, o.b,
+                 *(() if post_ln is None else (post_ln.scale, post_ln.bias)))
     n_real = q.shape[2] if n_real is None else n_real
+    if post_ln is not None:
+        return fused_attn_o_residual_postln(q, k, v, x, o, post_ln, heads=heads, bias=bias,
+                                            n_real=n_real, eps=ln_eps)
     return _FusedAttnO.apply(q, k, v, x, o, heads, bias, n_real)
 
 
 fused_attn_o_residual.launches = 0
+fused_attn_o_residual_postln.launches = 0
 fused_attn_o_residual_backward.launches = 0

@@ -10,6 +10,15 @@ forward and backward launch the hand-written kernels of csrc/fused_ln_mlp.cu
 (counted in ``fused_ln_mlp_residual.launches`` and
 ``fused_ln_mlp_residual_backward.launches``); on a CPU tensor they run the
 plain versions below. The backward recomputes fc1 from the saved x.
+
+``fused_postnorm_mlp_ln`` is BERT's post-norm feed-forward sublayer
+(counterpart of nextgen_uia_tpu/ops/fused_ln_mlp.py::fused_postnorm_mlp_ln):
+
+    out = LN(x + fc2(act(fc1(x))))
+
+with the residual sum in float32 until the LayerNorm. On a CUDA tensor it
+launches its forward kernel (counted in ``fused_postnorm_mlp_ln.launches``);
+its backward is not ported, so autograd reaching it on the card raises.
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-from ._frozen import check_frozen, layernorm_parts
+from ._frozen import check_frozen, forward_only, layernorm_parts
 
 
 def act_grad(act: str, a):
@@ -171,3 +180,51 @@ def fused_ln_mlp_residual(x, ln, mlp, *, act: str = "gelu", eps: float = 1e-5):
 
 fused_ln_mlp_residual.launches = 0
 fused_ln_mlp_residual_backward.launches = 0
+
+
+def fused_postnorm_mlp_ln_plain(x, mlp, ln, *, act: str = "gelu", eps: float = 1e-12):
+    """Plain PyTorch version, differentiable by autograd: float32 products,
+    residual sum and LayerNorm statistics; h rounded to x.dtype, the output
+    rounded once (the kernel's rounding points)."""
+    dt, f32 = x.dtype, torch.float32
+    a = x.to(f32) @ mlp.fc1.w.to(dt).to(f32) + mlp.fc1.b.to(f32)
+    h = ACTIVATIONS[act](a).to(dt)
+    y = x.to(f32) + mlp.fc2.b.to(f32) + h.to(f32) @ mlp.fc2.w.to(dt).to(f32)
+    return (layernorm_parts(y, eps)[0] * ln.scale + ln.bias).to(dt)
+
+
+def _postnorm_cuda(x, w1, b1, w2, b2, gamma, beta, act, eps):
+    d, hidden = x.shape[-1], w1.shape[1]
+    _check_cuda(x, hidden, act)
+    m, dt, dev = x.numel() // d, x.dtype, x.device
+    h = torch.empty(m, hidden, device=dev, dtype=dt)
+    y32 = torch.empty(m, d, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.check(lib.nx_postnorm_mlp_ln_fwd(
+            build.ptr(x, "x"), build.ptr(w1), build.ptr(b1), build.ptr(w2), build.ptr(b2),
+            build.ptr(gamma), build.ptr(beta), build.ptr(h), build.ptr(y32), build.ptr(out),
+            build.DTYPE_CODES[dt], m, d, hidden, build.ACT_CODES[act], eps, build.stream(dev)),
+            "fused_postnorm_mlp_ln")
+    fused_postnorm_mlp_ln.launches += 1
+    return out
+
+
+def fused_postnorm_mlp_ln(x, mlp, ln, *, act: str = "gelu", eps: float = 1e-12):
+    """x [..., D] -> LN(x + fc2(act(fc1(x)))) with frozen weights (raises
+    if any requires grad); the kernel on a CUDA tensor (forward only), the
+    plain version on a CPU tensor."""
+    check_frozen("fused_postnorm_mlp_ln", ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
+                 mlp.fc2.w, mlp.fc2.b)
+    if x.device.type == "cpu":
+        return fused_postnorm_mlp_ln_plain(x, mlp, ln, act=act, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_postnorm_mlp_ln: unsupported device {x.device}")
+    gamma, beta, w1, b1, w2, b2 = _weights(ln, mlp, x.dtype)
+    return forward_only(
+        "fused_postnorm_mlp_ln",
+        lambda x_: _postnorm_cuda(x_, w1, b1, w2, b2, gamma, beta, act, eps), x.contiguous())
+
+
+fused_postnorm_mlp_ln.launches = 0

@@ -10,6 +10,12 @@ csrc/fused_ln_qkv.cu (counted in ``fused_ln_qkv.launches`` and
 ``fused_ln_qkv_backward.launches``); on a CPU tensor they run
 ``fused_ln_qkv_plain`` and ``fused_ln_qkv_backward_plain``. The backward
 recomputes from the saved x.
+
+With ``ln=None`` the projections act on the raw x (the JAX kernel's
+post-norm variant, which BERT's frozen text tower runs): on a CUDA tensor
+``fused_ln_qkv_rawx`` launches its forward kernel (counted in
+``fused_ln_qkv_rawx.launches``); its backward is not ported, so autograd
+reaching it on the card raises.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._frozen import check_frozen, layernorm_parts
+from ._frozen import check_frozen, forward_only, layernorm_parts
 
 
 def _weights(ln, attn, dt):
@@ -32,13 +38,16 @@ def _weights(ln, attn, dt):
 def fused_ln_qkv_plain(x, ln, attn, *, heads: int, eps: float = 1e-5):
     """Plain PyTorch version, differentiable by autograd: float32 LayerNorm
     statistics and products, z and q/k/v rounded to x.dtype (the kernel's
-    rounding points)."""
+    rounding points); ``ln=None`` projects the raw x."""
     b, n, d = x.shape
     dt, f32 = x.dtype, torch.float32
-    x32 = x.to(f32)
-    mu = x32.mean(-1, keepdim=True)
-    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
-    z = ((x32 - mu) * torch.rsqrt(var + eps) * ln.scale + ln.bias).to(dt)
+    if ln is None:
+        z = x
+    else:
+        x32 = x.to(f32)
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+        z = ((x32 - mu) * torch.rsqrt(var + eps) * ln.scale + ln.bias).to(dt)
     return tuple((z.to(f32) @ lin.w.to(dt).to(f32) + lin.b.to(f32)).to(dt)
                  .reshape(b, n, heads, d // heads).transpose(1, 2).contiguous()
                  for lin in (attn.q, attn.k, attn.v))
@@ -72,6 +81,35 @@ def _check_cuda(x, heads):
         problems.append(f"width {d} with {heads} heads (width % 64 == 0, head dim % 8 == 0)")
     if problems:
         raise ValueError("fused_ln_qkv CUDA kernel does not take: " + "; ".join(problems))
+
+
+def _rawx_cuda(x, w_qkv, b_qkv, heads):
+    b, n, d = x.shape
+    _check_cuda(x, heads)
+    dt, dh = x.dtype, d // heads
+    q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_qkv_rawx_fwd(
+            build.ptr(x, "x"), build.ptr(w_qkv), build.ptr(b_qkv), build.ptr(q), build.ptr(k),
+            build.ptr(v), build.DTYPE_CODES[dt], b, n, heads, dh, build.stream(x.device)),
+            "fused_ln_qkv_rawx")
+    fused_ln_qkv_rawx.launches += 1
+    return q, k, v
+
+
+def fused_ln_qkv_rawx(x, attn, *, heads: int):
+    """x [B, N, D] -> (q, k, v) = x @ W{q,k,v} + b{q,k,v}, head-major, with
+    no LayerNorm (post-norm towers); forward only on the card."""
+    if x.device.type == "cpu":
+        return fused_ln_qkv_plain(x, None, attn, heads=heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ln_qkv_rawx: unsupported device {x.device}")
+    f32, dt = torch.float32, x.dtype
+    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
+    bias = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(f32).contiguous()
+    return forward_only("fused_ln_qkv_rawx", lambda x_: _rawx_cuda(x_, w, bias, heads),
+                        x.contiguous())
 
 
 def _forward_cuda(x, gamma, beta, w_qkv, b_qkv, heads, eps):
@@ -139,12 +177,16 @@ class _FusedLnQkv(torch.autograd.Function):
 
 def fused_ln_qkv(x, ln, attn, *, heads: int, eps: float = 1e-5):
     """x [B, N, D] -> (q, k, v), each [B, H, N, D/H], with the LayerNorm
-    fused in; differentiable in x only (frozen weights: raises if any of
-    them requires grad)."""
-    check_frozen("fused_ln_qkv", ln.scale, ln.bias,
+    fused in (``ln=None``: on the raw x, ``fused_ln_qkv_rawx``);
+    differentiable in x only (frozen weights: raises if any of them
+    requires grad)."""
+    check_frozen("fused_ln_qkv", *(() if ln is None else (ln.scale, ln.bias)),
                  *(t for lin in (attn.q, attn.k, attn.v) for t in (lin.w, lin.b)))
+    if ln is None:
+        return fused_ln_qkv_rawx(x, attn, heads=heads)
     return _FusedLnQkv.apply(x, ln, attn, heads, eps)
 
 
 fused_ln_qkv.launches = 0
+fused_ln_qkv_rawx.launches = 0
 fused_ln_qkv_backward.launches = 0

@@ -8,14 +8,21 @@ update over ceil(steps / accum) * epochs updates; gradient accumulation
 (default 4) with the non-finite skip and a global-norm clip of 1.0; InfoNCE
 at the fixed ``--temperature``; the frozen text tower's caption features
 cached once (or encoded in the step with ``--no-cache_text_features``, under
-no_grad, through the whole-block kernel with the causal mask); validation
-each epoch through the forward-only kernels; the best-by-validation-loss
-checkpoint holding only the adapter tensors; early stop; ``--resume`` from
-the full train state and SIGTERM preemption.
+no_grad, trimmed to 32-token buckets); validation each epoch through the
+forward-only kernels; the best-by-validation-loss checkpoint holding only
+the adapter tensors; early stop; ``--resume`` from the full train state and
+SIGTERM preemption.
+
+The text towers run forward only: the CLIP text transformer (openai,
+metaclip; context 77) through the whole-block kernel with the causal mask,
+BiomedCLIP's PubMedBERT (context 256) through its post-norm kernels
+(models/bert.py). BiomedCLIP takes the PubMedBERT tokenizer where its
+HuggingFace files are cached, else the folded CLIP-BPE fallback, which a
+full-size run refuses unless NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
 
 Not ported, each refused naming its ROADMAP.md item: ``--method full``,
 ``--tune_text_encoder``, ``--chain_zero_shot``, ``--n_data``/``--n_model``,
-the BiomedCLIP/UniMedCLIP text towers and retrieval.
+the UniMedCLIP family and retrieval.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from ..losses import info_nce
 from ..models import clip as clip_mod
 from ..ops import KERNELS
 from .common import (base_parser, build_clip_model, get_text_tokenizer, not_ported,
-                     resolve_device, seed_everything, setup_logging)
+                     require_real_tokenizer, resolve_device, seed_everything, setup_logging)
 
 
 def _finetune_parser(family: str):
@@ -88,8 +95,9 @@ def lora_trainable_predicate(params: torch.nn.Module):
 def trim_token_padding(tokens: np.ndarray, *, enabled: bool = True,
                        multiple: int = 32) -> np.ndarray:
     """Trim a padded token batch [B, ctx] to the batch's real max length,
-    rounded up to ``multiple``. Exact: under the causal mask no real token
-    reads a padding column, and EOT pooling never reads a padding row. The
+    rounded up to ``multiple``. Exact for both text towers: under the causal
+    mask (CLIP) or the -1e9 key-padding bias (BERT) no real token reads a
+    padding column, and EOT or CLS pooling never reads a padding row. The
     length is the last nonzero position + 1 (the CLIP BPE emits real id 0
     for '!'), so trailing zeros are the only thing cut."""
     if not enabled:
@@ -113,15 +121,15 @@ def _refuse_unported(args, family):
                          "section A, item 10")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-    if family not in ("openai", "metaclip"):
-        raise not_ported(f"Fine-tuning the {family} family (its BERT text tower)",
-                         "section A, item 5")
+    if family not in clip_mod.FAMILIES:
+        raise not_ported(f"Fine-tuning the {family} family", "section A, item 10")
 
 
 def make_text_encoder(params, cfg, device, ops=KERNELS):
     """tokens (numpy or tensor) -> float32 features [B, embed] of the frozen
-    text tower, forward only: every block through the whole-block kernel
-    with the causal mask."""
+    text tower, forward only (models/clip.py::infer_cfg): the CLIP text
+    blocks through the whole-block kernel with the causal mask, BERT's
+    layers through its post-norm kernels."""
     ecfg = clip_mod.infer_cfg(cfg, vision=False)
 
     @torch.no_grad()
@@ -153,6 +161,7 @@ def finetune_main(family: str, argv=None):
 
     cfg, params = build_clip_model(args, family, adapter=args.method, gen=gen)
     tokenizer = get_text_tokenizer(args, family)
+    require_real_tokenizer(args, tokenizer, family)
     pred = by_keywords("mona") if args.method == "mona" else lora_trainable_predicate(params)
     trainable, _ = partition(params, pred)
     names = list(trainable)

@@ -27,10 +27,12 @@ import torch
 from ..adapters.lora import inject_lora
 from ..adapters.mona import inject_mona
 from ..core import checkpoint as ckpt
-from ..data.tokenizer import ClipTokenizer
+from ..data.tokenizer import ClipTokenizer, load_hf_tokenizer
 from ..models import clip as clip_mod
+from ..models.bert import BertConfig
 
 MONA_CHOICES = ["baseline", "noise_aware", "freq_enhanced", "hybrid"]
+BIOMEDCLIP_HF = "microsoft/BiomedCLIP-PubMedBERT_256-vit_base_patch16_224"
 
 
 def not_ported(what: str, item: str):
@@ -202,9 +204,10 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
     if args.debug_tiny:
         cfg = cfg.replace(vision=dataclasses.replace(
             cfg.vision, image_size=args.img_size, width=96, depth=4, heads=4, proj_dim=64))
-        if cfg.text is not None:
-            cfg = cfg.replace(text=dataclasses.replace(cfg.text, width=96, depth=2, heads=4,
-                                                       embed_dim=64))
+        tiny = dict(width=96, depth=2, heads=4, embed_dim=64)
+        if cfg.text_kind == "bert":
+            tiny["intermediate"] = 192
+        cfg = cfg.replace(text=dataclasses.replace(cfg.text, **tiny))
     params = clip_mod.clip_init(gen, cfg)
 
     if args.backbone_ckpt:
@@ -241,9 +244,45 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
 
 def get_text_tokenizer(args, family: str):
     """The text tokenizer of a family: the CLIP BPE (context 77) for openai
-    and metaclip. BiomedCLIP's and UniMedCLIP's BERT tokenizers are not
-    ported."""
+    and metaclip; for biomedclip the PubMedBERT tokenizer (context 256) when
+    its HuggingFace files are cached, else the CLIP BPE with its ids folded
+    into the BERT vocabulary (1 + id % 30521, padding 0), marked
+    ``is_fallback``."""
+    if family == "biomedclip":
+        tok = load_hf_tokenizer(BIOMEDCLIP_HF, context_length=256)
+        if tok is not None:
+            return tok
+        logging.warning(
+            "BiomedCLIP HF tokenizer unavailable offline; falling back to CLIP BPE with ids "
+            "folded into the BERT vocab range (context 256). Text-side parity requires the HF "
+            "tokenizer files.")
+        clip_tok = ClipTokenizer()
+        vocab = BertConfig().vocab_size
+
+        def fallback(texts, ctx=256):
+            ids = clip_tok(texts, context_length=ctx)
+            return np.where(ids > 0, 1 + (ids % (vocab - 1)), 0).astype(np.int32)
+
+        fallback.is_fallback = True
+        return fallback
     if family in ("openai", "metaclip"):
         tok = ClipTokenizer()
         return lambda texts, ctx=77: tok(texts, context_length=ctx)
-    raise not_ported(f"The {family} text tokenizer (BERT WordPiece)", "section A, item 5")
+    raise not_ported(f"The {family} text tokenizer", "section A, item 10")
+
+
+def require_real_tokenizer(args, tokenizer, what: str):
+    """Refuse the folded fallback tokenizer on a run whose results would be
+    read as the reference's (no --debug_tiny): its features mean nothing for
+    comparison. NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1 lets it through."""
+    if not getattr(tokenizer, "is_fallback", False) or getattr(args, "debug_tiny", False):
+        return
+    if os.environ.get("NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK") == "1":
+        logging.warning(f"{what}: running with the FALLBACK tokenizer by explicit override - "
+                        "results are NOT reference-parity")
+        return
+    raise SystemExit(
+        f"{what}: the real HF tokenizer is unavailable and this is a parity-relevant run (no "
+        "--debug_tiny). Results under the CLIP-BPE fallback are meaningless for comparison "
+        "with the reference. Cache the HF tokenizer files locally, pass --debug_tiny for a "
+        "smoke run, or set NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1 to proceed anyway.")

@@ -1,7 +1,7 @@
 """Weight bridge between the JAX package and its PyTorch port.
 
-A parameter tree built by the JAX package (CLIP tower + MONA + PyramidHead)
-is saved with nextgen_uia_tpu.core.checkpoint, merged into the port's
+A parameter tree built by the JAX package (CLIP towers, the BERT text tower
+included, + MONA + PyramidHead) is saved with nextgen_uia_tpu.core.checkpoint, merged into the port's
 modules with nextgen_uia_tpu_torch.core.checkpoint, saved again by the port
 and read back by the JAX package: every key and array must survive bit for
 bit, in both directions.
@@ -28,13 +28,16 @@ from nextgen_uia_tpu_torch.models.heads import PyramidHeadConfig, pyramid_head_i
 WIDTH, DEPTH, HEADS, IMG = 128, 4, 2, 64
 
 
-def _jax_cfg(variant="hybrid"):
-    cfg = jax_clip.clip_config("biomedclip", mona_variant=variant)
+def _shrink(cfg):
     vis = dataclasses.replace(cfg.vision, image_size=IMG, width=WIDTH, depth=DEPTH,
                               heads=HEADS, proj_dim=64)
     txt = dataclasses.replace(cfg.text, width=64, depth=1, heads=2, intermediate=128,
                               embed_dim=64)
     return cfg.replace(vision=vis, text=txt)
+
+
+def _jax_cfg(variant="hybrid"):
+    return _shrink(jax_clip.clip_config("biomedclip", mona_variant=variant))
 
 
 def _jax_tree(task="seg", variant="hybrid", seed=0):
@@ -51,25 +54,18 @@ def _jax_tree(task="seg", variant="hybrid", seed=0):
 def _port_model(task="seg", variant="hybrid", seed=5):
     """The port's counterpart of _jax_tree (its own random init)."""
     gen = torch.Generator().manual_seed(seed)
-    cfg = clip_mod.clip_config("biomedclip", mona_variant=variant)
-    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, image_size=IMG, width=WIDTH,
-                                                 depth=DEPTH, heads=HEADS, proj_dim=64))
-    backbone = clip_mod.clip_init(gen, cfg)
+    backbone = clip_mod.clip_init(gen, _shrink(clip_mod.clip_config("biomedclip",
+                                                                    mona_variant=variant)))
     inject_mona(gen, backbone.visual, dim=WIDTH, variant=variant)
     head = pyramid_head_init(gen, PyramidHeadConfig(feature_dim=WIDTH, img_size=IMG,
                                                     task=task))
     return torch.nn.ModuleDict({"backbone": backbone, "head": head})
 
 
-def _without_text(tree):
-    return {"backbone": {k: v for k, v in tree["backbone"].items() if k != "text"},
-            "head": tree["head"]}
-
-
 @pytest.mark.parametrize("task,variant", [("seg", "hybrid"), ("cls", "noise_aware"),
                                           ("seg", "freq_enhanced"), ("cls", "baseline")])
 def test_jax_to_port_to_jax_bit_exact(tmp_path, task, variant):
-    tree = _without_text(_jax_tree(task, variant))
+    tree = _jax_tree(task, variant)
     n_jax = jax_ckpt.save(str(tmp_path / "jax.npz"), tree)
     model = _port_model(task, variant)
     _, n = ckpt.load_into(str(tmp_path / "jax.npz"), model)
@@ -92,20 +88,25 @@ def test_jax_to_port_to_jax_bit_exact(tmp_path, task, variant):
 
 
 def test_keys_outside_the_port_are_ignored(tmp_path):
-    """A full JAX CLIP file (text tower included) merges by name: every
-    vision and logit_scale tensor loads, the text tower is skipped."""
+    """A JAX CLIP file with a key the port's tree lacks merges by name:
+    every vision, text and logit_scale tensor loads, the extra key is
+    skipped."""
     tree = _jax_tree()
-    jax_ckpt.save(str(tmp_path / "clip.npz"), tree["backbone"])
+    flat = dict(flatten_with_paths(tree["backbone"]))
+    np.savez(tmp_path / "clip.npz", **{k: np.asarray(v) for k, v in flat.items()},
+             **{"text/pooler/w": np.zeros((64, 64), np.float32)})
     model = _port_model()
     _, n = ckpt.load_into(str(tmp_path / "clip.npz"), model["backbone"])
-    assert n == len(model["backbone"].state_dict())
+    assert n == len(model["backbone"].state_dict()) == len(flat)
     w = jax_ckpt.load_flat(str(tmp_path / "clip.npz"))["visual/blocks/2/attn/q/w"]
     assert np.array_equal(model["backbone"].visual.blocks[2].attn.q.w.numpy(), w)
+    w = jax_ckpt.load_flat(str(tmp_path / "clip.npz"))["text/layers/0/ffn/fc1/w"]
+    assert np.array_equal(model["backbone"].text.layers[0].ffn.fc1.w.numpy(), w)
 
 
 def test_state_dict_keys_are_jax_paths():
     model = _port_model()
-    flat = dict(flatten_with_paths(_without_text(_jax_tree())))
+    flat = dict(flatten_with_paths(_jax_tree()))
     keys = {k.replace(".", "/") for k in model.state_dict()}
     assert keys == set(flat)
 
@@ -125,7 +126,7 @@ def test_empty_intersection_raises_nomatch(tmp_path):
 
 
 def test_skip_and_keyword_filter(tmp_path):
-    tree = _without_text(_jax_tree())
+    tree = _jax_tree()
     jax_ckpt.save(str(tmp_path / "jax.npz"), tree)
     model = _port_model()
     before = model["head"].reduces[0].w.clone()

@@ -14,7 +14,12 @@ dropout to the JAX masks); (d) the
 fine-tune CLI with ``--debug_tiny --device cpu``: its best_model.npz holds
 only LoRA tensors and loads into the JAX package's tree, the in-step text
 path gives the cached path's validation loss, and ``--resume`` continues;
-(e) what is not ported refuses, naming its ROADMAP item.
+(e) what is not ported refuses, naming its ROADMAP item; (f) three
+updates of the tiny BiomedCLIP MONA fine-tune step (the BERT text tower's
+features cached, or encoded in the step from trimmed tokens) against the
+JAX step, 1e-4 relative, and the BiomedCLIP fine-tune CLI with
+``--debug_tiny --device cpu``: its best_model.npz holds only MONA tensors
+(LoRA tensors with ``--method lora``, in-step text).
 """
 
 import dataclasses
@@ -280,15 +285,126 @@ def test_finetune_refuses_what_is_not_ported(ftdata):
                         (["--n_data", "2"], "item 14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             main(base + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        ft.finetune_main("biomedclip", base)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        ft.finetune_main("unimedclip", base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft.retrieval_main("openai", [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_text_tokenizer(None, "biomedclip")
+        get_text_tokenizer(None, "unimedclip")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clip_mod.encode_text(None, clip_mod.clip_config("biomedclip"), torch.zeros(1, 4))
+        clip_mod.clip_config("unimedclip")
+    # BiomedCLIP at full size refuses the folded fallback tokenizer
+    with pytest.raises(SystemExit, match="FALLBACK|fallback"):
+        ft.finetune_main("biomedclip", [a for a in base if a != "--debug_tiny"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([a for a in base if a not in ("--device", "cpu")])
     assert not os.path.exists(os.path.join("runs", "ft_refuse", "best_model.npz"))
+
+
+def _tiny_biomedclip(cfg):
+    vis = dataclasses.replace(cfg.vision, image_size=32, width=96, depth=2, heads=4, proj_dim=64)
+    txt = dataclasses.replace(cfg.text, vocab_size=400, width=64, depth=1, heads=2,
+                              intermediate=128, context_length=64, embed_dim=64)
+    return cfg.replace(vision=vis, text=txt)
+
+
+@pytest.mark.parametrize("text", ["cached", "in_step"])
+def test_biomedclip_mona_updates_match_jax(tmp_path, monkeypatch, text):
+    """Three MONA updates (accumulation 2, clip 1.0) of the tiny BiomedCLIP
+    step, the frozen BERT tower's features cached through its forward-only
+    route or encoded in the step, against the JAX step: the features,
+    losses, gradient norms and trained tensors within 1e-4 relative."""
+    monkeypatch.setattr(jax_mona, "dropout", lambda rng, x, rate: x)
+    jcfg = _tiny_biomedclip(jax_clip.clip_config("biomedclip", mona_variant="freq_enhanced"))
+    params = jax_clip.clip_init(jax.random.key(1), jcfg)
+    params["visual"], _ = jax_mona.inject_mona(jax.random.key(2), params["visual"], dim=96,
+                                               variant="freq_enhanced")
+    rng = np.random.default_rng(2)
+    for blk in params["visual"]["blocks"]:
+        blk["mona"]["gamma"] = jnp.asarray(0.5 * rng.standard_normal(96), jnp.float32)
+    jax_ckpt.save(str(tmp_path / "clip.npz"), params)
+    trainable_j, frozen_j = jax_partition(params, jax_by_keywords("mona"))
+
+    batches = []
+    for _ in range(3):
+        tokens = np.zeros((8, 64), np.int32)
+        for i, n in enumerate(rng.integers(3, 31, 8)):
+            tokens[i, :n] = rng.integers(1, 400, n)
+        batches.append({"image": rng.integers(0, 256, (2, 4, 32, 32, 3)).astype(np.uint8),
+                        "tokens": ft.trim_token_padding(tokens).reshape(2, 4, -1)})
+    assert batches[0]["tokens"].shape == (2, 4, 32)
+    if text == "cached":
+        enc_j = jax.jit(lambda p, t: jax_clip.encode_text(p, jax_clip.infer_cfg(jcfg), t))
+        for b in batches:
+            toks = jnp.asarray(b["tokens"].reshape(8, -1))
+            b["txt_feat"] = np.array(enc_j(params, toks)).reshape(2, 4, -1)
+    step_cfg = jax_clip.infer_cfg(jcfg, vision=False)
+
+    def loss_j(tp, fz, mb, key):
+        p = jax_merge(tp, fz)
+        img, _ = jax_clip.encode_image(p, jcfg, mb["image"].astype(jnp.float32) / 255.0, rng=key)
+        txt = (mb["txt_feat"] if text == "cached"
+               else jax_clip.encode_text(p, step_cfg, mb["tokens"]))
+        return jax_losses.info_nce(img, txt, temperature=0.07)
+
+    tkw = dict(lr=1e-3, lr_min=1e-8, weight_decay=0.01, beta1=0.9, beta2=0.95,
+               total_updates=10)
+    jtcfg = jax_train.TrainConfig(**tkw, grad_clip=1.0, accum_steps=2)
+    opt_j, _ = jax_train.make_optimizer(jtcfg)
+    step_j = jax_train.make_train_step(loss_j, opt_j, jtcfg, donate=False)
+    state = jax_train.init_state(trainable_j, opt_j)
+    metrics_j = []
+    for i, b in enumerate(batches):
+        state, m = step_j(state, frozen_j, {k: jnp.asarray(v) for k, v in b.items()},
+                          jax.random.key(i))
+        metrics_j.append((float(m["loss"]), float(m["grad_norm"])))
+
+    cfg = _tiny_biomedclip(clip_mod.clip_config("biomedclip", mona_variant="freq_enhanced"))
+    gen = torch.Generator().manual_seed(0)
+    model = clip_mod.clip_init(gen, cfg)
+    inject_mona(gen, model.visual, dim=96, variant="freq_enhanced")
+    _, n = ckpt.load_into(str(tmp_path / "clip.npz"), model)
+    assert n == len(model.state_dict())
+    trainable, _ = partition(model, by_keywords("mona"))
+    encode = ft.make_text_encoder(model, cfg, torch.device("cpu"))
+    ours = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    if text == "cached":
+        for b, mine in zip(batches, ours):
+            mine["txt_feat"] = encode(b["tokens"].reshape(8, -1)).reshape(2, 4, -1)
+            want = b["txt_feat"]
+            assert np.abs(mine["txt_feat"].numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+    def loss_t(mb, g):
+        img, _ = clip_mod.encode_image(model, cfg, mb["image"].float() / 255.0, gen=g)
+        txt = mb["txt_feat"] if text == "cached" else encode(mb["tokens"])
+        return losses.info_nce(img, txt, temperature=0.07)
+
+    step = T.TrainStep(loss_t, T.make_optimizer(trainable.values(), T.TrainConfig(**tkw)),
+                       T.TrainConfig(**tkw), accum_steps=2, grad_clip=1.0)
+    for b, (loss, norm) in zip(ours, metrics_j):
+        m = step(b)
+        assert m["skipped"] == 0
+        assert math.isclose(m["loss"], loss, rel_tol=1e-4)
+        assert math.isclose(m["grad_norm"], norm, rel_tol=1e-4)
+    want = dict(jax_flatten(state["params"]))
+    for path, prm in trainable.items():
+        w, got = np.asarray(want[path]), prm.detach().numpy()
+        assert np.abs(got - w).max() <= 1e-4 * np.abs(w).max() + 1e-8, path
+
+
+@pytest.mark.parametrize("method", ["mona", "lora"])
+def test_biomedclip_finetune_cli_saves_adapter_only(ftdata, tmp_path, method):
+    """--method mona with the text cache, --method lora with in-step text:
+    best_model.npz holds only the method's tensors, of every block."""
+    from nextgen_uia_tpu_torch.tasks.biomedclip.finetune import main
+
+    extra = [] if method == "mona" else ["--no-cache_text_features"]
+    out = main([a if a != "lora" else method for a in _argv(ftdata, "bm")] + extra)
+    assert np.isfinite(out["best_val_loss"]) and out["best_epoch"] == 0
+    saved = ckpt.load_flat(str(tmp_path / "runs" / "bm" / "best_model.npz"))
+    assert len(saved) > 0 and all(f"/{method}/" in k for k in saved)
+    assert {k.split("/")[2] for k in saved} == {"0", "1", "2", "3"}  # every --debug_tiny block
+    log = open(tmp_path / "runs" / "bm" / "log.log").read()
+    assert ("freq_enhanced MONA" in log and "Cached text features" in log if method == "mona"
+            else "Injected LoRA" in log and "Cached text features" not in log)

@@ -118,10 +118,10 @@ def test_bf16_rounding_points_follow_the_reference(tmp_path):
 def test_unported_layouts_and_devices_raise(tmp_path):
     _, blk = _blocks(tmp_path, 8)
     x = torch.zeros(1, 4, WIDTH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fb.fused_block_infer(x, blk, heads=HEADS, layout="postnorm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fb.fused_block_infer(x, blk, heads=HEADS, causal=True, layout="postnorm")
+    with pytest.raises(ValueError, match="layout"):
+        fb.fused_block_infer(x, blk, heads=HEADS, layout="sandwich")
+    with pytest.raises(ValueError, match="activation"):
+        fb.fused_block_infer(x, blk, heads=HEADS, act="relu")
     with pytest.raises(ValueError, match="device"):
         fb.fused_block_infer(x.to("meta"), blk, heads=HEADS)
     launches = fb.fused_block_infer.launches

@@ -12,7 +12,12 @@ fused-MLP (K10) forwards, K1 with the causal mask: float32 max|d| <= 1e-4 *
 max|ref|, bfloat16 <= 3e-2 * max(1, max|ref|), for every output; K7's
 bfloat16 output (~0.04 for unit-variance inputs) and gradients <= 3e-2 *
 max|ref|. The lookup and histogram kernels (K13) and an
-augmentation plan through them: equal to their plain versions.
+augmentation plan through them: equal to their plain versions. BERT's
+post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) with a
+key-padding bias that leaves one row wholly padded: float32 1e-4 *
+max|ref|, bfloat16 3e-2 * max(1, max|ref|); ``bert_apply`` by the chain
+and by the whole-layer route against its plain path, and autograd reaching
+any forward-only kernel on the card raises.
 """
 
 import pytest
@@ -428,3 +433,103 @@ def test_mha_lora_route_runs_the_flash_kernels_forward_and_backward(cuda):
     for g, w in zip(got, want):
         err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
         assert err <= 3e-2 * max(1.0, scale), (err, scale)
+
+
+def _bert_layer(device, width, heads, hidden):
+    from nextgen_uia_tpu_torch.models import bert
+
+    gen = torch.Generator().manual_seed(width + hidden)
+    layer = bert.BertLayer(gen, bert.BertConfig(width=width, heads=heads, intermediate=hidden))
+    with torch.no_grad():
+        for ln in (layer.attn_ln, layer.ffn_ln):
+            ln.scale.add_(0.2 * torch.randn(width, generator=gen))
+            ln.bias.add_(0.2 * torch.randn(width, generator=gen))
+    return layer.to(device)
+
+
+@pytest.mark.parametrize("b,n,width,heads,hidden", [
+    (4, 256, 768, 12, 3072), (7, 96, 768, 12, 3072), (3, 40, 128, 2, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_postnorm_kernels_match_plain(cuda, b, n, width, heads, hidden, dtype):
+    """K5 raw-x, K6 post-LN, K9 and K1 post-norm against their plain
+    versions, each counting one launch; the last batch row's keys are all
+    padding and its outputs finite."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
+
+    layer = _bert_layer(cuda, width, heads, hidden)
+    gen = torch.Generator().manual_seed(n + b)
+    x = _rounded(torch.randn(b, n, width, generator=gen).to(cuda), dtype)
+    q, k, v = (_rounded(torch.randn(b, heads, n, width // heads, generator=gen).to(cuda), dtype)
+               for _ in range(3))
+    mask = torch.ones(b, n, device=cuda)
+    mask[0, n // 3:] = 0.0
+    mask[-1] = 0.0
+    bias = (1.0 - mask) * -1e9
+    counters = (fused_ln_qkv.fused_ln_qkv_rawx, fused_attn_o.fused_attn_o_residual_postln,
+                fused_ln_mlp.fused_postnorm_mlp_ln, fb.fused_block_infer_postnorm)
+    before = [f.launches for f in counters]
+    akw = dict(heads=heads, bias=bias, post_ln=layer.attn_ln, ln_eps=1e-12)
+    bkw = dict(heads=heads, eps=1e-12, key_bias=bias, layout="postnorm")
+    with torch.no_grad():
+        _check(lambda t: fused_ln_qkv.fused_ln_qkv(t, None, layer.attn, heads=heads),
+               lambda t: fused_ln_qkv.fused_ln_qkv_plain(t, None, layer.attn, heads=heads),
+               [x.to(dtype)], [x])
+        _check(lambda *t: fused_attn_o.fused_attn_o_residual(*t, layer.attn.o, **akw),
+               lambda *t: fused_attn_o.fused_attn_o_residual_plain(*t, layer.attn.o, **akw),
+               [t.to(dtype) for t in (q, k, v, x)], [q, k, v, x])
+        _check(lambda t: fused_ln_mlp.fused_postnorm_mlp_ln(t, layer.ffn, layer.ffn_ln),
+               lambda t: fused_ln_mlp.fused_postnorm_mlp_ln_plain(t, layer.ffn, layer.ffn_ln),
+               [x.to(dtype)], [x])
+        _check(lambda t: fb.fused_block_infer(t, layer, **bkw),
+               lambda t: fb.fused_block_infer_plain(t, layer, **bkw), [x.to(dtype)], [x])
+        y = fb.fused_block_infer(x.to(dtype), layer, **bkw)
+    assert bool(torch.isfinite(y[-1]).all())
+    assert [f.launches for f in counters] == [n_ + 1 for n_ in before[:3]] + [before[3] + 2]
+
+
+@pytest.mark.parametrize("route", ["chain", "whole_layer"])
+def test_bert_apply_kernels_match_plain(cuda, monkeypatch, route):
+    """The full-width tower (depth cut to 2) in bf16 on padded captions:
+    features against the plain path, 3e-2 * max(1, max|ref|); float32
+    1e-4 * max|ref|."""
+    from nextgen_uia_tpu_torch.models import bert
+    from nextgen_uia_tpu_torch.ops import PLAIN, fused_ln_qkv
+
+    cfg = bert.BertConfig(depth=2, block_impl="fused_infer")
+    if route == "whole_layer":
+        monkeypatch.setenv("NEXTGEN_UIA_FUSED_BLOCK_BERT", "1")
+    tower = bert.bert_init(torch.Generator().manual_seed(0), cfg).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, 30000, (6, 256), generator=gen)
+    for i, n in enumerate((3, 40, 100, 256, 17, 64)):
+        ids[i, n:] = 0
+    ids = ids.to(cuda)
+    k5, k1 = fused_ln_qkv.fused_ln_qkv_rawx.launches, fb.fused_block_infer_postnorm.launches
+    with torch.no_grad():
+        got = bert.bert_apply(tower, cfg, ids, dtype=torch.bfloat16)
+        ref = bert.bert_apply(tower, cfg, ids, ops=PLAIN)
+    assert got.shape == (6, 512) and got.dtype == torch.bfloat16
+    whole = route == "whole_layer"
+    assert fused_ln_qkv.fused_ln_qkv_rawx.launches - k5 == (0 if whole else 2)
+    assert fb.fused_block_infer_postnorm.launches - k1 == (2 if whole else 0)
+    scale = ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= 3e-2 * max(1.0, scale)
+    with torch.no_grad():
+        f32 = bert.bert_apply(tower, cfg, ids)
+    assert (f32 - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_bert_forward_only_kernels_refuse_autograd_on_the_card(cuda):
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
+
+    layer = _bert_layer(cuda, 128, 2, 512)
+    x = torch.randn(2, 16, 128, device=cuda, requires_grad=True)
+    q = torch.randn(2, 2, 16, 64, device=cuda, requires_grad=True)
+    outs = [fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=2)[0],
+            fused_attn_o.fused_attn_o_residual(q, q, q, x, layer.attn.o, heads=2,
+                                               post_ln=layer.attn_ln),
+            fused_ln_mlp.fused_postnorm_mlp_ln(x, layer.ffn, layer.ffn_ln),
+            fb.fused_block_infer(x, layer, heads=2, eps=1e-12, layout="postnorm")]
+    for out in outs:
+        with pytest.raises(NotImplementedError, match="forward only.*ROADMAP"):
+            out.sum().backward()

@@ -209,8 +209,14 @@ def test_frozen_weight_contract():
     blk.mlp.fc2.b.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_ln_mlp.fused_ln_mlp_residual(x, blk.ln2, blk.mlp)
-    with pytest.raises(NotImplementedError, match="post-LN"):
+    # the forward-only post-norm variants hold the same contract
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_attn_o.fused_attn_o_residual(q, q, q, x, blk.attn.o, heads=H, post_ln=blk.ln2)
+    blk.attn.v.b.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_ln_qkv.fused_ln_qkv(x, None, blk.attn, heads=H)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_ln_mlp.fused_postnorm_mlp_ln(x, blk.mlp, blk.ln2)
 
 
 def test_backward_wrappers_refuse_other_devices():

@@ -72,7 +72,9 @@ def test_forward_matches_jax_fused_kernel(tmp_path, monkeypatch, task):
     jax_ckpt.save(str(tmp_path / "w.npz"), params)
     gen = torch.Generator().manual_seed(9)
     cfg = clip_mod.clip_config("biomedclip", mona_variant="hybrid")
-    cfg = cfg.replace(vision=_shrink(cfg.vision))
+    cfg = cfg.replace(vision=_shrink(cfg.vision),
+                      text=dataclasses.replace(cfg.text, width=64, depth=1, heads=2,
+                                               intermediate=128, embed_dim=64))
     port_backbone = clip_mod.clip_init(gen, cfg)
     inject_mona(gen, port_backbone.visual, dim=128, variant="hybrid")
     hcfg = PyramidHeadConfig(feature_dim=128, img_size=64, task=task)

@@ -91,6 +91,13 @@ def _shrink(vision):
     return dataclasses.replace(vision, image_size=64, width=DIM, depth=4, heads=2, proj_dim=64)
 
 
+def _small_text(text):
+    """The frozen text tower, which the supervised step never runs, at a
+    small size on both sides."""
+    return dataclasses.replace(text, width=64, depth=1, heads=2, intermediate=128,
+                               embed_dim=64)
+
+
 def _disc_batch(n, size, seed):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size]
@@ -112,7 +119,7 @@ def test_three_train_steps_match_jax(tmp_path, monkeypatch, task):
     monkeypatch.setattr(jax_mona, "dropout", lambda rng, x, rate: x)
     monkeypatch.setattr(jax_heads, "dropout", lambda rng, x, rate: x)
     jcfg = jax_clip.clip_config("biomedclip", mona_variant="hybrid")
-    jcfg = jcfg.replace(vision=_shrink(jcfg.vision))
+    jcfg = jcfg.replace(vision=_shrink(jcfg.vision), text=_small_text(jcfg.text))
     key = jax.random.key(5)
     backbone = jax_clip.clip_init(jax.random.fold_in(key, 1), jcfg)
     backbone["visual"], _ = jax_mona.inject_mona(jax.random.fold_in(key, 2), backbone["visual"],
@@ -152,7 +159,7 @@ def test_three_train_steps_match_jax(tmp_path, monkeypatch, task):
 
     gen = torch.Generator().manual_seed(1)
     cfg = clip_mod.clip_config("biomedclip", mona_variant="hybrid")
-    cfg = cfg.replace(vision=_shrink(cfg.vision))
+    cfg = cfg.replace(vision=_shrink(cfg.vision), text=_small_text(cfg.text))
     port_backbone = clip_mod.clip_init(gen, cfg)
     inject_mona(gen, port_backbone.visual, dim=DIM, variant="hybrid")
     hcfg = PyramidHeadConfig(feature_dim=DIM, img_size=64, task=task)
