@@ -18,15 +18,27 @@ shared-kernel variants broadcast the mean kernel and bias; the per-channel
 frequency filter is the scale ``freq`` (irfft2(rfft2(s) * f_c) == s * f_c);
 then ``y = mona_spatial(s, freq, kernels, bias)`` (ops/dwconv.py, which
 autograd differentiates through its backward kernel) and ``y + pw(y)``.
+
+With ``NEXTGEN_UIA_FUSED_MONA=1`` (``mona_fused_opted_in``, the JAX
+package's opt-in) the whole adapter runs as one op,
+``ops.mona_block_fused`` (ops/fused_mona.py: K12 on a CUDA tensor, its
+plain version on a CPU tensor), with the dropout mask drawn here by the
+call the composed route makes, so both routes see one stream under one
+generator. Where that op declines (no CLS row, parameters that do not match
+the variant) the composed route runs. The default is the composed route,
+as in the JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Conv, LayerNorm, Linear, dropout, gelu, layernorm, linear, param
+from ..nn.layers import (Conv, LayerNorm, Linear, dropout, dropout_mask, gelu, layernorm, linear,
+                         param)
 from ..ops import KERNELS
 
 VARIANTS = ("baseline", "noise_aware", "freq_enhanced", "hybrid")
@@ -90,6 +102,13 @@ def _mona_op(p: Mona, s, variant: str, ops=KERNELS):
     return y + proj
 
 
+def mona_fused_opted_in() -> bool:
+    """Whether MONA runs as one fused op (``NEXTGEN_UIA_FUSED_MONA=1``)
+    rather than the composed route, the default; the one place that reads
+    it."""
+    return os.environ.get("NEXTGEN_UIA_FUSED_MONA") == "1"
+
+
 def mona_apply(p: Mona, x, hw, *, variant: str, ops=KERNELS, gen=None, mask=None):
     """Apply a MONA adapter to token sequence x [B, N, D].
 
@@ -101,6 +120,12 @@ def mona_apply(p: Mona, x, hw, *, variant: str, ops=KERNELS, gen=None, mask=None
     """
     b, n, _ = x.shape
     h, w = hw
+    if mona_fused_opted_in():
+        if mask is None and gen is not None:
+            mask = dropout_mask(gen, 0.1, (b, n, p.down.w.shape[1]), device=x.device)
+        out = ops.mona_block_fused(p, x, hw, variant=variant, mask=mask)
+        if out is not None:
+            return out
     z = layernorm(p.norm, x) * p.gamma.to(x.dtype) + x * p.gammax.to(x.dtype)
     z = linear(p.down, z, dtype=x.dtype)  # [B, N, c]
     c = z.shape[-1]

@@ -200,8 +200,8 @@ struct Operand {
 };
 
 // out = epilogue(acc): v += bias[c]; v *= act'(act_in) (backward, when
-// act_in is given) or v = act(v) (forward); v += res; stored to `out` in
-// out_dtype
+// act_in is given) or v = act(v) (forward); with round_mid, v rounded to
+// out_dtype; v += res; stored to `out` in out_dtype
 struct Epilogue {
   const float* bias;    // [N] float32 or null
   const void* res;      // [M, N] row-major or null
@@ -210,6 +210,7 @@ struct Epilogue {
   int act;
   Operand out;          // written through its pointers (const cast away)
   int out_dtype;
+  int round_mid = 0;    // round to out_dtype before the residual (two rounding points)
 
   // OHM: head-major output; DACT: multiply by act'(act_in) (backward) in
   // place of applying act (forward)
@@ -219,6 +220,7 @@ struct Epilogue {
     const size_t i = (size_t)r * n + c;
     if (DACT) v *= act_grad(act, act_in[i]);
     else v = act_fwd(act, v);
+    if (round_mid && out_dtype == BF16) v = round_to<__nv_bfloat16>(v);
     if (res) v += load_f32(res, res_dtype, i);
     const void* base;
     const size_t o = out.index<OHM>(r, c, n, base);
@@ -438,9 +440,9 @@ static cudaError_t launch_gemm_t(const Operand& a, const void* w, int dtype,
 // out[M, N] = epilogue(A @ W) (bt: A @ W^T, W stored [N, K]); A and W in
 // `dtype` (float32 or bf16). The layouts the block kernels use, each its
 // own instantiation: row-major in and out, a head-major output (q/k/v
-// forward), W^T with a head-major A (their backward), and W^T with or
-// without the activation-derivative epilogue; other combinations are
-// refused.
+// forward), W^T with a head-major A (their backward), W^T with a head-major
+// output (the attention block's d(head concat)), and W^T with or without
+// the activation-derivative epilogue; other combinations are refused.
 static cudaError_t launch_gemm(const Operand& a, const void* w, int dtype, bool bt,
                                const Epilogue& epi, int M, int N, int K, cudaStream_t s) {
   const bool ahm = a.head_major, ohm = epi.out.head_major, dact = epi.act_in != nullptr;
@@ -453,6 +455,8 @@ static cudaError_t launch_gemm(const Operand& a, const void* w, int dtype, bool 
                 : launch_gemm_t<true, false, false, false>(a, w, dtype, epi, M, N, K, s);
   if (bt && ahm && !ohm && !dact)
     return launch_gemm_t<true, true, false, false>(a, w, dtype, epi, M, N, K, s);
+  if (bt && !ahm && ohm && !dact)
+    return launch_gemm_t<true, false, true, false>(a, w, dtype, epi, M, N, K, s);
   return cudaErrorInvalidValue;
 }
 

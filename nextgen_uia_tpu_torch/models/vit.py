@@ -13,7 +13,10 @@ through them (frozen tower, trainable adapters). A block whose attention
 holds LoRA pairs takes ``mha``'s LoRA route at either ``block_impl`` (the
 whole-block kernel declines it, as the JAX one does): LayerNorm, the
 projections with their LoRA updates, the flash-attention kernel, then the
-LN+MLP+residual kernel. Either route then applies the block's MONA
+LN+MLP+residual kernel. ``attn_impl`` 'fused_block' or 'hybrid_block'
+(opt-in, frozen attention without LoRA) replaces the composed route's
+LN+QKV and attention+o-projection kernels with LayerNorm and ``mha``'s
+whole-attention-block op (K11). Either route then applies the block's MONA
 adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``) take their own
 route at any ``block_impl``: attention without the residual (``mha``'s
 LayerScale routes, through the flash-attention kernel), then the MLP
@@ -58,6 +61,10 @@ class ViTConfig:
     # 'auto': the composed block kernels (differentiable); 'fused_infer': the
     # forward-only whole-block kernel, for paths never differentiated
     block_impl: str = "auto"
+    # mha's route in the composed pre-norm block: 'auto' (LN+QKV, then
+    # attention+o+residual), or the opt-in 'fused_block' / 'hybrid_block'
+    # (the whole attention block as one op, ops/fused_attention.py)
+    attn_impl: str = "auto"
 
     @property
     def grid(self) -> int:
@@ -162,7 +169,7 @@ def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=Non
                                   eps=cfg.ln_eps)
     else:
         x = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, residual=x,
-                ops=ops, **lora)
+                ops=ops, impl=cfg.attn_impl, **lora)
         x = ops.fused_ln_mlp_residual(x, p.ln2, p.mlp, act=cfg.act, eps=cfg.ln_eps)
     if hasattr(p, "mona"):
         x = mona_apply(p.mona, x, (cfg.grid, cfg.grid), variant=cfg.mona_variant, ops=ops,

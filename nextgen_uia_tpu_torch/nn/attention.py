@@ -19,6 +19,14 @@ package dispatches them on its kernel path:
   - without it, N > 512 (DINOv2 at 518 px, 1370 tokens): LayerNorm, the
     q/k/v projections as one plain product, the flash-attention kernel
     reading q, k, v as strided views of it, then the o-projection.
+
+``impl`` is the JAX ``mha``'s: 'auto' takes the routes above;
+'fused_block' and 'hybrid_block' (opt-in, frozen weights) take the
+LayerNorm first when ``ln`` is given, then the whole attention block as one
+op (ops/fused_attention.py: K11, or the composed forward with K11's
+backward), with ``key_padding_bias`` and ``causal``, and add ``residual``
+outside; with a generic mask or LoRA they fall through to 'auto', as in the
+JAX package. 'einsum' and 'flash' are not ported.
 """
 
 from __future__ import annotations
@@ -84,7 +92,8 @@ def _mha_lora(p: Attention, x, *, num_heads, ln, ln_eps, residual, key_padding_b
 
 def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, residual=None,
         mask=None, key_padding_bias=None, causal: bool = False, lora_alpha=None,
-        lora_dropout: float = 0.0, gen=None, lora_masks=None, ops=KERNELS):
+        lora_dropout: float = 0.0, gen=None, lora_masks=None, ops=KERNELS,
+        impl: str = "auto"):
     """``[residual +] o(attention(q, k, v))`` with ``q, k, v = LN(x) W + b``
     (plus each projection's LoRA update when ``p`` holds ``lora``, scaled by
     ``lora_alpha / sqrt(r)``).
@@ -94,6 +103,17 @@ def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, resid
     pairs, the projection biases and x. The routes are the module
     docstring's; every other route of the JAX ``mha`` raises.
     """
+    if impl in ("einsum", "flash"):
+        raise NotImplementedError(
+            f"mha: impl={impl!r} is not ported to the PyTorch package yet (ROADMAP.md, "
+            "section A, item 3)")
+    if impl not in ("auto", "fused_block", "hybrid_block"):
+        raise ValueError(f"mha: unknown impl {impl!r}")
+    if impl != "auto" and mask is None and "lora" not in p._modules:
+        z = x if ln is None else layernorm(ln, x, eps=ln_eps)
+        block = ops.fused_attn_block if impl == "fused_block" else ops.hybrid_attn_block
+        out = block(z, p, heads=num_heads, bias=key_padding_bias, causal=causal)
+        return out if residual is None else residual + out
     if ln is None or mask is not None or causal:
         raise NotImplementedError(
             "mha: only the LayerNorm routes without a generic mask or causal attention are "

@@ -44,8 +44,9 @@ from ..data import pipeline as P
 from ..losses import info_nce
 from ..models import clip as clip_mod
 from ..ops import KERNELS
-from .common import (base_parser, build_clip_model, get_text_tokenizer, not_ported,
-                     require_real_tokenizer, resolve_device, seed_everything, setup_logging)
+from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
+                     not_ported, require_real_tokenizer, resolve_device, seed_everything,
+                     setup_logging)
 
 
 def _finetune_parser(family: str):
@@ -153,6 +154,7 @@ def cache_text_features(encode, tokenizer, captions, ctx: int, chunk: int = 256)
 
 def finetune_main(family: str, argv=None):
     args = _finetune_parser(family).parse_args(argv)
+    apply_compat_flags(args)
     _refuse_unported(args, family)
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)

@@ -19,8 +19,8 @@ from ..data import datasets as D
 from ..models import clip as clip_mod
 from ..models.heads import PyramidHeadConfig, pyramid_head_apply, pyramid_head_init
 from ..ops import KERNELS
-from .common import (base_parser, build_clip_model, not_ported, resolve_device,
-                     seed_everything, setup_run)
+from .common import (apply_compat_flags, base_parser, build_clip_model, not_ported,
+                     resolve_device, seed_everything, setup_run)
 from .supervised import Bundle, preprocess, run_supervised
 
 
@@ -93,6 +93,7 @@ def supervised_main(family: str, task: str, argv=None):
     p = base_parser(f"{family}_{task}", epochs=200, batch_size=32, strong_augs=True,
                     weak_augs=True, mona_variant="hybrid")
     args = p.parse_args(argv)
+    apply_compat_flags(args)
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
     if args.lora_weights:

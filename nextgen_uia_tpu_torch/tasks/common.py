@@ -53,6 +53,7 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
                    action=argparse.BooleanOptionalAction)
     p.add_argument("--weak_augs", default=defaults.get("weak_augs", False),
                    action=argparse.BooleanOptionalAction)
+    p.add_argument("--in_channels", type=int, default=3)
     p.add_argument("--num_classes", type=int, default=2)
     p.add_argument("--seed", type=int, default=defaults.get("seed", 1))
     p.add_argument("--batch_size", type=int, default=defaults.get("batch_size", 32))
@@ -86,6 +87,12 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu); CUDA asked "
                         "for and absent is an error")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="reference backbone checkpoint path; a converted .npz is used as "
+                        "--backbone_ckpt, a torch archive must be converted first")
+    p.add_argument("--version", type=str, default=None,
+                   help="reference model version string (e.g. ViT-B/16); informational, "
+                        "each family pins its architecture")
     p.add_argument("--backbone_ckpt", type=str, default=None,
                    help="converted backbone checkpoint (.npz)")
     p.add_argument("--head_weights", type=str, default=None,
@@ -98,6 +105,26 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--debug_tiny", default=False, action="store_true",
                    help="shrink towers for smoke tests (random weights)")
     return p
+
+
+def apply_compat_flags(args) -> None:
+    """Resolve the reference-CLI compat flag ``--ckpt`` against the port's
+    surface, as the JAX package's ``apply_compat_flags`` does: a ``.npz``
+    becomes ``--backbone_ckpt`` unless that is set; an existing file of any
+    other kind is a torch archive, which needs the checkpoint converter
+    first. A non-``.npz`` path that does not exist (a reference-style default
+    such as ckpt/ViT-B-16.pt) stays informational."""
+    ck = getattr(args, "ckpt", None)
+    if not ck:
+        return
+    if ck.endswith(".npz"):
+        if not getattr(args, "backbone_ckpt", None):
+            args.backbone_ckpt = ck
+    elif os.path.exists(ck) and not getattr(args, "backbone_ckpt", None):
+        raise SystemExit(
+            f"--ckpt {ck} looks like a torch archive. The checkpoint converter is not "
+            "ported to the PyTorch package yet (ROADMAP.md, section A, item 15); pass a "
+            "converted .npz via --ckpt or --backbone_ckpt.")
 
 
 def seed_everything(seed: int) -> torch.Generator:

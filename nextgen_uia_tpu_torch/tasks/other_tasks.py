@@ -21,7 +21,8 @@ from ..core.partition import by_keywords
 from ..data import datasets as D
 from ..models import dinov2 as DV
 from ..ops import KERNELS
-from .common import base_parser, not_ported, resolve_device, seed_everything, setup_run
+from .common import (apply_compat_flags, base_parser, not_ported, resolve_device,
+                     seed_everything, setup_run)
 from .supervised import Bundle, preprocess, run_supervised
 
 
@@ -144,6 +145,7 @@ def _dino_main(task: str, argv, fewshot: bool):
                     epochs=1000, batch_size=24, strong_augs=True, weak_augs=True)
     add_dino_flags(p, seg=task == "seg")
     args = p.parse_args(argv)
+    apply_compat_flags(args)
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
     if args.lora_weights:

@@ -27,7 +27,8 @@ from ..models import clip as clip_mod
 from ..ops import KERNELS
 from . import other_tasks as OT
 from .clip_tasks import _build_supervised, _make_forward
-from .common import base_parser, not_ported, resolve_device, seed_everything, setup_logging
+from .common import (apply_compat_flags, base_parser, not_ported, resolve_device,
+                     seed_everything, setup_logging)
 
 # supervised-engine families: (family, task) -> (dataset-free bundle factory,
 # the flag adder its parser needs); CLIPSeg and the baselines come later
@@ -116,6 +117,7 @@ def predict_main(family: str = "biomedclip", argv=None):
     p.add_argument("--export", type=str, default=None,
                    help="not ported (jax.export)")
     args = p.parse_args(argv)
+    apply_compat_flags(args)
     if args.export:
         raise not_ported("--export", "section A, item 14")
     if args.n_model != 1 or (args.n_data or 1) != 1:

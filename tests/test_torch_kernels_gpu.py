@@ -17,7 +17,14 @@ post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) with a
 key-padding bias that leaves one row wholly padded: float32 1e-4 *
 max|ref|, bfloat16 3e-2 * max(1, max|ref|); ``bert_apply`` by the chain
 and by the whole-layer route against its plain path, and autograd reaching
-any forward-only kernel on the card raises.
+any forward-only kernel on the card raises. The whole MONA adapter (K12),
+forward and backward, against its plain versions on the same inputs:
+output and dx 1e-4 * max|ref| (float32) or 3e-2 * max|ref| (bfloat16), each
+parameter gradient within 1e-4 * the largest max|ref| and 3e-2 * its own
+(float32) or 3e-2 * the largest (bfloat16), two backward calls bitwise
+equal; the attention block (K11) forward and dx backward and the hybrid
+forward, 1e-4 / 3e-2 * max|ref|; on the card neither route reaches a plain
+version.
 """
 
 import pytest
@@ -533,3 +540,145 @@ def test_bert_forward_only_kernels_refuse_autograd_on_the_card(cuda):
     for out in outs:
         with pytest.raises(NotImplementedError, match="forward only.*ROADMAP"):
             out.sum().backward()
+
+
+def _mona(device, dim, variant, seed):
+    """A MONA adapter whose gamma, LN and frequency filter are perturbed
+    (the init's gamma 1e-6 would hide the LayerNorm branch), trainable."""
+    from nextgen_uia_tpu_torch.adapters.mona import Mona
+
+    gen = torch.Generator().manual_seed(seed)
+    m = Mona(gen, dim, 64, variant)
+    with torch.no_grad():
+        m.gamma.copy_(0.5 * torch.randn(dim, generator=gen))
+        m.norm.scale.add_(0.1 * torch.randn(dim, generator=gen))
+        m.norm.bias.add_(0.1 * torch.randn(dim, generator=gen))
+        if hasattr(m, "freq_filter"):
+            m.freq_filter.add_(0.3 * torch.randn(64, generator=gen))
+    for t in m.parameters():
+        t.requires_grad_(True)
+    return m.to(device)
+
+
+@pytest.mark.parametrize("b,grid,tail,dim,variant", [
+    (4, 14, 0, 768, "hybrid"), (3, 4, 3, 128, "baseline"), (2, 5, 1, 128, "noise_aware"),
+    (2, 4, 0, 128, "freq_enhanced")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mona_kernels_match_plain(cuda, b, grid, tail, dim, variant, dtype):
+    """K12 forward and backward against the plain versions on the same
+    inputs: output and dx within 1e-4 * max|ref| (float32) or 3e-2 * max|ref|
+    (bfloat16); each parameter gradient within 1e-4 * the largest max|ref|
+    and 3e-2 * its own (float32), or 3e-2 * the largest (bfloat16); two
+    backward calls bitwise equal."""
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    m = _mona(cuda, dim, variant, seed=b + grid)
+    n = grid * grid + 1 + tail
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(b, n, dim, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, n, dim, generator=gen).to(cuda, dtype)
+    mask = ((torch.rand(b, n, 64, generator=gen) < 0.9).float() / 0.9).to(cuda)
+    kw = dict(variant=variant, mask=mask)
+    f0, b0 = fm.mona_block_fused.launches, fm.mona_block_fused_backward.launches
+    with torch.no_grad():
+        out, saved = fm.mona_block_fused_forward(m, x, (grid, grid), **kw)
+        ref = fm.mona_block_fused_plain(m, x, (grid, grid), **kw)
+        dx, grads = fm.mona_block_fused_backward(m, x, (grid, grid), g, saved, **kw)
+        dx2, grads2 = fm.mona_block_fused_backward(m, x, (grid, grid), g, saved, **kw)
+        want_dx, want = fm.mona_block_fused_backward_plain(m, x, (grid, grid), g, **kw)
+    torch.cuda.synchronize()
+    assert (fm.mona_block_fused.launches - f0, fm.mona_block_fused_backward.launches - b0) == (1, 2)
+    lim = 1e-4 if dtype == torch.float32 else 3e-2
+    for got, r in ((out, ref), (dx, want_dx)):
+        assert (got.float() - r.float()).abs().max().item() <= lim * r.float().abs().max().item()
+    assert torch.equal(dx, dx2)
+    top = max(t.abs().max().item() for t in want.values())
+    assert set(grads) == set(want) == {k for k, _ in m.named_parameters()}
+    for k, r in want.items():
+        assert torch.equal(grads[k], grads2[k]), f"{k} not bitwise repeatable"
+        diff, own = (grads[k] - r).abs().max().item(), r.abs().max().item()
+        assert diff <= lim * top, f"{k}: {diff:.3e} > {lim} * {top:.3e}"
+        if dtype == torch.float32:
+            assert diff <= 3e-2 * own, f"{k}: {diff:.3e} > 3e-2 * {own:.3e}"
+
+
+def test_fused_mona_autograd_on_the_card(cuda):
+    """Through autograd: dx only when x needs it (block 0's input needs
+    none), every parameter's gradient, one forward and one backward launch."""
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    m = _mona(cuda, 128, "hybrid", seed=0)
+    x = torch.randn(2, 17, 128, device=cuda)
+    for needs_dx in (False, True):
+        xx = x.clone().requires_grad_(needs_dx)
+        f0, b0 = fm.mona_block_fused.launches, fm.mona_block_fused_backward.launches
+        fm.mona_block_fused(m, xx, (4, 4), variant="hybrid").square().sum().backward()
+        assert (fm.mona_block_fused.launches - f0, fm.mona_block_fused_backward.launches - b0) \
+            == (1, 1)
+        assert (xx.grad is not None) == needs_dx
+        assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                   for t in m.parameters())
+        for t in m.parameters():
+            t.grad = None
+
+
+def _attention(device, width, seed):
+    from nextgen_uia_tpu_torch.nn.attention import Attention
+
+    return Attention(torch.Generator().manual_seed(seed), width).to(device)
+
+
+@pytest.mark.parametrize("b,n,width,heads,causal,bias", [
+    (4, 197, 768, 12, False, True), (3, 77, 512, 8, True, False), (2, 40, 128, 2, True, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_kernels_match_plain(cuda, b, n, width, heads, causal, bias, dtype):
+    """K11 forward and dx backward, and the hybrid forward (plain products
+    around K7), against the plain versions on the same inputs: 1e-4 *
+    max|ref| in float32, 3e-2 * max|ref| in bfloat16."""
+    from nextgen_uia_tpu_torch.ops import fused_attention as fa
+
+    p = _attention(cuda, width, seed=n)
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(b, n, width, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, n, width, generator=gen).to(cuda, dtype)
+    kb = (torch.randn(b, n, generator=gen) - 5.0 * (torch.rand(b, n, generator=gen) < 0.2)
+          ).to(cuda) if bias else None
+    kw = dict(heads=heads, bias=kb, causal=causal)
+    lim = 1e-4 if dtype == torch.float32 else 3e-2
+    with torch.no_grad():
+        pairs = [(fa.fused_attn_block(x, p, **kw), fa.fused_attn_block_plain(x, p, **kw)),
+                 (fa.hybrid_attn_block(x, p, **kw), fa.hybrid_attn_block_plain(x, p, **kw)),
+                 (fa.fused_attn_block_backward(x, p, g, **kw),
+                  fa.fused_attn_block_backward_plain(x, p, g, **kw))]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert got.dtype == dtype and got.shape == x.shape
+        scale = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= lim * scale
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    """On the card the K11 and K12 routes launch their kernels (counted) and
+    never call a plain version, forward or backward."""
+    from nextgen_uia_tpu_torch.ops import fused_attention as fa
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, names in ((fm, ("_forward_core", "_backward_plain")),
+                       (fa, ("fused_attn_block_plain", "fused_attn_block_backward_plain",
+                             "flash_attention_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, boom)
+    m = _mona(cuda, 128, "hybrid", seed=1)
+    p = _attention(cuda, 128, seed=1)
+    x = torch.randn(2, 17, 128, device=cuda, requires_grad=True)
+    counts = [fm.mona_block_fused.launches, fm.mona_block_fused_backward.launches,
+              fa.fused_attn_block.launches, fa.fused_attn_block_backward.launches]
+    y = fm.mona_block_fused(m, x, (4, 4), variant="hybrid")
+    y = fa.fused_attn_block(y, p, heads=2) + fa.hybrid_attn_block(y, p, heads=2, causal=True)
+    y.square().sum().backward()
+    assert [fm.mona_block_fused.launches, fm.mona_block_fused_backward.launches,
+            fa.fused_attn_block.launches, fa.fused_attn_block_backward.launches] == \
+        [counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + 2]
