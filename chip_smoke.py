@@ -17,7 +17,9 @@
    key-padding bias that leaves rows wholly padded; the whole MONA adapter,
    K12, forward and backward, and the attention block, K11, forward, dx
    backward and hybrid forward, at the bench step's [64, 197, 768] with a
-   causal K11 case [16, 77, 512]) and at one odd shape
+   causal K11 case [16, 77, 512]; K10's backward at the BERT fine-tune's
+   [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
+   forward and backward at [64, 14, 14, 64]) and at one odd shape
    each, with CUDA-event times and the bound from the card's peak rates:
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
@@ -26,7 +28,8 @@
    their plain versions on the same inputs (float32 1e-4 * max|ref|, bf16
    3e-2 * max|ref|; K12's parameter gradients min(1e-4 * the largest
    max|ref|, 3e-2 * their own) in float32), K12's backward bitwise equal
-   over two calls.
+   over two calls. The post-norm epilogues' backwards, plain
+   recompositions with no kernel of their own, timed per layer.
 4. Augmentation phase: one strong+weak plan at [32, 224, 224] and at [24,
    518, 518] through the kernels and through the plain versions (images and
    masks equal; lookup/histogram launches = the slots that drew equalize).
@@ -61,7 +64,14 @@
    a full-context chunk timed, one update with cached and one with in-step
    text (launch counts, text features, loss and gradient norm against the
    plain path; in float32 the loss and every MONA gradient), the loss
-   falling over 10 updates, ms per update, a profiler table.
+   falling over 10 updates, ms per update, a profiler table. Then
+   ``--tune_text_encoder`` with LoRA (r=16, alpha 32, dropout 0.1) in all
+   12 blocks and layers of both towers, and in the first 6: one update
+   with the text in the step (seeded ids with a padded tail, a 256-token
+   bucket): launch counts derived from the code (K10's backward 48 and
+   24, K5 raw-x's backward 0 and 24), loss and gradient norm against the
+   plain path, in float32 the loss and every LoRA and bias gradient, the
+   loss falling over 10 updates, ms per update, a profiler table.
 10. Bench phase: the port's headline step (nextgen_uia_tpu_torch/bench.py,
    the JAX bench.py's step: BiomedCLIP ViT-B/16 with hybrid MONA in 12
    blocks, cached text, batch 64 as one microbatch, bf16) by the composed
@@ -71,9 +81,11 @@
    the composed plain path (loss, every MONA tensor); bench.main's JSON.
 11. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
-   trainers, the OpenAI LoRA fine-tune CLI and the BiomedCLIP MONA
-   fine-tune CLI (one epoch each).
-12. Prints one JSON line of per-kernel results, then the final status line.
+   trainers, the OpenAI LoRA fine-tune CLI, the BiomedCLIP MONA fine-tune
+   CLI and the BiomedCLIP LoRA fine-tune CLI with --tune_text_encoder
+   --lora_layers 6 (one epoch each).
+12. Prints each phase's host seconds, one JSON line of per-kernel results
+   (27 rows), then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it,
 and refuses NEXTGEN_UIA_FUSED_MONA or NEXTGEN_UIA_FUSED_BLOCK_BERT set by the
@@ -510,6 +522,7 @@ def kernel_phase(dev):
     exact("lut_apply", lut.lut_apply, lut.lut_apply_plain, [big, tables[0]], [odd, tables[1]],
           2 * db * hw * 4 + db * 256 * 4)
     bert_kernel_rows(dev, gen, check)
+    text_lora_kernel_rows(dev, gen, check)
     fused_kernel_rows(dev, gen, results)
     return results
 
@@ -760,6 +773,99 @@ def bert_kernel_rows(dev, gen, check):
           (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d) + 4 * b * n))
 
 
+def text_lora_kernel_rows(dev, gen, check):
+    """The kernels --tune_text_encoder adds, against their plain versions:
+    K10's backward at the BERT fine-tune's microbatch [16 * 256, 768] x 3072
+    (odd: [77, 128] x 512, quick_gelu), K5 raw-x's backward at [16, 256,
+    768], 12 heads (odd: [3, 40, 128], 2 heads), and K4, forward and
+    backward, at the MONA bottleneck on the ViT-B/16 grid [64, 14, 14, 64]
+    (odd: [3, 9, 11, 24]). Then the post-norm chain's other two backwards,
+    K6 post-LN's and K9's, which run as autograd through their plain
+    recompositions (no kernel of their own, as in the JAX package): their
+    device time per layer at [16, 256, 768]."""
+    import torch
+    import torch.nn.functional as F
+
+    from nextgen_uia_tpu_torch.models.bert import BertConfig, BertLayer
+    from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_ln_mlp, fused_ln_qkv
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+
+    cfg = BertConfig()
+    b, n, d, h, hid = FT_MICRO, cfg.context_length, cfg.width, cfg.heads, cfg.intermediate
+    m, dh = b * n, d // h
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    def mlp_args(mm, dd, hh):
+        return [randn(mm, dd), randn(dd, hh, scale=dd ** -0.5), randn(hh, scale=0.1),
+                randn(hh, dd, scale=hh ** -0.5), randn(mm, dd)]
+
+    check("fused_mlp_backward",
+          lambda x, w1, b1, w2, g, odd=False: fm.fused_mlp_backward(
+              x, w1, b1, w2, g, act="quick_gelu" if odd else "gelu"),
+          lambda x, w1, b1, w2, g, odd=False: fm.fused_mlp_backward_plain(
+              x, w1, b1, w2, g, act="quick_gelu" if odd else "gelu"),
+          mlp_args(m, d, hid), mlp_args(77, 128, 512) + [True],
+          (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid) + 4 * hid))
+
+    def rawx_args(bb, nn_, hh, dd):
+        return [randn(dd, 3 * dd, scale=dd ** -0.5)] + [randn(bb, hh, nn_, dd // hh)
+                                                         for _ in range(3)]
+
+    args = rawx_args(b, n, h, d)
+    # the library's call: one product of the token-major [dq | dk | dv] with
+    # W_qkv^T, the concatenation made beforehand
+    dy_cat = fused_ln_qkv._head_cat(*args[1:]).to(torch.bfloat16)
+    w_b = args[0].to(torch.bfloat16)
+    check("fused_ln_qkv_rawx_backward",
+          lambda w, *t: fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *t, dtype=t[0].dtype),
+          lambda w, *t: fused_ln_qkv.fused_ln_qkv_rawx_backward_plain(w, *t, dtype=t[0].dtype),
+          args, rawx_args(3, 40, 2, 128), (2 * m * 3 * d * d, 2 * (4 * m * d + 3 * d * d)),
+          library=lambda *_: torch.mm(dy_cat, w_b.T))
+
+    kb, kh, kc = FT_BATCH, IMG // 16, 64
+    px = kb * kh * kh * kc
+
+    def conv_args(bb, hh, ww, c, with_g):
+        return [randn(bb, hh, ww, c), randn(bb, 7, 7, c, scale=0.2)] + (
+            [randn(bb, hh, ww, c)] if with_g else [])
+
+    def grouped_conv(x, k):
+        """The library's call: one grouped convolution with B * C groups."""
+        return F.conv2d(x.permute(3, 0, 1, 2).reshape(1, -1, *x.shape[1:3]),
+                        k.permute(3, 0, 1, 2).reshape(-1, 1, 7, 7), padding=3,
+                        groups=x.shape[0] * x.shape[3])
+
+    check("dwconv7_per_sample", dwconv.dwconv7_per_sample, dwconv.dwconv7_per_sample_plain,
+          conv_args(kb, kh, kh, kc, False), conv_args(3, 9, 11, 24, False),
+          (2 * 49 * px, 2 * (2 * px + kb * 49 * kc)), library=grouped_conv)
+    xg, kg, gg = (t.to(torch.bfloat16).requires_grad_() for t in conv_args(kb, kh, kh, kc, True))
+    y = grouped_conv(xg, kg)
+    g_conv = gg.detach().permute(3, 0, 1, 2).reshape(y.shape)
+    check("dwconv7_per_sample_backward", dwconv.dwconv7_per_sample_backward,
+          dwconv.dwconv7_per_sample_backward_plain, conv_args(kb, kh, kh, kc, True),
+          conv_args(3, 9, 11, 24, True), (4 * 49 * px, 2 * (3 * px + 2 * kb * 49 * kc)),
+          library=lambda *_: torch.autograd.grad(y, (xg, kg), g_conv, retain_graph=True))
+
+    # K6 post-LN's and K9's backward: autograd through the plain version,
+    # recomputed from the saved inputs (timed alone: forward kernel excluded)
+    layer = BertLayer(gen, cfg).to(dev)
+    bias = torch.zeros(b, n, device=dev)
+    bias[:, n // 2:] = -1e9
+    x = randn(b, n, d).to(torch.bfloat16).requires_grad_()
+    qkv = [randn(b, h, n, dh).to(torch.bfloat16).requires_grad_() for _ in range(3)]
+    g = randn(b, n, d).to(torch.bfloat16)
+    y6 = fused_attn_o.fused_attn_o_residual(*qkv, x, layer.attn.o, heads=h, bias=bias,
+                                            post_ln=layer.attn_ln)
+    y9 = fused_ln_mlp.fused_postnorm_mlp_ln(x, layer.ffn, layer.ffn_ln)
+    ms6 = cuda_ms(lambda: torch.autograd.grad(y6, [*qkv, x], g, retain_graph=True), 10)
+    ms9 = cuda_ms(lambda: torch.autograd.grad(y9, x, g, retain_graph=True), 10)
+    print(f"post-norm backwards by plain recomposition (bf16, [{b}, {n}, {d}], no kernel of "
+          f"their own): K6 post-LN (dq, dk, dv, dx) {ms6:.4f} ms, K9 (dx) {ms9:.4f} ms per "
+          f"layer")
+
+
 def augment_phase(dev):
     """One strong+weak plan per shape through the kernels and through the
     plain versions: images and masks equal, the lookup and histogram
@@ -928,7 +1034,9 @@ def launch_counters():
            fused_attn_o.fused_attn_o_residual_postln, fused_ln_mlp.fused_postnorm_mlp_ln,
            fused_block.fused_block_infer_postnorm, fused_mona.mona_block_fused,
            fused_mona.mona_block_fused_backward, fused_attention.fused_attn_block,
-           fused_attention.fused_attn_block_backward]
+           fused_attention.fused_attn_block_backward, fused_mlp.fused_mlp_backward,
+           fused_ln_qkv.fused_ln_qkv_rawx_backward, dwconv.dwconv7_per_sample,
+           dwconv.dwconv7_per_sample_backward]
     return {f.__name__: f for f in fns}
 
 
@@ -1278,14 +1386,15 @@ def finetune_phase(dev):
     from nextgen_uia_tpu_torch.data.tokenizer import ClipTokenizer
     from nextgen_uia_tpu_torch.losses import info_nce
     from nextgen_uia_tpu_torch.models import clip as clip_mod
-    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.ops import PLAIN
     from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
     from nextgen_uia_tpu_torch.tasks.common import build_clip_model
 
     args = ft._finetune_parser("openai").parse_args(["--method", "lora", "--seed", "5"])
     require(args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM
             and args.grad_clip == 1.0 and args.compute_dtype == "bfloat16"
-            and args.lora_r == 16 and args.lora_alpha == 32 and args.lora_dropout == 0.1,
+            and args.lora_r == 16 and args.lora_alpha == 32 and args.lora_dropout == 0.1
+            and (args.weight_decay, args.beta1_adam, args.beta2_adam) == (0.01, 0.9, 0.95),
             f"fine-tune defaults changed: {args}")
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(5)
@@ -1340,79 +1449,27 @@ def finetune_phase(dev):
     batch = T.stack_microbatches({"image": torch.from_numpy(images).to(dev),
                                   "txt_feat": feats[:FT_BATCH].to(dev)}, FT_ACCUM)
 
-    def loss_fn(ops, c=cfg):
+    def loss_for(ops, c):
         def fn(mb, g):
             img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
                                            gen=g)
             return info_nce(img, mb["txt_feat"], temperature=args.temperature)
         return fn
 
-    def update(ops, lr, c=cfg):
-        tcfg = T.TrainConfig(lr=lr, lr_min=1e-8, weight_decay=0.01, beta1=0.9, beta2=0.95,
-                             total_updates=25)
-        return T.TrainStep(loss_fn(ops, c), T.make_optimizer(trainable.values(), tcfg), tcfg,
-                           accum_steps=FT_ACCUM, grad_clip=args.grad_clip)
-
-    def first_update(ops, c=cfg):
-        """One update at lr 0 (the parameters stay): metrics and the
-        averaged, clipped gradient of every trainable tensor."""
-        m = update(ops, 0.0, c)(batch, torch.Generator(device=dev).manual_seed(7))
-        return m, {k: p.grad.float().clone() for k, p in trainable.items()}
-
-    reset_counts()
-    m_k, g_k = first_update(KERNELS)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    print(f"finetune: one update's launches {launches}")
+    launches, _, g_k = check_update("finetune", loss_for, cfg, trainable, args, batch, dev,
+                                    is_key_bias)
     for name, want in FT_LAUNCHES.items():
         require(launches[name] == want, f"{name} launched {launches[name]} times in a fine-tune "
                                         f"update, want {want}")
-    m_p, g_p = first_update(PLAIN)
-    # bf16 rounding alone moves the gradients by a few % of the largest, so
-    # each tensor is held to the plain path in the same update in float32
-    cfg32 = cfg.replace(compute_dtype="float32")
-    m32_k, g32_k = first_update(KERNELS, cfg32)
-    m32_p, g32_p = first_update(PLAIN, cfg32)
-    # the key bias adds q . b_k to every score of a row, which the softmax
-    # removes: its exact gradient is zero, so rounding noise, held only to
-    # 1e-4 * the largest max|ref|
-    worst, worst_name = worst_ratio(g32_k, g32_p, lambda k: k.endswith("/attn/k/b"))
-    print(f"finetune: first update loss kernel {m_k['loss']:.6f} plain {m_p['loss']:.6f}, "
-          f"gradient norm {m_k['grad_norm']:.4f} / {m_p['grad_norm']:.4f} (clipped to 1.0); "
-          f"float32: loss {m32_k['loss']:.7f} / {m32_p['loss']:.7f}, LoRA a/b and q/k/v/o-bias "
-          f"gradients worst max|d| / min(1e-4 max|ref| of all, 3e-2 its own) = {worst:.3f} "
-          f"({worst_name})")
-    require(np.isfinite(m_k["loss"]) and m_k["skipped"] == 0, f"fine-tune update {m_k}")
-    require(abs(m_k["loss"] - m_p["loss"]) <= BF16_BOUND * max(1.0, abs(m_p["loss"]))
-            and abs(m_k["grad_norm"] - m_p["grad_norm"]) <= BF16_BOUND * m_p["grad_norm"],
-            "fine-tune loss or gradient norm disagrees with the plain path")
-    require(abs(m32_k["loss"] - m32_p["loss"]) <= F32_BOUND * abs(m32_p["loss"]),
-            "the float32 fine-tune loss disagrees with the plain path")
-    require(worst <= 1.0, f"the float32 fine-tune gradient of {worst_name} disagrees with the "
-                          f"plain path")
     require(min(g.abs().max().item() for k, g in g_k.items() if k.endswith("/a")) > 0,
             "a LoRA a matrix got no gradient")
 
-    step = update(KERNELS, 1e-3)
-    gen = torch.Generator(device=dev).manual_seed(123)
-    losses = [step(batch, gen)["loss"] for _ in range(10)]
-    print("finetune: losses over 10 updates on one batch (lr 1e-3, LoRA dropout on) "
-          + " ".join(f"{v:.4f}" for v in losses))
-    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
-            "the fine-tune loss did not fall")
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    plain_ms = cuda_ms(lambda: update(PLAIN, 1e-3)(batch, gen), 2, warmup=1)
+    train_and_time("finetune", loss_for, cfg, trainable, args, batch, dev)
     with torch.no_grad():
         ecfg = clip_mod.infer_cfg(cfg)
         x = batch["image"][0].float() / 255.0
         eval_ms = cuda_ms(lambda: clip_mod.encode_image(params, ecfg, x), 5, warmup=1)
-    print(f"finetune: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) {ms:.2f} ms = "
-          f"{FT_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
-          f"{FT_BATCH * 1000 / plain_ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; "
-          f"eval forward of {FT_MICRO} images {eval_ms:.2f} ms")
-    profile_steps(lambda: step(batch, gen), 2, ms)
+    print(f"finetune: eval forward of {FT_MICRO} images {eval_ms:.2f} ms")
     return {**launches, "fused_block_infer_causal": text_launches}
 
 
@@ -1448,6 +1505,102 @@ def worst_ratio(got, ref, own_exempt):
         if ratio > worst:
             worst, name = ratio, k
     return worst, name
+
+
+def is_key_bias(name):
+    """The attention key bias adds q . b_k to every score of a row, which
+    the softmax removes: its exact gradient is zero, so both paths give
+    rounding noise, held only to 1e-4 * the largest max|ref|."""
+    return name.endswith("/attn/k/b")
+
+
+def make_update(loss_for, ops, cfg, trainable, args, lr):
+    """The fine-tune CLI's update around ``loss_for(ops, cfg)``: AdamW with
+    the parser's betas and weight decay, FT_ACCUM microbatches, the clip."""
+    from nextgen_uia_tpu_torch.core import train as T
+
+    tcfg = T.TrainConfig(lr=lr, lr_min=1e-8, weight_decay=args.weight_decay,
+                         beta1=args.beta1_adam, beta2=args.beta2_adam, total_updates=25)
+    return T.TrainStep(loss_for(ops, cfg), T.make_optimizer(trainable.values(), tcfg), tcfg,
+                       accum_steps=FT_ACCUM, grad_clip=args.grad_clip)
+
+
+def check_update(tag, loss_for, cfg, trainable, args, batch, dev, own_exempt):
+    """One update at lr 0 (the parameters stay) through the kernels, its
+    launches counted, against the same update on the plain path. In bf16
+    rounding alone moves single gradients by a few % of the largest, so
+    there the loss is held to 3e-2 * max(1, |ref|) and the gradient norm to
+    3e-2; the same update in float32 holds the loss to 1e-4 and every
+    trainable tensor by ``worst_ratio`` (``own_exempt``: the names whose
+    exact gradient is zero). Returns (the kernel update's launch counts,
+    its metrics, its averaged, clipped gradients)."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    def first_update(ops, c):
+        m = make_update(loss_for, ops, c, trainable, args, 0.0)(
+            batch, torch.Generator(device=dev).manual_seed(7))
+        return m, {k: p.grad.float().clone() for k, p in trainable.items()}
+
+    reset_counts()
+    m_k, g_k = first_update(KERNELS, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    m_p, g_p = first_update(PLAIN, cfg)
+    rel_l2 = bf16_gradient_gap(g_k, g_p)[2]
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32_k, g32_k = first_update(KERNELS, cfg32)
+    m32_p, g32_p = first_update(PLAIN, cfg32)
+    worst, worst_name = worst_ratio(g32_k, g32_p, own_exempt)
+    print(f"{tag}: one update's launches {({k: v for k, v in counts.items() if v})}; loss "
+          f"kernel {m_k['loss']:.6f} plain {m_p['loss']:.6f}, gradient norm "
+          f"{m_k['grad_norm']:.4f} / {m_p['grad_norm']:.4f} (clipped to {args.grad_clip}; "
+          f"relative L2 distance {rel_l2:.3e}); float32: loss {m32_k['loss']:.7f} / "
+          f"{m32_p['loss']:.7f}, trainable gradients worst max|d| / min(1e-4 max|ref| of all, "
+          f"3e-2 its own) = {worst:.3f} ({worst_name})")
+    require(np.isfinite(m_k["loss"]) and m_k["skipped"] == 0, f"{tag} update {m_k}")
+    require(abs(m_k["loss"] - m_p["loss"]) <= BF16_BOUND * max(1.0, abs(m_p["loss"]))
+            and abs(m_k["grad_norm"] - m_p["grad_norm"]) <= BF16_BOUND * m_p["grad_norm"],
+            f"the {tag} loss or gradient norm disagrees with the plain path")
+    require(abs(m32_k["loss"] - m32_p["loss"]) <= F32_BOUND * abs(m32_p["loss"]),
+            f"the float32 {tag} loss disagrees with the plain path")
+    require(worst <= 1.0, f"the float32 {tag} gradient of {worst_name} disagrees with the "
+                          f"plain path")
+    return counts, m_k, g_k
+
+
+def train_and_time(tag, loss_for, cfg, trainable, args, batch, dev, same_masks=False):
+    """Ten updates at lr 1e-3 on one batch through the kernels, dropout on
+    (``same_masks``: the same masks in every update, so that their noise
+    does not hide small adapter steps): the loss must fall. Then ms per
+    update (CUDA events), img/s and peak memory, the plain path's ms, and
+    the profiler's busy share. Returns (the update, its generator)."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    step = make_update(loss_for, KERNELS, cfg, trainable, args, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(123)
+    losses = [step(batch, torch.Generator(device=dev).manual_seed(123) if same_masks
+                   else gen)["loss"] for _ in range(10)]
+    print(f"{tag}: losses over 10 updates on one batch (lr 1e-3, dropout on"
+          f"{', the same masks each update' if same_masks else ''}) "
+          + " ".join(f"{v:.4f}" for v in losses))
+    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+            f"the {tag} loss did not fall")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = make_update(loss_for, PLAIN, cfg, trainable, args, 1e-3)
+    plain_ms = cuda_ms(lambda: plain(batch, gen), 2, warmup=1)
+    print(f"{tag}: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) {ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / plain_ms:.1f} img/s); peak device memory {peak_gb:.2f} GB")
+    profile_steps(lambda: step(batch, gen), 2, ms)
+    return step, gen
 
 
 def biomedclip_finetune_phase(dev):
@@ -1488,7 +1641,6 @@ def biomedclip_finetune_phase(dev):
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(5)
     cfg, params = build_clip_model(args, "biomedclip", adapter="mona", gen=gen)
-    cfg32 = cfg.replace(compute_dtype="float32")
     tc = cfg.text
     require(cfg.text_kind == "bert" and (tc.depth, tc.width, tc.heads, tc.intermediate,
                                          tc.context_length, tc.vocab_size, tc.ln_eps)
@@ -1558,31 +1710,23 @@ def biomedclip_finetune_phase(dev):
     batch_t = T.stack_microbatches({"image": images.to(dev),
                                     "tokens": torch.from_numpy(step_tokens).to(dev)}, FT_ACCUM)
 
-    def loss_fn(ops, text, seen=None, c=cfg):
-        enc = ft.make_text_encoder(params, c, dev, ops=ops)
+    # the text features each update's microbatches met, in order, by
+    # (kernel path?, dtype)
+    seen = {}
 
-        def fn(mb, g):
-            img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
-                                           gen=g)
-            txt = mb["txt_feat"] if text == "cached" else enc(mb["tokens"])
-            if seen is not None:
-                seen.append(txt.detach().float())
-            return info_nce(img, txt, temperature=args.temperature)
-        return fn
+    def loss_for(text):
+        def make(ops, c):
+            enc = ft.make_text_encoder(params, c, dev, ops=ops)
+            met = seen[ops is KERNELS, c.compute_dtype] = []
 
-    def update(ops, lr, text="cached", seen=None, c=cfg):
-        tcfg = T.TrainConfig(lr=lr, lr_min=1e-8, weight_decay=args.weight_decay,
-                             beta1=args.beta1_adam, beta2=args.beta2_adam, total_updates=25)
-        return T.TrainStep(loss_fn(ops, text, seen, c), T.make_optimizer(trainable.values(), tcfg),
-                           tcfg, accum_steps=FT_ACCUM, grad_clip=args.grad_clip)
-
-    def first_update(ops, b, text, c=cfg):
-        """One update at lr 0 (the parameters stay): metrics, the averaged,
-        clipped gradient of every MONA tensor, and the text features the
-        step's microbatches met, in order."""
-        seen = []
-        m = update(ops, 0.0, text, seen, c)(b, torch.Generator(device=dev).manual_seed(7))
-        return m, {k: p.grad.float().clone() for k, p in trainable.items()}, torch.cat(seen)
+            def fn(mb, g):
+                img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
+                                               gen=g)
+                txt = mb["txt_feat"] if text == "cached" else enc(mb["tokens"])
+                met.append(txt.detach().float())
+                return info_nce(img, txt, temperature=args.temperature)
+            return fn
+        return make
 
     # per update: every block's forward kernels and MONA once per microbatch;
     # block 0's input needs no gradient, so its three block kernels run no
@@ -1602,70 +1746,131 @@ def biomedclip_finetune_phase(dev):
             "fused_ln_mlp_residual_backward": (depth - 1) * n_mb,
             "mona_spatial_backward": depth * n_mb}
     for text, b in (("cached", batch), ("in-step", batch_t)):
-        reset_counts()
-        m_k, g_k, t_k = first_update(KERNELS, b, text)
-        torch.cuda.synchronize()
-        launched = {k: v for k, v in read_counts().items() if v}
+        tag = f"biomedclip ({text} text)"
+        counts, _, g_k = check_update(tag, loss_for(text), cfg, trainable, args, b, dev,
+                                      reaches_no_feature)
+        launched = {k: v for k, v in counts.items() if v}
         expect = {**want, **({k: depth_t * n_mb for k in BERT_CHAIN} if text == "in-step" else {})}
-        m_p, g_p, t_p = first_update(PLAIN, b, text)
+        t_k, t_p = (torch.cat(seen[on_kernels, "bfloat16"]) for on_kernels in (True, False))
         t_err, t_scale = (t_k - t_p).abs().max().item(), t_p.abs().max().item()
-        rel_l2 = bf16_gradient_gap(g_k, g_p)[2]
-        # in bf16 the MONA gradients differ by rounding alone by up to ~5% of
-        # their largest entry, so each tensor is held to the plain path in
-        # the same update in float32
-        m32_k, g32_k, _ = first_update(KERNELS, b, text, cfg32)
-        m32_p, g32_p, _ = first_update(PLAIN, b, text, cfg32)
-        worst, worst_name = worst_ratio(g32_k, g32_p, reaches_no_feature)
-        print(f"biomedclip: one update with {text} text: launches {launched}; text features "
-              f"{tuple(t_k.shape)} vs plain path max|d| {t_err:.3e} (<= "
-              f"{BF16_BOUND * max(1.0, t_scale):.3e}, max|ref| {t_scale:.3f}); loss kernel "
-              f"{m_k['loss']:.6f} plain {m_p['loss']:.6f}, gradient norm {m_k['grad_norm']:.4f} "
-              f"/ {m_p['grad_norm']:.4f} (clipped to 1.0; whole MONA gradient's relative L2 "
-              f"distance {rel_l2:.3e}); float32: loss {m32_k['loss']:.7f} / "
-              f"{m32_p['loss']:.7f}, MONA gradients worst max|d| / min(1e-4 max|ref| of all, "
-              f"3e-2 its own max|ref|) = {worst:.3f} ({worst_name})")
+        print(f"{tag}: text features {tuple(t_k.shape)} vs plain path max|d| {t_err:.3e} (<= "
+              f"{BF16_BOUND * max(1.0, t_scale):.3e}, max|ref| {t_scale:.3f})")
         require(launched == expect, f"an update with {text} text launched {launched}, want "
                                     f"{expect}")
         require(t_k.shape == (FT_BATCH, tc.embed_dim) and bool(torch.isfinite(t_k).all())
                 and t_err <= BF16_BOUND * max(1.0, t_scale),
                 f"the text features of an update with {text} text disagree with the plain path")
-        require(np.isfinite(m_k["loss"]) and m_k["skipped"] == 0, f"biomedclip update {m_k}")
-        require(abs(m_k["loss"] - m_p["loss"]) <= BF16_BOUND * max(1.0, abs(m_p["loss"]))
-                and abs(m_k["grad_norm"] - m_p["grad_norm"]) <= BF16_BOUND * m_p["grad_norm"],
-                f"the loss or gradient norm with {text} text disagrees with the plain path")
-        require(abs(m32_k["loss"] - m32_p["loss"]) <= F32_BOUND * abs(m32_p["loss"]),
-                f"the float32 loss with {text} text disagrees with the plain path")
-        require(worst <= 1.0, f"the float32 gradient of {worst_name} ({text} text) disagrees "
-                              f"with the plain path")
         zero = [k for k, g in g_k.items() if g.abs().max().item() == 0]
         require(all(map(reaches_no_feature, zero)), f"MONA tensors with no gradient: {zero}")
 
-    # the same dropout masks in every update, so that their noise does not
-    # hide the small steps the adapters take
-    step = update(KERNELS, 1e-3)
-    losses = [step(batch, torch.Generator(device=dev).manual_seed(123))["loss"]
-              for _ in range(10)]
-    print("biomedclip: losses over 10 updates on one batch (lr 1e-3, MONA dropout on, the "
-          "same masks each update) " + " ".join(f"{v:.4f}" for v in losses))
-    require(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
-            "the biomedclip fine-tune loss did not fall")
-    gen = torch.Generator(device=dev).manual_seed(123)
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    plain_ms = cuda_ms(lambda: update(PLAIN, 1e-3)(batch, gen), 2, warmup=1)
-    step_t = update(KERNELS, 1e-3, "in-step")
+    _, gen = train_and_time("biomedclip (cached text)", loss_for("cached"), cfg, trainable,
+                            args, batch, dev, same_masks=True)
+    step_t = make_update(loss_for("in-step"), KERNELS, cfg, trainable, args, 1e-3)
     torch.cuda.reset_peak_memory_stats()
     in_step_ms = cuda_ms(lambda: step_t(batch_t, gen), 3, warmup=1)
     in_step_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"biomedclip: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) with cached text "
-          f"{ms:.2f} ms = {FT_BATCH * 1000 / ms:.1f} img/s (plain path {plain_ms:.2f} ms = "
-          f"{FT_BATCH * 1000 / plain_ms:.1f} img/s), peak device memory {peak_gb:.2f} GB; with "
-          f"in-step text ({step_tokens.shape[1]}-token bucket) {in_step_ms:.2f} ms = "
+    print(f"biomedclip: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) with in-step text "
+          f"({step_tokens.shape[1]}-token bucket) {in_step_ms:.2f} ms = "
           f"{FT_BATCH * 1000 / in_step_ms:.1f} img/s, peak {in_step_gb:.2f} GB")
-    profile_steps(lambda: step(batch, gen), 2, ms)
     return {**{k: chain_counts[k] for k in BERT_CHAIN},
             "fused_block_infer_postnorm": whole_counts["fused_block_infer_postnorm"]}
+
+
+def text_lora_launches(depth_v, depth_t, k, n_mb):
+    """Kernel launches of one --tune_text_encoder update, LoRA in the first
+    k vision blocks and BERT layers, n_mb microbatches. Every forward runs
+    once per microbatch and, the LoRA pairs sitting below every block and
+    layer above them, every backward too: a LoRA block runs K7 and K8, a
+    LoRA layer K7 and K10, a block without LoRA K5 and K6, a layer without
+    LoRA the chain (K5 raw-x, K6 post-LN, K9; K6 post-LN's and K9's
+    backwards are plain recompositions, counted nowhere)."""
+    kv, kt = min(k, depth_v), min(k, depth_t)
+    want = {"flash_attention": kv + kt, "flash_attention_backward": kv + kt,
+            "fused_ln_mlp_residual": depth_v, "fused_ln_mlp_residual_backward": depth_v,
+            "fused_ln_qkv": depth_v - kv, "fused_ln_qkv_backward": depth_v - kv,
+            "fused_attn_o_residual": depth_v - kv,
+            "fused_attn_o_residual_backward": depth_v - kv,
+            "fused_mlp": kt, "fused_mlp_backward": kt,
+            **{name: depth_t - kt for name in BERT_CHAIN},
+            "fused_ln_qkv_rawx_backward": depth_t - kt}
+    return {name: v * n_mb for name, v in want.items() if v}
+
+
+def text_lora_phase(dev, lora_layers):
+    """``--tune_text_encoder`` at full width: BiomedCLIP ViT-B/16 at 224 px
+    and the 12-layer PubMedBERT (ctx 256) with LoRA r=16, alpha 32, dropout
+    0.1 in the first ``lora_layers`` blocks and layers of both towers (built
+    through build_clip_model as the CLI builds it, the b matrices drawn
+    nonzero), bf16, batch 64 as 4 x 16, AdamW (0.9, 0.95), clip 1.0, the
+    text of seeded ids (lengths 16-256, padded tail) encoded in the step
+    and trimmed to its 32-token bucket. One update's launch counts against
+    text_lora_launches; its loss and gradient norm against the plain path
+    (bf16), and in float32 the loss and each LoRA and bias gradient; the
+    loss falling over 10 updates with dropout on; ms per update, img/s,
+    peak memory, the busy share. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import partition
+    from nextgen_uia_tpu_torch.losses import info_nce
+    from nextgen_uia_tpu_torch.models import clip as clip_mod
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import build_clip_model
+
+    tag = f"text LoRA ({lora_layers} layers)"
+    args = ft._finetune_parser("biomedclip").parse_args(
+        ["--method", "lora", "--tune_text_encoder", "--lora_layers", str(lora_layers),
+         "--seed", "5"])
+    require(args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM
+            and args.grad_clip == 1.0 and args.compute_dtype == "bfloat16"
+            and (args.lora_r, args.lora_alpha, args.lora_dropout) == (16, 32, 0.1)
+            and (args.beta1_adam, args.beta2_adam) == (0.9, 0.95),
+            f"biomedclip LoRA fine-tune defaults changed: {args}")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    cfg, params = build_clip_model(args, "biomedclip", adapter="lora", gen=gen)
+    attns = [blk.attn for blk in params.visual.blocks] + [ly.attn for ly in params.text.layers]
+    with torch.no_grad():
+        for attn in attns:
+            for pair in (attn.lora.children() if "lora" in attn._modules else ()):
+                pair.b.normal_(0.0, 0.02, generator=gen)
+    n_lora = sum("lora" in a._modules for a in attns)
+    require(n_lora == 2 * lora_layers, f"LoRA in {n_lora} attentions, want {2 * lora_layers}")
+    trainable, frozen = partition(params, ft.lora_trainable_predicate(params))
+    params.to(dev)
+    print(f"{tag}: built ViT-B/16 and the 12-layer PubMedBERT with LoRA in {n_lora} "
+          f"attentions in {time.perf_counter() - t0:.1f} s; {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen")
+
+    rng = np.random.default_rng(8)
+    ctx = cfg.text.context_length
+    tokens = np.zeros((FT_BATCH, ctx), np.int32)
+    for i, n in enumerate(rng.integers(16, ctx + 1, FT_BATCH)):
+        tokens[i, :n] = rng.integers(1, 30000, n)
+    tokens = ft.trim_token_padding(tokens)
+    images = rng.integers(0, 256, (FT_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = T.stack_microbatches({"image": torch.from_numpy(images).to(dev),
+                                  "tokens": torch.from_numpy(tokens).to(dev)}, FT_ACCUM)
+
+    def loss_for(ops, c):
+        def fn(mb, g):
+            img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
+                                           gen=g)
+            txt = clip_mod.encode_text(params, c, mb["tokens"], ops=ops, gen=g)
+            return info_nce(img, txt, temperature=args.temperature)
+        return fn
+
+    print(f"{tag}: {tokens.shape[1]}-token bucket")
+    counts, _, g_k = check_update(tag, loss_for, cfg, trainable, args, batch, dev, is_key_bias)
+    launched = {k: v for k, v in counts.items() if v}
+    want = text_lora_launches(cfg.vision.depth, cfg.text.depth, lora_layers, FT_ACCUM)
+    require(launched == want, f"a {tag} update launched {launched}, want {want}")
+    require(min(g.abs().max().item() for k, g in g_k.items()
+                if k.startswith("text/") and k.endswith("/a")) > 0,
+            "a text LoRA a matrix got no gradient")
+    train_and_time(tag, loss_for, cfg, trainable, args, batch, dev)
+    return launched
 
 
 BENCH_ROUTES = (  # (label, ViT attn_impl, NEXTGEN_UIA_FUSED_MONA)
@@ -2082,6 +2287,52 @@ def biomedclip_finetune_cli_phase(work):
             "or did not train through the backward kernels")
 
 
+def text_lora_cli_phase(work):
+    """``python -m nextgen_uia_tpu_torch.tasks.biomedclip.finetune --method
+    lora --tune_text_encoder --lora_layers 6 --epochs 1`` on the card, with
+    NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1, on the seeded caption data: the
+    text uncached, K10's and K5 raw-x's backward kernels launched in each
+    of the 2 updates (24 each), best_model.npz holding exactly the LoRA
+    tensors of vision blocks 0-5 and text layers 0-5."""
+    import numpy as np
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.biomedclip.finetune import main as finetune_main
+
+    data = caption_data(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with environ(NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK="1"):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = finetune_main(["--method", "lora", "--tune_text_encoder", "--lora_layers",
+                                 "6", "--epochs", "1", "--exp", "chip_tt_ft",
+                                 "--finetune_csvs", os.path.join(data, "captions.csv"),
+                                 "--finetune_img_dirs", os.path.join(data, "images"),
+                                 "--num_workers", "4", "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        os.chdir(cwd)
+    best = os.path.join(work, "runs", "chip_tt_ft", "best_model.npz")
+    keys = ckpt.peek_keys(best) if os.path.exists(best) else []
+    attns = sorted({k.rsplit("/lora/", 1)[0] for k in keys})
+    print(f"cli: biomedclip LoRA fine-tune with --tune_text_encoder --lora_layers 6, one epoch "
+          f"(2 updates + validation) in {seconds:.1f} s (host clock: build and data decode "
+          f"included); best val loss {out['best_val_loss']:.4f}; best_model.npz {len(keys)} "
+          f"tensors in {len(attns)} attentions; launches {counts}")
+    require(np.isfinite(out["best_val_loss"]), f"text LoRA fine-tune CLI result {out}")
+    require(len(keys) == 2 * 6 * 8 and all("/lora/" in k for k in keys)
+            and attns == sorted([f"visual/blocks/{i}/attn" for i in range(6)]
+                                + [f"text/layers/{i}/attn" for i in range(6)]),
+            "best_model.npz does not hold exactly the LoRA tensors of both towers' 6 layers")
+    require(counts.get("fused_mlp_backward", 0) == 2 * 6 * FT_ACCUM
+            and counts.get("fused_ln_qkv_rawx_backward", 0) == 2 * 6 * FT_ACCUM,
+            "the text LoRA fine-tune CLI did not train through K10's and K5 raw-x's backward "
+            "kernels")
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -2120,23 +2371,36 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    results = kernel_phase(dev)
-    augment_phase(dev)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s (host clock)")
+        return out
+
+    results = timed("kernels", kernel_phase, dev)
+    timed("augment", augment_phase, dev)
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
-        launches, files = slice_phase(dev, work)
-        launches = {**train_phase(dev, files), **launches}
-        dino = dino_phase(dev)
+        launches, files = timed("slice", slice_phase, dev, work)
+        launches = {**timed("train", train_phase, dev, files), **launches}
+        dino = timed("dino", dino_phase, dev)
         launches.update({k: dino[k] for k in NEW_KERNELS})
-        finetune = finetune_phase(dev)
+        finetune = timed("finetune", finetune_phase, dev)
         launches.update({k: finetune[k] for k in ("flash_attention_backward",
                                                   "fused_block_infer_causal")})
-        launches.update(biomedclip_finetune_phase(dev))
-        launches.update(bench_phase(dev))
-        cli_phase(dev, work, files)
-        finetune_cli_phase(work)
-        biomedclip_finetune_cli_phase(work)
+        launches.update(timed("biomedclip", biomedclip_finetune_phase, dev))
+        launches["fused_mlp_backward"] = timed(
+            "text LoRA 12", text_lora_phase, dev, 12)["fused_mlp_backward"]
+        launches["fused_ln_qkv_rawx_backward"] = timed(
+            "text LoRA 6", text_lora_phase, dev, 6)["fused_ln_qkv_rawx_backward"]
+        # K4: no product path calls it, in either package
+        launches.update(dwconv7_per_sample=0, dwconv7_per_sample_backward=0)
+        launches.update(timed("bench", bench_phase, dev))
+        timed("trainer CLIs", cli_phase, dev, work, files)
+        timed("finetune CLIs", lambda: [finetune_cli_phase(work),
+                                        biomedclip_finetune_cli_phase(work),
+                                        text_lora_cli_phase(work)])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2163,7 +2427,11 @@ def main():
               "mona_block_fused": ("fused_mona.cu", "fused_mona.py:132"),
               "mona_block_fused_backward": ("fused_mona.cu", "fused_mona.py:155"),
               "fused_attn_block": ("fused_attention.cu", "fused_attention.py:52"),
-              "fused_attn_block_backward": ("fused_attention.cu", "fused_attention.py:73")}
+              "fused_attn_block_backward": ("fused_attention.cu", "fused_attention.py:73"),
+              "fused_mlp_backward": ("fused_mlp.cu", "fused_mlp.py:79"),
+              "fused_ln_qkv_rawx_backward": ("fused_ln_qkv.cu", "fused_ln_qkv.py:60"),
+              "dwconv7_per_sample": ("mona_spatial.cu", "dwconv.py:60"),
+              "dwconv7_per_sample_backward": ("mona_spatial.cu", "dwconv.py:72")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]

@@ -31,21 +31,29 @@ class LoraPair(nn.Module):
         self.b = param(torch.zeros(r, out_dim))
 
 
+def _inject(gen, layers, *, dim, r, targets, num_layers):
+    n = len(layers) if num_layers is None else min(num_layers, len(layers))
+    for layer in list(layers)[:n]:
+        layer.attn.lora = nn.Module()
+        for t in targets:
+            setattr(layer.attn.lora, t, LoraPair(gen, dim, dim, r))
+    return n
+
+
 def inject_lora(gen, vit, *, dim: int, r: int = 16, targets=TARGETS,
                 num_layers: int | None = None):
     """Add a ``lora`` module with one pair per target to the attention of
     the first ``num_layers`` blocks of ``vit`` (all when None), in place.
     Returns (vit, count)."""
-    blocks = vit.blocks
-    n = len(blocks) if num_layers is None else min(num_layers, len(blocks))
-    for blk in list(blocks)[:n]:
-        blk.attn.lora = nn.Module()
-        for t in targets:
-            setattr(blk.attn.lora, t, LoraPair(gen, dim, dim, r))
-    return vit, n
+    return vit, _inject(gen, vit.blocks, dim=dim, r=r, targets=targets, num_layers=num_layers)
 
 
-def inject_lora_bert(*_args, **_kwargs):
-    raise NotImplementedError(
-        "LoRA in the BERT text tower is not ported to the PyTorch package yet "
-        "(ROADMAP.md, section A, item 5: the BERT text tower)")
+def inject_lora_bert(gen, bert, *, dim: int, r: int = 16, targets=TARGETS,
+                     num_layers: int | None = None):
+    """Add a ``lora`` module with one pair per target to the self-attention
+    of the first ``num_layers`` layers of the BERT text tower (all when
+    None), in place: the reference's --tune_text_encoder path (query, key,
+    value and the attention output of the first layers). Returns (bert,
+    count)."""
+    return bert, _inject(gen, bert.layers, dim=dim, r=r, targets=targets,
+                         num_layers=num_layers)

@@ -22,15 +22,21 @@
 // (forward) and load (backward), so no transpose pass touches device memory.
 // The ragged edge (N = 197) is masked by the GEMM; nothing is padded.
 //
-// Raw-x variant (nx_qkv_rawx_fwd), forward only: [q|k|v] = x @ [Wq|Wk|Wv]
-// + b -> T, head-major, with no LayerNorm. It replaces the same Pallas
-// kernel with ln_params=None (has_ln=False), which post-norm towers run: the
-// frozen PubMedBERT text tower of BiomedCLIP, whose q/k/v project the raw
-// residual stream. At the text cache's chunk (B*N = 256*256 rows, D = 768)
-// it is one [65536, 768] x [768, 2304] product, 232 GFLOP against ~400 MB
-// of x, q, k, v and weights in bf16: compute-bound (~0.23 ms at the bf16
-// peak). It is one launch of the same WMMA GEMM with the head-major store;
-// the TPU kernel's raw-x backward is reached by no path and is not ported.
+// Raw-x variant (nx_qkv_rawx_fwd, nx_qkv_rawx_bwd): [q|k|v] = x @
+// [Wq|Wk|Wv] + b -> T, head-major, with no LayerNorm; backward dx = [dq|dk|
+// dv] @ [Wq|Wk|Wv]^T, float32 sums rounded once to T. It replaces the same
+// Pallas kernels with ln_params=None (has_ln=False), which post-norm towers
+// run: the PubMedBERT text tower of BiomedCLIP, whose q/k/v project the raw
+// residual stream. The backward runs where the text tower is differentiated
+// (--tune_text_encoder with --lora_layers below the depth: the layers
+// without LoRA pass the gradient down to the LoRA pairs below them). At the
+// text cache's chunk (B*N = 256*256 rows, D = 768) the forward is one
+// [65536, 768] x [768, 2304] product, 232 GFLOP against ~400 MB of x, q, k,
+// v and weights in bf16: compute-bound (~0.23 ms at the bf16 peak); at the
+// fine-tune's microbatch ([16, 256, 768]) the backward is 14.5 GFLOP, 0.015
+// ms. Each is one launch of the same WMMA GEMM, with the head-major store
+// (forward) or the head-major A operand (backward, as nx_ln_qkv_bwd), the
+// backward writing dx with no LayerNorm backward.
 
 #include "block_kernels.cuh"
 
@@ -79,6 +85,15 @@ int nx_qkv_rawx_fwd(const void* x, const void* w_qkv, const float* b_qkv, void* 
                      dtype};
   return (int)launch_gemm(row_major(x), w_qkv, dtype, false, epi, m, 3 * d, d,
                           static_cast<cudaStream_t>(stream));
+}
+
+// dq, dk, dv [B, H, N, dh]; w_qkv [D, 3D] (x's dtype); dx [B*N, D]
+int nx_qkv_rawx_bwd(const void* w_qkv, const void* dq, const void* dk, const void* dv, void* dx,
+                    int dtype, int b, int n, int heads, int dh, void* stream) {
+  const int m = b * n, d = heads * dh;
+  const Epilogue epi{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(dx), dtype};
+  return (int)launch_gemm(head_major(dq, dk, dv, n, heads, dh), w_qkv, dtype, true, epi, m, d,
+                          3 * d, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

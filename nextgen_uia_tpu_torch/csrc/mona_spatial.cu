@@ -47,6 +47,23 @@
 // is one thread's float32 sum over the tile. The sum over the batch of
 // dfreq is left to the wrapper, as the TPU kernel leaves it outside. Bound
 // by latency and launch overhead at this size, like the forward.
+//
+// Per-sample 7x7 depthwise convolution (nx_dwconv7, nx_dwconv7_bwd):
+//
+//   y[b, i, j, c] = sum_{di, dj < 7} x[b, i + di - 3, j + dj - 3, c] * k[b, di, dj, c]
+//   dx = 7x7 correlation of g with the flipped kernels;
+//   dk[b, di, dj, c] = sum_{i, j} g[b, i, j, c] * x[b, i + di - 3, j + dj - 3, c]
+//
+// Replaces nextgen_uia_tpu/ops/dwconv.py::dwconv7_per_sample, forward (the
+// Pallas kernel _fwd_kernel) and backward (_bwd_kernel). It is the MONA
+// stencil above with freq = 1, no bias and no residual: the same kernels,
+// instantiated with MONA = false, so u = x, y is the taps' sum alone, dx =
+// du, and no dfreq or dbias is reduced. dk is float32, cast to the kernels'
+// dtype by the wrapper, as the TPU kernel returns it. No TPU or GPU product
+// path calls it (MONA's adapter runs through mona_spatial). At the MONA
+// bottleneck on the ViT-B/16 grid ([64, 14, 14, 64], bf16) it moves ~3.6 MB
+// (x, y and the kernels: 0.001 ms at the memory rate) for 2 x 49 flops per output: bound
+// by bytes, in practice by latency and launch overhead.
 
 #include "common.cuh"
 
@@ -54,7 +71,9 @@ namespace nx {
 
 constexpr int MS_THREADS = 256, MS_K = 7, MS_HALO = 3;
 
-template <typename T>
+// MONA: u = s * freq and y = s + bias + taps (mona_spatial); otherwise u = s
+// and y = taps alone (dwconv7_per_sample, freq and bias null)
+template <typename T, bool MONA>
 __global__ void __launch_bounds__(MS_THREADS)
 mona_spatial_kernel(const T* __restrict__ s, const T* __restrict__ freq,
                     const T* __restrict__ kern, const T* __restrict__ bias,
@@ -70,8 +89,10 @@ mona_spatial_kernel(const T* __restrict__ s, const T* __restrict__ freq,
     const int c = i % cg, pix = i / cg;
     const int y = pix / wp - MS_HALO, x = pix % wp - MS_HALO;
     float v = 0.f;
-    if (y >= 0 && y < h && x >= 0 && x < w)
-      v = to_f32(sb[((size_t)y * w + x) * c_total + c0 + c]) * to_f32(freq[c0 + c]);
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      v = to_f32(sb[((size_t)y * w + x) * c_total + c0 + c]);
+      if (MONA) v *= to_f32(freq[c0 + c]);
+    }
     u[i] = v;
   }
   for (int i = threadIdx.x; i < MS_K * MS_K * cg; i += MS_THREADS) {
@@ -85,7 +106,7 @@ mona_spatial_kernel(const T* __restrict__ s, const T* __restrict__ freq,
     const int c = i % cg, pix = i / cg;
     const int y = pix / w, x = pix % w;
     const size_t gi = (size_t)pix * c_total + c0 + c;
-    float acc = to_f32(sb[gi]) + to_f32(bias[(size_t)b * c_total + c0 + c]);
+    float acc = MONA ? to_f32(sb[gi]) + to_f32(bias[(size_t)b * c_total + c0 + c]) : 0.f;
 #pragma unroll
     for (int di = 0; di < MS_K; ++di)
 #pragma unroll
@@ -95,7 +116,7 @@ mona_spatial_kernel(const T* __restrict__ s, const T* __restrict__ freq,
   }
 }
 
-template <typename T>
+template <typename T, bool MONA>
 cudaError_t launch_mona_spatial(const void* s, const void* freq, const void* kern,
                                 const void* bias, void* out, int b, int h, int w, int c,
                                 cudaStream_t stream) {
@@ -103,18 +124,20 @@ cudaError_t launch_mona_spatial(const void* s, const void* freq, const void* ker
   while (c % cg) cg /= 2;
   const size_t smem =
       sizeof(float) * ((size_t)(h + 2 * MS_HALO) * (w + 2 * MS_HALO) + MS_K * MS_K) * cg;
-  cudaError_t err = cudaFuncSetAttribute(mona_spatial_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(mona_spatial_kernel<T, MONA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(c / cg, b);
-  mona_spatial_kernel<T><<<grid, MS_THREADS, smem, stream>>>(
+  mona_spatial_kernel<T, MONA><<<grid, MS_THREADS, smem, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(freq), static_cast<const T*>(kern),
       static_cast<const T*>(bias), static_cast<T*>(out), h, w, c, cg);
   return cudaGetLastError();
 }
 
-template <typename T>
+// MONA as in the forward; without it ds = du (dx) and dfreq_part, dbias are
+// null and not reduced
+template <typename T, bool MONA>
 __global__ void __launch_bounds__(MS_THREADS)
 mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
                         const T* __restrict__ kern, const T* __restrict__ g,
@@ -136,7 +159,7 @@ mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
     float uv = 0.f, gv = 0.f;
     if (y >= 0 && y < h && x >= 0 && x < w) {
       const size_t gi = base + ((size_t)y * w + x) * c_total + c0 + c;
-      uv = to_f32(s[gi]) * to_f32(freq[c0 + c]);
+      uv = MONA ? to_f32(s[gi]) * to_f32(freq[c0 + c]) : to_f32(s[gi]);
       gv = to_f32(g[gi]);
     }
     u[i] = uv;
@@ -161,8 +184,12 @@ mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
       for (int dj = 0; dj < MS_K; ++dj)
         du += gp[((y + 2 * MS_HALO - di) * wp + x + 2 * MS_HALO - dj) * cg + c] *
               taps[(di * MS_K + dj) * cg + c];
-    const float gv = gp[((y + MS_HALO) * wp + x + MS_HALO) * cg + c];
     const size_t gi = base + (size_t)pix * c_total + c0 + c;
+    if (!MONA) {
+      ds[gi] = from_f32<T>(du);
+      continue;
+    }
+    const float gv = gp[((y + MS_HALO) * wp + x + MS_HALO) * cg + c];
     const float f = to_f32(freq[c0 + c]);
     ds[gi] = from_f32<T>(f * du + gv);
     part_f += to_f32(s[gi]) * du;
@@ -171,7 +198,7 @@ mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
   red[tid] = part_f;
   red[MS_THREADS + tid] = part_b;
   __syncthreads();
-  if (tid < cg) {
+  if (MONA && tid < cg) {
     float sf = 0.f, sb = 0.f;
     for (int t = tid; t < MS_THREADS; t += cg) sf += red[t], sb += red[MS_THREADS + t];
     dfreq_part[(size_t)b * c_total + c0 + tid] = sf;
@@ -190,7 +217,7 @@ mona_spatial_bwd_kernel(const T* __restrict__ s, const T* __restrict__ freq,
   }
 }
 
-template <typename T>
+template <typename T, bool MONA>
 cudaError_t launch_mona_spatial_bwd(const void* s, const void* freq, const void* kern,
                                     const void* g, void* ds, float* dk, float* dfreq_part,
                                     float* dbias, int b, int h, int w, int c,
@@ -199,12 +226,12 @@ cudaError_t launch_mona_spatial_bwd(const void* s, const void* freq, const void*
   while (c % cg) cg /= 2;
   const size_t smem = sizeof(float) * (2 * (size_t)(h + 2 * MS_HALO) * (w + 2 * MS_HALO) * cg +
                                        MS_K * MS_K * cg + 2 * MS_THREADS);
-  cudaError_t err = cudaFuncSetAttribute(mona_spatial_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(mona_spatial_bwd_kernel<T, MONA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(c / cg, b);
-  mona_spatial_bwd_kernel<T><<<grid, MS_THREADS, smem, stream>>>(
+  mona_spatial_bwd_kernel<T, MONA><<<grid, MS_THREADS, smem, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(freq), static_cast<const T*>(kern),
       static_cast<const T*>(g), static_cast<T*>(ds), dk, dfreq_part, dbias, h, w, c, cg);
   return cudaGetLastError();
@@ -220,10 +247,11 @@ int nx_mona_spatial(const void* s, const void* freq, const void* kernels, const 
                     void* out, int dtype, int b, int h, int w, int c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == nx::BF16)
-    return (int)nx::launch_mona_spatial<__nv_bfloat16>(s, freq, kernels, bias, out, b, h,
-                                                       w, c, st);
+    return (int)nx::launch_mona_spatial<__nv_bfloat16, true>(s, freq, kernels, bias, out, b,
+                                                             h, w, c, st);
   if (dtype == nx::F32)
-    return (int)nx::launch_mona_spatial<float>(s, freq, kernels, bias, out, b, h, w, c, st);
+    return (int)nx::launch_mona_spatial<float, true>(s, freq, kernels, bias, out, b, h, w, c,
+                                                     st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -234,11 +262,38 @@ int nx_mona_spatial_bwd(const void* s, const void* freq, const void* kernels, co
                         int b, int h, int w, int c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == nx::BF16)
-    return (int)nx::launch_mona_spatial_bwd<__nv_bfloat16>(s, freq, kernels, g, ds, dk,
-                                                           dfreq_part, dbias, b, h, w, c, st);
+    return (int)nx::launch_mona_spatial_bwd<__nv_bfloat16, true>(
+        s, freq, kernels, g, ds, dk, dfreq_part, dbias, b, h, w, c, st);
   if (dtype == nx::F32)
-    return (int)nx::launch_mona_spatial_bwd<float>(s, freq, kernels, g, ds, dk, dfreq_part,
-                                                   dbias, b, h, w, c, st);
+    return (int)nx::launch_mona_spatial_bwd<float, true>(s, freq, kernels, g, ds, dk,
+                                                         dfreq_part, dbias, b, h, w, c, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, out [B, H, W, C] and kernels [B, 7, 7, C] in `dtype`
+int nx_dwconv7(const void* x, const void* kernels, void* out, int dtype, int b, int h, int w,
+               int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == nx::BF16)
+    return (int)nx::launch_mona_spatial<__nv_bfloat16, false>(x, nullptr, kernels, nullptr,
+                                                              out, b, h, w, c, st);
+  if (dtype == nx::F32)
+    return (int)nx::launch_mona_spatial<float, false>(x, nullptr, kernels, nullptr, out, b, h,
+                                                      w, c, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, g, dx [B, H, W, C] and kernels [B, 7, 7, C] in `dtype`; dk [B, 7, 7, C]
+// float32
+int nx_dwconv7_bwd(const void* x, const void* kernels, const void* g, void* dx, float* dk,
+                   int dtype, int b, int h, int w, int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == nx::BF16)
+    return (int)nx::launch_mona_spatial_bwd<__nv_bfloat16, false>(
+        x, nullptr, kernels, g, dx, dk, nullptr, nullptr, b, h, w, c, st);
+  if (dtype == nx::F32)
+    return (int)nx::launch_mona_spatial_bwd<float, false>(x, nullptr, kernels, g, dx, dk,
+                                                          nullptr, nullptr, b, h, w, c, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,15 +4,20 @@ width 768, 12 heads, intermediate 3072, vocabulary 30522, context 256,
 LayerNorm eps 1e-12), CLS pooling of the last hidden state and an MLP
 projection 768 -> (768 + 512) // 2 -> 512 with no biases.
 
-The tower runs frozen and forward only. Each layer takes the JAX package's
-route on its chip: by default the three-kernel chain (q/k/v on the raw x,
-``fused_ln_qkv`` with ``ln=None``; attention + o-projection + residual +
-LayerNorm, ``fused_attn_o_residual`` with ``post_ln``; MLP + residual +
-LayerNorm, ``fused_postnorm_mlp_ln``); with ``block_impl='fused_infer'``
-and ``ops.fused_block.bert_block_opted_in()`` the whole layer in one call of
-the post-norm whole-block kernel. Padded keys carry a -1e9 score bias. The
-differentiable route that ``--tune_text_encoder`` trains (``mlp_impl='xla'``,
-LoRA in the text tower) is not ported and refuses.
+Each layer takes the JAX package's route on its chip. A layer without LoRA
+runs the three-kernel chain (q/k/v on the raw x, ``fused_ln_qkv`` with
+``ln=None``; attention + o-projection + residual + LayerNorm,
+``fused_attn_o_residual`` with ``post_ln``; MLP + residual + LayerNorm,
+``fused_postnorm_mlp_ln``), differentiable in x, or, with
+``block_impl='fused_infer'`` and ``ops.fused_block.bert_block_opted_in()``,
+the whole layer in one forward-only call of the post-norm whole-block
+kernel. A layer whose attention holds LoRA pairs (``--tune_text_encoder``,
+adapters/lora.py::inject_lora_bert) runs the composed route: ``mha``'s LoRA
+route with ``residual=x`` and the key-padding bias (the flash-attention
+kernel forward and backward), LayerNorm, the fused MLP kernel (forward and
+backward), LayerNorm. Padded keys carry a -1e9 score bias. Training the
+tower's own weights (``mlp_impl='xla'``, ``--method full``) is not ported
+and refuses.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..nn.attention import Attention
+from ..nn.attention import Attention, mha
 from ..nn.layers import Embedding, LayerNorm, Linear, embedding, gelu, layernorm, linear
 from ..ops import KERNELS
 from ..ops.fused_block import bert_block_opted_in
@@ -43,6 +48,8 @@ class BertConfig:
     pad_id: int = 0
     # 'auto': the frozen kernels; 'xla' (weights that train) is not ported
     mlp_impl: str = "auto"
+    lora_alpha: float = 32.0      # text-tower LoRA scaling alpha / sqrt(r)
+    lora_dropout: float = 0.0     # on the LoRA branch's input, in train mode
     # 'fused_infer': the whole-layer kernel where opted in; 'auto': the chain
     block_impl: str = "auto"
 
@@ -86,14 +93,14 @@ def bert_init(gen: torch.Generator, cfg: BertConfig) -> Bert:
     return Bert(gen, cfg)
 
 
-def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS):
+def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS, gen=None):
     """token_ids [B, L] -> CLS-pooled, projected embedding [B, embed_dim];
-    the ids equal to ``pad_id`` are the padding."""
-    if cfg.mlp_impl != "auto" or any("lora" in layer.attn._modules for layer in p.layers):
+    the ids equal to ``pad_id`` are the padding. ``gen``: the LoRA dropout
+    generator of a train forward (None: eval)."""
+    if cfg.mlp_impl != "auto":
         raise NotImplementedError(
-            "bert_apply: only the frozen forward of the BERT text tower is ported; the "
-            "differentiable route that --tune_text_encoder trains is not (ROADMAP.md, "
-            "section A, item 10)")
+            "bert_apply: training the BERT tower's own weights (mlp_impl='xla', --method "
+            "full) is not ported (ROADMAP.md, section A, item 3)")
     token_ids = token_ids.long()
     emb = p.embeddings
     x = embedding(emb.word, token_ids, dtype=dtype)
@@ -107,6 +114,15 @@ def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS):
     whole_layer = cfg.block_impl == "fused_infer" and bert_block_opted_in()
     for layer in p.layers:
         x = x.contiguous()
+        if "lora" in layer.attn._modules:
+            a_sum = mha(layer.attn, x, num_heads=cfg.heads, key_padding_bias=pad_bias,
+                        residual=x, lora_alpha=cfg.lora_alpha, lora_dropout=cfg.lora_dropout,
+                        gen=gen, ops=ops)
+            x = layernorm(layer.attn_ln, a_sum, eps=cfg.ln_eps)
+            ffn = layer.ffn
+            h = ops.fused_mlp(x, ffn.fc1.w, ffn.fc1.b, ffn.fc2.w, ffn.fc2.b, act="gelu")
+            x = layernorm(layer.ffn_ln, x + h, eps=cfg.ln_eps)
+            continue
         if whole_layer:
             x = ops.fused_block_infer(x, layer, heads=cfg.heads, act="gelu", eps=cfg.ln_eps,
                                       key_bias=pad_bias, layout="postnorm")

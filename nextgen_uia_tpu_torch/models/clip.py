@@ -51,7 +51,8 @@ def clip_config(family: str, *, compute_dtype: str = "float32", mona_variant: st
     adapters = dict(mona_variant=mona_variant, lora_alpha=lora_alpha, lora_dropout=lora_dropout)
     if family == "biomedclip":
         return CLIPConfig(family, dataclasses.replace(VIT_B16_TIMM, **adapters),
-                          compute_dtype=compute_dtype, text_kind="bert", text=BertConfig())
+                          compute_dtype=compute_dtype, text_kind="bert",
+                          text=BertConfig(lora_alpha=lora_alpha, lora_dropout=lora_dropout))
     return CLIPConfig(family, dataclasses.replace(VIT_B16_OPENAI, **adapters),
                       compute_dtype=compute_dtype, text_kind="clip", text=TextConfig())
 
@@ -94,10 +95,12 @@ def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), op
                      extract_layers=extract_layers, ops=ops, gen=gen)
 
 
-def encode_text(params: CLIP, cfg: CLIPConfig, token_ids, *, ops=KERNELS):
-    """token_ids [B, L] -> [B, embed] (the frozen text tower)."""
+def encode_text(params: CLIP, cfg: CLIPConfig, token_ids, *, ops=KERNELS, gen=None):
+    """token_ids [B, L] -> [B, embed]. ``gen``: the dropout generator of a
+    train forward through BERT's LoRA pairs (None: eval); the CLIP text
+    tower carries no LoRA and runs frozen."""
     if cfg.text_kind == "bert":
-        return bert_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)
+        return bert_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops, gen=gen)
     return text_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)
 
 

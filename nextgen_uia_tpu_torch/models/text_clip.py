@@ -10,8 +10,8 @@ The text tower runs frozen and forward-only here (``block_impl
 whole-block kernel with the causal mask. The 77 tokens run unpadded: the
 kernel masks its ragged edge, and under the causal mask no real row reads a
 later column, so the JAX package's padding to 80 changes nothing. The
-composed, differentiable route (the text tower trained by
-``--tune_text_encoder``) is not ported.
+composed route, which the JAX package runs in the step under
+``--tune_text_encoder`` (the tower still frozen), is not ported.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def text_apply(p: TextTransformer, cfg: TextConfig, token_ids, *, dtype=None, op
         raise NotImplementedError(
             "text_apply: only the forward-only text tower (block_impl 'fused_infer', "
             "models/clip.py::infer_cfg) is ported; the composed route that "
-            "--tune_text_encoder differentiates is not (ROADMAP.md, section A, item 10)")
+            "--tune_text_encoder differentiates is not (ROADMAP.md, section A, item 17)")
     token_ids = token_ids.long()
     x = embedding(p.token_embedding, token_ids, dtype=dtype)
     x = x + p.pos[: x.shape[1]].to(x.dtype)

@@ -3,8 +3,8 @@ nextgen_uia_tpu/nn/attention.py's ``attention_init`` and ``mha``).
 
 The serving path's attention lives in the whole-block kernel
 (ops/fused_block.py). ``mha`` ports the routes of the JAX ``mha`` that take
-the pre-attention LayerNorm (``ln=``), without a generic mask, as the JAX
-package dispatches them on its kernel path:
+the pre-attention LayerNorm (``ln=``), without a generic mask, and the LoRA
+route without it, as the JAX package dispatches them on its kernel path:
   - with ``residual`` and no LoRA (pre-norm blocks): the LN+QKV kernel,
     then the attention+o-projection+residual kernel;
   - with LoRA (``p.lora`` holds q/k/v/o pairs; the JAX package turns the
@@ -13,7 +13,9 @@ package dispatches them on its kernel path:
     flash-attention kernel (forward and backward; the key bias a constant),
     the o-projection plus its LoRA update on the head concat, then the
     residual. Dropout reaches only the LoRA branch's input, one mask per
-    projection, drawn from ``gen`` in train mode or given as ``lora_masks``;
+    projection, drawn from ``gen`` in train mode or given as ``lora_masks``.
+    Without ``ln`` (BERT's post-norm layers: ``residual=x`` and the
+    key-padding bias) the projections read the raw x;
   - without residual (LayerScale blocks, DINOv2), N <= 512: the LN+QKV
     kernel, then the flash-attention kernel, then the o-projection;
   - without it, N > 512 (DINOv2 at 518 px, 1370 tokens): LayerNorm, the
@@ -67,7 +69,7 @@ def _mha_lora(p: Attention, x, *, num_heads, ln, ln_eps, residual, key_padding_b
     masks = dict(lora_masks or {})
     if not masks and gen is not None and lora_dropout > 0.0:
         masks = {t: dropout_mask(gen, lora_dropout, (b, n, d), device=x.device) for t in pairs}
-    z = layernorm(ln, x, eps=ln_eps)
+    z = x if ln is None else layernorm(ln, x, eps=ln_eps)
     dt = z.dtype
 
     def proj(name):
@@ -114,11 +116,13 @@ def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, resid
         block = ops.fused_attn_block if impl == "fused_block" else ops.hybrid_attn_block
         out = block(z, p, heads=num_heads, bias=key_padding_bias, causal=causal)
         return out if residual is None else residual + out
-    if ln is None or mask is not None or causal:
+    lora = "lora" in p._modules
+    if (ln is None and not lora) or mask is not None or causal:
         raise NotImplementedError(
-            "mha: only the LayerNorm routes without a generic mask or causal attention are "
-            "ported to the PyTorch package yet (ROADMAP.md, section A, item 3)")
-    if "lora" in p._modules:
+            "mha: only the LayerNorm routes and the LoRA route, without a generic mask or "
+            "causal attention, are ported to the PyTorch package yet (ROADMAP.md, section A, "
+            "item 3)")
+    if lora:
         return _mha_lora(p, x, num_heads=num_heads, ln=ln, ln_eps=ln_eps, residual=residual,
                          key_padding_bias=key_padding_bias, lora_alpha=lora_alpha,
                          lora_dropout=lora_dropout, gen=gen, lora_masks=lora_masks, ops=ops)

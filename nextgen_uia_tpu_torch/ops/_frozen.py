@@ -1,5 +1,6 @@
 """Helpers the frozen-weight block kernels share: the weight contract, the
-forward-only contract and the LayerNorm backward's recomputed statistics."""
+forward-only contract, the backward by plain recomposition and the
+LayerNorm backward's recomputed statistics."""
 
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.name}: forward only on the card; its backward kernel is not ported "
-            "(ROADMAP.md, section B)")
+            f"{ctx.name}: forward only on the card: the whole-block kernel serves the eval "
+            "and frozen-tower forwards (models/clip.py::infer_cfg), a train forward takes the "
+            "split kernels (ROADMAP.md, section B: no backward of it is queued)")
 
 
 def forward_only(name: str, fn, *inputs):
@@ -45,4 +47,31 @@ def forward_only(name: str, fn, *inputs):
     nothing for inputs that need a gradient."""
     if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in inputs):
         return _ForwardOnly.apply(name, fn, *inputs)
+    return fn(*inputs)
+
+
+class _PlainBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*leaves)
+            grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
+        return (None, None, *(next(grads) if need else None for need in needs))
+
+
+def plain_backward(fn, plain, *inputs):
+    """``fn(*inputs)``, a kernel launch whose backward is autograd through
+    ``plain(*inputs)`` recomputed from the saved inputs: the JAX package
+    differentiates these ops (the post-norm epilogues) by the same plain
+    recomposition in XLA, outside its kernels."""
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad for t in inputs):
+        return _PlainBackward.apply(fn, plain, *inputs)
     return fn(*inputs)

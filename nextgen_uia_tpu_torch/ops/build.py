@@ -44,12 +44,18 @@ SIGNATURES = {
     "nx_attention": [P, P, P, I, I, I, I, I, I, I, F, P],
     # s, freq, kernels, bias, out, dtype, B, H, W, C, stream
     "nx_mona_spatial": [P, P, P, P, P, I, I, I, I, I, P],
+    # x, kernels, out, dtype, B, H, W, C, stream
+    "nx_dwconv7": [P, P, P, I, I, I, I, I, P],
+    # x, kernels, g, dx, dk, dtype, B, H, W, C, stream
+    "nx_dwconv7_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     # s, freq, kernels, g, ds, dk, dfreq_part, dbias, dtype, B, H, W, C, stream
     "nx_mona_spatial_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, beta, w_qkv, b_qkv, z, q, k, v, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     # x, w_qkv, b_qkv, q, k, v, dtype, B, N, H, dh, stream
     "nx_qkv_rawx_fwd": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # w_qkv, dq, dk, dv, dx, dtype, B, N, H, dh, stream
+    "nx_qkv_rawx_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, w_qkv, dq, dk, dv, dz, dx, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     # q, k, v, x, key_bias, wo, bo, cat, out, dtype, B, N, H, dh, n_real, scale, stream
@@ -75,6 +81,8 @@ SIGNATURES = {
     "nx_postnorm_mlp_ln_fwd": [P] * 10 + [I] * 5 + [F, P],
     # x, w1, b1, w2, b2, h, out, dtype, M, D, hidden, act, stream
     "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, w1, b1, w2, g, a, dpre, dx, dtype, M, D, hidden, act, stream
+    "nx_mlp_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, mask, prm, uw, out, stats, zd, zcat, gd, y2, img, dtype, B, N, D, h, w, has_noise,
     # stream
     "nx_mona_fused_fwd": [P] * 11 + [I] * 7 + [P],

@@ -10,6 +10,16 @@ launch the hand-written kernels of csrc/mona_spatial.cu (counted in
 tensor they run ``mona_spatial_plain`` and ``mona_spatial_backward_plain``.
 The backward recomputes from the saved s, freq and kernels, as the JAX
 custom VJP does.
+
+``dwconv7_per_sample`` (counterpart of
+nextgen_uia_tpu/ops/dwconv.py::dwconv7_per_sample) is the bare per-sample
+7x7 depthwise 'SAME' convolution, ``y = dwconv7(x)``, differentiable in x
+and the kernels: the same stencil kernels with no freq, bias or residual
+(counted in ``dwconv7_per_sample.launches`` and
+``dwconv7_per_sample_backward.launches``), on a CPU tensor
+``dwconv7_per_sample_plain`` and ``dwconv7_per_sample_backward_plain``. No
+module of the port calls it: as in the JAX package, MONA's adapter takes the
+fused ``mona_spatial``.
 """
 
 from __future__ import annotations
@@ -63,23 +73,23 @@ def mona_spatial_backward_plain(s, freq, kernels, g):
     return ds, dfreq, dk.to(kernels.dtype), g32.sum((1, 2))
 
 
-def _check_cuda(s, **named):
+def _check_cuda(s, op="mona_spatial", **named):
     b, h, w, c = s.shape
     expect = {"freq": (c,), "kernels": (b, 7, 7, c), "bias": (b, c), "g": (b, h, w, c)}
     for name, t in named.items():
         if tuple(t.shape) != expect[name] or t.device != s.device or t.dtype != s.dtype:
-            raise ValueError(f"mona_spatial: {name} {tuple(t.shape)} {t.dtype} on "
+            raise ValueError(f"{op}: {name} {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}; expected {expect[name]} {s.dtype} on {s.device}")
         if not t.is_contiguous():
-            raise ValueError(f"mona_spatial: {name} is not contiguous")
+            raise ValueError(f"{op}: {name} is not contiguous")
     if s.dtype not in build.DTYPE_CODES or not s.is_contiguous():
-        raise ValueError(f"mona_spatial: s must be contiguous float32 or bfloat16, "
+        raise ValueError(f"{op}: its input must be contiguous float32 or bfloat16, "
                          f"got {s.dtype}")
 
 
-def _check_device(s):
+def _check_device(s, op="mona_spatial"):
     if s.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mona_spatial: unsupported device {s.device}")
+        raise ValueError(f"{op}: unsupported device {s.device}")
 
 
 def _forward_cuda(s, freq, kernels, bias):
@@ -152,3 +162,95 @@ def mona_spatial(s, freq, kernels, bias):
 
 mona_spatial.launches = 0
 mona_spatial_backward.launches = 0
+
+
+def dwconv7_per_sample_plain(x, kernels):
+    """Plain PyTorch version, the JAX package's formulation off the TPU
+    (adapters/mona.py::_dwconv7_per_sample): the batch folded into the
+    channels, one grouped convolution with a group per (channel, sample),
+    float32, cast back to x.dtype.
+
+    x: [B, h, w, C]; kernels: [B, 7, 7, C]."""
+    b, h, w, c = x.shape
+    k = kernels.to(torch.float32).permute(3, 0, 1, 2).reshape(c * b, 1, 7, 7)
+    y = F.conv2d(_grouped(x.to(torch.float32), c, b), k, padding=3, groups=c * b)
+    return y.reshape(c, b, h, w).permute(1, 2, 3, 0).to(x.dtype)
+
+
+def dwconv7_per_sample_backward_plain(x, kernels, g):
+    """Plain (dx, dkernels) of the JAX kernel's ``_bwd_kernel``, float32:
+    dx is g correlated with the flipped kernels, dk[b, di, dj, c] the sum of
+    g times the (di, dj)-shifted x; dx in x.dtype, dk accumulated in float32
+    and cast to the kernels' dtype."""
+    b, h, w, c = x.shape
+    f32 = torch.float32
+    g32 = g.to(f32)
+    k = kernels.to(f32).permute(3, 0, 1, 2).reshape(c * b, 1, 7, 7)
+    dx = F.conv2d(_grouped(g32, c, b), k.flip(-1, -2), padding=3, groups=c * b)
+    dx = dx.reshape(c, b, h, w).permute(1, 2, 3, 0)
+    xp = F.pad(x.to(f32), (0, 0, 3, 3, 3, 3))
+    dk = torch.stack([torch.stack([(g32 * xp[:, di:di + h, dj:dj + w]).sum((1, 2))
+                                   for dj in range(7)], 1) for di in range(7)], 1)
+    return dx.to(x.dtype), dk.to(kernels.dtype)
+
+
+def _dwconv7_cuda(x, kernels):
+    b, h, w, c = x.shape
+    _check_cuda(x, "dwconv7_per_sample", kernels=kernels)
+    out = torch.empty_like(x)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_dwconv7(build.ptr(x, "x"), build.ptr(kernels, "kernels"),
+                                   build.ptr(out), build.DTYPE_CODES[x.dtype], b, h, w, c,
+                                   build.stream(x.device)), "dwconv7_per_sample")
+    dwconv7_per_sample.launches += 1
+    return out
+
+
+def dwconv7_per_sample_backward(x, kernels, g):
+    """(dx, dkernels) for the output gradient g: on a CUDA tensor the
+    backward kernel of csrc/mona_spatial.cu (counted in
+    ``dwconv7_per_sample_backward.launches``; dk float32, cast here), on a
+    CPU tensor ``dwconv7_per_sample_backward_plain``."""
+    _check_device(x, "dwconv7_per_sample")
+    if x.device.type == "cpu":
+        return dwconv7_per_sample_backward_plain(x, kernels, g)
+    b, h, w, c = x.shape
+    g = g.to(x.dtype).contiguous()
+    _check_cuda(x, "dwconv7_per_sample", kernels=kernels, g=g)
+    dx = torch.empty_like(x)
+    dk = torch.empty(b, 7, 7, c, device=x.device, dtype=torch.float32)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        build.check(lib.nx_dwconv7_bwd(
+            build.ptr(x, "x"), build.ptr(kernels, "kernels"), build.ptr(g, "g"), build.ptr(dx),
+            build.ptr(dk), build.DTYPE_CODES[x.dtype], b, h, w, c, build.stream(x.device)),
+            "dwconv7_per_sample backward")
+    dwconv7_per_sample_backward.launches += 1
+    return dx, dk.to(kernels.dtype)
+
+
+class _Dwconv7(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernels):
+        _check_device(x, "dwconv7_per_sample")
+        ctx.save_for_backward(x, kernels)
+        if x.device.type == "cpu":
+            return dwconv7_per_sample_plain(x, kernels)
+        return _dwconv7_cuda(x, kernels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dwconv7_per_sample_backward(*ctx.saved_tensors, g)
+
+
+def dwconv7_per_sample(x, kernels):
+    """Per-sample depthwise 7x7 'SAME' convolution, differentiable.
+
+    x: [B, h, w, C]; kernels: [B, 7, 7, C] (one kernel per sample and
+    channel), of one dtype (float32 or bfloat16). Returns [B, h, w, C]."""
+    return _Dwconv7.apply(x, kernels)
+
+
+dwconv7_per_sample.launches = 0
+dwconv7_per_sample_backward.launches = 0

@@ -18,8 +18,10 @@ With ``post_ln`` (BERT's post-norm layout) the output is LayerNormed:
 
 with the pre-LN sum in float32 until the LayerNorm. On a CUDA tensor
 ``fused_attn_o_residual_postln`` launches its forward kernel (counted in
-``fused_attn_o_residual_postln.launches``); its backward is not ported, so
-autograd reaching it on the card raises.
+``fused_attn_o_residual_postln.launches``). Its backward (dq, dk, dv, dx) is
+autograd through the plain version recomputed from the saved inputs, as the
+JAX kernel's ``_bwd_rule`` differentiates its XLA recomposition: plain
+PyTorch on the card, no kernel of its own.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import math
 import torch
 
 from . import build
-from ._frozen import check_frozen, forward_only, layernorm_parts
+from ._frozen import check_frozen, layernorm_parts, plain_backward
 
 
 def _weights(o, dt):
@@ -152,8 +154,8 @@ def _postln_cuda(q, k, v, x, wo, bo, gamma, beta, bias, n_real, eps):
 def fused_attn_o_residual_postln(q, k, v, x, o, ln, *, heads: int, bias=None,
                                  n_real: int | None = None, eps: float = 1e-12):
     """LN(x + Wo(attention(q, k, v)) + bo), the post-norm epilogue; the
-    kernel on a CUDA tensor (forward only), the plain version on a CPU
-    tensor."""
+    kernel on a CUDA tensor (its backward autograd through the plain
+    version), the plain version on a CPU tensor."""
     n_real = q.shape[2] if n_real is None else n_real
     if x.device.type == "cpu":
         return fused_attn_o_residual_plain(q, k, v, x, o, heads=heads, bias=bias,
@@ -162,9 +164,10 @@ def fused_attn_o_residual_postln(q, k, v, x, o, ln, *, heads: int, bias=None,
         raise ValueError(f"fused_attn_o_residual_postln: unsupported device {x.device}")
     wo, bo = _weights(o, x.dtype)
     gamma, beta = (t.detach().to(torch.float32).contiguous() for t in (ln.scale, ln.bias))
-    return forward_only(
-        "fused_attn_o_residual_postln",
-        lambda *t: _postln_cuda(*t, wo, bo, gamma, beta, bias, n_real, eps), q, k, v, x)
+    return plain_backward(
+        lambda *t: _postln_cuda(*t, wo, bo, gamma, beta, bias, n_real, eps),
+        lambda *t: fused_attn_o_residual_plain(*t, o, heads=heads, bias=bias, n_real=n_real,
+                                               post_ln=ln, ln_eps=eps), q, k, v, x)
 
 
 def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | None = None):
@@ -226,9 +229,9 @@ def fused_attn_o_residual(q, k, v, x, o, *, heads: int, bias=None,
     LayerNormed with ``post_ln`` (``fused_attn_o_residual_postln``).
 
     bias: optional additive [B, N] key bias (constant: no gradient); keys at
-    or beyond ``n_real`` are masked. Differentiable in q, k, v and x without
-    ``post_ln``; the o-projection (and the LayerNorm) are frozen (raises if
-    one requires grad).
+    or beyond ``n_real`` are masked. Differentiable in q, k, v and x; the
+    o-projection (and the LayerNorm) are frozen (raises if one requires
+    grad).
     """
     if q.shape[1] != heads:
         raise ValueError(f"fused_attn_o_residual: q has {q.shape[1]} heads, not {heads}")

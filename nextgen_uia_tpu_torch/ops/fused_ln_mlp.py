@@ -17,8 +17,10 @@ plain versions below. The backward recomputes fc1 from the saved x.
     out = LN(x + fc2(act(fc1(x))))
 
 with the residual sum in float32 until the LayerNorm. On a CUDA tensor it
-launches its forward kernel (counted in ``fused_postnorm_mlp_ln.launches``);
-its backward is not ported, so autograd reaching it on the card raises.
+launches its forward kernel (counted in ``fused_postnorm_mlp_ln.launches``).
+Its backward (dx) is autograd through the plain version recomputed from the
+saved x, as the JAX kernel's ``_postnorm_bwd_rule`` differentiates its XLA
+recomposition: plain PyTorch on the card, no kernel of its own.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-from ._frozen import check_frozen, forward_only, layernorm_parts
+from ._frozen import check_frozen, layernorm_parts, plain_backward
 
 
 def act_grad(act: str, a):
@@ -213,8 +215,9 @@ def _postnorm_cuda(x, w1, b1, w2, b2, gamma, beta, act, eps):
 
 def fused_postnorm_mlp_ln(x, mlp, ln, *, act: str = "gelu", eps: float = 1e-12):
     """x [..., D] -> LN(x + fc2(act(fc1(x)))) with frozen weights (raises
-    if any requires grad); the kernel on a CUDA tensor (forward only), the
-    plain version on a CPU tensor."""
+    if any requires grad); the kernel on a CUDA tensor (its backward
+    autograd through the plain version), the plain version on a CPU
+    tensor."""
     check_frozen("fused_postnorm_mlp_ln", ln.scale, ln.bias, mlp.fc1.w, mlp.fc1.b,
                  mlp.fc2.w, mlp.fc2.b)
     if x.device.type == "cpu":
@@ -222,9 +225,9 @@ def fused_postnorm_mlp_ln(x, mlp, ln, *, act: str = "gelu", eps: float = 1e-12):
     if x.device.type != "cuda":
         raise ValueError(f"fused_postnorm_mlp_ln: unsupported device {x.device}")
     gamma, beta, w1, b1, w2, b2 = _weights(ln, mlp, x.dtype)
-    return forward_only(
-        "fused_postnorm_mlp_ln",
-        lambda x_: _postnorm_cuda(x_, w1, b1, w2, b2, gamma, beta, act, eps), x.contiguous())
+    return plain_backward(
+        lambda x_: _postnorm_cuda(x_, w1, b1, w2, b2, gamma, beta, act, eps),
+        lambda x_: fused_postnorm_mlp_ln_plain(x_, mlp, ln, act=act, eps=eps), x.contiguous())
 
 
 fused_postnorm_mlp_ln.launches = 0

@@ -12,10 +12,12 @@ csrc/fused_ln_qkv.cu (counted in ``fused_ln_qkv.launches`` and
 recomputes from the saved x.
 
 With ``ln=None`` the projections act on the raw x (the JAX kernel's
-post-norm variant, which BERT's frozen text tower runs): on a CUDA tensor
-``fused_ln_qkv_rawx`` launches its forward kernel (counted in
-``fused_ln_qkv_rawx.launches``); its backward is not ported, so autograd
-reaching it on the card raises.
+post-norm variant, which BERT's text tower runs): ``fused_ln_qkv_rawx`` is
+differentiable in x, its backward dx = [dq|dk|dv] @ [Wq|Wk|Wv]^T with no
+LayerNorm backward; on a CUDA tensor its forward and backward launch their
+kernels (counted in ``fused_ln_qkv_rawx.launches`` and
+``fused_ln_qkv_rawx_backward.launches``), on a CPU tensor the plain versions
+run.
 """
 
 from __future__ import annotations
@@ -23,16 +25,22 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._frozen import check_frozen, forward_only, layernorm_parts
+from ._frozen import check_frozen, layernorm_parts
+
+
+def _rawx_weights(attn, dt):
+    """(w_qkv [D, 3D] in dt, b_qkv [3D] float32), detached (frozen)."""
+    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
+    b = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(torch.float32).contiguous()
+    return w, b
 
 
 def _weights(ln, attn, dt):
     """(gamma, beta, w_qkv [D, 3D] in dt, b_qkv [3D]) as the kernels take
     them; float32 vectors, detached (the weights are frozen)."""
     f32 = torch.float32
-    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
-    b = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(f32).contiguous()
-    return ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(), w, b
+    return (ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(),
+            *_rawx_weights(attn, dt))
 
 
 def fused_ln_qkv_plain(x, ln, attn, *, heads: int, eps: float = 1e-5):
@@ -53,6 +61,12 @@ def fused_ln_qkv_plain(x, ln, attn, *, heads: int, eps: float = 1e-5):
                  for lin in (attn.q, attn.k, attn.v))
 
 
+def _head_cat(dq, dk, dv):
+    """Head-major [B, H, N, dh] gradients -> token-major [B*N, 3D]."""
+    b, h, n, dh = dq.shape
+    return torch.cat([t.transpose(1, 2).reshape(b * n, h * dh) for t in (dq, dk, dv)], dim=-1)
+
+
 def fused_ln_qkv_backward_plain(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-5):
     """Plain dx of the JAX kernel's ``_bwd_kernel``: dz = sum over q/k/v of
     dy @ W^T (dy = heads concatenated, rounded to x.dtype; float32 sums),
@@ -62,13 +76,25 @@ def fused_ln_qkv_backward_plain(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-
     """
     b, n, d = x.shape
     dt, f32 = x.dtype, torch.float32
-    dy = torch.cat([g.transpose(1, 2).reshape(b, n, d) for g in (dq, dk, dv)], dim=-1)
+    dy = _head_cat(dq, dk, dv).reshape(b, n, 3 * d)
     dz = dy.to(dt).to(f32) @ w_qkv.to(dt).to(f32).T
     xhat, rstd = layernorm_parts(x, eps)
     dxhat = dz * gamma.to(f32)
     m1 = dxhat.mean(-1, keepdim=True)
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
     return ((dxhat - m1 - xhat * m2) * rstd).to(dt)
+
+
+def fused_ln_qkv_rawx_backward_plain(w_qkv, dq, dk, dv, *, dtype):
+    """Plain dx of the JAX kernel's ``_bwd_kernel`` with ``has_ln=False``:
+    the heads concatenated and rounded to ``dtype`` (x's), dx = sum over
+    q/k/v of dy @ W^T (float32 sums), rounded once.
+
+    w_qkv [D, 3D]; dq, dk, dv [B, H, N, dh] -> dx [B, N, D]."""
+    b, h, n, dh = dq.shape
+    f32 = torch.float32
+    dy = _head_cat(dq, dk, dv).to(dtype).to(f32)
+    return (dy @ w_qkv.to(dtype).to(f32).T).to(dtype).reshape(b, n, h * dh)
 
 
 def _check_cuda(x, heads):
@@ -98,18 +124,51 @@ def _rawx_cuda(x, w_qkv, b_qkv, heads):
     return q, k, v
 
 
+def fused_ln_qkv_rawx_backward(w_qkv, dq, dk, dv, *, dtype):
+    """dx [B, N, D] (``dtype``, x's) for (dq, dk, dv): on a CUDA tensor the
+    backward kernel of csrc/fused_ln_qkv.cu (counted in
+    ``fused_ln_qkv_rawx_backward.launches``), on a CPU tensor
+    ``fused_ln_qkv_rawx_backward_plain``."""
+    if dq.device.type == "cpu":
+        return fused_ln_qkv_rawx_backward_plain(w_qkv, dq, dk, dv, dtype=dtype)
+    if dq.device.type != "cuda":
+        raise ValueError(f"fused_ln_qkv_rawx: unsupported device {dq.device}")
+    b, h, n, dh = dq.shape
+    dx = torch.empty(b, n, h * dh, device=dq.device, dtype=dtype)
+    _check_cuda(dx, h)
+    dq, dk, dv = (t.to(dtype).contiguous() for t in (dq, dk, dv))
+    w_qkv = w_qkv.to(dtype).contiguous()
+    lib = build.library()
+    with torch.cuda.device(dq.device):
+        build.check(lib.nx_qkv_rawx_bwd(
+            build.ptr(w_qkv), build.ptr(dq, "dq"), build.ptr(dk, "dk"), build.ptr(dv, "dv"),
+            build.ptr(dx), build.DTYPE_CODES[dtype], b, n, h, dh, build.stream(dq.device)),
+            "fused_ln_qkv_rawx backward")
+    fused_ln_qkv_rawx_backward.launches += 1
+    return dx
+
+
+class _QkvRawx(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, attn, heads):
+        # the frozen weights are built once, in forward, for both passes
+        w_qkv, b_qkv = _rawx_weights(attn, x.dtype)
+        ctx.w_qkv, ctx.dtype = w_qkv, x.dtype
+        if x.device.type == "cpu":
+            return fused_ln_qkv_plain(x, None, attn, heads=heads)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_ln_qkv_rawx: unsupported device {x.device}")
+        return _rawx_cuda(x.contiguous(), w_qkv, b_qkv, heads)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        return fused_ln_qkv_rawx_backward(ctx.w_qkv, dq, dk, dv, dtype=ctx.dtype), None, None
+
+
 def fused_ln_qkv_rawx(x, attn, *, heads: int):
     """x [B, N, D] -> (q, k, v) = x @ W{q,k,v} + b{q,k,v}, head-major, with
-    no LayerNorm (post-norm towers); forward only on the card."""
-    if x.device.type == "cpu":
-        return fused_ln_qkv_plain(x, None, attn, heads=heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ln_qkv_rawx: unsupported device {x.device}")
-    f32, dt = torch.float32, x.dtype
-    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
-    bias = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(f32).contiguous()
-    return forward_only("fused_ln_qkv_rawx", lambda x_: _rawx_cuda(x_, w, bias, heads),
-                        x.contiguous())
+    no LayerNorm (post-norm towers); differentiable in x."""
+    return _QkvRawx.apply(x, attn, heads)
 
 
 def _forward_cuda(x, gamma, beta, w_qkv, b_qkv, heads, eps):
@@ -189,4 +248,5 @@ def fused_ln_qkv(x, ln, attn, *, heads: int, eps: float = 1e-5):
 
 fused_ln_qkv.launches = 0
 fused_ln_qkv_rawx.launches = 0
+fused_ln_qkv_rawx_backward.launches = 0
 fused_ln_qkv_backward.launches = 0

@@ -1,13 +1,16 @@
-"""MLP with frozen weights, forward (counterpart of
+"""MLP with frozen weights, forward and dx backward (counterpart of
 nextgen_uia_tpu/ops/fused_mlp.py::fused_mlp):
 
     out = fc2(act(fc1 x + b1)) + b2
 
 float32 sums, the hidden activation rounded to x.dtype, exact erf GELU or
-quick_gelu. On a CUDA tensor the hand-written kernel of csrc/fused_mlp.cu
-runs (counted in ``fused_mlp.launches``) for any row count; on a CPU tensor
-``fused_mlp_plain`` runs and autograd differentiates it. The backward kernel
-is not ported: on the card, autograd reaching it raises.
+quick_gelu. The backward gives dx only (the weights are frozen, as in the
+JAX kernel's custom VJP): fc1 recomputed from the saved x, dpre = (g @
+W2^T) * act'(a) rounded to x.dtype, dx = dpre @ W1^T. ``fused_mlp`` is
+differentiable in x: on a CUDA tensor its forward and backward launch the
+hand-written kernels of csrc/fused_mlp.cu for any row count (counted in
+``fused_mlp.launches`` and ``fused_mlp_backward.launches``); on a CPU tensor
+they run ``fused_mlp_plain`` and ``fused_mlp_backward_plain``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from ..nn.layers import ACTIVATIONS
 from . import build
 from ._frozen import check_frozen
+from .fused_ln_mlp import act_grad
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2, *, act: str = "gelu"):
@@ -28,8 +32,20 @@ def fused_mlp_plain(x, w1, b1, w2, b2, *, act: str = "gelu"):
     return (h.to(f32) @ w2.to(dt).to(f32) + b2.to(f32)).to(dt)
 
 
-def _forward_cuda(x, w1, b1, w2, b2, act):
-    d, hidden = x.shape[-1], w1.shape[1]
+def fused_mlp_backward_plain(x, w1, b1, w2, g, *, act: str = "gelu"):
+    """Plain dx of the JAX kernel's ``_bwd_kernel``: a = x @ W1 + b1
+    (float32), dpre = (g @ W2^T) * act'(a) with g rounded to x.dtype and
+    dpre rounded to x.dtype, dx = dpre @ W1^T (float32 sums, rounded once).
+
+    x, g [..., D]; w1 [D, Hd]; b1 [Hd]; w2 [Hd, D]."""
+    dt, f32 = x.dtype, torch.float32
+    a = x.to(f32) @ w1.to(dt).to(f32) + b1.to(f32)
+    dpre = ((g.to(dt).to(f32) @ w2.to(dt).to(f32).T) * act_grad(act, a)).to(dt)
+    return (dpre.to(f32) @ w1.to(dt).to(f32).T).to(dt)
+
+
+def _check_cuda(x, hidden, act):
+    d = x.shape[-1]
     problems = []
     if x.dtype not in build.DTYPE_CODES:
         problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
@@ -39,10 +55,22 @@ def _forward_cuda(x, w1, b1, w2, b2, act):
         problems.append(f"activation {act!r}")
     if problems:
         raise ValueError("fused_mlp CUDA kernel does not take: " + "; ".join(problems))
-    dt, m = x.dtype, x.numel() // d
-    xm = x.contiguous().reshape(m, d)
+
+
+def _kernel_weights(w1, b1, w2, b2, dt):
+    """(w1, b1, w2, b2) as the kernels take them: the matrices in dt, the
+    biases float32, detached (frozen)."""
     w1, w2 = w1.detach().to(dt).contiguous(), w2.detach().to(dt).contiguous()
     b1, b2 = (t.detach().to(torch.float32).contiguous() for t in (b1, b2))
+    return w1, b1, w2, b2
+
+
+def _forward_cuda(x, w1, b1, w2, b2, act):
+    d, hidden = x.shape[-1], w1.shape[1]
+    _check_cuda(x, hidden, act)
+    dt, m = x.dtype, x.numel() // d
+    xm = x.contiguous().reshape(m, d)
+    w1, b1, w2, b2 = _kernel_weights(w1, b1, w2, b2, dt)
     h = torch.empty(m, hidden, device=x.device, dtype=dt)
     out = torch.empty(m, d, device=x.device, dtype=dt)
     lib = build.library()
@@ -55,29 +83,63 @@ def _forward_cuda(x, w1, b1, w2, b2, act):
     return out.reshape(x.shape)
 
 
+def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu"):
+    """dx for the output gradient g: on a CUDA tensor the backward kernels
+    of csrc/fused_mlp.cu (counted in ``fused_mlp_backward.launches``), on a
+    CPU tensor ``fused_mlp_backward_plain``. Weights already in x.dtype
+    (w1, w2) and float32 (b1), as ``_FusedMlp`` keeps them, are not copied."""
+    if x.device.type == "cpu":
+        return fused_mlp_backward_plain(x, w1, b1, w2, g, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    d, hidden = x.shape[-1], w1.shape[1]
+    _check_cuda(x, hidden, act)
+    dt, m, dev = x.dtype, x.numel() // d, x.device
+    xm, g = x.contiguous().reshape(m, d), g.to(dt).contiguous().reshape(m, d)
+    w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    b1 = b1.to(torch.float32).contiguous()
+    a = torch.empty(m, hidden, device=dev, dtype=torch.float32)
+    dpre = torch.empty(m, hidden, device=dev, dtype=dt)
+    dx = torch.empty(m, d, device=dev, dtype=dt)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.check(lib.nx_mlp_bwd(
+            build.ptr(xm, "x"), build.ptr(w1), build.ptr(b1), build.ptr(w2), build.ptr(g, "g"),
+            build.ptr(a), build.ptr(dpre), build.ptr(dx), build.DTYPE_CODES[dt], m, d, hidden,
+            build.ACT_CODES[act], build.stream(dev)), "fused_mlp backward")
+    fused_mlp_backward.launches += 1
+    return dx.reshape(x.shape)
+
+
 class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, act):
+        ctx.save_for_backward(x)
+        ctx.act = act
+        if x.device.type == "cpu":
+            ctx.weights = w1, b1, w2
+            return fused_mlp_plain(x, w1, b1, w2, b2, act=act)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_mlp: unsupported device {x.device}")
+        # the frozen weights are cast once, in forward, for both passes
+        w1, b1, w2, b2 = _kernel_weights(w1, b1, w2, b2, x.dtype)
+        ctx.weights = w1, b1, w2
         return _forward_cuda(x, w1, b1, w2, b2, act)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "fused_mlp: the backward kernel (K10 backward) is not ported yet; it comes with "
-            "the first slice that differentiates it, LoRA (ROADMAP.md, section B, K10, and "
-            "section A, item 4)")
+        (x,) = ctx.saved_tensors
+        dx = fused_mlp_backward(x, *ctx.weights, g, act=ctx.act)
+        return dx, None, None, None, None, None
 
 
 def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu"):
     """x [..., D] -> fc2(act(fc1 x)) [..., D] with frozen weights (raises if
-    any requires grad); the kernel on a CUDA tensor, ``fused_mlp_plain`` on
-    a CPU tensor."""
+    any requires grad); differentiable in x. The kernels on a CUDA tensor,
+    the plain versions on a CPU tensor."""
     check_frozen("fused_mlp", w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, b1, w2, b2, act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: unsupported device {x.device}")
     return _FusedMlp.apply(x, w1, b1, w2, b2, act)
 
 
 fused_mlp.launches = 0
+fused_mlp_backward.launches = 0

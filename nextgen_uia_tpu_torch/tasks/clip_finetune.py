@@ -13,15 +13,24 @@ forward-only kernels; the best-by-validation-loss checkpoint holding only
 the adapter tensors; early stop; ``--resume`` from the full train state and
 SIGTERM preemption.
 
-The text towers run forward only: the CLIP text transformer (openai,
-metaclip; context 77) through the whole-block kernel with the causal mask,
-BiomedCLIP's PubMedBERT (context 256) through its post-norm kernels
-(models/bert.py). BiomedCLIP takes the PubMedBERT tokenizer where its
-HuggingFace files are cached, else the folded CLIP-BPE fallback, which a
-full-size run refuses unless NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
+The frozen text towers run forward only: the CLIP text transformer
+(openai, metaclip; context 77) through the whole-block kernel with the
+causal mask, BiomedCLIP's PubMedBERT (context 256) through its post-norm
+kernels (models/bert.py). With ``--tune_text_encoder`` BiomedCLIP's text is
+encoded in the step, never cached, through the BERT tower under autograd
+with its own dropout stream (the JAX step splits its key for it): with
+``--method lora`` LoRA pairs sit in BERT's q/k/v/o of the first
+``--lora_layers`` layers and train with those attentions' biases (the
+LoRA layers' MLP runs the fused MLP kernel's backward, the layers above
+them K5 raw-x's), with ``--method mona`` the tower stays frozen; the
+validation text goes through the forward-only route. BiomedCLIP takes the
+PubMedBERT tokenizer where its HuggingFace files are cached, else the folded
+CLIP-BPE fallback, which a full-size run refuses unless
+NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
 
 Not ported, each refused naming its ROADMAP.md item: ``--method full``,
-``--tune_text_encoder``, ``--chain_zero_shot``, ``--n_data``/``--n_model``,
+``--tune_text_encoder`` for the OpenAI-layout families (the CLIP text
+tower's composed route), ``--chain_zero_shot``, ``--n_data``/``--n_model``,
 the UniMedCLIP family and retrieval.
 """
 
@@ -114,9 +123,9 @@ def _refuse_unported(args, family):
     if args.method == "full":
         raise not_ported("--method full (the eager block route that trains the tower's "
                          "weights)", "section A, item 3")
-    if args.tune_text_encoder:
-        raise not_ported("--tune_text_encoder (the differentiable text tower, K10 backward)",
-                         "section A, item 10")
+    if args.tune_text_encoder and family != "biomedclip":
+        raise not_ported("--tune_text_encoder for the OpenAI-layout families (the CLIP text "
+                         "tower's composed route)", "section A, item 17")
     if args.chain_zero_shot:
         raise not_ported("--chain_zero_shot (zero-shot of the CLIP families)",
                          "section A, item 10")
@@ -193,19 +202,27 @@ def finetune_main(family: str, argv=None):
     params.to(device)
     eval_cfg = clip_mod.infer_cfg(cfg)
     encode_text = make_text_encoder(params, cfg, device)
+    use_text_cache = args.cache_text_features and not args.tune_text_encoder
     text_cache = {}
-    if args.cache_text_features:
+    if use_text_cache:
         captions = sorted({c for rows in (train_rows, val_rows) for _, c in rows})
         text_cache = cache_text_features(encode_text, tokenizer, captions, ctx)
         logging.info(f"Cached text features for {len(captions)} captions")
 
     def text_features(batch):
-        return batch["txt_feat"] if args.cache_text_features else encode_text(batch["tokens"])
+        return batch["txt_feat"] if use_text_cache else encode_text(batch["tokens"])
+
+    # the text tower's own dropout stream under --tune_text_encoder
+    text_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
 
     def loss_fn(mb, g):
         x = mb["image"].to(torch.float32) / 255.0
         img_feats, _ = clip_mod.encode_image(params, cfg, x, gen=g)
-        return info_nce(img_feats, text_features(mb), temperature=args.temperature)
+        if args.tune_text_encoder:
+            txt_feats = clip_mod.encode_text(params, cfg, mb["tokens"], gen=text_gen)
+        else:
+            txt_feats = text_features(mb)
+        return info_nce(img_feats, txt_feats, temperature=args.temperature)
 
     @torch.no_grad()
     def val_loss(batch):
@@ -219,7 +236,7 @@ def finetune_main(family: str, argv=None):
     def tokenized_batches(ds, shuffle, drop_last, seed, skip_batches=0):
         for b in P.batches(ds, args.batch_size, shuffle=shuffle, drop_last=drop_last,
                            seed=seed, workers=args.num_workers, skip_batches=skip_batches):
-            if args.cache_text_features:
+            if use_text_cache:
                 b["txt_feat"] = np.stack([text_cache[c] for c in b["caption"]])
             else:
                 b["tokens"] = trim_token_padding(np.asarray(tokenizer(b["caption"], ctx)),

@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from ..adapters.lora import inject_lora
+from ..adapters.lora import inject_lora, inject_lora_bert
 from ..adapters.mona import inject_mona
 from ..core import checkpoint as ckpt
 from ..data.tokenizer import ClipTokenizer, load_hf_tokenizer
@@ -196,7 +196,8 @@ def sniff_adapter_kind(path: str):
 def build_clip_model(args, family: str, *, adapter: str | None = None,
                      gen: torch.Generator | None = None):
     """Assemble (cfg, CLIP module on CPU): config, random or converted
-    weights, LoRA or MONA injection and the optional adapter weight load.
+    weights, LoRA (with ``--tune_text_encoder`` in BERT's layers too) or
+    MONA injection and the optional adapter weight load.
 
     An adapter checkpoint passed through the other adapter's flag is routed
     by its key paths, and a LoRA checkpoint's rank and layer count override
@@ -248,6 +249,11 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
         _, n = inject_lora(gen, params.visual, dim=cfg.vision.width, r=lora_r,
                            num_layers=lora_layers)
         logging.info(f"Injected LoRA into {n} blocks (r={lora_r}, alpha={args.lora_alpha})")
+        if getattr(args, "tune_text_encoder", False) and cfg.text_kind == "bert":
+            # the reference's --tune_text_encoder: LoRA on BERT's q/k/v/o too
+            _, n = inject_lora_bert(gen, params.text, dim=cfg.text.width, r=lora_r,
+                                    num_layers=lora_layers)
+            logging.info(f"Injected LoRA into {n} text-encoder layers")
         if args.lora_weights:
             _, n = ckpt.load_into(args.lora_weights, params)
             logging.info(f"Loaded {n} LoRA tensors from {args.lora_weights}")

@@ -280,7 +280,7 @@ def test_finetune_refuses_what_is_not_ported(ftdata):
     from nextgen_uia_tpu_torch.tasks.common import get_text_tokenizer
 
     base = _argv(ftdata, "ft_refuse")
-    for extra, item in ((["--method", "full"], "item 3"), (["--tune_text_encoder"], "item 10"),
+    for extra, item in ((["--method", "full"], "item 3"), (["--tune_text_encoder"], "item 17"),
                         (["--chain_zero_shot", "BUSI"], "item 10"),
                         (["--n_data", "2"], "item 14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

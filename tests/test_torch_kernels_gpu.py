@@ -17,7 +17,10 @@ post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) with a
 key-padding bias that leaves one row wholly padded: float32 1e-4 *
 max|ref|, bfloat16 3e-2 * max(1, max|ref|); ``bert_apply`` by the chain
 and by the whole-layer route against its plain path, and autograd reaching
-any forward-only kernel on the card raises. The whole MONA adapter (K12),
+K1 post-norm on the card raises. K10's and K5 raw-x's backward kernels and
+K4 (forward, dx, dk) against their plain versions, float32 1e-4 * max|ref|,
+bfloat16 3e-2 * max(1, max|ref|); the BERT tower with LoRA in one of two
+layers, float32, every LoRA and bias gradient against the plain path. The whole MONA adapter (K12),
 forward and backward, against its plain versions on the same inputs:
 output and dx 1e-4 * max|ref| (float32) or 3e-2 * max|ref| (bfloat16), each
 parameter gradient within 1e-4 * the largest max|ref| and 3e-2 * its own
@@ -296,9 +299,9 @@ def test_augmentation_plan_kernel_path_equals_plain_path(cuda):
 
 
 def test_k7_k10_backward_refuses_on_the_card(cuda):
-    """K10's backward is not ported: autograd reaching it on the card
-    raises. K7's backward kernel is ported; it refuses saved state it does
-    not take (here an lse of the wrong shape) instead of falling back."""
+    """K7's and K10's backward kernels refuse what they do not take (an lse
+    of the wrong shape; float16, a width not a multiple of 64) instead of
+    falling back to a plain version."""
     from nextgen_uia_tpu_torch.ops import flash_attention as fa
     from nextgen_uia_tpu_torch.ops import fused_mlp as fm
 
@@ -306,11 +309,13 @@ def test_k7_k10_backward_refuses_on_the_card(cuda):
     out, lse = fa.flash_attention_forward(q, q, q, layout="bhnd")
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_backward(q, q, q, out, out, lse[:, :1], layout="bhnd")
-    x = torch.randn(8, 64, device=cuda, requires_grad=True)
-    w1, w2 = torch.randn(64, 128, device=cuda), torch.randn(128, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fm.fused_mlp(x, w1, torch.zeros(128, device=cuda), w2,
-                     torch.zeros(64, device=cuda)).sum().backward()
+    w1, w2, b1 = (torch.randn(64, 128, device=cuda), torch.randn(128, 64, device=cuda),
+                  torch.zeros(128, device=cuda))
+    x = torch.randn(8, 64, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.fused_mlp_backward(x.half(), w1, b1, w2, x.half())
+    with pytest.raises(ValueError, match="does not take"):
+        fm.fused_mlp_backward(x[:, :48], w1[:48], b1, w2[:, :48], x[:, :48])
 
 
 @pytest.mark.parametrize("layout,b,h,n,bias,causal,dtype,bias_grad", [
@@ -527,19 +532,132 @@ def test_bert_apply_kernels_match_plain(cuda, monkeypatch, route):
 
 
 def test_bert_forward_only_kernels_refuse_autograd_on_the_card(cuda):
-    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
-
+    """K1 post-norm, the eval route's whole layer, is forward only: autograd
+    reaching it raises. The chain's three ops differentiate on the card
+    (test_bert_chain_backward_matches_plain)."""
     layer = _bert_layer(cuda, 128, 2, 512)
     x = torch.randn(2, 16, 128, device=cuda, requires_grad=True)
-    q = torch.randn(2, 2, 16, 64, device=cuda, requires_grad=True)
-    outs = [fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=2)[0],
-            fused_attn_o.fused_attn_o_residual(q, q, q, x, layer.attn.o, heads=2,
-                                               post_ln=layer.attn_ln),
-            fused_ln_mlp.fused_postnorm_mlp_ln(x, layer.ffn, layer.ffn_ln),
-            fb.fused_block_infer(x, layer, heads=2, eps=1e-12, layout="postnorm")]
-    for out in outs:
-        with pytest.raises(NotImplementedError, match="forward only.*ROADMAP"):
-            out.sum().backward()
+    out = fb.fused_block_infer(x, layer, heads=2, eps=1e-12, layout="postnorm")
+    with pytest.raises(NotImplementedError, match="forward only.*ROADMAP"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("m,d,hidden,act,dtype", [
+    (4096, 768, 3072, "gelu", torch.bfloat16), (4096, 768, 3072, "gelu", torch.float32),
+    (77, 128, 512, "quick_gelu", torch.float32), (203, 128, 512, "gelu", torch.bfloat16)])
+def test_fused_mlp_backward_kernel_matches_plain(cuda, m, d, hidden, act, dtype):
+    """K10's backward (dx) against fused_mlp_backward_plain, one launch,
+    and autograd through fused_mlp reaching it."""
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(m + d)
+    x, g = (_rounded(torch.randn(m, d, generator=gen).to(cuda), dtype) for _ in range(2))
+    w1 = _rounded(torch.randn(d, hidden, generator=gen).to(cuda) / d ** 0.5, dtype)
+    w2 = _rounded(torch.randn(hidden, d, generator=gen).to(cuda) / hidden ** 0.5, dtype)
+    b1, b2 = (0.1 * torch.randn(n, generator=gen).to(cuda) for n in (hidden, d))
+    before = fm.fused_mlp_backward.launches
+    with torch.no_grad():
+        _check(lambda *t: fm.fused_mlp_backward(*t, act=act),
+               lambda *t: fm.fused_mlp_backward_plain(*t, act=act),
+               [x.to(dtype), w1, b1, w2, g.to(dtype)], [x, w1, b1, w2, g])
+    xx = x.to(dtype).requires_grad_()
+    (fm.fused_mlp(xx, w1, b1, w2, b2, act=act).float() * g).sum().backward()
+    assert fm.fused_mlp_backward.launches == before + 2
+    want = fm.fused_mlp_backward_plain(x, w1, b1, w2, g, act=act)
+    _check(lambda: xx.grad, lambda: want, [])
+
+
+@pytest.mark.parametrize("b,n,width,heads", [(16, 256, 768, 12), (3, 40, 128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qkv_rawx_backward_kernel_matches_plain(cuda, b, n, width, heads, dtype):
+    """K5 raw-x's backward (dx from head-major dq, dk, dv) against its plain
+    version, one launch, and autograd through fused_ln_qkv with ln=None."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+
+    layer = _bert_layer(cuda, width, heads, 4 * width)
+    gen = torch.Generator().manual_seed(n + b)
+    dy = [_rounded(torch.randn(b, heads, n, width // heads, generator=gen).to(cuda), dtype)
+          for _ in range(3)]
+    w, _ = fused_ln_qkv._rawx_weights(layer.attn, torch.float32)
+    before = fused_ln_qkv.fused_ln_qkv_rawx_backward.launches
+    _check(lambda *t: fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *t, dtype=dtype),
+           lambda *t: fused_ln_qkv.fused_ln_qkv_rawx_backward_plain(w, *t, dtype=torch.float32),
+           [t.to(dtype) for t in dy], dy)
+    x = torch.randn(b, n, width, generator=gen).to(cuda).to(dtype).requires_grad_()
+    outs = fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=heads)
+    sum((o.float() * t).sum() for o, t in zip(outs, dy)).backward()
+    assert fused_ln_qkv.fused_ln_qkv_rawx_backward.launches == before + 2
+    want = fused_ln_qkv.fused_ln_qkv_rawx_backward_plain(w, *dy, dtype=torch.float32)
+    _check(lambda: x.grad, lambda: want, [])
+
+
+@pytest.mark.parametrize("shape", [(64, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwconv7_kernels_match_plain(cuda, shape, dtype):
+    """K4 forward and backward (dx, dk) against their plain versions: float32
+    1e-4 * max|ref|, bf16 3e-2 * max(1, max|ref|); one launch each."""
+    from nextgen_uia_tpu_torch.ops import dwconv
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    x, g = (_rounded(torch.randn(*shape, generator=gen).to(cuda), dtype) for _ in range(2))
+    k = _rounded(0.2 * torch.randn(shape[0], 7, 7, shape[3], generator=gen).to(cuda), dtype)
+    counts = (dwconv.dwconv7_per_sample.launches, dwconv.dwconv7_per_sample_backward.launches)
+    with torch.no_grad():
+        _check(dwconv.dwconv7_per_sample, dwconv.dwconv7_per_sample_plain,
+               [x.to(dtype), k.to(dtype)], [x, k])
+        _check(dwconv.dwconv7_per_sample_backward, dwconv.dwconv7_per_sample_backward_plain,
+               [x.to(dtype), k.to(dtype), g.to(dtype)], [x, k, g])
+    assert (dwconv.dwconv7_per_sample.launches, dwconv.dwconv7_per_sample_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+
+
+def test_bert_chain_backward_matches_plain(cuda):
+    """The full-width tower (depth 2) with LoRA in layer 0 only, float32 on
+    padded captions: layer 1 runs the chain (K5 raw-x, K6 post-LN, K9) and
+    its backwards (K5 raw-x's kernel; K6 post-LN's and K9's by plain
+    recomposition), layer 0 the LoRA route (K7, K10 and their backwards);
+    every LoRA and bias gradient against the plain path within 1e-4 * the
+    largest max|ref| (and 3e-2 * its own but for the key bias, whose exact
+    gradient is zero)."""
+    from nextgen_uia_tpu_torch.adapters.lora import inject_lora_bert
+    from nextgen_uia_tpu_torch.core.partition import partition
+    from nextgen_uia_tpu_torch.models import bert
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN, fused_ln_qkv
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+
+    cfg = bert.BertConfig(depth=2)
+    gen = torch.Generator().manual_seed(0)
+    tower = bert.bert_init(gen, cfg)
+    inject_lora_bert(gen, tower, dim=768, num_layers=1)
+    with torch.no_grad():
+        for pair in tower.layers[0].attn.lora.children():
+            pair.b.normal_(0.0, 0.02, generator=gen)
+    lora_attn = "layers/0/attn/"
+    train, _ = partition(tower, lambda p: "lora" in p or (p.startswith(lora_attn)
+                                                         and p.endswith("/b")))
+    tower.to(cuda)
+    ids = torch.randint(1, 30000, (4, 96), generator=gen)
+    for i, n in enumerate((3, 40, 96, 17)):
+        ids[i, n:] = 0
+    ids = ids.to(cuda)
+
+    def grads(ops):
+        for t in train.values():
+            t.grad = None
+        bert.bert_apply(tower, cfg, ids, ops=ops).square().sum().backward()
+        return {k: t.grad.clone() for k, t in train.items()}
+
+    counts = (fused_ln_qkv.fused_ln_qkv_rawx_backward.launches, fm.fused_mlp_backward.launches)
+    got = grads(KERNELS)
+    torch.cuda.synchronize()
+    assert (fused_ln_qkv.fused_ln_qkv_rawx_backward.launches - counts[0],
+            fm.fused_mlp_backward.launches - counts[1]) == (1, 1)
+    want = grads(PLAIN)
+    top = max(w.abs().max().item() for w in want.values())
+    for k, w in want.items():
+        err, own = (got[k] - w).abs().max().item(), w.abs().max().item()
+        assert err <= 1e-4 * top, (k, err, top)
+        assert k.endswith("attn/k/b") or err <= 3e-2 * own, (k, err, own)
 
 
 def _mona(device, dim, variant, seed):
