@@ -20,7 +20,11 @@
    causal K11 case [16, 77, 512]; K10's backward at the BERT fine-tune's
    [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
    forward and backward at [64, 14, 14, 64]) and at one odd shape
-   each, with CUDA-event times and the bound from the card's peak rates:
+   each (both K5 raw-x rows also at [7, 197, 768] and [1, 16, 768], the
+   Hopper GEMM's ragged and sub-tile M; its backward bitwise equal over
+   two calls; each beside the GEMM kernel's device time and the shared
+   WMMA GEMM's time at the same product), with CUDA-event times and the
+   bound from the card's peak rates:
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
    max(1, max|ref|) (3e-2 * max|ref| for the flash-attention output and
@@ -199,19 +203,27 @@ def kernel_phase(dev):
     def rounded(t):
         return t.to(bf16).float() if t.is_floating_point() else t
 
-    def check(name, kern, plain, inputs, odd_inputs, cost, library=None, scaled=False):
+    def check(name, kern, plain, inputs, odd_inputs, cost, library=None, scaled=False,
+              more=()):
         """kern/plain(*inputs) -> tensor or tuple; inputs float32 on the
-        card (the first `main` shape, then the odd one). ``scaled`` holds
+        card (the first `main` shape, then the odd one, then any in
+        ``more``, each held in float32 and in bf16). ``scaled`` holds
         bf16 to 3e-2 max|ref| instead of 3e-2 max(1, max|ref|)."""
+        def unit(scale):
+            return scale if scaled else max(1.0, scale)
+
+        def bf16_errors(args):
+            args_b = [t.to(bf16) if t.is_floating_point() else t for t in args]
+            return errors(kern(*args_b), plain(*[rounded(t) for t in args]))
+
         with torch.no_grad():
             rels = [max(d / scale for d, scale in errors(kern(*args), plain(*args)))
-                    for args in (inputs, odd_inputs)]
+                    for args in (inputs, odd_inputs, *more)]
             args_b = [t.to(bf16) if t.is_floating_point() else t for t in inputs]
-            errs_b = errors(kern(*args_b), plain(*[rounded(t) for t in inputs]))
+            errs_b = bf16_errors(inputs)
+            more_b = [e for args in more for e in bf16_errors(args)]
             torch.cuda.synchronize()
             # each output against its own scale; report the worst ratio's pair
-            def unit(scale):
-                return scale if scaled else max(1.0, scale)
             err_b, scale_b = max(errs_b, key=lambda e: e[0] / unit(e[1]))
             lim_b = BF16_BOUND * unit(scale_b)
             ms = cuda_ms(lambda: kern(*args_b), 20)
@@ -222,6 +234,11 @@ def kernel_phase(dev):
               f"bf16 max|d| {err_b:.3e} (<= {lim_b:.3e}, max|ref| {scale_b:.3e}); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
               f"bound {b_ms:.4f} ms ({b_by})")
+        if more:
+            worst = max(e / unit(sc) for e, sc in more_b)
+            print(f"{name}: {len(more)} more shapes, f32 rel max|d| {max(rels[2:]):.3e}, bf16 "
+                  f"max|d| / max(1, max|ref|) {worst:.3e} (<= {BF16_BOUND:.0e})")
+            require(worst <= BF16_BOUND, f"{name} bfloat16 mismatch at a further shape")
         require(max(rels) <= F32_BOUND, f"{name} float32 mismatch")
         require(err_b <= lim_b, f"{name} bfloat16 mismatch")
         results[name] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -698,6 +715,41 @@ def fused_kernel_rows(dev, gen, results):
           f"({b_by}); max|d| {bf16_err['hybrid_attn_block']:.3e}")
 
 
+def kernel_device_ms(fn, name, iters=20):
+    """Device ms per call of the kernels whose name holds ``name``, from
+    torch.profiler over ``iters`` calls of fn (no host time in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
+    require(us > 0, f"the profiler saw no {name} kernel")
+    return us / 1e3 / iters
+
+
+def wmma_gemm_ms(a, w, bias):
+    """CUDA-event ms of block_kernels.cuh's WMMA GEMM (nx_gemm, the bf16
+    product K5 raw-x ran on until its Hopper core) on a [M, K] @ w [K, N]
+    (+ float32 bias), row-major bf16 out."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import build
+
+    lib, (rows, k), n = build.library(), a.shape, w.shape[1]
+    bf16 = build.DTYPE_CODES[torch.bfloat16]
+    out = torch.empty(rows, n, device=a.device, dtype=torch.bfloat16)
+    stream = build.stream(a.device)
+    return cuda_ms(lambda: build.check(lib.nx_gemm(
+        build.ptr(a), build.ptr(w), bf16, build.ptr(bias), None, 0, build.ptr(out), bf16, 0, rows,
+        n, k, stream), "nx_gemm"), 20)
+
+
 def bert_kernel_rows(dev, gen, check):
     """BERT's post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) at
     the text cache's chunk [256, 256, 768], 12 heads, hidden 3072, eps
@@ -740,11 +792,24 @@ def bert_kernel_rows(dev, gen, check):
     lins = (layer.attn.q, layer.attn.k, layer.attn.v)
     w_qkv = torch.cat([lin.w for lin in lins], 1).to(torch.bfloat16)
     b_qkv = torch.cat([lin.b for lin in lins]).to(torch.bfloat16)
+    # further shapes for the Hopper GEMM's (sequence, 128-token) tiles: a
+    # token count the tile does not divide, and fewer rows than one tile
     check("fused_ln_qkv_rawx",
           lambda t: fused_ln_qkv.fused_ln_qkv(t, None, layer.attn, heads=h),
           lambda t: fused_ln_qkv.fused_ln_qkv_plain(t, None, layer.attn, heads=h),
           [x], [odd_x], (2 * m * d * 3 * d, qkv_bytes),
-          library=lambda t: torch.addmm(b_qkv, t.view(-1, d), w_qkv))
+          library=lambda t: torch.addmm(b_qkv, t.view(-1, d), w_qkv),
+          more=[[randn(7, 197, d)], [randn(1, 16, d)]])
+    # the Hopper GEMM's device time alone (the op's time above adds the
+    # wrapper and its weight concatenation), and the earlier design, the
+    # shared WMMA GEMM, on the same product and bias (row-major [m, 3d] out)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        dev_ms = kernel_device_ms(lambda: fused_ln_qkv.fused_ln_qkv(xb, None, layer.attn, heads=h),
+                                  "hopper::gemm_kernel")
+    wmma = wmma_gemm_ms(xb.view(m, d), w_qkv, b_qkv.float())
+    print(f"fused_ln_qkv_rawx: Hopper GEMM kernel alone {dev_ms:.4f} ms of device time; the "
+          f"shared WMMA GEMM (nx_gemm) at the same product {wmma:.4f} ms")
 
     def attn(fn):
         return lambda q, k, v, t, odd=False: fn(q, k, v, t, layer.attn.o, heads=h,
@@ -818,11 +883,25 @@ def text_lora_kernel_rows(dev, gen, check):
     # W_qkv^T, the concatenation made beforehand
     dy_cat = fused_ln_qkv._head_cat(*args[1:]).to(torch.bfloat16)
     w_b = args[0].to(torch.bfloat16)
-    check("fused_ln_qkv_rawx_backward",
-          lambda w, *t: fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *t, dtype=t[0].dtype),
+
+    def rawx_bwd(w, *t):
+        return fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *t, dtype=t[0].dtype)
+
+    check("fused_ln_qkv_rawx_backward", rawx_bwd,
           lambda w, *t: fused_ln_qkv.fused_ln_qkv_rawx_backward_plain(w, *t, dtype=t[0].dtype),
           args, rawx_args(3, 40, 2, 128), (2 * m * 3 * d * d, 2 * (4 * m * d + 3 * d * d)),
-          library=lambda *_: torch.mm(dy_cat, w_b.T))
+          library=lambda *_: torch.mm(dy_cat, w_b.T),
+          more=[rawx_args(7, 197, h, d), rawx_args(1, 16, h, d)])
+    with torch.no_grad():
+        args_b = [t.to(torch.bfloat16) for t in args]
+        first, second = rawx_bwd(*args_b), rawx_bwd(*args_b)
+        torch.cuda.synchronize()
+    require(torch.equal(first, second), "two bf16 calls of K5 raw-x's backward differ")
+    dev_ms = kernel_device_ms(lambda: rawx_bwd(*args_b), "hopper::gemm_kernel")
+    wmma = wmma_gemm_ms(dy_cat, w_b.T.contiguous(), None)
+    print(f"fused_ln_qkv_rawx_backward: two bf16 calls bitwise equal; Hopper GEMM kernel alone "
+          f"{dev_ms:.4f} ms of device time; the shared WMMA GEMM (nx_gemm, dq|dk|dv "
+          f"token-major) at the same product {wmma:.4f} ms")
 
     kb, kh, kc = FT_BATCH, IMG // 16, 64
     px = kb * kh * kh * kc
@@ -2420,7 +2499,7 @@ def main():
               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:64"),
               "lut_apply": ("lut.cu", "lut.py:53"),
               "hist256": ("lut.cu", "lut.py:143"),
-              "fused_ln_qkv_rawx": ("fused_ln_qkv.cu", "fused_ln_qkv.py:36"),
+              "fused_ln_qkv_rawx": ("hopper_gemm.cuh", "fused_ln_qkv.py:36"),
               "fused_attn_o_residual_postln": ("fused_attn_o.cu", "fused_attn_o.py:73"),
               "fused_postnorm_mlp_ln": ("fused_ln_mlp.cu", "fused_ln_mlp.py:144"),
               "fused_block_infer_postnorm": ("fused_block.cu", "fused_block.py:78"),
@@ -2429,7 +2508,7 @@ def main():
               "fused_attn_block": ("fused_attention.cu", "fused_attention.py:52"),
               "fused_attn_block_backward": ("fused_attention.cu", "fused_attention.py:73"),
               "fused_mlp_backward": ("fused_mlp.cu", "fused_mlp.py:79"),
-              "fused_ln_qkv_rawx_backward": ("fused_ln_qkv.cu", "fused_ln_qkv.py:60"),
+              "fused_ln_qkv_rawx_backward": ("hopper_gemm.cuh", "fused_ln_qkv.py:60"),
               "dwconv7_per_sample": ("mona_spatial.cu", "dwconv.py:60"),
               "dwconv7_per_sample_backward": ("mona_spatial.cu", "dwconv.py:72")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,

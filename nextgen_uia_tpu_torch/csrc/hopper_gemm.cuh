@@ -1,0 +1,602 @@
+// A bf16 GEMM core for Hopper (sm_90a): TMA, mbarriers and wgmma.
+//
+//   out[B*N, cols] = epilogue(A[B*N, K] @ W^T), W stored [cols, K] (K-major),
+//   float32 accumulation, the output rounded once to bf16
+//
+// The rows are a batch of sequences, B of N tokens each, and every operand
+// with rows is one of two layouts (TmaMatrix), as block_kernels.cuh's
+// Operand: row-major [B, N, cols], or head-major, the logical column
+// c = t*H*dh + h*dh + e living at ptr[t][b, h, n, e] ([B, H, N, dh]: q, k, v
+// and their gradients). The M tile is (one sequence, 128 tokens), so a tile
+// never crosses a sequence: TMA reads a row-major operand as a 3-D box of
+// [B, N, cols] and a head-major one as a 4-D box of [B, H, N, dh] (one
+// head's 64 columns per K step, hence dh % 64 == 0), and its out-of-bounds
+// zero fill covers a token count the tile does not divide; the TMA stores
+// clip the same rows.
+//
+// Design (persistent: one CTA per SM walks its share of the tiles in a
+// fixed order; CTAs in clusters of two):
+// - Warpgroup 2 is the producer: it gives up registers (setmaxnreg) and one
+//   thread issues the TMA loads of A (128 x 64) and W (BN x 64) into a ring
+//   of STAGES shared-memory stages, 128-byte swizzled, each stage with a
+//   `full` mbarrier (transaction bytes) and an `empty` one (one arrival per
+//   consumer of the cluster). It runs ahead across tiles, so the next
+//   tile's operands load while the consumers finish this one. The CTAs of a
+//   cluster take M tiles side by side with the same columns: each loads its
+//   own A box and 1/CLUSTER of the W tile, multicast to all of them, so W,
+//   the larger operand, crosses L2 once per cluster.
+// - Warpgroups 0 and 1 are the consumers: each owns 64 rows of the tile and
+//   issues wgmma.mma_async m64nBNk16 (A and W from shared memory, float32
+//   accumulators in registers), keeping one K step in flight, and frees a
+//   stage (in every CTA of the cluster) as soon as the products reading it
+//   have retired.
+// - The epilogue (Epi, e.g. a float32 bias, fetched into registers while
+//   the tile's products run) acts on the float32 sums, rounds once to bf16
+//   and stages the tile in shared memory in the 128-byte swizzle, one
+//   64 x 64 box per head or 64 columns (no bank conflicts, no per-element
+//   address arithmetic); one thread then writes each box with a TMA store
+//   (128 contiguous bytes per row), one box per K step of the warpgroup's
+//   next tile, so the stores run under its products.
+// Each output element is one thread's sum in a fixed order: no atomics, so
+// two calls are bitwise equal.
+//
+// The tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
+// through the runtime's cudaGetDriverEntryPointByVersion, so the library links
+// against no libcuda; they reach the kernel as a __grid_constant__ parameter.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+
+#include "common.cuh"
+
+namespace nx {
+namespace hopper {
+
+constexpr int BM = 128;  // tile rows: two consumer warpgroups of 64
+constexpr int BK = 64;   // K step: 64 bf16 = 128 bytes, one swizzle row
+constexpr int BOX = 64;  // output columns per TMA store box
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int CLUSTER = 2;  // CTAs sharing one W tile
+
+// A logical [B*N, cols] bf16 matrix as TMA sees it: map[0] = [B, N, cols]
+// (row-major), or map[t] = [B, H, N, dh] for column segment t of H*dh
+// (head-major)
+struct TmaMatrix {
+  CUtensorMap map[3];
+  int head_major;
+  int seg, dh;
+};
+
+// An epilogue on a thread's pair of sums at columns c, c + 1: fetch(c) runs
+// at the start of the tile (its loads land while the products run), then
+// apply(v, fetch(c)) on the float32 sums
+struct NoEpilogue {
+  __device__ __forceinline__ float2 fetch(int) const { return make_float2(0.f, 0.f); }
+  __device__ __forceinline__ float2 apply(float2 v, float2) const { return v; }
+};
+
+// v += bias[c], bias[c + 1] (float32, [cols], 8-byte aligned)
+struct BiasEpilogue {
+  const float* bias;
+  __device__ __forceinline__ float2 fetch(int c) const {
+    return __ldg(reinterpret_cast<const float2*>(bias + c));
+  }
+  __device__ __forceinline__ float2 apply(float2 v, float2 b) const {
+    return make_float2(v.x + b.x, v.y + b.y);
+  }
+};
+
+template <class Epi>
+struct Params {
+  TmaMatrix a;    // A [B*N, K]: boxes of BK columns x BM rows
+  CUtensorMap w;  // W [cols, K]: boxes of BK x BN / CLUSTER
+  TmaMatrix out;  // out [B*N, cols]: boxes of BOX x 64 rows
+  Epi epi;
+  int n_tok, cols, k_steps, m_per_seq, m_tiles, n_tiles;
+  int units;  // CLUSTER M tiles side by side x n_tiles
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same shared-memory offset in CTA `cta` of
+// the cluster (this CTA's own included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// TMA 2-D load multicast to the CTAs of the cluster in `mask`: the same
+// shared-memory offset in each, completing on each one's own `bar`
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, uint16_t mask, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA tile load of a 3- or 4-dimensional map at coordinates c (innermost
+// first), completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int dims, const int (&c)[4]) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  const uint32_t d = smem_u32(dst), b = smem_u32(bar);
+  if (dims == 3)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(d),
+        "l"(m), "r"(b), "r"(c[0]), "r"(c[1]), "r"(c[2])
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(d),
+        "l"(m), "r"(b), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
+        : "memory");
+}
+
+// TMA tile store from shared memory (bulk group of the issuing thread)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int dims,
+                                          const int (&c)[4]) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  const uint32_t s = smem_u32(src);
+  if (dims == 3)
+    asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+                 ::"l"(m), "r"(s), "r"(c[0]), "r"(c[1]), "r"(c[2])
+                 : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+        ::"l"(m), "r"(s), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the 128 threads of one consumer warpgroup (named barriers 1, 2, ...)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The box holding the 64 logical columns from c (c % 64 == 0) of tokens
+// n.. of sequence b: its map, number of dimensions and coordinates
+__device__ __forceinline__ const CUtensorMap* locate(const TmaMatrix& t, int b, int n, int c,
+                                                     int& dims, int (&co)[4]) {
+  if (!t.head_major) {
+    dims = 3;
+    co[0] = c, co[1] = n, co[2] = b, co[3] = 0;
+    return &t.map[0];
+  }
+  const int s = c / t.seg, cc = c - s * t.seg, h = cc / t.dh;
+  dims = 4;
+  co[0] = cc - h * t.dh, co[1] = n, co[2] = h, co[3] = b;
+  return &t.map[s];
+}
+
+// wgmma shared-memory descriptor of a K-major tile, 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); the leading offset is
+// unused for a swizzled K-major tile. Base 1024-byte aligned.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are read only after the wait: keep the compiler from
+// moving their uses above it
+template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64, N] (+)= A[64, 16] @ B[16, N], A and B K-major in shared memory
+// (descriptors), bf16 in, float32 accumulators; scale_d = 0 overwrites D.
+// Each thread of the warpgroup holds d[4j + {0,1}] at row 16*warp + lane/4,
+// columns 8j + 2*(lane%4) + {0,1}, and d[4j + {2,3}] 8 rows below.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// shared memory of one CTA (from a 1024-byte aligned base): the ring of A
+// and W stages, each consumer's staged output tile, the barriers
+template <int BN, int STAGES>
+struct Layout {
+  static constexpr int A_BYTES = BM * BK * 2, W_BYTES = BN * BK * 2, OUT_BYTES = 64 * BN * 2;
+  static constexpr int W_OFF = STAGES * A_BYTES;
+  static constexpr int OUT_OFF = W_OFF + STAGES * W_BYTES;
+  static constexpr int BAR_OFF = OUT_OFF + CONSUMERS * OUT_BYTES;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8 + 1024;  // + the alignment slack
+  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+template <int BN, int STAGES, class Epi>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params<Epi> p) {
+  using L = Layout<BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sa = base;
+  unsigned char* sw = base + L::W_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  // the CTAs of a cluster take M tiles side by side with the same columns:
+  // each loads its own A and 1/CLUSTER of the W tile, multicast to all
+  const int rank = cluster_rank();
+  const int first = blockIdx.x / CLUSTER, stride = gridDim.x / CLUSTER;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (t == 0) {
+      int it = 0;
+      for (int u = first; u < p.units; u += stride) {
+        const int mt = (u / p.n_tiles) * CLUSTER + rank, col0 = (u % p.n_tiles) * BN;
+        const int b = mt / p.m_per_seq, n0 = (mt - b * p.m_per_seq) * BM;  // b == B: zero fill
+        for (int kt = 0; kt < p.k_steps; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], L::A_BYTES + L::W_BYTES);
+          int dims, co[4];
+          const CUtensorMap* am = locate(p.a, b, n0, kt * BK, dims, co);
+          tma_load(sa + s * L::A_BYTES, am, &full[s], dims, co);
+          tma_load_multicast(sw + s * L::W_BYTES + rank * (L::W_BYTES / CLUSTER), &p.w,
+                             &full[s], (1 << CLUSTER) - 1, kt * BK, col0 + rank * (BN / CLUSTER));
+        }
+      }
+      // before exiting, see every stage released by every consumer of the
+      // cluster: no arrival or multicast then still targets this CTA
+      for (int i = 0; i < STAGES; ++i, ++it)
+        mbar_wait(&empty[it % STAGES], ((it / STAGES) & 1) ^ 1);
+    }
+  } else {
+    // consumers: 64 rows of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    unsigned char* so = base + L::OUT_OFF + wg * L::OUT_BYTES;
+    const int warp = t / 32, lane = t % 32;
+    const int r = warp * 16 + lane / 4, swz = (lane / 4) & 7, quad = lane % 4;
+    auto release = [&](int s) {
+      if (t != 0) return;
+      for (int c = 0; c < CLUSTER; ++c) mbar_arrive_cluster(&empty[s], c);
+    };
+    // the last tile's output boxes not yet stored (thread 0): one goes out
+    // per K step of the next tile, so the stores spread over its products
+    int out_b = 0, out_row = 0, out_col = 0, out_next = 0, out_end = 0;
+    auto store_next = [&]() {
+      int dims, co[4];
+      const CUtensorMap* om = locate(p.out, out_b, out_row, out_col + out_next * BOX, dims, co);
+      tma_store(om, so + out_next * (64 * 128), dims, co);
+      bulk_commit();
+      ++out_next;
+    };
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int u = first; u < p.units; u += stride) {
+      const int mt = (u / p.n_tiles) * CLUSTER + rank, col0 = (u % p.n_tiles) * BN;
+      const int b = mt / p.m_per_seq, n0 = (mt - b * p.m_per_seq) * BM;
+      float2 pre[BN / 8];  // the epilogue's operands for columns col0 + 8j + 2 quad
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = col0 + j * 8 + 2 * quad;
+        pre[j] = c < p.cols ? p.epi.fetch(c) : make_float2(0.f, 0.f);
+      }
+      for (int kt = 0; kt < p.k_steps; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint64_t da = smem_desc(sa + s * L::A_BYTES + wg * (64 * BK * 2));
+        const uint64_t db = smem_desc(sw + s * L::W_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // +32 bytes along K inside the swizzled row
+          wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+        wgmma_commit();
+        if (kt > 0) {  // the previous step's products have retired: free its stage
+          wgmma_wait<1>();
+          release((it - 1) % STAGES);
+        }
+        if (t == 0 && out_next < out_end) store_next();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release((it - 1) % STAGES);
+
+      const int row0 = n0 + wg * 64;
+      // uniform per warpgroup: a tile past the last one, or 64 rows past the sequence
+      if (mt >= p.m_tiles || row0 >= p.n_tok) continue;
+      if (t == 0) {
+        while (out_next < out_end) store_next();
+        bulk_wait_read();  // the last tile's stores have left the staging buffer
+      }
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 lo = p.epi.apply(make_float2(acc[4 * j], acc[4 * j + 1]), pre[j]);
+        const float2 hi = p.epi.apply(make_float2(acc[4 * j + 2], acc[4 * j + 3]), pre[j]);
+        // box j / 8 (64 x 64), 16-byte chunk j % 8 of the row, swizzled by row % 8
+        unsigned char* at = so + (j / 8) * (64 * 128) + (((j % 8) ^ swz) << 4) + quad * 4;
+        *reinterpret_cast<__nv_bfloat162*>(at + r * 128) = __float22bfloat162_rn(lo);
+        *reinterpret_cast<__nv_bfloat162*>(at + (r + 8) * 128) = __float22bfloat162_rn(hi);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+      warpgroup_sync(wg);
+      if (t == 0) {
+        out_b = b, out_row = row0, out_col = col0, out_next = 0;
+        out_end = min(BN, p.cols - col0) / BOX;
+      }
+    }
+    if (t == 0) {
+      while (out_next < out_end) store_next();
+      bulk_wait();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps and the launch
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return EncodeTiled{nullptr};
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a bf16 tensor (dims and byte strides innermost first), boxes of `box`,
+// 128-byte swizzle (the box's inner extent is 64 elements), zero fill
+static cudaError_t encode(CUtensorMap& m, const void* p, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = fn(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// row-major [batch, n_tok, cols] read or written in boxes of 64 columns x
+// box_rows tokens
+static cudaError_t rows_matrix(TmaMatrix& t, const void* p, int batch, int n_tok, int cols,
+                               int box_rows) {
+  t = TmaMatrix{};
+  t.head_major = 0, t.seg = cols, t.dh = cols;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n_tok, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)n_tok * cols * 2};
+  const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1};
+  return encode(t.map[0], p, 3, dims, strides, box);
+}
+
+// head-major: column segment s of H*dh at p[s] = [batch, heads, n_tok, dh],
+// in boxes of 64 of a head's dh x box_rows tokens (dh % 64 == 0)
+static cudaError_t heads_matrix(TmaMatrix& t, const void* p0, const void* p1, const void* p2,
+                                int batch, int n_tok, int heads, int dh, int box_rows) {
+  t = TmaMatrix{};
+  t.head_major = 1, t.seg = heads * dh, t.dh = dh;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)n_tok, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)n_tok * dh * 2,
+                                 (cuuint64_t)heads * n_tok * dh * 2};
+  const cuuint32_t box[4] = {BOX, (cuuint32_t)box_rows, 1, 1};
+  const void* ptrs[3] = {p0, p1, p2};
+  for (int s = 0; s < 3; ++s) {
+    const cudaError_t err = encode(t.map[s], ptrs[s], 4, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// out[B*N, cols] = epi(A @ W^T) in bf16: A and out as TmaMatrix (A's boxes
+// BM tokens, out's 64), W [cols, K] bf16 row-major (K-major for the
+// product); needs K % 64 == 0, cols % 64 == 0 and, head-major, dh % 64 == 0.
+// BN columns per tile, STAGES in the ring.
+template <int BN, int STAGES, class Epi>
+static cudaError_t gemm(const TmaMatrix& a, const void* w, const TmaMatrix& out, Epi epi,
+                        int batch, int n_tok, int cols, int k, cudaStream_t s) {
+  static_assert(BN % (8 * CLUSTER) == 0 && (BN / CLUSTER) * BK * 2 % 1024 == 0,
+                "each CTA's share of the W tile is whole swizzle atoms");
+  if (k % BK || cols % BOX || (a.head_major && a.dh % BOX) || (out.head_major && out.dh % BOX))
+    return cudaErrorInvalidValue;
+  Params<Epi> p;
+  p.a = a, p.out = out, p.epi = epi;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)cols};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {BK, BN / CLUSTER};
+  cudaError_t err = encode(p.w, w, 2, dims, strides, box);
+  if (err != cudaSuccess) return err;
+  p.n_tok = n_tok, p.cols = cols, p.k_steps = k / BK;
+  p.m_per_seq = (n_tok + BM - 1) / BM, p.m_tiles = batch * p.m_per_seq;
+  p.n_tiles = (cols + BN - 1) / BN;
+  p.units = (p.m_tiles + CLUSTER - 1) / CLUSTER * p.n_tiles;
+  if (p.units == 0) return cudaSuccess;
+
+  // once per device: the shared-memory opt-in and how many clusters fit at
+  // once (the persistent grid)
+  constexpr int smem = Layout<BN, STAGES>::BYTES;
+  const void* kernel = reinterpret_cast<const void*>(gemm_kernel<BN, STAGES, Epi>);
+  static int resident[64] = {};
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(THREADS), cfg.dynamicSmemBytes = smem, cfg.stream = s;
+  cfg.attrs = attr, cfg.numAttrs = 1;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!resident[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    cfg.gridDim = dim3(CLUSTER * 1024);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = clusters;
+  }
+  cfg.gridDim = dim3(CLUSTER * (p.units < resident[dev] ? p.units : resident[dev]));
+  void* args[] = {&p};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace hopper
+}  // namespace nx

@@ -52,7 +52,7 @@ SIGNATURES = {
     "nx_mona_spatial_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, beta, w_qkv, b_qkv, z, q, k, v, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-    # x, w_qkv, b_qkv, q, k, v, dtype, B, N, H, dh, stream
+    # x, w_qkv_t ([3D, D]), b_qkv, q, k, v, dtype, B, N, H, dh, stream
     "nx_qkv_rawx_fwd": [P, P, P, P, P, P, I, I, I, I, I, P],
     # w_qkv, dq, dk, dv, dx, dtype, B, N, H, dh, stream
     "nx_qkv_rawx_bwd": [P, P, P, P, P, I, I, I, I, I, P],

@@ -28,11 +28,14 @@ from . import build
 from ._frozen import check_frozen, layernorm_parts
 
 
-def _rawx_weights(attn, dt):
-    """(w_qkv [D, 3D] in dt, b_qkv [3D] float32), detached (frozen)."""
-    w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1).detach().to(dt).contiguous()
-    b = torch.cat([attn.q.b, attn.k.b, attn.v.b]).detach().to(torch.float32).contiguous()
-    return w, b
+def _rawx_weights(attn, dt, transposed=False):
+    """(w_qkv [D, 3D] in dt, or with ``transposed`` W_qkv^T [3D, D], and
+    b_qkv [3D] float32), detached (frozen)."""
+    lins = (attn.q, attn.k, attn.v)
+    w = (torch.cat([lin.w.T for lin in lins]) if transposed
+         else torch.cat([lin.w for lin in lins], dim=1))
+    b = torch.cat([lin.b for lin in lins]).detach().to(torch.float32).contiguous()
+    return w.detach().to(dt).contiguous(), b
 
 
 def _weights(ln, attn, dt):
@@ -109,15 +112,25 @@ def _check_cuda(x, heads):
         raise ValueError("fused_ln_qkv CUDA kernel does not take: " + "; ".join(problems))
 
 
-def _rawx_cuda(x, w_qkv, b_qkv, heads):
-    b, n, d = x.shape
+def _check_rawx_cuda(x, heads):
+    """_check_cuda, and in bf16 the Hopper GEMM's limit: each 64-column K
+    step (backward) and output box (forward) is one head's, so dh % 64."""
     _check_cuda(x, heads)
+    dh = x.shape[-1] // heads
+    if x.dtype == torch.bfloat16 and dh % 64:
+        raise ValueError(f"fused_ln_qkv_rawx bf16 CUDA kernel does not take head dim {dh} "
+                         f"(head dim % 64 == 0)")
+
+
+def _rawx_cuda(x, w_qkv_t, b_qkv, heads):
+    b, n, d = x.shape
+    _check_rawx_cuda(x, heads)
     dt, dh = x.dtype, d // heads
     q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_qkv_rawx_fwd(
-            build.ptr(x, "x"), build.ptr(w_qkv), build.ptr(b_qkv), build.ptr(q), build.ptr(k),
+            build.ptr(x, "x"), build.ptr(w_qkv_t), build.ptr(b_qkv), build.ptr(q), build.ptr(k),
             build.ptr(v), build.DTYPE_CODES[dt], b, n, heads, dh, build.stream(x.device)),
             "fused_ln_qkv_rawx")
     fused_ln_qkv_rawx.launches += 1
@@ -135,7 +148,7 @@ def fused_ln_qkv_rawx_backward(w_qkv, dq, dk, dv, *, dtype):
         raise ValueError(f"fused_ln_qkv_rawx: unsupported device {dq.device}")
     b, h, n, dh = dq.shape
     dx = torch.empty(b, n, h * dh, device=dq.device, dtype=dtype)
-    _check_cuda(dx, h)
+    _check_rawx_cuda(dx, h)
     dq, dk, dv = (t.to(dtype).contiguous() for t in (dq, dk, dv))
     w_qkv = w_qkv.to(dtype).contiguous()
     lib = build.library()
@@ -151,14 +164,15 @@ def fused_ln_qkv_rawx_backward(w_qkv, dq, dk, dv, *, dtype):
 class _QkvRawx(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, attn, heads):
-        # the frozen weights are built once, in forward, for both passes
-        w_qkv, b_qkv = _rawx_weights(attn, x.dtype)
-        ctx.w_qkv, ctx.dtype = w_qkv, x.dtype
+        # the frozen weights are built once, in forward, for both passes: the
+        # forward kernel reads W^T [3D, D] (K-major, like x), the backward W
+        ctx.dtype = x.dtype
+        ctx.w_qkv = _rawx_weights(attn, x.dtype)[0] if ctx.needs_input_grad[0] else None
         if x.device.type == "cpu":
             return fused_ln_qkv_plain(x, None, attn, heads=heads)
         if x.device.type != "cuda":
             raise ValueError(f"fused_ln_qkv_rawx: unsupported device {x.device}")
-        return _rawx_cuda(x.contiguous(), w_qkv, b_qkv, heads)
+        return _rawx_cuda(x.contiguous(), *_rawx_weights(attn, x.dtype, transposed=True), heads)
 
     @staticmethod
     def backward(ctx, dq, dk, dv):

@@ -19,7 +19,10 @@ max|ref|, bfloat16 3e-2 * max(1, max|ref|); ``bert_apply`` by the chain
 and by the whole-layer route against its plain path, and autograd reaching
 K1 post-norm on the card raises. K10's and K5 raw-x's backward kernels and
 K4 (forward, dx, dk) against their plain versions, float32 1e-4 * max|ref|,
-bfloat16 3e-2 * max(1, max|ref|); the BERT tower with LoRA in one of two
+bfloat16 3e-2 * max(1, max|ref|); K5 raw-x (on the Hopper GEMM core in
+bf16) also at a token count its M tile does not divide and below one tile,
+its backward bitwise equal over two calls, and bf16 with a head dim not a
+multiple of 64 refused; the BERT tower with LoRA in one of two
 layers, float32, every LoRA and bias gradient against the plain path. The whole MONA adapter (K12),
 forward and backward, against its plain versions on the same inputs:
 output and dx 1e-4 * max|ref| (float32) or 3e-2 * max|ref| (bfloat16), each
@@ -460,12 +463,14 @@ def _bert_layer(device, width, heads, hidden):
 
 
 @pytest.mark.parametrize("b,n,width,heads,hidden", [
-    (4, 256, 768, 12, 3072), (7, 96, 768, 12, 3072), (3, 40, 128, 2, 512)])
+    (4, 256, 768, 12, 3072), (7, 96, 768, 12, 3072), (3, 40, 128, 2, 512),
+    (7, 197, 768, 12, 3072), (1, 16, 768, 12, 3072)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bert_postnorm_kernels_match_plain(cuda, b, n, width, heads, hidden, dtype):
     """K5 raw-x, K6 post-LN, K9 and K1 post-norm against their plain
     versions, each counting one launch; the last batch row's keys are all
-    padding and its outputs finite."""
+    padding and its outputs finite. 197 tokens: a count K5 raw-x's
+    128-token M tile does not divide; [1, 16]: fewer rows than one tile."""
     from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
 
     layer = _bert_layer(cuda, width, heads, hidden)
@@ -567,11 +572,14 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, m, d, hidden, act, dtype)
     _check(lambda: xx.grad, lambda: want, [])
 
 
-@pytest.mark.parametrize("b,n,width,heads", [(16, 256, 768, 12), (3, 40, 128, 2)])
+@pytest.mark.parametrize("b,n,width,heads", [
+    (16, 256, 768, 12), (3, 40, 128, 2), (7, 197, 768, 12), (1, 16, 768, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qkv_rawx_backward_kernel_matches_plain(cuda, b, n, width, heads, dtype):
     """K5 raw-x's backward (dx from head-major dq, dk, dv) against its plain
-    version, one launch, and autograd through fused_ln_qkv with ln=None."""
+    version, one launch, and autograd through fused_ln_qkv with ln=None;
+    two calls bitwise equal (no atomics, no split of K). 197 tokens: a
+    count the 128-token M tile does not divide; [1, 16]: under one tile."""
     from nextgen_uia_tpu_torch.ops import fused_ln_qkv
 
     layer = _bert_layer(cuda, width, heads, 4 * width)
@@ -589,6 +597,33 @@ def test_qkv_rawx_backward_kernel_matches_plain(cuda, b, n, width, heads, dtype)
     assert fused_ln_qkv.fused_ln_qkv_rawx_backward.launches == before + 2
     want = fused_ln_qkv.fused_ln_qkv_rawx_backward_plain(w, *dy, dtype=torch.float32)
     _check(lambda: x.grad, lambda: want, [])
+    again = [fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *[t.to(dtype) for t in dy], dtype=dtype)
+             for _ in range(2)]
+    assert torch.equal(*again)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_qkv_rawx_bf16_kernel_refuses_head_dim_not_a_multiple_of_64(cuda, backward):
+    """The Hopper GEMM's K step (backward) and output box (forward) are one
+    head's 64 columns: bf16 with dh = 32 raises and names the limit, where
+    float32 (the SIMT GEMM, dh % 8) runs."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+
+    layer = _bert_layer(cuda, 128, 4, 512)
+    x = torch.randn(2, 24, 128, device=cuda)
+    dy = [torch.randn(2, 4, 24, 32, device=cuda) for _ in range(3)]
+    w, _ = fused_ln_qkv._rawx_weights(layer.attn, torch.float32)
+
+    def run(dtype):
+        if backward:
+            return fused_ln_qkv.fused_ln_qkv_rawx_backward(w, *[t.to(dtype) for t in dy],
+                                                           dtype=dtype)
+        return fused_ln_qkv.fused_ln_qkv(x.to(dtype), None, layer.attn, heads=4)
+
+    with torch.no_grad():
+        run(torch.float32)
+        with pytest.raises(ValueError, match="head dim % 64 == 0"):
+            run(torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape", [(64, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
