@@ -20,7 +20,14 @@
    causal K11 case [16, 77, 512]; K10's backward at the BERT fine-tune's
    [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
    forward and backward at [64, 14, 14, 64]) and at one odd shape
-   each (both K5 raw-x rows also at [7, 197, 768] and [1, 16, 768], the
+   each (K7, on Hopper's wgmma and TMA, also at its tile edges N = 1, 63,
+   64, 65, 127, 128, 129 in bf16 with q, k, v packed, a key bias and the
+   causal mask, its saved lse against the plain log-sum-exp, dq, dk and dv
+   bitwise equal over two calls, and timed, the op and its kernels alone
+   with scaled_dot_product_attention's forward and backward beside them,
+   at [24, 12, 1370, 64] and the path shapes [16, 197, 12, 64] with a key
+   bias, [64, 12, 197, 64] and [16, 256, 12, 64] with a key bias;
+   both K5 raw-x rows also at [7, 197, 768] and [1, 16, 768], the
    Hopper GEMM's ragged and sub-tile M; its backward bitwise equal over
    two calls; each beside the GEMM kernel's device time and the shared
    WMMA GEMM's time at the same product), with CUDA-event times and the
@@ -461,25 +468,25 @@ def kernel_phase(dev):
 
     (args, out, lse, gb, kb) = outs[0][2]
     with torch.no_grad():
-        ms = cuda_ms(lambda: fa.flash_attention_backward(*args, out, gb, lse, bias=kb,
-                                                         layout="bnhd", bias_grad=False), 20)
         plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(*args, kb, gb,
                                                                      layout="bnhd"), 5, warmup=1)
-    lib_ms = cuda_ms(sdpa_backward(args, gb, kb, "bnhd"), 20)
-    b_ms, b_by = bound(*k7_bwd_cost(fb_b, fb_n))
+    # dq, dk and dv bitwise equal over two calls (no atomics on them)
+    for i in (0, 3, 4):
+        (args, out, lse, gb, kb) = outs[i][2]
+        with torch.no_grad():
+            first, second = (fa.flash_attention_backward(*args, out, gb, lse, bias=kb,
+                                                         causal=cases[i][2], layout=cases[i][1])
+                             for _ in range(2))
+        require(all(torch.equal(a, c) for a, c in zip(first[:3], second[:3])),
+                f"flash_attention_backward {list(cases[i][0])} not bitwise equal over two calls")
+    print("flash_attention_backward: dq, dk, dv bitwise equal over two calls at "
+          + ", ".join(str(list(cases[i][0])) for i in (0, 3, 4)))
+    k7_edges(fa, randn, rounded)
+    k7_times = k7_timings(fa, randn, sdpa_backward, k7_bwd_cost)
+    op_b, _, lib_b, b_ms, b_by = k7_times[(fb_b, h, fb_n)][1]
     results["flash_attention_backward"] = dict(
-        max_abs_err=max(d for d, _ in outs[0][1]), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=max(d for d, _ in outs[0][1]), ms=op_b, plain_ms=plain_ms, library_ms=lib_b,
         bound_ms=b_ms, bound_by=b_by)
-    (args, out, lse, gb, kb) = outs[4][2]
-    with torch.no_grad():
-        long_ms = cuda_ms(lambda: fa.flash_attention_backward(*args, out, gb, lse,
-                                                              layout="bhnd"), 10)
-    long_lib = cuda_ms(sdpa_backward(args, gb, None, "bhnd"), 10)
-    long_b, long_by = bound(*k7_bwd_cost(db, dn))
-    print(f"flash_attention_backward: [{fb_b}, {h}, {fb_n}, {dh}] bf16 with key bias: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (scaled_dot_product_attention "
-          f"backward) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); [{db}, {h}, {dn}, {dh}]: "
-          f"kernel {long_ms:.4f} ms, library {long_lib:.4f} ms, bound {long_b:.4f} ms ({long_by})")
 
     # K1 with the causal mask: the CLIP text block (width 512, 8 heads,
     # hidden 2048, quick_gelu) at the text cache's chunk [256, 77, 512], and
@@ -715,22 +722,161 @@ def fused_kernel_rows(dev, gen, results):
           f"({b_by}); max|d| {bf16_err['hybrid_attn_block']:.3e}")
 
 
-def kernel_device_ms(fn, name, iters=20):
+K7_EDGES = (1, 63, 64, 65, 127, 128, 129)  # around the 64-row boxes and 128-row tiles
+
+
+def k7_edges(fa, randn, rounded):
+    """K7 at the wgmma kernels' tile edges, N in K7_EDGES: bf16, q, k, v as
+    views of one packed [2, N, 3, 3, 64] projection, a key bias and the
+    causal mask. The output and each gradient against the plain versions on
+    the same bf16-rounded inputs within 3e-2 * max|ref| (a gradient whose
+    reference is exactly zero, dq, dk and dbias at N = 1 where P = 1,
+    within 3e-2 * the largest gradient's max|ref|: the kernel's D comes from
+    the rounded output, so it keeps ~1e-7); the saved lse against the plain
+    log-sum-exp within 1e-4 * max(1, max|ref|); dq, dk, dv bitwise equal
+    over two calls. Then one sequence wholly padded (-1e9 bias) at N = 96."""
+    import torch
+
+    bf16 = torch.bfloat16
+    for n in K7_EDGES:
+        qkv, kb, g = rounded(randn(2, n, 3, 3, 64)), randn(2, n), rounded(randn(2, n, 3, 64))
+        q, k, v = qkv.to(bf16).unbind(2)
+        ref = qkv.unbind(2)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_forward(q, k, v, bias=kb, causal=True)
+            first, second = (fa.flash_attention_backward(q, k, v, out, g.to(bf16), lse, bias=kb,
+                                                         causal=True) for _ in range(2))
+            want = fa.flash_attention_plain(*ref, bias=kb, causal=True)
+            want_lse = fa.flash_attention_lse_plain(*ref[:2], bias=kb, causal=True)
+            want_g = fa.flash_attention_backward_plain(*ref, kb, g, causal=True)
+            torch.cuda.synchronize()
+        (err, scale), = errors(out, want)
+        require(err <= BF16_BOUND * scale, f"flash_attention bf16 at N = {n}: max|d| {err:.3e} "
+                                           f"> {BF16_BOUND * scale:.3e}")
+        (err_l, scale_l), = errors(lse, want_lse)
+        require(err_l <= F32_BOUND * max(1.0, scale_l),
+                f"flash_attention lse at N = {n}: max|d| {err_l:.3e} (max|ref| {scale_l:.3e})")
+        errs = errors(tuple(first), tuple(want_g))
+        largest = max(sc for _, sc in errs)
+        ratio = max(d / (BF16_BOUND * (sc if sc > 0 else largest)) for d, sc in errs)
+        require(ratio <= 1.0, f"flash_attention_backward bf16 at N = {n}: max|d| / limit "
+                              f"{ratio:.3f}")
+        require(all(torch.equal(a, c) for a, c in zip(first[:3], second[:3])),
+                f"flash_attention_backward at N = {n} not bitwise equal over two calls")
+        print(f"flash_attention: tile edge N = {n} (bf16, packed bnhd, bias, causal): output "
+              f"max|d| / max|ref| {err / scale:.3e}, lse max|d| {err_l:.3e}, gradients max|d| / "
+              f"limit {ratio:.3e}, backward bitwise equal over two calls")
+
+    # a sequence whose every key carries BERT's -1e9 padding bias beside one
+    # with its last third padded, at an N whose last key tile is ragged:
+    # output against the plain version, every gradient finite (the padded
+    # sequence's lse rounds to -1e9, so its P is 1, not 1 / N, and its
+    # gradients are not the plain version's), the other sequence's
+    # gradients against the plain backward
+    n = 96
+    qkv, g = rounded(randn(2, n, 3, 3, 64)), rounded(randn(2, n, 3, 64))
+    kb = torch.zeros_like(qkv[:, :, 0, 0, 0])
+    kb[0, 2 * n // 3:], kb[1] = -1e9, -1e9
+    with torch.no_grad():
+        out, lse = fa.flash_attention_forward(*qkv.to(bf16).unbind(2), bias=kb)
+        got = fa.flash_attention_backward(*qkv.to(bf16).unbind(2), out, g.to(bf16), lse, bias=kb)
+        want = fa.flash_attention_plain(*qkv.unbind(2), bias=kb)
+        want_g = fa.flash_attention_backward_plain(*qkv.unbind(2), kb, g)
+        torch.cuda.synchronize()
+    (err, scale), = errors(out, want)
+    require(err <= BF16_BOUND * scale, f"flash_attention with a wholly padded sequence: max|d| "
+                                       f"{err:.3e} > {BF16_BOUND * scale:.3e}")
+    require(all(bool(torch.isfinite(t).all()) for t in got),
+            "flash_attention_backward with a wholly padded sequence: a gradient is not finite")
+    ratio = max(d / (BF16_BOUND * sc) for d, sc in errors(tuple(t[0] for t in got),
+                                                          tuple(t[0] for t in want_g)))
+    require(ratio <= 1.0, f"flash_attention_backward beside a wholly padded sequence: max|d| / "
+                          f"limit {ratio:.3f}")
+    print(f"flash_attention: N = {n} with a wholly padded sequence (bf16, -1e9 bias): output "
+          f"max|d| / max|ref| {err / scale:.3e}, gradients finite, the other sequence's max|d| "
+          f"/ limit {ratio:.3e}")
+
+
+def k7_timings(fa, randn, sdpa_backward, bwd_cost):
+    """K7's forward and backward at compare_trees.K7_SHAPES in bf16 (the
+    shapes its ``k7`` mode times against another tree): the op (CUDA events
+    over back-to-back wrapper calls, its host time included), its kernels
+    alone (profiler device time of every "flash" kernel per call),
+    scaled_dot_product_attention's forward and autograd backward on the same
+    inputs, and the bound. Returns {(B, H, N): ((op, kernel, library,
+    bound_ms, bound_by) forward, (...) backward)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from nextgen_uia_tpu_torch.tools.compare_trees import K7_SHAPES
+
+    bf16, times = torch.bfloat16, {}
+    for b, h, n, layout, bias in K7_SHAPES:
+        shape = (b, h, n, 64) if layout == "bhnd" else (b, n, h, 64)
+        q, k, v, g = (randn(*shape).to(bf16) for _ in range(4))
+        kb = randn(b, n) if bias else None
+        iters = 10 if n > 1000 else 20
+        qs, ks, vs = (t.transpose(1, 2) if layout == "bnhd" else t for t in (q, k, v))
+        mask = None if kb is None else kb[:, None, None, :].to(bf16)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_forward(q, k, v, bias=kb, layout=layout)
+
+            def fwd():
+                return fa.flash_attention_forward(q, k, v, bias=kb, layout=layout)
+
+            def bwd():
+                return fa.flash_attention_backward(q, k, v, out, g, lse, bias=kb, layout=layout,
+                                                   bias_grad=False)
+
+            f_op, b_op = cuda_ms(fwd, iters), cuda_ms(bwd, iters)
+            f_k, b_k = kernel_device_ms(fwd, "flash", iters), kernel_device_ms(bwd, "flash", iters)
+            f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                            iters)
+        b_lib = cuda_ms(sdpa_backward([q, k, v], g, kb, layout), iters)
+        fwd_row = (f_op, f_k, f_lib, *bound(4 * b * h * n * n * 64,
+                                            2 * 4 * b * h * n * 64 + 4 * b * h * n
+                                            + (4 * b * n if bias else 0)))
+        bwd_row = (b_op, b_k, b_lib, *bound(*bwd_cost(b, n)))
+        times[(b, h, n)] = (fwd_row, bwd_row)
+        for what, row in (("forward", fwd_row), ("backward", bwd_row)):
+            print(f"flash_attention {what} [{b}, {h}, {n}, 64] {layout} bias={bias} bf16: op "
+                  f"{row[0]:.4f} ms, kernel {row[1]:.4f} ms, library (scaled_dot_product_"
+                  f"attention{' backward' if what == 'backward' else ''}) {row[2]:.4f} ms, bound "
+                  f"{row[3]:.4f} ms ({row[4]})")
+    return times
+
+
+def kernel_device_ms(fn, name, iters=20, windows=3):
     """Device ms per call of the kernels whose name holds ``name``, from
-    torch.profiler over ``iters`` calls of fn (no host time in it)."""
+    torch.profiler over ``iters`` calls of fn (no host time in it). A window
+    that comes back without the kernel is profiled again, up to ``windows``
+    in all. Fails if a window recorded other kernels but never this one;
+    NaN ("not measured") if the profiler recorded no device activity at all,
+    which says nothing of the kernel (its launches are counted elsewhere)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
-    require(us > 0, f"the profiler saw no {name} kernel")
-    return us / 1e3 / iters
+    others = set()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total", 0) for e in kernels if name in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+        others.update(e.key[:60] for e in kernels)
+        print(f"kernel_device_ms: a profiler window saw no {name} kernel among "
+              f"{len(kernels)} device records")
+    require(not others, f"the profiler saw no {name} kernel in {windows} windows, only "
+                        f"{sorted(others)[:4]}")
+    print(f"kernel_device_ms: {name} kernel alone not measured (the profiler recorded no "
+          f"device activity in {windows} windows)")
+    return float("nan")
 
 
 def wmma_gemm_ms(a, w, bias):

@@ -32,10 +32,10 @@ def _to_bhnd(t, layout):
     return t.transpose(1, 2) if layout == "bnhd" else t
 
 
-def _probs(q, k, bias, causal):
-    """float32 softmax of the scaled scores of [B, H, N, dh] q and k, masked
-    as the JAX kernel masks: the bias added, then -1e30 above the diagonal
-    when causal."""
+def _scores(q, k, bias, causal):
+    """float32 scaled scores [B, H, N, N] of [B, H, N, dh] q and k, masked as
+    the JAX kernel masks: the bias added, then -1e30 above the diagonal when
+    causal."""
     f32, n = torch.float32, q.shape[2]
     s = (q.to(f32) @ k.to(f32).transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if bias is not None:
@@ -43,7 +43,18 @@ def _probs(q, k, bias, causal):
     if causal:
         pos = torch.arange(n, device=q.device)
         s = torch.where(pos[None, :] > pos[:, None], torch.full_like(s, NEG_INF), s)
-    return torch.softmax(s, dim=-1)
+    return s
+
+
+def _probs(q, k, bias, causal):
+    return torch.softmax(_scores(q, k, bias, causal), dim=-1)
+
+
+def flash_attention_lse_plain(q, k, *, bias=None, causal: bool = False, layout: str = "bnhd"):
+    """Each row's float32 log-sum-exp [B, H, N] of its masked, scaled scores
+    (natural log): the plain version of the state the forward kernel saves
+    for the backward."""
+    return torch.logsumexp(_scores(_to_bhnd(q, layout), _to_bhnd(k, layout), bias, causal), -1)
 
 
 def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd",

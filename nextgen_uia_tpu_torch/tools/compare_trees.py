@@ -1,13 +1,17 @@
-"""Time the whole-block kernel (K1) in this checkout and in another one, in
-turns, on one card:
+"""Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k7]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
-process that builds that tree's kernels and prints three CUDA-event means
-of 20 calls of ``fused_block_infer`` at [32, 197, 768] bf16, 12 heads, in
-the order other, this, this, other.
+process that builds that tree's kernels, in the order other, this, this,
+other. ``k1`` (the default) prints three CUDA-event means of 20 calls of
+``fused_block_infer`` at [32, 197, 768] bf16, 12 heads. ``k7`` prints, for
+the flash-attention forward and backward at each of ``K7_SHAPES`` in bf16:
+the op's CUDA-event mean over back-to-back calls through the wrapper (its
+host time included) and its kernels' device time alone (torch.profiler,
+the sum of every kernel whose name holds "flash" per call). The timing
+scripts import nothing of this module, since they run in the other tree.
 """
 
 from __future__ import annotations
@@ -16,7 +20,13 @@ import os
 import subprocess
 import sys
 
-TIMING = r'''
+K7_SHAPES = (  # (B, H, N, layout, key bias): DINOv2 at 518 px, then the path shapes
+    (24, 12, 1370, "bhnd", False),  # the yardstick: DINOv2's N > 512 route
+    (16, 12, 197, "bnhd", True),    # OpenAI/MetaCLIP LoRA microbatch (mha's LoRA route)
+    (64, 12, 197, "bhnd", False),   # the bench step's K11 and hybrid routes
+    (16, 12, 256, "bnhd", True))    # --tune_text_encoder's PubMedBERT LoRA layers
+
+K1 = r'''
 import sys, torch
 sys.path.insert(0, ".")
 from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
@@ -41,19 +51,75 @@ with torch.no_grad():
 print("K1_MS", " ".join(f"{r:.4f}" for r in res))
 '''
 
+K7 = f"SHAPES = {K7_SHAPES!r}" + r'''
+import sys, torch
+sys.path.insert(0, ".")
+from torch.profiler import ProfilerActivity, profile
+from nextgen_uia_tpu_torch.ops import build, flash_attention as fa
+build.build(); build.library()
+dev, bf16 = torch.device("cuda"), torch.bfloat16
+
+def op_ms(fn, iters):
+    for _ in range(3):
+        fn()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+def kernel_ms(fn, iters):
+    # a window with no device records (the first in a process can lose
+    # them) is profiled again, up to three in all; 0.0 if all came back empty
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and "flash" in ev.key)
+        if us > 0:
+            break
+    return us / 1e3 / iters
+
+for b, h, n, layout, bias in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    shape = (b, h, n, 64) if layout == "bhnd" else (b, n, h, 64)
+    q, k, v, go = (torch.randn(shape, generator=g).to(dev).to(bf16) for _ in range(4))
+    kb = torch.randn(b, n, generator=g).to(dev) if bias else None
+    iters = 10 if n > 1000 else 50
+    with torch.no_grad():
+        out, lse = fa.flash_attention_forward(q, k, v, bias=kb, layout=layout)
+        fwd = lambda: fa.flash_attention_forward(q, k, v, bias=kb, layout=layout)
+        bwd = lambda: fa.flash_attention_backward(q, k, v, out, go, lse, bias=kb, layout=layout,
+                                                  bias_grad=False)
+        print(f"K7 [{b}, {h}, {n}, 64] {layout} bias={bias}: fwd op {op_ms(fwd, iters):.4f} "
+              f"kernel {kernel_ms(fwd, iters):.4f}; bwd op {op_ms(bwd, iters):.4f} "
+              f"kernel {kernel_ms(bwd, iters):.4f} ms", flush=True)
+'''
+
+TIMINGS = {"k1": (K1, "K1_MS"), "k7": (K7, "K7 ")}
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1 or not os.path.isdir(argv[0]):
+    if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
+            len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT")
+                         "OTHER_CHECKOUT [k1|k7]")
+    script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),
                        ("other", argv[0])):
-        res = subprocess.run([sys.executable, "-c", TIMING], cwd=tree, capture_output=True,
+        res = subprocess.run([sys.executable, "-c", script], cwd=tree, capture_output=True,
                              text=True)
-        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("K1_MS")]
-        print(name, lines[0] if lines else res.stderr[-2000:])
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith(tag)]
+        for ln in lines or [res.stderr[-2000:]]:
+            print(name, ln, flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """The port's DINOv2 slice against the JAX package, on the CPU.
 
 (a) K7's plain version against the JAX ``flash_attention`` (Pallas,
-interpret mode): ragged N, key bias, causal, both layouts, and one N > 512
-case, max|d| <= 2e-5; (b) K10's plain version against the JAX ``fused_mlp``
+interpret mode): ragged N, key bias, causal, both layouts, one N > 512
+case and the CUDA kernels' tile edges (N = 1, 64, 65, 129), max|d| <=
+2e-5, and the plain row log-sum-exp (``flash_attention_lse_plain``)
+against the JAX ``_scores``' probabilities, <= 2e-5; (b) K10's plain version against the JAX ``fused_mlp``
 (interpret mode), gelu and quick_gelu, <= 2e-5; (c) the layers the heads
 use: conv_transpose2d, conv2d_cat, batchnorm (train, eval, running state),
 the align-corners bilinear and the antialiased bicubic resizes and the
@@ -40,6 +42,7 @@ from nextgen_uia_tpu.core.partition import merge as jax_merge
 from nextgen_uia_tpu.core.partition import partition as jax_partition
 from nextgen_uia_tpu.models import dinov2 as jdv
 from nextgen_uia_tpu.nn import layers as jl
+from nextgen_uia_tpu.ops.flash_attention import _scores as jax_fa_scores
 from nextgen_uia_tpu.ops.flash_attention import flash_attention as jax_flash
 from nextgen_uia_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
 from nextgen_uia_tpu.tasks import other_tasks as jot
@@ -61,8 +64,14 @@ def _t(a):
 
 @pytest.mark.parametrize("layout,n,heads,bias,causal", [
     ("bhnd", 77, 3, True, False), ("bhnd", 50, 2, False, True), ("bnhd", 33, 2, True, True),
-    ("bnhd", 130, 2, False, False), ("bhnd", 530, 1, True, False)])
+    ("bnhd", 130, 2, False, False), ("bhnd", 530, 1, True, False),
+    # the CUDA kernels' tile edges (64-row boxes, 128-row tiles)
+    ("bnhd", 1, 2, True, True), ("bhnd", 64, 2, True, True), ("bnhd", 65, 2, True, True),
+    ("bhnd", 129, 2, True, True)])
 def test_flash_attention_plain_matches_jax(layout, n, heads, bias, causal):
+    """The forward against the JAX kernel, and the row log-sum-exp the kernel
+    saves (its plain version) against the JAX ``_scores``: exp(s - lse)
+    must give the JAX probabilities."""
     rng = np.random.default_rng(n)
     shape = (2, heads, n, 16) if layout == "bhnd" else (2, n, heads, 16)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
@@ -70,10 +79,19 @@ def test_flash_attention_plain_matches_jax(layout, n, heads, bias, causal):
     want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                 bias=None if kb is None else jnp.asarray(kb), causal=causal,
                                 layout=layout))
-    got = fa.flash_attention(_t(q), _t(k), _t(v), bias=None if kb is None else _t(kb),
-                             causal=causal, layout=layout)
+    tb = None if kb is None else _t(kb)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), bias=tb, causal=causal, layout=layout)
     assert got.shape == want.shape
     assert np.abs(got.numpy() - want).max() <= 2e-5
+
+    lse = fa.flash_attention_lse_plain(_t(q), _t(k), bias=tb, causal=causal, layout=layout)
+    assert tuple(lse.shape) == (2, heads, n)
+    qh, kh = (np.moveaxis(a, 2, 1) if layout == "bnhd" else a for a in (q, k))  # [B, H, N, dh]
+    probs = np.stack([np.asarray(jax_fa_scores(
+        jnp.asarray(qh[i]), jnp.asarray(kh[i]), None if kb is None else jnp.asarray(kb[i]),
+        scale=16 ** -0.5, n=n, causal=causal)) for i in range(2)])
+    s = fa._scores(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (qh, kh)), tb, causal)
+    assert np.abs(torch.exp(s - lse[..., None]).numpy() - probs).max() <= 2e-5
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])

@@ -11,7 +11,10 @@ spatial op <= one bf16 ulp at the output's scale. The train path's kernels
 fused-MLP (K10) forwards, K1 with the causal mask: float32 max|d| <= 1e-4 *
 max|ref|, bfloat16 <= 3e-2 * max(1, max|ref|), for every output; K7's
 bfloat16 output (~0.04 for unit-variance inputs) and gradients <= 3e-2 *
-max|ref|. The lookup and histogram kernels (K13) and an
+max|ref|, also at the wgmma kernels' tile edges (N = 1, 63, 64, 65, 127,
+128, 129) and at [16, 256, 12, 64] with a bias, its lse within 1e-3 of the
+plain log-sum-exp, its bf16 backward bitwise equal over two calls, and bf16
+input TMA cannot read (head dim not 64, unaligned base or stride) refused. The lookup and histogram kernels (K13) and an
 augmentation plan through them: equal to their plain versions. BERT's
 post-norm kernels (K5 raw-x, K6 post-LN, K9, K1 post-norm) with a
 key-padding bias that leaves one row wholly padded: float32 1e-4 *
@@ -236,7 +239,17 @@ def _rounded(t, dtype):
     ("bhnd", 2, 3, 77, True, True, torch.float32),
     ("bnhd", 1, 2, 530, False, True, torch.float32),
     ("bhnd", 2, 2, 130, True, True, torch.bfloat16),
-    ("bnhd", 2, 12, 1370, True, True, torch.bfloat16)])
+    ("bnhd", 2, 12, 1370, True, True, torch.bfloat16),
+    # the wgmma kernels' tile edges (64-row boxes, 128-row tiles) and the
+    # --tune_text_encoder shape
+    ("bnhd", 2, 3, 1, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 63, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 64, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 65, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 127, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 128, True, True, torch.bfloat16),
+    ("bnhd", 2, 3, 129, True, True, torch.bfloat16),
+    ("bnhd", 16, 12, 256, True, False, torch.bfloat16)])
 def test_flash_attention_kernel_matches_plain(cuda, layout, b, h, n, bias, causal, dtype):
     """K7 against its plain version; the bnhd cases read q, k, v as strided
     views of one packed [B, N, 3, H, 64] projection, as mha does."""
@@ -328,7 +341,15 @@ def test_k7_k10_backward_refuses_on_the_card(cuda):
     ("bhnd", 2, 2, 77, True, True, torch.bfloat16, False),
     ("bhnd", 2, 3, 77, True, True, torch.float32, True),
     ("bnhd", 1, 2, 530, False, True, torch.float32, False),
-    ("bnhd", 2, 3, 197, True, False, torch.float32, True)])
+    ("bnhd", 2, 3, 197, True, False, torch.float32, True),
+    ("bnhd", 2, 3, 1, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 63, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 64, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 65, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 127, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 128, True, True, torch.bfloat16, True),
+    ("bnhd", 2, 3, 129, True, True, torch.bfloat16, True),
+    ("bnhd", 16, 12, 256, True, False, torch.bfloat16, False)])
 def test_flash_attention_backward_kernel_matches_plain(cuda, layout, b, h, n, bias, causal,
                                                        dtype, bias_grad):
     """Autograd through K7 on the card reaches the backward kernel (its
@@ -366,11 +387,103 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, layout, b, h, n, bi
     got = (leaf.grad.unbind(2) if layout == "bnhd" else [t.grad for t in leaves])
     if bias and bias_grad:
         got = [*got, kb_leaf.grad]
+    # a gradient whose reference is exactly zero (dq, dk and dbias at N = 1,
+    # where P = 1) is held to the largest gradient's scale: the kernel's D
+    # comes from the rounded output, so it keeps a rounding residue
+    largest = max(w.abs().max().item() for w in want if w is not None)
     for g, w in zip(got, want):
-        scale = w.abs().max().item()
+        scale = w.abs().max().item() or largest
         bound = (1e-4 if dtype == torch.float32 else 3e-2) * scale
         err = (g.float() - w.float()).abs().max().item()
         assert err <= bound, f"max|d| {err:.3e} > {bound:.3e} (max|ref| {scale:.3e})"
+
+
+@pytest.mark.parametrize("layout,b,h,n,bias,causal", [
+    ("bnhd", 16, 12, 197, True, False), ("bhnd", 2, 12, 1370, False, False),
+    ("bnhd", 2, 3, 129, True, True)])
+def test_flash_attention_backward_is_bitwise_deterministic(cuda, layout, b, h, n, bias, causal):
+    """Two calls of the bf16 backward give bitwise-equal dq, dk and dv (no
+    atomics on them; dbias keeps its float32 atomics and is not held to
+    this), and each saved lse matches the plain log-sum-exp within 1e-3."""
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(n)
+    if layout == "bnhd":
+        qkv = torch.randn(b, n, 3, h, 64, generator=gen).to(cuda).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(b, h, n, 64, generator=gen).to(cuda).to(torch.bfloat16)
+                   for _ in range(3))
+    kb = torch.randn(b, n, generator=gen).to(cuda) if bias else None
+    g = torch.randn(q.shape, generator=gen).to(cuda).to(torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v, bias=kb, causal=causal, layout=layout)
+    want = fa.flash_attention_lse_plain(q.float(), k.float(), bias=kb, causal=causal,
+                                        layout=layout)
+    assert (lse - want).abs().max().item() <= 1e-3
+    first = fa.flash_attention_backward(q, k, v, out, g, lse, bias=kb, causal=causal,
+                                        layout=layout)
+    second = fa.flash_attention_backward(q, k, v, out, g, lse, bias=kb, causal=causal,
+                                         layout=layout)
+    for a, c in zip(first[:3], second[:3]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n", [96, 160, 600])
+def test_flash_attention_wholly_padded_row_stays_finite(cuda, n):
+    """A sequence whose every key carries BERT's -1e9 padding bias (the
+    second of two; the first has its last third padded), at N not a multiple
+    of 64, so that the backward's last key tile holds keys past N. The
+    forward's output and lse match the plain version for both sequences
+    (output 3e-2 * max|ref|; lse 1e-3, the padded one's, ~-1e9, to one
+    float32 step there); dq, dk, dv and dbias are finite everywhere and, for
+    the first sequence, match the plain backward within 3e-2 * max|ref|.
+    The padded sequence's gradients are not held to the plain version: its
+    lse rounds to -1e9, losing log N, so the kernel's P there is 1, not
+    1 / N, as in the JAX kernel."""
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(n)
+    qkv = torch.randn(2, n, 3, 3, 64, generator=gen).to(torch.bfloat16).to(cuda)
+    q, k, v = qkv.unbind(2)
+    refs = [t.float() for t in (q, k, v)]
+    kb = torch.zeros(2, n)
+    kb[0, 2 * n // 3:] = -1e9
+    kb[1] = -1e9
+    kb = kb.to(cuda)
+    g = torch.randn(q.shape, generator=gen).to(torch.bfloat16).to(cuda)
+    out, lse = fa.flash_attention_forward(q, k, v, bias=kb)
+    want = fa.flash_attention_plain(*refs, bias=kb)
+    want_lse = fa.flash_attention_lse_plain(*refs[:2], bias=kb)
+    assert (out.float() - want).abs().max() <= 3e-2 * want.abs().max()
+    assert (lse[0] - want_lse[0]).abs().max() <= 1e-3
+    assert (lse[1] - want_lse[1]).abs().max() <= 64.0
+    got = fa.flash_attention_backward(q, k, v, out, g, lse, bias=kb)
+    for t in got:
+        assert torch.isfinite(t).all()
+    wants = fa.flash_attention_backward_plain(*refs, kb, g.float())
+    for t, w in zip(got, wants):
+        err = (t[0].float() - w[0]).abs().max().item()
+        assert err <= 3e-2 * w[0].abs().max().item()
+
+
+def test_flash_attention_bf16_refuses_what_tma_cannot_take(cuda):
+    """The bf16 kernels read through TMA: a head dim other than 64, a base
+    that is not 16-byte aligned or a stride that is not a multiple of 8
+    elements is refused, with no fallback to a plain version."""
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    launches = fa.flash_attention.launches
+    x = torch.randn(1, 2, 20, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(x[..., :32], x[..., :32], x[..., :32], layout="bhnd")
+    flat = torch.randn(1 + 2 * 20 * 64, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 20, 64)  # base 2 bytes past an aligned one
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(shifted, shifted, shifted, layout="bhnd")
+    wide = torch.randn(1, 2, 20, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(wide, wide, wide, layout="bhnd")
+    assert fa.flash_attention.launches == launches
 
 
 @pytest.mark.parametrize("b,n,width,heads,dtype,bias", [

@@ -3,8 +3,9 @@ the CPU.
 
 (a) ``flash_attention_backward_plain`` against ``jax.grad`` of the JAX
 ``flash_attention`` (Pallas, interpret mode, as tests/test_flash_attention.py
-runs it): float32, with a key bias, causal, a ragged N, both layouts, and
-``bias_grad=True`` (the bias's gradient too); the port's autograd through
+runs it): float32, with a key bias, causal, a ragged N, the CUDA kernels'
+tile edges (N = 1, 64, 65, 129), both layouts, and ``bias_grad=True`` (the
+bias's gradient too); the port's autograd through
 ``flash_attention`` on CPU tensors gives the same; max|d| <= 2e-5 *
 max(1, max|ref|). (b) ``mha``'s LoRA route (LayerNorm given, residual,
 nonzero b, a key bias) against the JAX ``mha`` (its CPU einsum route): the
@@ -52,7 +53,12 @@ def _close(got, want, rel=2e-5):
     ("bhnd", 2, 3, 20, True, False, False),
     ("bnhd", 1, 2, 37, False, True, False),
     ("bhnd", 2, 2, 29, True, True, True),
-    ("bnhd", 2, 4, 33, True, False, True)])
+    ("bnhd", 2, 4, 33, True, False, True),
+    # the CUDA kernels' tile edges (64-row boxes, 128-row tiles)
+    ("bnhd", 2, 2, 1, True, True, True),
+    ("bhnd", 1, 2, 64, True, True, False),
+    ("bnhd", 1, 2, 65, True, True, True),
+    ("bhnd", 1, 2, 129, True, True, True)])
 def test_flash_backward_plain_matches_jax(layout, b, h, n, bias, causal, bias_grad):
     rng = np.random.default_rng(n + h)
     shape = (b, n, h, 64) if layout == "bnhd" else (b, h, n, 64)
