@@ -17,7 +17,9 @@
    key-padding bias that leaves rows wholly padded; the whole MONA adapter,
    K12, forward and backward, and the attention block, K11, forward, dx
    backward and hybrid forward, at the bench step's [64, 197, 768] with a
-   causal K11 case [16, 77, 512]; K10's backward at the BERT fine-tune's
+   causal K11 case [16, 77, 512] (K11's bf16 backward bitwise equal over
+   two calls; both cases timed, op and kernels alone, with no WMMA GEMM in
+   a bf16 call); K10's backward at the BERT fine-tune's
    [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
    forward and backward at [64, 14, 14, 64]) and at one odd shape
    each (K7, on Hopper's wgmma and TMA, also at its tile edges N = 1, 63,
@@ -560,10 +562,11 @@ def fused_kernel_rows(dev, gen, results):
     3e-2 * its own) in float32, 3e-2 * the largest in bf16; two backward
     calls bitwise equal. K11 (12 heads, a key-padding bias) forward, dx
     backward and the hybrid forward (plain products around K7), and a causal
-    case [16, 77, 512] with 8 heads: 1e-4 / 3e-2 * max|ref|. CUDA-event
-    times in bf16 beside the plain versions and, for K11,
-    ``multi_head_attention_forward`` (packed in-projection) and its autograd
-    backward, timed only."""
+    case [16, 77, 512] with 8 heads: 1e-4 / 3e-2 * max|ref|, the bf16
+    backward bitwise equal over two calls. CUDA-event times in bf16 beside
+    the plain versions and, for K11 (both cases, ``k11_timings``),
+    its kernels alone and ``multi_head_attention_forward`` (packed
+    in-projection) and its autograd backward, timed only."""
     import torch
     import torch.nn.functional as F
 
@@ -661,6 +664,7 @@ def fused_kernel_rows(dev, gen, results):
                              fa.fused_attn_block_backward_plain(x, att, g, **akw)),
                          "hybrid_attn_block": (fa.hybrid_attn_block(x, att, **akw),
                                                fa.hybrid_attn_block_plain(x, att, **akw))}
+                again = fa.fused_attn_block_backward(x, att, g, **akw)
                 torch.cuda.synchronize()
             lim = F32_BOUND if dtype == f32 else BF16_BOUND
             for name, (got, want) in pairs.items():
@@ -671,55 +675,111 @@ def fused_kernel_rows(dev, gen, results):
                         f"{name} {label} {dtype} mismatch")
                 if label == "main" and dtype == bf16:
                     bf16_err[name] = err
+            same = torch.equal(pairs["fused_attn_block_backward"][0], again)
+            print(f"fused_attn_block_backward: {label} {dtype} two calls bitwise equal: {same}")
+            require(same or dtype == f32, f"fused_attn_block_backward {label} bf16 is not bitwise "
+                                          f"repeatable")
+        if label == "causal":
+            k11_timings(fa, att, xa.to(bf16), ga.to(bf16), akw, label)
 
     # times at the main shape in bf16; the library: multi_head_attention_forward
     att = Attention(gen, d).to(dev)
     x, g = randn(b, n, d).to(bf16), randn(b, n, d).to(bf16)
     kb = randn(b, n) - 1e9 * (torch.rand(b, n, generator=gen) < 0.2).to(dev)
     akw = dict(heads=12, bias=kb)
-    w_in = torch.cat([att.q.w, att.k.w, att.v.w], 1).T.contiguous().to(bf16)
-    b_in = torch.cat([att.q.b, att.k.b, att.v.b]).to(bf16)
-    w_out, b_out, kpm = att.o.w.T.contiguous().to(bf16), att.o.b.to(bf16), kb.to(bf16)
-
-    def library(xq):
-        xt = xq.transpose(0, 1)
-        return F.multi_head_attention_forward(
-            xt, xt, xt, d, 12, w_in, b_in, None, None, False, 0.0, w_out, b_out,
-            training=False, key_padding_mask=kpm, need_weights=False)[0]
-
+    t_fwd, t_bwd = k11_timings(fa, att, x, g, akw, "main")
     with torch.no_grad():
-        t_fwd = (cuda_ms(lambda: fa.fused_attn_block(x, att, **akw), 20),
-                 cuda_ms(lambda: fa.fused_attn_block_plain(x, att, **akw), 5, warmup=1),
-                 cuda_ms(lambda: library(x), 20))
-        t_bwd_k = cuda_ms(lambda: fa.fused_attn_block_backward(x, att, g, **akw), 20)
-        t_bwd_p = cuda_ms(lambda: fa.fused_attn_block_backward_plain(x, att, g, **akw), 3,
-                          warmup=1)
         t_hyb = (cuda_ms(lambda: fa.hybrid_attn_block(x, att, **akw), 20),
                  cuda_ms(lambda: fa.hybrid_attn_block_plain(x, att, **akw), 5, warmup=1))
-    xg = x.detach().requires_grad_()
-    lib_out = library(xg)
-    t_bwd_l = cuda_ms(lambda: torch.autograd.grad(lib_out, xg, g.transpose(0, 1),
-                                                  retain_graph=True), 20)
-    dh, proj = d // 12, 2 * m * d * d
-    attn_f = 4 * b * 12 * n * n * dh
-    fwd_cost = (4 * proj + attn_f, 2 * 2 * m * d + 2 * 4 * d * d + 4 * b * n)
-    # dx alone: q/k/v, QK^T and dY.Wo^T recomputed or formed, dP, dS.K, dS^T.Q, P^T.dO
-    # and three dx products; P.V need not be (delta = rowsum(dP * P))
-    bwd_cost = (7 * proj + 5 * attn_f // 2, 3 * 2 * m * d + 2 * 4 * d * d + 4 * b * n)
-    for name, (ms, plain_ms, lib_ms), cost in (
+    fwd_cost, bwd_cost = k11_costs(b, n, d, 12)
+    for name, (ms, _, plain_ms, lib_ms), cost in (
             ("fused_attn_block", t_fwd, fwd_cost),
-            ("fused_attn_block_backward", (t_bwd_k, t_bwd_p, t_bwd_l), bwd_cost)):
+            ("fused_attn_block_backward", t_bwd, bwd_cost)):
         b_ms, b_by = bound(*cost)
-        print(f"{name}: bf16 [{b}, {n}, {d}], 12 heads, key bias: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library (multi_head_attention_forward"
-              f"{' backward' if 'backward' in name else ''}) {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
         results[name] = dict(max_abs_err=bf16_err[name], ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = bound(*fwd_cost)
     print(f"hybrid_attn_block: bf16 [{b}, {n}, {d}] forward (plain products, K7) {t_hyb[0]:.4f} "
-          f"ms, plain {t_hyb[1]:.4f} ms, library {t_fwd[2]:.4f} ms, bound {b_ms:.4f} ms "
+          f"ms, plain {t_hyb[1]:.4f} ms, library {t_fwd[3]:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}); max|d| {bf16_err['hybrid_attn_block']:.3e}")
+
+
+def k11_costs(b, n, d, heads):
+    """(forward, backward) (operations, bytes) of K11 at [b, n, d]: the
+    forward's four projections and attention, x, the weights and the
+    output; the dx backward's q/k/v, QK^T and dY.Wo^T recomputed or formed,
+    dP, dS.K, dS^T.Q, P^T.dO and three dx products (P.V need not be: delta =
+    rowsum(dP * P)), x, g, the weights and dx. bf16."""
+    m, dh = b * n, d // heads
+    proj, attn = 2 * m * d * d, 4 * b * heads * n * n * dh
+    return ((4 * proj + attn, 2 * 2 * m * d + 2 * 4 * d * d + 4 * b * n),
+            (7 * proj + 5 * attn // 2, 3 * 2 * m * d + 2 * 4 * d * d + 4 * b * n))
+
+
+def k11_timings(fa, att, x, g, akw, label):
+    """K11's forward and dx backward ops in bf16 on x, g: the op (CUDA
+    events over back-to-back wrapper calls), its kernels alone (profiler
+    device time per call of every GEMM and flash-attention kernel it
+    launches; in bf16 every GEMM the profiler sees must be the Hopper
+    core's, none the WMMA one; a window with no device activity leaves that
+    check unmade, and says so), the plain version, ``multi_head_attention_forward`` (packed
+    in-projection, the key bias as a float mask, the causal mask as a
+    boolean one) and its autograd backward, and the bound. Returns
+    ((op, kernel, plain, library) forward, (...) backward) in ms."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    b, n, d = x.shape
+    heads, kb, causal = akw["heads"], akw.get("bias"), akw.get("causal", False)
+    w_in = torch.cat([att.q.w, att.k.w, att.v.w], 1).T.contiguous().to(bf16)
+    b_in = torch.cat([att.q.b, att.k.b, att.v.b]).to(bf16)
+    w_out, b_out = att.o.w.T.contiguous().to(bf16), att.o.b.to(bf16)
+    kpm = None if kb is None else kb.to(bf16)
+    mask = torch.ones(n, n, dtype=torch.bool, device=x.device).triu(1) if causal else None
+
+    def library(xq):
+        xt = xq.transpose(0, 1)
+        return F.multi_head_attention_forward(
+            xt, xt, xt, d, heads, w_in, b_in, None, None, False, 0.0, w_out, b_out,
+            training=False, key_padding_mask=kpm, need_weights=False, attn_mask=mask)[0]
+
+    def fwd():
+        return fa.fused_attn_block(x, att, **akw)
+
+    def bwd():
+        return fa.fused_attn_block_backward(x, att, g, **akw)
+
+    rows, wmma_check = [], []
+    with torch.no_grad():
+        for what, fn, plain in (
+                ("forward", fwd, lambda: fa.fused_attn_block_plain(x, att, **akw)),
+                ("backward", bwd, lambda: fa.fused_attn_block_backward_plain(x, att, g, **akw))):
+            seen = set()
+            op_ms = cuda_ms(fn, 20)
+            kern_ms = kernel_device_ms(fn, ("gemm", "flash"), seen=seen)
+            wmma = sorted(k[:60] for k in seen if "gemm_bf16" in k)
+            require(not wmma and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
+                    f"K11 {what} bf16 ran {wmma or 'no Hopper GEMM'}: every projection must run "
+                    f"on hopper_gemm.cuh's core")
+            wmma_check.append("no WMMA GEMM" if seen else
+                              "WMMA check not made: the profiler recorded no device activity")
+            rows.append([op_ms, kern_ms, cuda_ms(plain, 3, warmup=1)])
+    rows[0].append(cuda_ms(lambda: library(x), 20))
+    xg = x.detach().requires_grad_()
+    lib_out = library(xg)
+    rows[1].append(cuda_ms(lambda: torch.autograd.grad(lib_out, xg, g.transpose(0, 1),
+                                                      retain_graph=True), 20))
+    for what, row, check, cost in zip(("forward", "backward"), rows, wmma_check,
+                                      k11_costs(b, n, d, heads)):
+        b_ms, b_by = bound(*cost)
+        print(f"fused_attn_block{'_backward' if what == 'backward' else ''}: {label} bf16 "
+              f"[{b}, {n}, {d}], {heads} heads, key bias {kb is not None}, causal {causal}: op "
+              f"{row[0]:.4f} ms, kernels alone {row[1]:.4f} ms ({check}), plain "
+              f"{row[2]:.4f} ms, library (multi_head_attention_forward"
+              f"{' backward' if what == 'backward' else ''}) {row[3]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    return tuple(rows)
 
 
 K7_EDGES = (1, 63, 64, 65, 127, 128, 129)  # around the 64-row boxes and 128-row tiles
@@ -846,16 +906,19 @@ def k7_timings(fa, randn, sdpa_backward, bwd_cost):
     return times
 
 
-def kernel_device_ms(fn, name, iters=20, windows=3):
-    """Device ms per call of the kernels whose name holds ``name``, from
-    torch.profiler over ``iters`` calls of fn (no host time in it). A window
-    that comes back without the kernel is profiled again, up to ``windows``
-    in all. Fails if a window recorded other kernels but never this one;
-    NaN ("not measured") if the profiler recorded no device activity at all,
-    which says nothing of the kernel (its launches are counted elsewhere)."""
+def kernel_device_ms(fn, name, iters=20, windows=3, seen=None):
+    """Device ms per call of the kernels whose name holds ``name`` (or any
+    of a tuple of names), from torch.profiler over ``iters`` calls of fn (no
+    host time in it); the window's kernel names go into ``seen`` if given.
+    A window that comes back without the kernel is profiled again, up to
+    ``windows`` in all. Fails if a window recorded other kernels but never
+    this one; NaN ("not measured") if the profiler recorded no device
+    activity at all, which says nothing of the kernel (its launches are
+    counted elsewhere)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else name
     fn()
     torch.cuda.synchronize()
     others = set()
@@ -866,8 +929,11 @@ def kernel_device_ms(fn, name, iters=20, windows=3):
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(getattr(e, "self_device_time_total", 0) for e in kernels if name in e.key)
+        us = sum(getattr(e, "self_device_time_total", 0) for e in kernels
+                 if any(part in e.key for part in names))
         if us > 0:
+            if seen is not None:
+                seen.update(e.key for e in kernels)
             return us / 1e3 / iters
         others.update(e.key[:60] for e in kernels)
         print(f"kernel_device_ms: a profiler window saw no {name} kernel among "

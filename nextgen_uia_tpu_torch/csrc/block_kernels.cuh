@@ -167,23 +167,26 @@ static cudaError_t launch_layernorm_bwd(const void* x, const float* g, const flo
 // GEMM operands and epilogue
 // ---------------------------------------------------------------------------
 
-// A logical [rows, cols] matrix: row-major at p0, or head-major segments
-// (see the top of the file): seg = H * dh columns per pointer p0, p1, p2.
-// The layout is a template flag of the kernels (HM), so the row-major path
-// carries no index arithmetic; head_major here only selects the kernel.
+// A logical [rows, cols] matrix: row-major at p0 (rows ld elements apart;
+// launch_gemm sets a row_major operand's ld of 0 to its cols), or
+// head-major segments (see the top of the file): seg = H * dh columns per
+// pointer p0, p1, p2. The layout is a template flag of the kernels (HM), so
+// the row-major path carries no index arithmetic; head_major here only
+// selects the kernel.
 struct Operand {
   const void* p0;
   const void* p1;
   const void* p2;
   int head_major;
   int seg, n_tok, heads, dh;
+  int ld;
 
   // element offset of (r, c) in the pointer `base` it lives in
   template <bool HM>
-  __device__ __forceinline__ size_t index(int r, int c, int cols, const void*& base) const {
+  __device__ __forceinline__ size_t index(int r, int c, const void*& base) const {
     if (!HM) {
       base = p0;
-      return (size_t)r * cols + c;
+      return (size_t)r * ld + c;
     }
     const int t = c / seg;
     const int cc = c - t * seg, h = cc / dh, e = cc - h * dh;
@@ -192,9 +195,9 @@ struct Operand {
     return ((size_t)(b * heads + h) * n_tok + n) * dh + e;
   }
   template <bool HM, typename T>
-  __device__ __forceinline__ const T* ptr(int r, int c, int cols) const {
+  __device__ __forceinline__ const T* ptr(int r, int c) const {
     const void* base;
-    const size_t i = index<HM>(r, c, cols, base);
+    const size_t i = index<HM>(r, c, base);
     return static_cast<const T*>(base) + i;
   }
 };
@@ -223,7 +226,7 @@ struct Epilogue {
     if (round_mid && out_dtype == BF16) v = round_to<__nv_bfloat16>(v);
     if (res) v += load_f32(res, res_dtype, i);
     const void* base;
-    const size_t o = out.index<OHM>(r, c, n, base);
+    const size_t o = out.index<OHM>(r, c, base);
     store_f32(const_cast<void*>(base), out_dtype, o, v);
   }
 };
@@ -247,7 +250,7 @@ gemm_f32(Operand A, const float* __restrict__ W, Epilogue epi, int M, int N, int
   for (int k0 = 0; k0 < K; k0 += SBK) {
     for (int i = tid; i < SBM * SBK; i += 256) {
       const int r = i / SBK, c = i % SBK, gr = row0 + r;
-      As[c][r] = gr < M ? *A.ptr<AHM, float>(gr, k0 + c, K) : 0.f;
+      As[c][r] = gr < M ? *A.ptr<AHM, float>(gr, k0 + c) : 0.f;
     }
     for (int i = tid; i < SBK * SBN; i += 256) {
       if (BT) {  // consecutive threads walk W's rows (contiguous in k)
@@ -335,7 +338,7 @@ gemm_bf16(Operand A, const __nv_bfloat16* __restrict__ W, Epilogue epi, int M, i
 #pragma unroll
     for (int v = tid; v < WBM * WBK / 8; v += 256) {
       const int r = v / (WBK / 8), c = (v % (WBK / 8)) * 8, gr = row0 + r;
-      cp_async16(as + r * A_LD + c, A.ptr<AHM, __nv_bfloat16>(gr < M ? gr : 0, k0 + c, K),
+      cp_async16(as + r * A_LD + c, A.ptr<AHM, __nv_bfloat16>(gr < M ? gr : 0, k0 + c),
                  gr < M);
     }
 #pragma unroll
@@ -406,13 +409,13 @@ gemm_bf16(Operand A, const __nv_bfloat16* __restrict__ W, Epilogue epi, int M, i
     }
 }
 
-static inline Operand row_major(const void* p) {
-  return Operand{p, nullptr, nullptr, 0, 0, 0, 0, 0};
+static inline Operand row_major(const void* p, int ld = 0) {
+  return Operand{p, nullptr, nullptr, 0, 0, 0, 0, 0, ld};
 }
 
 static inline Operand head_major(const void* p0, const void* p1, const void* p2, int n_tok,
                                  int heads, int dh) {
-  return Operand{p0, p1, p2, 1, heads * dh, n_tok, heads, dh};
+  return Operand{p0, p1, p2, 1, heads * dh, n_tok, heads, dh, 0};
 }
 
 template <bool BT, bool AHM, bool OHM, bool DACT>
@@ -441,10 +444,12 @@ static cudaError_t launch_gemm_t(const Operand& a, const void* w, int dtype,
 // `dtype` (float32 or bf16). The layouts the block kernels use, each its
 // own instantiation: row-major in and out, a head-major output (q/k/v
 // forward), W^T with a head-major A (their backward), W^T with a head-major
-// output (the attention block's d(head concat)), and W^T with or without
-// the activation-derivative epilogue; other combinations are refused.
-static cudaError_t launch_gemm(const Operand& a, const void* w, int dtype, bool bt,
-                               const Epilogue& epi, int M, int N, int K, cudaStream_t s) {
+// output (the raw-x q/k/v forward in float32), and W^T with or without the
+// activation-derivative epilogue; other combinations are refused.
+static cudaError_t launch_gemm(Operand a, const void* w, int dtype, bool bt, Epilogue epi,
+                               int M, int N, int K, cudaStream_t s) {
+  if (!a.ld) a.ld = K;  // a dense row-major A: rows K apart
+  if (!epi.out.ld) epi.out.ld = N;
   const bool ahm = a.head_major, ohm = epi.out.head_major, dact = epi.act_in != nullptr;
   if (!bt && !ahm && !ohm && !dact)
     return launch_gemm_t<false, false, false, false>(a, w, dtype, epi, M, N, K, s);

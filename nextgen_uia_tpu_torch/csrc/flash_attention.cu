@@ -861,10 +861,7 @@ cudaError_t head_map(CUtensorMap& m, const void* ptr, int b, int heads, int n, i
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {D, ROWS, 1, 1};
-  const cudaError_t err = hw::encode(m, ptr, 4, dims, strides, box);
-  if (err == cudaErrorInvalidValue && hw::bind_context() == cudaSuccess)
-    return hw::encode(m, ptr, 4, dims, strides, box);  // a thread with no current context
-  return err;
+  return hw::encode(m, ptr, 4, dims, strides, box);
 }
 
 // launch KERNEL (3 warpgroups) with `smem` bytes of dynamic shared memory,

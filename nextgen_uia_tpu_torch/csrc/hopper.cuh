@@ -364,16 +364,21 @@ static cudaError_t bind_context() {
 }
 
 // a bf16 tensor (dims and byte strides innermost first), boxes of `box`,
-// 128-byte swizzle (the box's inner extent is 64 elements), zero fill
+// 128-byte swizzle (the box's inner extent is 64 elements), zero fill; an
+// encode that fails is tried once more after bind_context (a thread with no
+// current context)
 static cudaError_t encode(CUtensorMap& m, const void* p, int rank, const cuuint64_t* dims,
                           const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult r = fn(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
-                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto run = [&] {
+    return fn(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims, strides,
+              box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = run();
+  if (r != CUDA_SUCCESS && bind_context() == cudaSuccess) r = run();
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

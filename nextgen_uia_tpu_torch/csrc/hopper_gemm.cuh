@@ -5,14 +5,18 @@
 //
 // The rows are a batch of sequences, B of N tokens each, and every operand
 // with rows is one of two layouts (TmaMatrix), as block_kernels.cuh's
-// Operand: row-major [B, N, cols], or head-major, the logical column
+// Operand: row-major [B, N, cols] with rows `ld` elements apart (a column
+// slice of a wider buffer when ld > cols), or head-major, the logical column
 // c = t*H*dh + h*dh + e living at ptr[t][b, h, n, e] ([B, H, N, dh]: q, k, v
 // and their gradients). The M tile is (one sequence, 128 tokens), so a tile
 // never crosses a sequence: TMA reads a row-major operand as a 3-D box of
 // [B, N, cols] and a head-major one as a 4-D box of [B, H, N, dh] (one
 // head's 64 columns per K step, hence dh % 64 == 0), and its out-of-bounds
 // zero fill covers a token count the tile does not divide; the TMA stores
-// clip the same rows.
+// clip the same rows. Only a head-major operand needs the per-sequence
+// tile: a product whose operands are all row-major is run flat, as one
+// sequence of B*N tokens (batch 1), so its tiles cross sequences and only
+// the last one is ragged.
 //
 // Design (persistent: one CTA per SM walks its share of the tiles in a
 // fixed order; CTAs in clusters of two):
@@ -74,11 +78,11 @@ struct NoEpilogue {
   __device__ __forceinline__ float2 apply(float2 v, float2) const { return v; }
 };
 
-// v += bias[c], bias[c + 1] (float32, [cols], 8-byte aligned)
+// v += bias[c], bias[c + 1] (float32, [cols], 8-byte aligned; null: no bias)
 struct BiasEpilogue {
   const float* bias;
   __device__ __forceinline__ float2 fetch(int c) const {
-    return __ldg(reinterpret_cast<const float2*>(bias + c));
+    return bias ? __ldg(reinterpret_cast<const float2*>(bias + c)) : make_float2(0.f, 0.f);
   }
   __device__ __forceinline__ float2 apply(float2 v, float2 b) const {
     return make_float2(v.x + b.x, v.y + b.y);
@@ -257,14 +261,16 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 // Host side: tensor maps and the launch
 // ---------------------------------------------------------------------------
 
-// row-major [batch, n_tok, cols] read or written in boxes of 64 columns x
-// box_rows tokens
+// row-major [batch, n_tok, cols], rows ld elements apart (0: cols; TMA
+// needs ld % 8 == 0 and p 16-byte aligned), read or written in boxes of 64
+// columns x box_rows tokens
 static cudaError_t rows_matrix(TmaMatrix& t, const void* p, int batch, int n_tok, int cols,
-                               int box_rows) {
+                               int box_rows, int ld = 0) {
   t = TmaMatrix{};
   t.head_major = 0, t.seg = cols, t.dh = cols;
+  const cuuint64_t row = (cuuint64_t)(ld ? ld : cols) * 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n_tok, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)n_tok * cols * 2};
+  const cuuint64_t strides[2] = {row, (cuuint64_t)n_tok * row};
   const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1};
   return encode(t.map[0], p, 3, dims, strides, box);
 }

@@ -89,12 +89,12 @@ SIGNATURES = {
     # x, mask, prm, uw, g, stats, zd, zcat, gd, y2, img, dx, dgd, dzd, part_img, part_row,
     # part_up, part_down, grads, dtype, B, N, D, h, w, has_freq, has_noise, splits, stream
     "nx_mona_fused_bwd": [P] * 19 + [I] * 9 + [P],
-    # x, wqkv, bqkv, wo, bo, key_bias, q, k, v, cat, out, dtype, B, N, H, dh, causal, scale,
+    # x, wqkv_t, bqkv, wo_t, bo, key_bias, qkv, cat, out, dtype, B, N, H, dh, causal, scale,
     # stream
-    "nx_fused_attn_fwd": [P] * 11 + [I] * 6 + [F, P],
-    # x, wqkv, bqkv, wo, key_bias, g, q, k, v, o, lse, doh, delta, dq, dk, dv, dx, dtype, B, N,
-    # H, dh, causal, scale, stream
-    "nx_fused_attn_bwd": [P] * 17 + [I] * 6 + [F, P],
+    "nx_fused_attn_fwd": [P] * 9 + [I] * 6 + [F, P],
+    # x, wqkv_t, bqkv, wqkv, wo, key_bias, g, qkv, od, lse, delta, dqkv, dx, dtype, B, N, H, dh,
+    # causal, scale, stream
+    "nx_fused_attn_bwd": [P] * 13 + [I] * 6 + [F, P],
     # img, lut, out, B, HW, stream
     "nx_lut_apply": [P, P, P, I, I, P],
     # img, hist, B, HW, stream

@@ -13,7 +13,10 @@ weights that require grad are refused.
 ``fused_attn_block`` on a CUDA tensor launches the hand-written forward and
 backward of csrc/fused_attention.cu (counted in ``fused_attn_block.launches``
 and ``fused_attn_block_backward.launches``); on a CPU tensor it runs
-``fused_attn_block_plain`` and ``fused_attn_block_backward_plain``.
+``fused_attn_block_plain`` and ``fused_attn_block_backward_plain``. The
+kernels keep q|k|v, dq|dk|dv and o|doh in row-major [B*N, 3D] buffers
+(``_packed_layout``) and run each bf16 projection as one flat product on
+the Hopper GEMM core.
 ``hybrid_attn_block`` is the composed forward (the q/k/v and o products as
 plain matrix products, as the JAX package leaves them to XLA, around the
 flash-attention forward, K7) with the same backward.
@@ -49,6 +52,35 @@ def _weights(p, dt):
     wqkv = torch.cat([p.q.w, p.k.w, p.v.w], dim=1).detach().to(dt).contiguous()
     bqkv = torch.cat([_bias(p.q, d, dev), _bias(p.k, d, dev), _bias(p.v, d, dev)])
     return wqkv, bqkv.contiguous(), p.o.w.detach().to(dt).contiguous(), _bias(p.o, d, dev)
+
+
+def _cat(ws, dt, dim=0):
+    """The detached ``ws`` concatenated along ``dim`` into one new tensor
+    of dtype ``dt``: one copy, the cast included."""
+    ws = [w.detach() for w in ws]
+    shape = list(ws[0].shape)
+    shape[dim] = sum(w.shape[dim] for w in ws)
+    return torch.cat(ws, dim, out=torch.empty(shape, dtype=dt, device=ws[0].device))
+
+
+def _packed_layout(b, n, heads, dh):
+    """The kernels' layout of q|k|v, of dq|dk|dv and of o|doh: one
+    row-major [B*N, 3D] buffer, token n of sequence b on row b*N + n,
+    segment t (q, k, v) at columns t*D, head h at t*D + h*dh. Returns (the
+    buffer's shape, the element strides (sb, sh, sn, 1) of a segment's
+    [B, H, N, dh] view, the segments' offsets), as csrc/fused_attention.cu
+    passes them to the attention kernels."""
+    d = heads * dh
+    return (b * n, 3 * d), (n * 3 * d, dh, 3 * d, 1), (0, d, 2 * d)
+
+
+def _packed_views(buf, b, n, heads):
+    """The three [B, H, N, dh] views of a [B*N, 3D] buffer in
+    ``_packed_layout``."""
+    dh = buf.shape[1] // (3 * heads)
+    _, strides, offsets = _packed_layout(b, n, heads, dh)
+    return tuple(buf.as_strided((b, heads, n, dh), strides, buf.storage_offset() + off)
+                 for off in offsets)
 
 
 def _qkv_plain(x, wqkv, bqkv, heads):
@@ -111,21 +143,30 @@ def _check_cuda(x, heads, bias):
         raise ValueError("fused_attn_block CUDA kernel does not take: " + "; ".join(problems))
 
 
+def _qkv_weights(p, dt, d, device):
+    """[Wq|Wk|Wv]^T [3D, D] in dt (one copy) and [bq|bk|bv] [3D] float32."""
+    lins = (p.q, p.k, p.v)
+    return (_cat([lin.w.T for lin in lins], dt),
+            torch.cat([_bias(lin, d, device) for lin in lins]))
+
+
 def _forward_cuda(x, p, heads, bias, causal):
     _check_cuda(x, heads, bias)
     b, n, d = x.shape
-    dt, dh = x.dtype, d // heads
+    dt, dh, dev = x.dtype, d // heads, x.device
     x = x.contiguous()
-    wqkv, bqkv, wo, bo = _weights(p, dt)
-    q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
-    cat, out = torch.empty(b * n, d, device=x.device, dtype=dt), torch.empty_like(x)
+    wqkv_t, bqkv = _qkv_weights(p, dt, d, dev)
+    wo_t, bo = _cat([p.o.w.T], dt), _bias(p.o, d, dev)
+    shape, _, _ = _packed_layout(b, n, heads, dh)
+    qkv = torch.empty(shape, device=dev, dtype=dt)
+    cat, out = torch.empty(b * n, d, device=dev, dtype=dt), torch.empty_like(x)
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         build.check(lib.nx_fused_attn_fwd(
-            build.ptr(x, "x"), build.ptr(wqkv), build.ptr(bqkv), build.ptr(wo), build.ptr(bo),
-            build.ptr(_key_bias(bias)), build.ptr(q), build.ptr(k), build.ptr(v),
-            build.ptr(cat), build.ptr(out), build.DTYPE_CODES[dt], b, n, heads, dh,
-            int(causal), 1.0 / math.sqrt(dh), build.stream(x.device)), "fused_attn_block")
+            build.ptr(x, "x"), build.ptr(wqkv_t), build.ptr(bqkv), build.ptr(wo_t), build.ptr(bo),
+            build.ptr(_key_bias(bias)), build.ptr(qkv), build.ptr(cat), build.ptr(out),
+            build.DTYPE_CODES[dt], b, n, heads, dh, int(causal), 1.0 / math.sqrt(dh),
+            build.stream(dev)), "fused_attn_block")
     fused_attn_block.launches += 1
     return out
 
@@ -141,22 +182,23 @@ def fused_attn_block_backward(x, p, g, *, heads: int, bias=None, causal: bool = 
         raise ValueError(f"fused_attn_block: unsupported device {x.device}")
     _check_cuda(x, heads, bias)
     b, n, d = x.shape
-    dt, f32, dh = x.dtype, torch.float32, d // heads
+    dt, f32, dh, dev = x.dtype, torch.float32, d // heads, x.device
     x, g = x.contiguous(), g.to(dt).contiguous()
-    wqkv, bqkv, wo, _ = _weights(p, dt)
-    q, k, v, o, doh, dq, dk, dv = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt)
-                                   for _ in range(8))
-    lse, delta = (torch.empty(b, heads, n, device=x.device, dtype=f32) for _ in range(2))
+    wqkv_t, bqkv = _qkv_weights(p, dt, d, dev)
+    wqkv = _cat([lin.w for lin in (p.q, p.k, p.v)], dt, dim=1)
+    wo = p.o.w.detach().to(dt).contiguous()
+    shape, _, _ = _packed_layout(b, n, heads, dh)
+    qkv, od, dqkv = (torch.empty(shape, device=dev, dtype=dt) for _ in range(3))
+    lse, delta = (torch.empty(b, heads, n, device=dev, dtype=f32) for _ in range(2))
     dx = torch.empty_like(x)
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         build.check(lib.nx_fused_attn_bwd(
-            build.ptr(x, "x"), build.ptr(wqkv), build.ptr(bqkv), build.ptr(wo),
-            build.ptr(_key_bias(bias)), build.ptr(g, "g"), build.ptr(q), build.ptr(k),
-            build.ptr(v), build.ptr(o), build.ptr(lse), build.ptr(doh), build.ptr(delta),
-            build.ptr(dq), build.ptr(dk), build.ptr(dv), build.ptr(dx), build.DTYPE_CODES[dt],
-            b, n, heads, dh, int(causal), 1.0 / math.sqrt(dh), build.stream(x.device)),
-            "fused_attn_block backward")
+            build.ptr(x, "x"), build.ptr(wqkv_t), build.ptr(bqkv), build.ptr(wqkv),
+            build.ptr(wo), build.ptr(_key_bias(bias)), build.ptr(g, "g"), build.ptr(qkv),
+            build.ptr(od), build.ptr(lse), build.ptr(delta), build.ptr(dqkv), build.ptr(dx),
+            build.DTYPE_CODES[dt], b, n, heads, dh, int(causal), 1.0 / math.sqrt(dh),
+            build.stream(dev)), "fused_attn_block backward")
     fused_attn_block_backward.launches += 1
     return dx
 

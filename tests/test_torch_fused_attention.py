@@ -11,7 +11,9 @@ kernel (interpret mode) and of the JAX hybrid forward, dx within the same
 of ``jax.grad``. ``mha``'s 'fused_block' and 'hybrid_block' routes (the
 LayerNorm first, the residual outside) against the JAX ``mha``; weights
 that require grad are refused; 'einsum' and 'flash' name their ROADMAP
-item.
+item. The CUDA kernels' packed layout (``_packed_layout``): its strided
+views of a [B*N, 3D] buffer equal the plain version's q, k, v and dq, dk,
+dv exactly.
 """
 
 import jax
@@ -139,3 +141,43 @@ def test_unported_impls_raise(impl):
     p = _port_attention(_weights(0))
     with pytest.raises(NotImplementedError, match="section A, item 3"):
         mha(p, torch.zeros(2, 5, D), num_heads=HEADS, ln=LayerNorm(D), impl=impl)
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(2, 5, 3, 8), (1, 1, 2, 64), (3, 7, 1, 16)])
+def test_packed_views_address_the_plain_head_split(b, n, heads, dh):
+    """The kernels' [B, H, N, dh] views of a packed [B*N, 3D] buffer: filled
+    by the plain projection they are ``_qkv_plain``'s q, k, v; filled as
+    ``fused_attn_block_backward_plain`` lays out dq|dk|dv before the product
+    with Wqkv^T, they are dq, dk, dv. Exact, in float32 and bfloat16."""
+    d = heads * dh
+    rng = np.random.default_rng(b * 100 + n)
+    x32 = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+    wqkv = torch.from_numpy(rng.standard_normal((d, 3 * d)).astype(np.float32))
+    bqkv = torch.from_numpy(rng.standard_normal(3 * d).astype(np.float32))
+    grads = torch.from_numpy(rng.standard_normal((3, b, heads, n, dh)).astype(np.float32))
+    shape, _, _ = fa._packed_layout(b, n, heads, dh)
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        buf = (x.reshape(b * n, d).float() @ wqkv.to(dt).float() + bqkv).to(dt)
+        assert tuple(buf.shape) == shape
+        for got, want in zip(fa._packed_views(buf, b, n, heads),
+                             fa._qkv_plain(x, wqkv.to(dt), bqkv, heads)):
+            assert torch.equal(got, want)
+        dqkv = grads.to(dt).permute(1, 3, 0, 2, 4).reshape(b * n, 3 * d)
+        for t, got in enumerate(fa._packed_views(dqkv, b, n, heads)):
+            assert torch.equal(got, grads[t].to(dt))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_cat_builds_the_weights_in_one_copy(dim):
+    """``_cat``, which builds the kernels' weight operands ([Wq|Wk|Wv]^T
+    from transposed views, [Wq|Wk|Wv] as stored): the concatenation in the
+    requested dtype, contiguous, in new memory, its inputs untouched."""
+    rng = np.random.default_rng(dim)
+    ws = [torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32)) for _ in range(3)]
+    parts = [w.T for w in ws] if dim == 0 else ws
+    for dt in (torch.float32, torch.bfloat16):
+        got = fa._cat(parts, dt, dim=dim)
+        assert got.dtype == dt and got.is_contiguous()
+        assert torch.equal(got, torch.cat(parts, dim).to(dt))
+        assert all(got.untyped_storage().data_ptr() != w.untyped_storage().data_ptr() for w in ws)

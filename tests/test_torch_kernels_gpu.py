@@ -32,8 +32,9 @@ output and dx 1e-4 * max|ref| (float32) or 3e-2 * max|ref| (bfloat16), each
 parameter gradient within 1e-4 * the largest max|ref| and 3e-2 * its own
 (float32) or 3e-2 * the largest (bfloat16), two backward calls bitwise
 equal; the attention block (K11) forward and dx backward and the hybrid
-forward, 1e-4 / 3e-2 * max|ref|; on the card neither route reaches a plain
-version.
+forward, 1e-4 / 3e-2 * max|ref|, also where the flat GEMM tiles cross
+sequences and the last one is ragged, and its bf16 backward bitwise equal
+over two calls; on the card neither route reaches a plain version.
 """
 
 import pytest
@@ -895,12 +896,15 @@ def _attention(device, width, seed):
 
 
 @pytest.mark.parametrize("b,n,width,heads,causal,bias", [
-    (4, 197, 768, 12, False, True), (3, 77, 512, 8, True, False), (2, 40, 128, 2, True, True)])
+    (4, 197, 768, 12, False, True), (3, 77, 512, 8, True, False), (2, 40, 128, 2, True, True),
+    (3, 50, 128, 2, False, True), (1, 1, 128, 2, False, False), (5, 129, 256, 4, True, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_kernels_match_plain(cuda, b, n, width, heads, causal, bias, dtype):
     """K11 forward and dx backward, and the hybrid forward (plain products
     around K7), against the plain versions on the same inputs: 1e-4 *
-    max|ref| in float32, 3e-2 * max|ref| in bfloat16."""
+    max|ref| in float32, 3e-2 * max|ref| in bfloat16. The flat products'
+    128-row tiles cross sequences at 50 and 129 tokens, and their last
+    tile is ragged (150 and 645 rows; one row at [1, 1])."""
     from nextgen_uia_tpu_torch.ops import fused_attention as fa
 
     p = _attention(cuda, width, seed=n)
@@ -921,6 +925,25 @@ def test_fused_attention_kernels_match_plain(cuda, b, n, width, heads, causal, b
         assert got.dtype == dtype and got.shape == x.shape
         scale = ref.float().abs().max().item()
         assert (got.float() - ref.float()).abs().max().item() <= lim * scale
+
+
+@pytest.mark.parametrize("b,n,width,heads,causal,bias", [
+    (4, 197, 768, 12, False, True), (3, 77, 512, 8, True, False)])
+def test_fused_attention_backward_is_bitwise_deterministic(cuda, b, n, width, heads, causal,
+                                                           bias):
+    """Two calls of K11's bf16 backward give bitwise-equal dx (no atomics,
+    no split of K in its products or its attention backward)."""
+    from nextgen_uia_tpu_torch.ops import fused_attention as fa
+
+    p = _attention(cuda, width, seed=n)
+    gen = torch.Generator().manual_seed(n + 1)
+    x, g = (torch.randn(b, n, width, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    kb = torch.randn(b, n, generator=gen).to(cuda) if bias else None
+    with torch.no_grad():
+        first, second = (fa.fused_attn_block_backward(x, p, g, heads=heads, bias=kb,
+                                                      causal=causal) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
