@@ -21,7 +21,11 @@
    two calls; both cases timed, op and kernels alone, with no WMMA GEMM in
    a bf16 call); K10's backward at the BERT fine-tune's
    [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
-   forward and backward at [64, 14, 14, 64]) and at one odd shape
+   forward and backward at [64, 14, 14, 64]; K6 and K8, on K7 and the
+   Hopper GEMM core in bf16, also at the bench step's [64, 197, 768], K8
+   with gelu and with quick_gelu, their bf16 backwards bitwise equal over
+   two calls, timed op and kernels alone with no WMMA GEMM and no SIMT
+   attention kernel in a bf16 call) and at one odd shape
    each (K7, on Hopper's wgmma and TMA, also at its tile edges N = 1, 63,
    64, 65, 127, 128, 129 in bf16 with q, k, v packed, a key bias and the
    causal mask, its saved lse against the plain log-sum-exp, dq, dk and dv
@@ -310,9 +314,9 @@ def kernel_phase(dev):
     def attn_args(bb, nn_, hh, dd, *extra):
         return [randn(bb, hh, nn_, dd // hh) for _ in range(3)] + [randn(bb, nn_, dd), *extra]
 
-    attn_flops = 4 * b * h * n * n * dh
+    costs = k6_k8_costs(b, n, d, h, hid)
     check("fused_attn_o_residual", attn_fwd, attn_fwd_plain, attn_args(b, n, h, d),
-          attn_args(ob, on, oh, 128, small), (attn_flops + 2 * m * d * d, 2 * (5 * m * d + d * d)))
+          attn_args(ob, on, oh, 128, small), costs["fused_attn_o_residual"])
 
     def attn_bwd(q, k, v, g, w, *odd):
         return fused_attn_o.fused_attn_o_residual_backward(q, k, v, w.to(q.dtype), g,
@@ -324,7 +328,7 @@ def kernel_phase(dev):
 
     check("fused_attn_o_residual_backward", attn_bwd, attn_bwd_plain,
           attn_args(b, n, h, d, blk.attn.o.w), attn_args(ob, on, oh, 128, small.attn.o.w, 1),
-          (2.5 * attn_flops + 2 * m * d * d, 2 * (7 * m * d + d * d)))
+          costs["fused_attn_o_residual_backward"])
 
     # K8: LN + MLP + residual, forward and backward
     def mlp_fwd(x, p=None):
@@ -338,7 +342,7 @@ def kernel_phase(dev):
                                                         eps=cfg.ln_eps)
 
     check("fused_ln_mlp_residual", mlp_fwd, mlp_fwd_plain, [randn(b, n, d)],
-          [randn(ob, on, 128), small], (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)))
+          [randn(ob, on, 128), small], costs["fused_ln_mlp_residual"])
 
     def mlp_bwd_args(p, bb, nn_, dd):
         ws = fused_ln_mlp._weights(p.ln2, p.mlp, f32)[:5]
@@ -356,7 +360,7 @@ def kernel_phase(dev):
 
     check("fused_ln_mlp_residual_backward", mlp_bwd, mlp_bwd_plain,
           mlp_bwd_args(blk, b, n, d), mlp_bwd_args(small, ob, on, 128) + [True],
-          (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid)))
+          costs["fused_ln_mlp_residual_backward"])
 
     # K2/K3: the MONA spatial op, forward and backward, [32, 14, 14, 64] and
     # an odd [3, 9, 11, 24]
@@ -550,7 +554,116 @@ def kernel_phase(dev):
     bert_kernel_rows(dev, gen, check)
     text_lora_kernel_rows(dev, gen, check)
     fused_kernel_rows(dev, gen, results)
+    k6_k8_rows(dev, block(d, h))
     return results
+
+
+def k6_k8_costs(b, n, d, heads, hid):
+    """(operations, bytes) of K6's forward and dx backward and K8's forward
+    and dx backward at [b, n, d] (as ``kernel_phase``'s rows count them)."""
+    m, dh = b * n, d // heads
+    attn = 4 * b * heads * n * n * dh
+    return {"fused_attn_o_residual": (attn + 2 * m * d * d, 2 * (5 * m * d + d * d)),
+            "fused_attn_o_residual_backward": (2.5 * attn + 2 * m * d * d,
+                                               2 * (7 * m * d + d * d)),
+            "fused_ln_mlp_residual": (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)),
+            "fused_ln_mlp_residual_backward": (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid))}
+
+
+def k6_k8_rows(dev, blk):
+    """K6 (attention + o-projection + residual) and K8 (LayerNorm + MLP +
+    residual), forward and dx backward, at the bench step's [64, 197, 768],
+    12 heads (K8 with gelu and with quick_gelu): float32 against the plain
+    version within 1e-4 * max|ref|, bf16 on the bf16-rounded inputs within
+    3e-2 * max(1, max|ref|), each output against its own scale; both bf16
+    backwards bitwise equal over two calls. Then in bf16, each op by CUDA
+    events over back-to-back wrapper calls, its kernels alone (profiler
+    device time per call of its GEMM, flash and layernorm kernels; every
+    GEMM the profiler sees must be the Hopper core's, none the WMMA one,
+    and no SIMT attention kernel may run; a window with no device activity
+    leaves that check unmade and says so), each kernel the call launched
+    with its device ms (the weight transposes and casts included), the
+    plain version and the bound."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import fused_attn_o as fao
+    from nextgen_uia_tpu_torch.ops import fused_ln_mlp as flm
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, n, d, h = FT_BATCH, 197, 768, 12
+    hid, dh = 4 * d, d // h
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    q, k, v = (randn(b, h, n, dh) for _ in range(3))
+    x, g = randn(b, n, d), randn(b, n, d)
+    o, wo = blk.attn.o, blk.attn.o.w
+    ws = flm._weights(blk.ln2, blk.mlp, f32)[:5]
+    ops = {
+        "fused_attn_o_residual": (
+            lambda q_, k_, v_, x_, _g: fao.fused_attn_o_residual(q_, k_, v_, x_, o, heads=h),
+            lambda q_, k_, v_, x_, _g: fao.fused_attn_o_residual_plain(q_, k_, v_, x_, o,
+                                                                       heads=h)),
+        "fused_attn_o_residual_backward": (
+            lambda q_, k_, v_, _x, g_: fao.fused_attn_o_residual_backward(
+                q_, k_, v_, wo.to(q_.dtype), g_),
+            lambda q_, k_, v_, _x, g_: fao.fused_attn_o_residual_backward_plain(
+                q_, k_, v_, wo, g_))}
+    for act in ("gelu", "quick_gelu"):
+        ops[f"fused_ln_mlp_residual {act}"] = (
+            lambda q_, k_, v_, x_, _g, a=act: flm.fused_ln_mlp_residual(x_, blk.ln2, blk.mlp,
+                                                                        act=a),
+            lambda q_, k_, v_, x_, _g, a=act: flm.fused_ln_mlp_residual_plain(
+                x_, blk.ln2, blk.mlp, act=a))
+        ops[f"fused_ln_mlp_residual_backward {act}"] = (
+            lambda q_, k_, v_, x_, g_, a=act: flm.fused_ln_mlp_residual_backward(
+                x_, ws[0], ws[1], ws[2].to(x_.dtype), ws[3], ws[4].to(x_.dtype), g_, act=a),
+            lambda q_, k_, v_, x_, g_, a=act: flm.fused_ln_mlp_residual_backward_plain(
+                x_, *ws, g_, act=a))
+    args32 = [q, k, v, x, g]
+    args_b = [t.to(bf16) for t in args32]
+    args_r = [t.to(bf16).float() for t in args32]
+    costs = k6_k8_costs(b, n, d, h, hid)
+    with torch.no_grad():
+        for name, (kern, plain) in ops.items():
+            rel32 = max(e / s for e, s in errors(kern(*args32), plain(*args32)))
+            errs = errors(kern(*args_b), plain(*args_r))
+            err_b, scale_b = max(errs, key=lambda e: e[0] / max(1.0, e[1]))
+            first, second = kern(*args_b), kern(*args_b)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in
+                       zip(first if isinstance(first, tuple) else (first,),
+                           second if isinstance(second, tuple) else (second,)))
+            print(f"{name}: [{b}, {n}, {d}], {h} heads: f32 rel max|d| {rel32:.3e} (<= 1e-4); "
+                  f"bf16 max|d| {err_b:.3e} (<= {BF16_BOUND * max(1.0, scale_b):.3e}, max|ref| "
+                  f"{scale_b:.3e}); two bf16 calls bitwise equal: {same}")
+            require(rel32 <= F32_BOUND, f"{name} float32 mismatch at [{b}, {n}, {d}]")
+            require(err_b <= BF16_BOUND * max(1.0, scale_b),
+                    f"{name} bfloat16 mismatch at [{b}, {n}, {d}]")
+            require(same or "backward" not in name,
+                    f"{name} bf16 is not bitwise repeatable at [{b}, {n}, {d}]")
+            if name.endswith("quick_gelu"):
+                continue
+            seen = {}
+            op_ms = cuda_ms(lambda: kern(*args_b), 20)
+            kern_ms = kernel_device_ms(lambda: kern(*args_b), ("gemm", "flash", "layernorm"),
+                                       seen=seen)
+            for key, ms_ in sorted(seen.items(), key=lambda kv: -kv[1]):
+                print(f"{name}:   {ms_:.4f} ms {key[:100]}")
+            bad = sorted(k[:60] for k in seen
+                         if "gemm_bf16" in k or "attention_kernel" in k or "simt" in k)
+            require(not bad and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
+                    f"{name} bf16 ran {bad or 'no Hopper GEMM'}: every product must run on "
+                    f"hopper_gemm.cuh's core and the attention on K7's wgmma kernels")
+            check = ("no WMMA GEMM, no SIMT attention" if seen else
+                     "WMMA check not made: the profiler recorded no device activity")
+            plain_ms = cuda_ms(lambda: plain(*args_b), 3, warmup=1)
+            b_ms, b_by = bound(*costs[name.split()[0]])
+            print(f"{name}: bf16 [{b}, {n}, {d}]: op {op_ms:.4f} ms, kernels alone "
+                  f"{kern_ms:.4f} ms ({check}), plain {plain_ms:.4f} ms, library -, bound "
+                  f"{b_ms:.4f} ms ({b_by})")
 
 
 def fused_kernel_rows(dev, gen, results):
@@ -914,7 +1027,8 @@ def kernel_device_ms(fn, name, iters=20, windows=3, seen=None):
     ``windows`` in all. Fails if a window recorded other kernels but never
     this one; NaN ("not measured") if the profiler recorded no device
     activity at all, which says nothing of the kernel (its launches are
-    counted elsewhere)."""
+    counted elsewhere). ``seen`` may be a set (the names) or a dict (each
+    name's device ms per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -932,8 +1046,9 @@ def kernel_device_ms(fn, name, iters=20, windows=3, seen=None):
         us = sum(getattr(e, "self_device_time_total", 0) for e in kernels
                  if any(part in e.key for part in names))
         if us > 0:
-            if seen is not None:
-                seen.update(e.key for e in kernels)
+            if seen is not None:  # a set takes the names, a dict {name: ms per call}
+                seen.update({e.key: getattr(e, "self_device_time_total", 0) / 1e3 / iters
+                             for e in kernels})
             return us / 1e3 / iters
         others.update(e.key[:60] for e in kernels)
         print(f"kernel_device_ms: a profiler window saw no {name} kernel among "

@@ -1,12 +1,14 @@
 // The transformer-block building blocks every block kernel of the port is cut
 // from: LayerNorm forward and backward over rows, a GEMM with a fused
 // epilogue (bf16 tensor cores, or float32 SIMT so the float32 path stays
-// exact), attention forward and its backward. The whole-block forward
-// (fused_block.cu) and the split train-path kernels (fused_ln_qkv.cu,
-// fused_attn_o.cu, fused_ln_mlp.cu) launch these, so they share one
-// implementation. Everything here is a template or `static`, so each .cu
-// that includes the header builds on its own (the sources compile in
-// parallel) and the objects link without clashes.
+// exact), and a SIMT attention forward for short sequences. The whole-block
+// forward (fused_block.cu), K5 pre-norm (fused_ln_qkv.cu), K6 post-LN, K9
+// and K10 launch these, and the float32 paths of K6 pre-norm and K8 their
+// LayerNorms and SIMT GEMM, so they share one implementation (the bf16
+// paths of K5 raw-x, K6 pre-norm, K8 and K11 run on hopper_gemm.cuh).
+// Everything here is a template or `static`, so each .cu that includes the
+// header builds on its own (the sources compile in parallel) and the
+// objects link without clashes.
 //
 // Layouts: activations are row-major [rows, cols]; weights are the JAX
 // package's [in, out] row-major. A GEMM reads its weight either as stored
@@ -26,28 +28,6 @@
 #include "common.cuh"
 
 namespace nx {
-
-enum Act : int { ACT_NONE = 0, ACT_GELU = 1, ACT_QUICK_GELU = 2 };
-
-__device__ __forceinline__ float act_fwd(int act, float v) {
-  if (act == ACT_GELU) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-  if (act == ACT_QUICK_GELU) return v / (1.f + expf(-1.702f * v));
-  return v;
-}
-
-// d act / d a, exact erf GELU (Phi(a) + a phi(a)) or quick_gelu
-__device__ __forceinline__ float act_grad(int act, float a) {
-  if (act == ACT_GELU) {
-    const float cdf = 0.5f * (1.f + erff(a * 0.7071067811865476f));
-    const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
-    return cdf + a * pdf;
-  }
-  if (act == ACT_QUICK_GELU) {
-    const float s = 1.f / (1.f + expf(-1.702f * a));
-    return s + 1.702f * a * s * (1.f - s);
-  }
-  return 1.f;
-}
 
 // ---------------------------------------------------------------------------
 // LayerNorm over rows, float32 statistics: one warp per row
@@ -630,276 +610,6 @@ static cudaError_t launch_attention(const QKV& in, const float* key_bias, void* 
   dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
   attention_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
       in, key_bias, static_cast<T*>(out), n, heads, dh, n_real, scale, causal);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Attention backward, in two passes that each recompute their part of P
-// from q and k (nothing [N, N] is kept in device memory):
-//
-//   dq pass, one CTA per (32-query tile, head, image): a query row's P
-//   (softmax in float32), dp = doh v^T, D = rowsum(dp * P),
-//   ds = P * (dp - D) * scale rounded to T, dq = ds k. It writes the row's
-//   max, exp-sum and D to `stats` [B, H, N, 3].
-//   dk/dv pass, one CTA per (32-key tile, head, image): recomputes the
-//   key's column of P from the row statistics, dv = round(P)^T doh,
-//   dk = ds^T q.
-//
-// doh [B*N, H*dh] row-major (heads concatenated); dq, dk, dv head-major
-// [B, H, N, dh]. Rounding points are the JAX kernel's: P and ds are rounded
-// to T before their products.
-// ---------------------------------------------------------------------------
-
-// shared memory of either pass: two transposed [dh][n | 1] T tiles, per warp
-// A [rows][dh] and Bv [rows][dh] f32 and two [rows][n] f32 buffers, and
-// (dk/dv pass) the per-query statistics [3][n]
-static inline size_t attention_bwd_smem(int n, int dh, size_t t_size) {
-  const int nk = n | 1;
-  return sizeof(float) * (ATT_WARPS * ATT_ROWS * (2 * (size_t)dh + 2 * (size_t)n) + 3 * n) +
-         t_size * 2 * (size_t)dh * nk;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bwd_dq(QKV in, const float* __restrict__ key_bias, const T* __restrict__ doh,
-                 T* __restrict__ dq, float* __restrict__ stats, int n, int heads, int dh,
-                 int n_real, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int nk = n | 1;
-  float* As = sm;                                    // q rows
-  float* Gs = As + ATT_WARPS * ATT_ROWS * dh;        // doh rows
-  float* Ps = Gs + ATT_WARPS * ATT_ROWS * dh;        // P (float32)
-  float* Ds = Ps + ATT_WARPS * ATT_ROWS * n;         // dp, then ds
-  T* Kt = reinterpret_cast<T*>(Ds + ATT_WARPS * ATT_ROWS * n + 3 * n);
-  T* Vt = Kt + dh * nk;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d_model = heads * dh;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kbase = static_cast<const T*>(in.k) + off;
-  const T* vbase = static_cast<const T*>(in.v) + off;
-  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
-    const int k = i / dh, d = i % dh;
-    Kt[d * nk + k] = kbase[(size_t)k * in.sn + d];
-    Vt[d * nk + k] = vbase[(size_t)k * in.sn + d];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
-  if (i0 >= n) return;
-  const int rows = min(ATT_ROWS, n - i0);
-  float* q = As + warp * ATT_ROWS * dh;
-  float* go = Gs + warp * ATT_ROWS * dh;
-  float* p = Ps + warp * ATT_ROWS * n;
-  float* dp = Ds + warp * ATT_ROWS * n;
-  const T* gb = doh + (size_t)b * n * d_model + h * dh;
-  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
-    const int r = e / dh, d = e % dh;
-    const bool ok = r < rows;
-    q[e] = ok ? to_f32(qb[(size_t)(i0 + r) * in.sn + d]) : 0.f;
-    go[e] = ok ? to_f32(gb[(size_t)(i0 + r) * d_model + d]) : 0.f;
-  }
-  __syncwarp();
-
-  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
-  float mx[ATT_ROWS], sum[ATT_ROWS], dsum[ATT_ROWS];
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = -FLT_MAX, sum[r] = 0.f, dsum[r] = 0.f;
-  for (int k = lane; k < n; k += 32) {
-    float s[ATT_ROWS];
-    scores4(q, Kt, k, nk, dh, s);
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      float v = s[r] * scale;
-      if (k >= n_real) v = -1e30f;
-      if (kb) v += kb[k];
-      p[r * n + k] = v;
-      mx[r] = fmaxf(mx[r], v);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = warp_max(mx[r]);
-  for (int k = lane; k < n; k += 32) {
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float e = expf(p[r * n + k] - mx[r]);
-      p[r * n + k] = e;
-      sum[r] += e;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) sum[r] = warp_sum(sum[r]);
-  for (int k = lane; k < n; k += 32) {
-    float g[ATT_ROWS];
-    scores4(go, Vt, k, nk, dh, g);
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float pk = p[r * n + k] / sum[r];
-      p[r * n + k] = pk;
-      dp[r * n + k] = g[r];
-      dsum[r] = fmaf(g[r], pk, dsum[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) dsum[r] = warp_sum(dsum[r]);
-  for (int k = lane; k < n; k += 32) {
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r)
-      dp[r * n + k] = round_to<T>(p[r * n + k] * (dp[r * n + k] - dsum[r]) * scale);
-  }
-  __syncwarp();
-
-  const int d0 = lane, d1 = lane + 32;
-  const bool has1 = d1 < dh;
-  float o0[ATT_ROWS] = {}, o1[ATT_ROWS] = {};
-  for (int k = 0; k < n; ++k) {
-    const float k0 = to_f32(Kt[d0 * nk + k]);
-    const float k1 = has1 ? to_f32(Kt[d1 * nk + k]) : 0.f;
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float ds = dp[r * n + k];
-      o0[r] = fmaf(ds, k0, o0[r]);
-      o1[r] = fmaf(ds, k1, o1[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) {
-    if (r >= rows) break;
-    const size_t row = ((size_t)(b * heads + h) * n + i0 + r);
-    T* orow = dq + row * dh;
-    orow[d0] = from_f32<T>(o0[r]);
-    if (has1) orow[d1] = from_f32<T>(o1[r]);
-    if (lane == 0) {
-      stats[row * 3 + 0] = mx[r];
-      stats[row * 3 + 1] = sum[r];
-      stats[row * 3 + 2] = dsum[r];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bwd_dkdv(QKV in, const float* __restrict__ key_bias, const T* __restrict__ doh,
-                   const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv,
-                   int n, int heads, int dh, int n_real, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int nk = n | 1;
-  float* Ks = sm;                                    // this warp's key rows
-  float* Vs = Ks + ATT_WARPS * ATT_ROWS * dh;        // and value rows
-  float* Ps = Vs + ATT_WARPS * ATT_ROWS * dh;        // round(P) column
-  float* Ds = Ps + ATT_WARPS * ATT_ROWS * n;         // ds column
-  float* St = Ds + ATT_WARPS * ATT_ROWS * n;         // [3][n]: max, sum, D
-  T* Qt = reinterpret_cast<T*>(St + 3 * n);
-  T* Gt = Qt + dh * nk;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d_model = heads * dh;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kbase = static_cast<const T*>(in.k) + off;
-  const T* vbase = static_cast<const T*>(in.v) + off;
-  const T* gb = doh + (size_t)b * n * d_model + h * dh;
-  const float* sb = stats + (size_t)(b * heads + h) * n * 3;
-  for (int i = threadIdx.x; i < n * dh; i += ATT_THREADS) {
-    const int k = i / dh, d = i % dh;
-    Qt[d * nk + k] = qb[(size_t)k * in.sn + d];
-    Gt[d * nk + k] = gb[(size_t)k * d_model + d];
-  }
-  for (int i = threadIdx.x; i < 3 * n; i += ATT_THREADS) {
-    const int r = i / 3, c = i % 3;
-    St[c * n + r] = sb[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
-  if (j0 >= n) return;
-  const int cols = min(ATT_ROWS, n - j0);
-  float* kr = Ks + warp * ATT_ROWS * dh;
-  float* vr = Vs + warp * ATT_ROWS * dh;
-  float* p = Ps + warp * ATT_ROWS * n;
-  float* ds = Ds + warp * ATT_ROWS * n;
-  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
-    const int r = e / dh, d = e % dh;
-    const bool ok = r < cols;
-    kr[e] = ok ? to_f32(kbase[(size_t)(j0 + r) * in.sn + d]) : 0.f;
-    vr[e] = ok ? to_f32(vbase[(size_t)(j0 + r) * in.sn + d]) : 0.f;
-  }
-  __syncwarp();
-
-  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
-  for (int i = lane; i < n; i += 32) {
-    float s[ATT_ROWS], g[ATT_ROWS];
-    scores4(kr, Qt, i, nk, dh, s);
-    scores4(vr, Gt, i, nk, dh, g);
-    const float m = St[i], l = St[n + i], dsum = St[2 * n + i];
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const int j = j0 + r;
-      float v = s[r] * scale;
-      if (j >= n_real) v = -1e30f;
-      if (kb && j < n) v += kb[j];
-      const float pij = expf(v - m) / l;
-      p[r * n + i] = round_to<T>(pij);
-      ds[r * n + i] = round_to<T>(pij * (g[r] - dsum) * scale);
-    }
-  }
-  __syncwarp();
-
-  const int d0 = lane, d1 = lane + 32;
-  const bool has1 = d1 < dh;
-  float a0[ATT_ROWS] = {}, a1[ATT_ROWS] = {}, c0[ATT_ROWS] = {}, c1[ATT_ROWS] = {};
-  for (int i = 0; i < n; ++i) {
-    const float g0 = to_f32(Gt[d0 * nk + i]), q0 = to_f32(Qt[d0 * nk + i]);
-    const float g1 = has1 ? to_f32(Gt[d1 * nk + i]) : 0.f;
-    const float q1 = has1 ? to_f32(Qt[d1 * nk + i]) : 0.f;
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float pr = p[r * n + i], dr = ds[r * n + i];
-      a0[r] = fmaf(pr, g0, a0[r]);
-      a1[r] = fmaf(pr, g1, a1[r]);
-      c0[r] = fmaf(dr, q0, c0[r]);
-      c1[r] = fmaf(dr, q1, c1[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) {
-    if (r >= cols) break;
-    const size_t row = ((size_t)(b * heads + h) * n + j0 + r) * dh;
-    dv[row + d0] = from_f32<T>(a0[r]);
-    dk[row + d0] = from_f32<T>(c0[r]);
-    if (has1) {
-      dv[row + d1] = from_f32<T>(a1[r]);
-      dk[row + d1] = from_f32<T>(c1[r]);
-    }
-  }
-}
-
-template <typename T>
-static cudaError_t launch_attention_bwd(const QKV& in, const float* key_bias, const void* doh,
-                                        void* dq, void* dk, void* dv, float* stats, int b,
-                                        int n, int heads, int dh, int n_real, float scale,
-                                        cudaStream_t stream) {
-  if (!attention_shape_ok(n, dh)) return cudaErrorInvalidValue;
-  const size_t smem = attention_bwd_smem(n, dh, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_dkdv<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
-  attention_bwd_dq<T><<<grid, ATT_THREADS, smem, stream>>>(
-      in, key_bias, static_cast<const T*>(doh), static_cast<T*>(dq), stats, n, heads, dh,
-      n_real, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkdv<T><<<grid, ATT_THREADS, smem, stream>>>(
-      in, key_bias, static_cast<const T*>(doh), stats, static_cast<T*>(dk),
-      static_cast<T*>(dv), n, heads, dh, n_real, scale);
   return cudaGetLastError();
 }
 

@@ -36,6 +36,29 @@ __device__ __forceinline__ void store_f32(void* p, int dtype, size_t i, float v)
   else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
 }
 
+// activation codes shared with the Python wrappers (build.ACT_CODES)
+enum Act : int { ACT_NONE = 0, ACT_GELU = 1, ACT_QUICK_GELU = 2 };
+
+__device__ __forceinline__ float act_fwd(int act, float v) {
+  if (act == ACT_GELU) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+  if (act == ACT_QUICK_GELU) return v / (1.f + expf(-1.702f * v));
+  return v;
+}
+
+// d act / d a, exact erf GELU (Phi(a) + a phi(a)) or quick_gelu
+__device__ __forceinline__ float act_grad(int act, float a) {
+  if (act == ACT_GELU) {
+    const float cdf = 0.5f * (1.f + erff(a * 0.7071067811865476f));
+    const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
+    return cdf + a * pdf;
+  }
+  if (act == ACT_QUICK_GELU) {
+    const float s = 1.f / (1.f + expf(-1.702f * a));
+    return s + 1.702f * a * s * (1.f - s);
+  }
+  return 1.f;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

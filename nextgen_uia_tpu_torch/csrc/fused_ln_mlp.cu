@@ -9,19 +9,41 @@
 // Replaces nextgen_uia_tpu/ops/fused_ln_mlp.py::fused_ln_mlp_residual: the
 // Pallas kernels _fwd_kernel and _bwd_kernel. Weights are frozen (dx only,
 // as on the TPU). Rounding points are that kernel's: z, h and dpre rounded
-// to T; a, the products' sums and the LayerNorm backward in float32. GELU
-// and its derivative are the exact erf forms.
+// to T; a, the products' sums, the residual sum, dz and the LayerNorm
+// backward in float32. GELU and its derivative are the exact erf forms
+// (common.cuh's act_fwd / act_grad, with quick_gelu).
 //
-// What bounds it on the H100: at the training shape (B*N = 6304 rows,
-// D = 768, hidden 3072) the forward is two products of 29.7 GFLOP each and
-// the backward three (fc1 recompute, dh, dz): ~60 and ~89 GFLOP against
-// ~30 MB of activations and weights, so both are compute-bound (~60 and
-// ~90 us at the bf16 peak). The TPU kernel streams row tiles with the hidden
-// chunk held in VMEM; here the [6304, 3072] hidden tensor (h forward; a and
-// dpre backward) goes through device memory between the WMMA GEMMs of
-// block_kernels.cuh, which fuse bias, activation, its derivative and the
-// residual into their epilogues. The hidden round trip (~40-120 MB) is what
-// a later, fused kernel would save.
+// What bounds it on the H100: at the bench step's shape (M = B*N = 12,608
+// rows, D = 768, hidden 3072) the forward is two products of 59.5 GFLOP
+// each (0.120 ms at the bf16 peak) and the backward three (fc1 recomputed,
+// dpre, dz: 0.180 ms), against 48 MB of x, out and the weights (0.014 ms)
+// and 68 MB of x, g, dx and the weights (0.020 ms). So operations bound
+// both.
+//
+// Design. The TPU kernel streams row tiles with the hidden chunk in VMEM.
+// Here every bf16 product is one flat call of hopper_gemm.cuh's core over
+// the M rows (TMA ring, wgmma, W multicast over a cluster of two,
+// persistent grid), and the [M, 3072] hidden tensor crosses device memory
+// between them; the LayerNorm and its backward are block_kernels.cuh's row
+// kernels:
+// - forward: z = LN(x); h = act(z W1 + b1) (BiasActEpilogue); out = h W2 +
+//   b2 + x (BiasResidualEpilogue, the residual read at the output's own
+//   row, one rounding). Both epilogues are staged (hopper_gemm.cuh): the
+//   sums pass through a float32 stage in shared memory, so the products
+//   run on 128-column tiles in a 4-deep ring.
+// - backward: z again; a = z W1 + b1 written in float32 from registers
+//   (StoreF32Epilogue, 155 MB at the bench's shape; 256-column tiles, a
+//   3-deep ring); dpre = (g W2^T) * act'(a) (ActGradEpilogue, staged, which
+//   reads a back in row order) -> T; dz = dpre W1^T in float32
+//   (StoreF32Epilogue, 192 x 4); then the LayerNorm backward adds g.
+// The core reads W as [cols, K]: the forward takes W1^T [3072, D] and W2^T
+// [D, 3072], which the wrapper builds once per call, and the backward's
+// g W2^T and dpre W1^T read W2 and W1 as stored. Each output element is
+// one thread's sum in a fixed order (no atomics), so two calls are bitwise
+// equal. a's float32 round trip (~0.1 ms of the backward's traffic at the
+// bench's shape) is what a product with two accumulators over the shared K
+// = D (z W1 and g W2^T) would save. float32 runs the same dataflow on
+// block_kernels.cuh's SIMT GEMM: the exact float32 check of the algorithm.
 //
 // Post-norm variant (nx_postnorm_mlp_ln_fwd), forward only:
 //
@@ -42,54 +64,111 @@
 // ported: autograd reaching it on the card raises.
 
 #include "block_kernels.cuh"
+#include "hopper_gemm.cuh"
 
 using namespace nx;
 
+namespace {
+
+cudaError_t layernorm(const void* x, const float* gamma, const float* beta, void* z, int m,
+                      int d, float eps, int dtype, cudaStream_t s) {
+  return dtype == BF16
+             ? launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, z, m, d, eps, s)
+             : launch_layernorm<float, float>(x, gamma, beta, z, m, d, eps, s);
+}
+
+// a [m, k] and (unless null) out [m, cols], bf16, as the core's flat
+// row-major operands
+cudaError_t flat(hopper::TmaMatrix& ta, const void* a, int k, hopper::TmaMatrix& to,
+                 const void* out, int cols, int m) {
+  const cudaError_t err = hopper::rows_matrix(ta, a, 1, m, k, hopper::BM);
+  return err != cudaSuccess || !out ? err : hopper::rows_matrix(to, out, 1, m, cols, 64);
+}
+
+// a hidden-wide product with an activation epilogue, Epi<ACT>{args...}
+// (the activation a template argument, so each instantiation holds one
+// activation's code): 128-column tiles in a 4-deep ring, as the staged
+// epilogues' products run (a 4-deep ring of wider tiles leaves no room for
+// their float32 stage)
+template <template <int> class Epi, class... Args>
+cudaError_t hidden_product(const hopper::TmaMatrix& ta, const void* w,
+                           const hopper::TmaMatrix& to, int act, int m, int hidden, int d,
+                           cudaStream_t s, Args... args) {
+  if (act == ACT_GELU)
+    return hopper::gemm<128, 4>(ta, w, to, Epi<ACT_GELU>{args...}, 1, m, hidden, d, s);
+  if (act == ACT_QUICK_GELU)
+    return hopper::gemm<128, 4>(ta, w, to, Epi<ACT_QUICK_GELU>{args...}, 1, m, hidden, d, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 extern "C" {
 
-// x, out [M, D]; gamma, beta [D] f32; w1 [D, Hd], w2 [Hd, D] (x's dtype);
-// b1 [Hd], b2 [D] f32; z scratch [M, D]; h scratch [M, Hd]
-int nx_ln_mlp_fwd(const void* x, const float* gamma, const float* beta, const void* w1,
-                  const float* b1, const void* w2, const float* b2, void* z, void* h,
+// x, out [M, D]; gamma, beta [D] f32; w1_t [Hd, D] = W1^T, w2_t [D, Hd] =
+// W2^T (x's dtype); b1 [Hd], b2 [D] f32; z scratch [M, D]; h scratch [M, Hd]
+int nx_ln_mlp_fwd(const void* x, const float* gamma, const float* beta, const void* w1_t,
+                  const float* b1, const void* w2_t, const float* b2, void* z, void* h,
                   void* out, int dtype, int m, int d, int hidden, int act, float eps,
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == BF16
-          ? launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, z, m, d, eps, s)
-          : launch_layernorm<float, float>(x, gamma, beta, z, m, d, eps, s);
+  if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
+  cudaError_t err = layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), dtype};
-  err = launch_gemm(row_major(z), w1, dtype, false, up, m, hidden, d, s);
+  if (dtype == F32) {
+    const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), F32};
+    err = launch_gemm(row_major(z), w1_t, F32, true, up, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue down{b2, x, F32, nullptr, ACT_NONE, row_major(out), F32};
+    return (int)launch_gemm(row_major(h), w2_t, F32, true, down, m, d, hidden, s);
+  }
+  hopper::TmaMatrix ta, to;
+  if ((err = flat(ta, z, d, to, h, hidden, m)) != cudaSuccess) return (int)err;
+  err = hidden_product<hopper::BiasActEpilogue>(ta, w1_t, to, act, m, hidden, d, s, b1);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue down{b2, x, dtype, nullptr, ACT_NONE, row_major(out), dtype};
-  return (int)launch_gemm(row_major(h), w2, dtype, false, down, m, d, hidden, s);
+  if ((err = flat(ta, h, hidden, to, out, d, m)) != cudaSuccess) return (int)err;
+  const hopper::BiasResidualEpilogue down{b2, static_cast<const __nv_bfloat16*>(x), d};
+  return (int)hopper::gemm<128, 4>(ta, w2_t, to, down, 1, m, d, hidden, s);
 }
 
-// g, dx [M, D] (x's dtype); scratch: z [M, D] (x's dtype), a [M, Hd] f32,
+// g, dx [M, D] (x's dtype); w1_t [Hd, D] = W1^T, w1 [D, Hd] and w2 [Hd, D]
+// (as stored) in x's dtype; scratch: z [M, D] (x's dtype), a [M, Hd] f32,
 // dpre [M, Hd] (x's dtype), dz [M, D] f32
-int nx_ln_mlp_bwd(const void* x, const float* gamma, const float* beta, const void* w1,
-                  const float* b1, const void* w2, const void* g, void* z, float* a,
-                  void* dpre, float* dz, void* dx, int dtype, int m, int d, int hidden,
+int nx_ln_mlp_bwd(const void* x, const float* gamma, const float* beta, const void* w1_t,
+                  const float* b1, const void* w1, const void* w2, const void* g, void* z,
+                  float* a, void* dpre, float* dz, void* dx, int dtype, int m, int d, int hidden,
                   int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == BF16
-          ? launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, z, m, d, eps, s)
-          : launch_layernorm<float, float>(x, gamma, beta, z, m, d, eps, s);
+  if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
+  cudaError_t err = layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue pre{b1, nullptr, 0, nullptr, ACT_NONE, row_major(a), F32};
-  err = launch_gemm(row_major(z), w1, dtype, false, pre, m, hidden, d, s);
+  if (dtype == F32) {
+    const Epilogue pre{b1, nullptr, 0, nullptr, ACT_NONE, row_major(a), F32};
+    err = launch_gemm(row_major(z), w1_t, F32, true, pre, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue dact{nullptr, nullptr, 0, a, act, row_major(dpre), F32};
+    err = launch_gemm(row_major(g), w2, F32, true, dact, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue back{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(dz), F32};
+    err = launch_gemm(row_major(dpre), w1, F32, true, back, m, d, hidden, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_layernorm_bwd<float>(x, gamma, dz, g, dx, m, d, eps, s);
+  }
+  const hopper::TmaMatrix none{};
+  hopper::TmaMatrix ta, to;
+  if ((err = flat(ta, z, d, to, nullptr, 0, m)) != cudaSuccess) return (int)err;
+  err = hopper::gemm<256, 3>(ta, w1_t, none, hopper::StoreF32Epilogue{b1, a, hidden}, 1, m,
+                             hidden, d, s);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue dact{nullptr, nullptr, 0, a, act, row_major(dpre), dtype};
-  err = launch_gemm(row_major(g), w2, dtype, true, dact, m, hidden, d, s);
+  if ((err = flat(ta, g, d, to, dpre, hidden, m)) != cudaSuccess) return (int)err;
+  err = hidden_product<hopper::ActGradEpilogue>(ta, w2, to, act, m, hidden, d, s,
+                                                 static_cast<const float*>(a), hidden);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue back{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(dz), F32};
-  err = launch_gemm(row_major(dpre), w1, dtype, true, back, m, d, hidden, s);
+  if ((err = flat(ta, dpre, hidden, to, nullptr, 0, m)) != cudaSuccess) return (int)err;
+  err = hopper::gemm<192, 4>(ta, w1, none, hopper::StoreF32Epilogue{nullptr, dz, d}, 1, m, d,
+                             hidden, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)(dtype == BF16
-                   ? launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, g, dx, m, d, eps, s)
-                   : launch_layernorm_bwd<float>(x, gamma, dz, g, dx, m, d, eps, s));
+  return (int)launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, g, dx, m, d, eps, s);
 }
 
 // x, out [M, D]; w1 [D, Hd], w2 [Hd, D] (x's dtype); b1 [Hd], b2, gamma,

@@ -1,7 +1,7 @@
 // A bf16 GEMM core for Hopper (sm_90a): TMA, mbarriers and wgmma.
 //
 //   out[B*N, cols] = epilogue(A[B*N, K] @ W^T), W stored [cols, K] (K-major),
-//   float32 accumulation, the output rounded once to bf16
+//   float32 accumulation, the output rounded once to bf16 (or float32)
 //
 // The rows are a batch of sequences, B of N tokens each, and every operand
 // with rows is one of two layouts (TmaMatrix), as block_kernels.cuh's
@@ -34,13 +34,16 @@
 //   accumulators in registers), keeping one K step in flight, and frees a
 //   stage (in every CTA of the cluster) as soon as the products reading it
 //   have retired.
-// - The epilogue (Epi, e.g. a float32 bias, fetched into registers while
-//   the tile's products run) acts on the float32 sums, rounds once to bf16
-//   and stages the tile in shared memory in the 128-byte swizzle, one
-//   64 x 64 box per head or 64 columns (no bank conflicts, no per-element
-//   address arithmetic); one thread then writes each box with a TMA store
-//   (128 contiguous bytes per row), one box per K step of the warpgroup's
-//   next tile, so the stores run under its products.
+// - The epilogue (Epi: a float32 bias, fetched into registers while the
+//   tile's products run; a bf16 residual or a float32 pre-activation read
+//   at the output's own flat row; GELU / quick_gelu or its derivative) acts
+//   on the float32 sums, rounds once to bf16 and stages the tile in shared
+//   memory in the 128-byte swizzle, one 64 x 64 box per head or 64 columns
+//   (no bank conflicts, no per-element address arithmetic); one thread
+//   then writes each box with a TMA store (128 contiguous bytes per row),
+//   one box per K step of the warpgroup's next tile, so the stores run
+//   under its products. A float32 output (DIRECT epilogue) is written from
+//   the registers instead, 32 contiguous bytes per quad of a warp.
 // Each output element is one thread's sum in a fixed order: no atomics, so
 // two calls are bitwise equal.
 //
@@ -70,22 +73,106 @@ struct TmaMatrix {
   int seg, dh;
 };
 
-// An epilogue on a thread's pair of sums at columns c, c + 1: fetch(c) runs
-// at the start of the tile (its loads land while the products run), then
-// apply(v, fetch(c)) on the float32 sums
+// An epilogue on a pair of float32 sums at columns c, c + 1. The result is
+// rounded once to bf16 and goes out through the TMA-store path, or, for a
+// DIRECT epilogue, store(row, c, v) writes it from registers to flat output
+// row `row` (b * n_tok + n; a float32 output). Two kinds:
+// - in registers (STAGED false): each thread applies apply(v, fetch(c)) to
+//   its own sums, fully unrolled; fetch(c) runs at the start of the tile so
+//   its loads land while the products run. For the cheap ones: a bias.
+// - staged (STAGED true): the sums go, 64 columns at a time, through a
+//   float32 stage in shared memory, and the warpgroup takes the box in row
+//   order, 32 column pairs of a row per warp: first x = load(row, c) for
+//   all 16 pairs a thread, row the flat output row or -1 past the sequence
+//   (not to be read at; the loads of a row operand coalesce and are all in
+//   flight together), then finish(v, x, c). Applied per register, with the
+//   activation's code unrolled for every register pair, a bias + GELU
+//   epilogue tripled the product's time (tools/epilogue_bench.cu, H100 80GB
+//   HBM3 at 700 W).
 struct NoEpilogue {
+  static constexpr bool DIRECT = false, STAGED = false;
   __device__ __forceinline__ float2 fetch(int) const { return make_float2(0.f, 0.f); }
   __device__ __forceinline__ float2 apply(float2 v, float2) const { return v; }
 };
 
+__device__ __forceinline__ float2 fetch_bias(const float* bias, int c) {
+  return bias ? __ldg(reinterpret_cast<const float2*>(bias + c)) : make_float2(0.f, 0.f);
+}
+
 // v += bias[c], bias[c + 1] (float32, [cols], 8-byte aligned; null: no bias)
 struct BiasEpilogue {
   const float* bias;
+  static constexpr bool DIRECT = false, STAGED = false;
   __device__ __forceinline__ float2 fetch(int c) const {
     return bias ? __ldg(reinterpret_cast<const float2*>(bias + c)) : make_float2(0.f, 0.f);
   }
   __device__ __forceinline__ float2 apply(float2 v, float2 b) const {
     return make_float2(v.x + b.x, v.y + b.y);
+  }
+};
+
+// v + bias[c] + res[row, c]: a bf16 residual [rows, ld] read at the
+// output's own row (the sum stays float32 until the one rounding); staged
+struct BiasResidualEpilogue {
+  const float* bias;
+  const __nv_bfloat16* res;
+  int ld;
+  static constexpr bool DIRECT = false, STAGED = true;
+  using Row = __nv_bfloat162;
+  __device__ __forceinline__ Row load(long row, int c) const {
+    return row < 0 ? __floats2bfloat162_rn(0.f, 0.f)
+                   : __ldg(reinterpret_cast<const __nv_bfloat162*>(res + row * ld + c));
+  }
+  __device__ __forceinline__ float2 finish(float2 v, Row x, int c) const {
+    const float2 b = fetch_bias(bias, c), r = __bfloat1622float2(x);
+    return make_float2(v.x + b.x + r.x, v.y + b.y + r.y);
+  }
+};
+
+// act(v + bias[c]), ACT one of common.cuh's codes (GELU in its exact erf
+// form, quick_gelu); staged
+template <int ACT>
+struct BiasActEpilogue {
+  const float* bias;
+  static constexpr bool DIRECT = false, STAGED = true;
+  struct Row {};
+  __device__ __forceinline__ Row load(long, int) const { return Row{}; }
+  __device__ __forceinline__ float2 finish(float2 v, Row, int c) const {
+    const float2 b = fetch_bias(bias, c);
+    return make_float2(act_fwd(ACT, v.x + b.x), act_fwd(ACT, v.y + b.y));
+  }
+};
+
+// v * act'(a[row, c]): the activation's derivative at a float32
+// pre-activation a [rows, ld] (the backward's dpre); staged
+template <int ACT>
+struct ActGradEpilogue {
+  const float* a;
+  int ld;
+  static constexpr bool DIRECT = false, STAGED = true;
+  using Row = float2;
+  __device__ __forceinline__ Row load(long row, int c) const {
+    return row < 0 ? make_float2(0.f, 0.f)
+                   : __ldg(reinterpret_cast<const float2*>(a + row * ld + c));
+  }
+  __device__ __forceinline__ float2 finish(float2 v, Row x, int) const {
+    return make_float2(v.x * act_grad(ACT, x.x), v.y * act_grad(ACT, x.y));
+  }
+};
+
+// v + bias[c] (null: none) stored in float32 to out [rows, ld] straight
+// from registers: each quad of a warp writes 32 contiguous bytes of a row
+struct StoreF32Epilogue {
+  const float* bias;
+  float* out;
+  int ld;
+  static constexpr bool DIRECT = true, STAGED = false;
+  __device__ __forceinline__ float2 fetch(int c) const { return fetch_bias(bias, c); }
+  __device__ __forceinline__ float2 apply(float2 v, float2 b) const {
+    return make_float2(v.x + b.x, v.y + b.y);
+  }
+  __device__ __forceinline__ void store(long row, int c, float2 v) const {
+    *reinterpret_cast<float2*>(out + row * ld + c) = v;
   }
 };
 
@@ -114,21 +201,29 @@ __device__ __forceinline__ const CUtensorMap* locate(const TmaMatrix& t, int b, 
   return &t.map[s];
 }
 
+// the float32 stage of a staged epilogue: one 64 x 64 box of a consumer's
+// sums, rows SLD floats apart (SLD % 32 == 8: a warp's eight rows of float2
+// stores hit distinct banks, two wavefronts for its 256 bytes)
+constexpr int SLD = 72;
+
 // shared memory of one CTA (from a 1024-byte aligned base): the ring of A
-// and W stages, each consumer's staged output tile, the barriers
-template <int BN, int STAGES>
+// and W stages, each consumer's staged output tile, each consumer's float32
+// stage (a staged epilogue only), the barriers
+template <int BN, int STAGES, bool STAGED = false>
 struct Layout {
   static constexpr int A_BYTES = BM * BK * 2, W_BYTES = BN * BK * 2, OUT_BYTES = 64 * BN * 2;
+  static constexpr int STAGE_BYTES = STAGED ? 64 * SLD * 4 : 0;
   static constexpr int W_OFF = STAGES * A_BYTES;
   static constexpr int OUT_OFF = W_OFF + STAGES * W_BYTES;
-  static constexpr int BAR_OFF = OUT_OFF + CONSUMERS * OUT_BYTES;
+  static constexpr int STAGE_OFF = OUT_OFF + CONSUMERS * OUT_BYTES;
+  static constexpr int BAR_OFF = STAGE_OFF + CONSUMERS * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8 + 1024;  // + the alignment slack
   static_assert(BYTES <= 232448, "over the 227 KB a block may use");
 };
 
 template <int BN, int STAGES, class Epi>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params<Epi> p) {
-  using L = Layout<BN, STAGES>;
+  using L = Layout<BN, STAGES, Epi::STAGED>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sa = base;
@@ -204,7 +299,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int c = col0 + j * 8 + 2 * quad;
-        pre[j] = c < p.cols ? p.epi.fetch(c) : make_float2(0.f, 0.f);
+        if constexpr (Epi::STAGED) pre[j] = make_float2(0.f, 0.f);  // unused
+        else pre[j] = c < p.cols ? p.epi.fetch(c) : make_float2(0.f, 0.f);
       }
       for (int kt = 0; kt < p.k_steps; ++kt, ++it) {
         const int s = it % STAGES;
@@ -229,22 +325,77 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       const int row0 = n0 + wg * 64;
       // uniform per warpgroup: a tile past the last one, or 64 rows past the sequence
       if (mt >= p.m_tiles || row0 >= p.n_tok) continue;
+      const long seq0 = (long)b * p.n_tok;  // the sequence's first flat row
+      if constexpr (Epi::DIRECT) {
+        const bool lo = row0 + r < p.n_tok, hi = row0 + r + 8 < p.n_tok;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = col0 + j * 8 + 2 * quad;
+          if (c >= p.cols) continue;
+          if (lo)
+            p.epi.store(seq0 + row0 + r, c,
+                        p.epi.apply(make_float2(acc[4 * j], acc[4 * j + 1]), pre[j]));
+          if (hi)
+            p.epi.store(seq0 + row0 + r + 8, c,
+                        p.epi.apply(make_float2(acc[4 * j + 2], acc[4 * j + 3]), pre[j]));
+        }
+        continue;
+      }
       if (t == 0) {
         while (out_next < out_end) store_next();
         bulk_wait_read();  // the last tile's stores have left the staging buffer
       }
       warpgroup_sync(wg);
+      if constexpr (Epi::STAGED) {
+        float* st = reinterpret_cast<float*>(base + L::STAGE_OFF + wg * L::STAGE_BYTES);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const float2 lo = p.epi.apply(make_float2(acc[4 * j], acc[4 * j + 1]), pre[j]);
-        const float2 hi = p.epi.apply(make_float2(acc[4 * j + 2], acc[4 * j + 3]), pre[j]);
-        // box j / 8 (64 x 64), 16-byte chunk j % 8 of the row, swizzled by row % 8
-        unsigned char* at = so + (j / 8) * (64 * 128) + (((j % 8) ^ swz) << 4) + quad * 4;
-        *reinterpret_cast<__nv_bfloat162*>(at + r * 128) = __float22bfloat162_rn(lo);
-        *reinterpret_cast<__nv_bfloat162*>(at + (r + 8) * 128) = __float22bfloat162_rn(hi);
+        for (int jb = 0; jb < BN / 64; ++jb) {
+          const int c0 = col0 + jb * 64;
+          if (c0 >= p.cols) break;  // uniform: a box past the last column
+          // this thread's sums of box jb into the stage
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = jb * 8 + jj, cl = jj * 8 + 2 * quad;
+            *reinterpret_cast<float2*>(st + r * SLD + cl) = make_float2(acc[4 * j], acc[4 * j + 1]);
+            *reinterpret_cast<float2*>(st + (r + 8) * SLD + cl) =
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+          }
+          warpgroup_sync(wg);
+          // the box in row order: warp w takes rows w, w + 4, ..., its lane
+          // column pair 2 * lane of each; every row operand's load first
+          constexpr int PAIRS = 64 * 32 / 128;
+          const int cp = 2 * (t & 31), c = c0 + cp;
+          typename Epi::Row x[PAIRS];
+#pragma unroll
+          for (int i = 0; i < PAIRS; ++i) {
+            const int rr = (t >> 5) + 4 * i;
+            x[i] = p.epi.load(row0 + rr < p.n_tok ? seq0 + row0 + rr : -1, c);
+          }
+#pragma unroll
+          for (int i = 0; i < PAIRS; ++i) {
+            const int rr = (t >> 5) + 4 * i;
+            const float2 v =
+                p.epi.finish(*reinterpret_cast<const float2*>(st + rr * SLD + cp), x[i], c);
+            unsigned char* at =
+                so + jb * (64 * 128) + rr * 128 + (((cp >> 3) ^ (rr & 7)) << 4) + (cp & 7) * 2;
+            *reinterpret_cast<__nv_bfloat162*>(at) = __float22bfloat162_rn(v);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+          warpgroup_sync(wg);  // the stage is free, the box staged
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 lo = p.epi.apply(make_float2(acc[4 * j], acc[4 * j + 1]), pre[j]);
+          const float2 hi = p.epi.apply(make_float2(acc[4 * j + 2], acc[4 * j + 3]), pre[j]);
+          // box j / 8 (64 x 64), 16-byte chunk j % 8 of the row, swizzled by row % 8
+          unsigned char* at = so + (j / 8) * (64 * 128) + (((j % 8) ^ swz) << 4) + quad * 4;
+          *reinterpret_cast<__nv_bfloat162*>(at + r * 128) = __float22bfloat162_rn(lo);
+          *reinterpret_cast<__nv_bfloat162*>(at + (r + 8) * 128) = __float22bfloat162_rn(hi);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+        warpgroup_sync(wg);
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
-      warpgroup_sync(wg);
       if (t == 0) {
         out_b = b, out_row = row0, out_col = col0, out_next = 0;
         out_end = min(BN, p.cols - col0) / BOX;
@@ -295,9 +446,10 @@ static cudaError_t heads_matrix(TmaMatrix& t, const void* p0, const void* p1, co
 }
 
 // out[B*N, cols] = epi(A @ W^T) in bf16: A and out as TmaMatrix (A's boxes
-// BM tokens, out's 64), W [cols, K] bf16 row-major (K-major for the
-// product); needs K % 64 == 0, cols % 64 == 0 and, head-major, dh % 64 == 0.
-// BN columns per tile, STAGES in the ring.
+// BM tokens, out's 64; a DIRECT epilogue writes its own output and `out` is
+// unused), W [cols, K] bf16 row-major (K-major for the product); needs
+// K % 64 == 0, cols % 64 == 0 and, head-major, dh % 64 == 0. BN columns per
+// tile, STAGES in the ring.
 template <int BN, int STAGES, class Epi>
 static cudaError_t gemm(const TmaMatrix& a, const void* w, const TmaMatrix& out, Epi epi,
                         int batch, int n_tok, int cols, int k, cudaStream_t s) {
@@ -320,7 +472,7 @@ static cudaError_t gemm(const TmaMatrix& a, const void* w, const TmaMatrix& out,
 
   // once per device: the shared-memory opt-in and how many clusters fit at
   // once (the persistent grid)
-  constexpr int smem = Layout<BN, STAGES>::BYTES;
+  constexpr int smem = Layout<BN, STAGES, Epi::STAGED>::BYTES;
   const void* kernel = reinterpret_cast<const void*>(gemm_kernel<BN, STAGES, Epi>);
   static int resident[64] = {};
   int dev = 0;

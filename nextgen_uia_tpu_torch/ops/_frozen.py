@@ -1,6 +1,7 @@
 """Helpers the frozen-weight block kernels share: the weight contract, the
-forward-only contract, the backward by plain recomposition and the
-LayerNorm backward's recomputed statistics."""
+weights as the kernels read them, the forward-only contract, the backward
+by plain recomposition and the LayerNorm backward's recomputed
+statistics."""
 
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ def check_frozen(op: str, *weights) -> None:
             f"{op}: its weights are frozen (the kernel gives no weight gradients); "
             "training them needs the eager (mlp_impl='xla') block path, which is not "
             "ported yet (ROADMAP.md, section A, item 3)")
+
+
+def _cat(ws, dt, dim=0):
+    """The detached ``ws`` concatenated along ``dim`` into one new tensor
+    of dtype ``dt``: one copy, the cast included (``_cat([w.T], dt)`` is w^T,
+    as the Hopper GEMM core reads a weight: [cols, K])."""
+    ws = [w.detach() for w in ws]
+    shape = list(ws[0].shape)
+    shape[dim] = sum(w.shape[dim] for w in ws)
+    return torch.cat(ws, dim, out=torch.empty(shape, dtype=dt, device=ws[0].device))
 
 
 def layernorm_parts(x, eps: float):

@@ -58,19 +58,20 @@ SIGNATURES = {
     "nx_qkv_rawx_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     # x, gamma, w_qkv, dq, dk, dv, dz, dx, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-    # q, k, v, x, key_bias, wo, bo, cat, out, dtype, B, N, H, dh, n_real, scale, stream
-    "nx_attn_o_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k, v, x, key_bias, wo_t, bo, cat, out, dtype, B, N, H, dh, sb, sh, sn, csb, csh, csn,
+    # scale, stream
+    "nx_attn_o_fwd": [P] * 9 + [I] * 11 + [F, P],
     # q, k, v, x, key_bias, wo, bo, gamma, beta, cat, y32, out, dtype, B, N, H, dh, n_real,
     # scale, eps, stream
     "nx_attn_o_postln_fwd": [P] * 12 + [I] * 6 + [F, F, P],
-    # q, k, v, key_bias, wo, g, doh, stats, dq, dk, dv, dtype, B, N, H, dh, n_real,
+    # q, k, v, key_bias, wo, g, o, doh, lse, delta, dq, dk, dv, dtype, B, N, H, dh, sb, sh, sn,
     # scale, stream
-    "nx_attn_o_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-    # x, gamma, beta, w1, b1, w2, b2, z, h, out, dtype, M, D, hidden, act, eps, stream
+    "nx_attn_o_bwd": [P] * 13 + [I] * 8 + [F, P],
+    # x, gamma, beta, w1_t, b1, w2_t, b2, z, h, out, dtype, M, D, hidden, act, eps, stream
     "nx_ln_mlp_fwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-    # x, gamma, beta, w1, b1, w2, g, z, a, dpre, dz, dx, dtype, M, D, hidden, act,
+    # x, gamma, beta, w1_t, b1, w1, w2, g, z, a, dpre, dz, dx, dtype, M, D, hidden, act,
     # eps, stream
-    "nx_ln_mlp_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    "nx_ln_mlp_bwd": [P] * 13 + [I] * 5 + [F, P],
     # q, k, v, o, bias, lse, dtype, B, H, N, dh, sb, sh, sn, osb, osh, osn, causal, scale,
     # stream
     "nx_flash_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, F, P],

@@ -35,7 +35,7 @@ import math
 import torch
 
 from . import build
-from ._frozen import check_frozen
+from ._frozen import _cat, check_frozen
 from .flash_attention import _forward_cuda as _flash_forward_cuda
 from .flash_attention import _key_bias, _probs, flash_attention_plain
 
@@ -52,15 +52,6 @@ def _weights(p, dt):
     wqkv = torch.cat([p.q.w, p.k.w, p.v.w], dim=1).detach().to(dt).contiguous()
     bqkv = torch.cat([_bias(p.q, d, dev), _bias(p.k, d, dev), _bias(p.v, d, dev)])
     return wqkv, bqkv.contiguous(), p.o.w.detach().to(dt).contiguous(), _bias(p.o, d, dev)
-
-
-def _cat(ws, dt, dim=0):
-    """The detached ``ws`` concatenated along ``dim`` into one new tensor
-    of dtype ``dt``: one copy, the cast included."""
-    ws = [w.detach() for w in ws]
-    shape = list(ws[0].shape)
-    shape[dim] = sum(w.shape[dim] for w in ws)
-    return torch.cat(ws, dim, out=torch.empty(shape, dtype=dt, device=ws[0].device))
 
 
 def _packed_layout(b, n, heads, dh):

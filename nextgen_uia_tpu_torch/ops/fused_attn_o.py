@@ -12,6 +12,15 @@ and ``fused_attn_o_residual_backward.launches``); on a CPU tensor they run
 the plain versions below. The backward recomputes the probabilities from the
 saved q, k, v.
 
+The kernels run the flash-attention kernels (K7, ops/flash_attention.py)
+and, in bf16, the Hopper GEMM core, through the layouts ``_layout`` gives
+(q, k, v, o, doh and the gradients head-major, the head concat row-major
+[B*N, D]), with keys >= n_real folded into the float32 key bias
+(``_key_bias``) and the o-projection's weight transposed once per call
+(``_kernel_weights``); the CPU tests compose the plain versions through the same
+helpers. A bf16 call needs head dim 64; float32 takes 1..64; the width is a
+multiple of 64.
+
 With ``post_ln`` (BERT's post-norm layout) the output is LayerNormed:
 
     out = LN(x + concat_h(softmax(q k^T / sqrt(dh) + bias) v) @ Wo + bo)
@@ -31,12 +40,43 @@ import math
 import torch
 
 from . import build
-from ._frozen import check_frozen, layernorm_parts, plain_backward
+from ._frozen import _cat, check_frozen, layernorm_parts, plain_backward
+from .flash_attention import NEG_INF
 
 
 def _weights(o, dt):
+    """(Wo [D, D] as stored in dt, bo [D] float32)."""
     return (o.w.detach().to(dt).contiguous(),
             o.b.detach().to(torch.float32).contiguous())
+
+
+def _kernel_weights(o, dt):
+    """(Wo^T [D, D] in dt, bo [D] float32) as the forward kernel takes them:
+    its o-product reads the weight as [cols, K]."""
+    return _cat([o.w.T], dt), o.b.detach().to(torch.float32).contiguous()
+
+
+def _layout(b, n, heads, dh):
+    """The element strides (batch, head, token; the head dim contiguous)
+    through which the kernels address their operands: q, k, v, o, doh and
+    dq, dk, dv as dense head-major [B, H, N, dh], and the forward's head
+    concat as row-major [B*N, D] (head h of token n of image b at row
+    b*N + n, columns h*dh..). Returns (head-major strides, concat strides),
+    as the wrappers pass them to csrc/fused_attn_o.cu."""
+    d = heads * dh
+    return (heads * n * dh, n * dh, dh), (n * d, dh, d)
+
+
+def _key_bias(bias, b, n, n_real, device):
+    """The float32 [B, N] key bias the attention kernels take: the caller's
+    bias (or zeros) plus -1e30 on keys >= n_real, the JAX kernel's padding
+    mask; None when there is neither."""
+    if bias is None and n_real >= n:
+        return None
+    kb = (torch.zeros(b, n, device=device) if bias is None
+          else bias.detach().to(device=device, dtype=torch.float32).clone())
+    kb[:, n_real:] += NEG_INF
+    return kb.contiguous()
 
 
 def _probs(q, k, bias, n_real):
@@ -92,6 +132,24 @@ def _check_cuda(q, x, bias, n_real):
     problems = []
     if x.dtype not in build.DTYPE_CODES:
         problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
+    if (h * dh) % 64:
+        problems.append(f"width {h * dh} with {h} heads (width % 64 == 0)")
+    if (x.dtype == torch.bfloat16 and dh != 64) or not 1 <= dh <= 64:
+        problems.append(f"head dim {dh} (bfloat16: 64; float32: 1..64)")
+    if not 0 < n_real <= n:
+        problems.append(f"n_real {n_real}")
+    if bias is not None and (tuple(bias.shape) != (b, n) or bias.device != x.device):
+        problems.append(f"bias {tuple(bias.shape)} on {bias.device}")
+    if problems:
+        raise ValueError(f"fused_attn_o_residual CUDA kernel does not take q {tuple(q.shape)}: "
+                         + "; ".join(problems))
+
+
+def _check_postln_cuda(q, x, bias, n_real):
+    b, h, n, dh = q.shape
+    problems = []
+    if x.dtype not in build.DTYPE_CODES:
+        problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
     if (h * dh) % 64 or dh % 4 or not 32 <= dh <= 64:
         problems.append(f"width {h * dh} with {h} heads (width % 64 == 0, head dim 32..64)")
     if not 1 <= n <= 256:
@@ -101,44 +159,45 @@ def _check_cuda(q, x, bias, n_real):
     if bias is not None and (tuple(bias.shape) != (b, n) or bias.device != x.device):
         problems.append(f"bias {tuple(bias.shape)} on {bias.device}")
     if problems:
-        raise ValueError("fused_attn_o_residual CUDA kernel does not take: "
+        raise ValueError("fused_attn_o_residual_postln CUDA kernel does not take: "
                          + "; ".join(problems))
 
 
-def _key_bias(bias):
+def _bias_arg(bias):
     return None if bias is None else bias.detach().to(torch.float32).contiguous()
 
 
-def _forward_cuda(q, k, v, x, wo, bo, bias, n_real):
+def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real):
     b, h, n, dh = q.shape
     _check_cuda(q, x, bias, n_real)
-    dt, d = x.dtype, h * dh
+    dt, d, dev = x.dtype, h * dh, x.device
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
     x = x.contiguous()
-    cat = torch.empty(b * n, d, device=x.device, dtype=dt)
-    out = torch.empty(b, n, d, device=x.device, dtype=dt)
-    kb = _key_bias(bias)
+    strides, cat_strides = _layout(b, n, h, dh)
+    cat = torch.empty(b * n, d, device=dev, dtype=dt)
+    out = torch.empty(b, n, d, device=dev, dtype=dt)
+    kb = _key_bias(bias, b, n, n_real, dev)
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         build.check(lib.nx_attn_o_fwd(
             build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(x, "x"),
-            build.ptr(kb), build.ptr(wo), build.ptr(bo), build.ptr(cat), build.ptr(out),
-            build.DTYPE_CODES[dt], b, n, h, dh, n_real, 1.0 / math.sqrt(dh),
-            build.stream(x.device)), "fused_attn_o_residual")
+            build.ptr(kb), build.ptr(wo_t), build.ptr(bo), build.ptr(cat), build.ptr(out),
+            build.DTYPE_CODES[dt], b, n, h, dh, *strides, *cat_strides, 1.0 / math.sqrt(dh),
+            build.stream(dev)), "fused_attn_o_residual")
     fused_attn_o_residual.launches += 1
     return out
 
 
 def _postln_cuda(q, k, v, x, wo, bo, gamma, beta, bias, n_real, eps):
     b, h, n, dh = q.shape
-    _check_cuda(q, x, bias, n_real)
+    _check_postln_cuda(q, x, bias, n_real)
     dt, d = x.dtype, h * dh
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
     x = x.contiguous()
     cat = torch.empty(b * n, d, device=x.device, dtype=dt)
     y32 = torch.empty(b * n, d, device=x.device, dtype=torch.float32)
     out = torch.empty(b, n, d, device=x.device, dtype=dt)
-    kb = _key_bias(bias)
+    kb = _bias_arg(bias)
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_attn_o_postln_fwd(
@@ -181,22 +240,22 @@ def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | N
         return fused_attn_o_residual_backward_plain(q, k, v, wo, g, bias=bias, n_real=n_real)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attn_o_residual: unsupported device {q.device}")
-    dt = q.dtype
+    dt, dev = q.dtype, q.device
     _check_cuda(q, q, bias, n_real)
     q, k, v = (t.contiguous() for t in (q, k, v))
     g, wo = g.to(dt).contiguous(), wo.to(dt).contiguous()
-    doh = torch.empty(b * n, h * dh, device=q.device, dtype=dt)
-    stats = torch.empty(b, h, n, 3, device=q.device, dtype=torch.float32)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    kb = _key_bias(bias)
+    strides, _ = _layout(b, n, h, dh)
+    o, doh, dq, dk, dv = (torch.empty_like(q) for _ in range(5))
+    lse, delta = (torch.empty(b, h, n, device=dev, dtype=torch.float32) for _ in range(2))
+    kb = _key_bias(bias, b, n, n_real, dev)
     lib = build.library()
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         build.check(lib.nx_attn_o_bwd(
             build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(kb),
-            build.ptr(wo), build.ptr(g, "g"), build.ptr(doh), build.ptr(stats),
-            build.ptr(dq), build.ptr(dk), build.ptr(dv), build.DTYPE_CODES[dt], b, n, h, dh,
-            n_real, 1.0 / math.sqrt(dh), build.stream(q.device)),
-            "fused_attn_o_residual backward")
+            build.ptr(wo), build.ptr(g, "g"), build.ptr(o), build.ptr(doh), build.ptr(lse),
+            build.ptr(delta), build.ptr(dq), build.ptr(dk), build.ptr(dv),
+            build.DTYPE_CODES[dt], b, n, h, dh, *strides, 1.0 / math.sqrt(dh),
+            build.stream(dev)), "fused_attn_o_residual backward")
     fused_attn_o_residual_backward.launches += 1
     return dq, dk, dv
 
@@ -211,8 +270,7 @@ class _FusedAttnO(torch.autograd.Function):
                                                n_real=n_real)
         if x.device.type != "cuda":
             raise ValueError(f"fused_attn_o_residual: unsupported device {x.device}")
-        wo, bo = _weights(o, x.dtype)
-        return _forward_cuda(q, k, v, x, wo, bo, bias, n_real)
+        return _forward_cuda(q, k, v, x, *_kernel_weights(o, x.dtype), bias, n_real)
 
     @staticmethod
     def backward(ctx, g):

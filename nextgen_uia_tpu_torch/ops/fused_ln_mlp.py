@@ -9,7 +9,11 @@ weights are frozen, as in the JAX kernel's custom VJP.
 forward and backward launch the hand-written kernels of csrc/fused_ln_mlp.cu
 (counted in ``fused_ln_mlp_residual.launches`` and
 ``fused_ln_mlp_residual_backward.launches``); on a CPU tensor they run the
-plain versions below. The backward recomputes fc1 from the saved x.
+plain versions below. The backward recomputes fc1 from the saved x. In
+bf16 the kernels' products run on the Hopper GEMM core, which reads each
+weight as [cols, K]: the forward takes W1^T and W2^T, built once per call
+(``_kernel_weights``), the backward W2 and W1 as stored for g W2^T and dpre
+W1^T, and W1^T again for the recomputed fc1.
 
 ``fused_postnorm_mlp_ln`` is BERT's post-norm feed-forward sublayer
 (counterpart of nextgen_uia_tpu/ops/fused_ln_mlp.py::fused_postnorm_mlp_ln):
@@ -29,7 +33,7 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-from ._frozen import check_frozen, layernorm_parts, plain_backward
+from ._frozen import _cat, check_frozen, layernorm_parts, plain_backward
 
 
 def act_grad(act: str, a):
@@ -48,6 +52,15 @@ def _weights(ln, mlp, dt):
     return (ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(),
             mlp.fc1.w.detach().to(dt).contiguous(), mlp.fc1.b.detach().to(f32).contiguous(),
             mlp.fc2.w.detach().to(dt).contiguous(), mlp.fc2.b.detach().to(f32).contiguous())
+
+
+def _kernel_weights(ln, mlp, dt):
+    """(gamma, beta, W1^T [hidden, D], b1, W2^T [D, hidden], b2) as the
+    forward kernel takes them: the products' weights in dt as [cols, K]."""
+    f32 = torch.float32
+    return (ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(),
+            _cat([mlp.fc1.w.T], dt), mlp.fc1.b.detach().to(f32).contiguous(),
+            _cat([mlp.fc2.w.T], dt), mlp.fc2.b.detach().to(f32).contiguous())
 
 
 def _ln(x, gamma, beta, eps):
@@ -95,12 +108,12 @@ def _check_cuda(x, hidden, act):
     if act not in build.ACT_CODES:
         problems.append(f"activation {act!r}")
     if problems:
-        raise ValueError("fused_ln_mlp_residual CUDA kernel does not take: "
-                         + "; ".join(problems))
+        raise ValueError(f"fused_ln_mlp_residual CUDA kernel does not take x "
+                         f"{tuple(x.shape)} with hidden {hidden}: " + "; ".join(problems))
 
 
-def _forward_cuda(x, gamma, beta, w1, b1, w2, b2, act, eps):
-    d, hidden = x.shape[-1], w1.shape[1]
+def _forward_cuda(x, gamma, beta, w1_t, b1, w2_t, b2, act, eps):
+    d, hidden = x.shape[-1], w1_t.shape[0]
     _check_cuda(x, hidden, act)
     m, dt = x.numel() // d, x.dtype
     x = x.contiguous()
@@ -110,8 +123,8 @@ def _forward_cuda(x, gamma, beta, w1, b1, w2, b2, act, eps):
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_ln_mlp_fwd(
-            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w1),
-            build.ptr(b1), build.ptr(w2), build.ptr(b2), build.ptr(z), build.ptr(h),
+            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w1_t),
+            build.ptr(b1), build.ptr(w2_t), build.ptr(b2), build.ptr(z), build.ptr(h),
             build.ptr(out), build.DTYPE_CODES[dt], m, d, hidden, build.ACT_CODES[act], eps,
             build.stream(x.device)), "fused_ln_mlp_residual")
     fused_ln_mlp_residual.launches += 1
@@ -134,7 +147,7 @@ def fused_ln_mlp_residual_backward(x, gamma, beta, w1, b1, w2, g, *, act: str = 
     m, dt, dev = x.numel() // d, x.dtype, x.device
     x, g = x.contiguous(), g.to(dt).contiguous()
     gamma, beta, b1 = (t.to(torch.float32).contiguous() for t in (gamma, beta, b1))
-    w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    w1_t, w1, w2 = _cat([w1.T], dt), w1.to(dt).contiguous(), w2.to(dt).contiguous()
     z = torch.empty(m, d, device=dev, dtype=dt)
     a = torch.empty(m, hidden, device=dev, dtype=torch.float32)
     dpre = torch.empty(m, hidden, device=dev, dtype=dt)
@@ -143,10 +156,10 @@ def fused_ln_mlp_residual_backward(x, gamma, beta, w1, b1, w2, g, *, act: str = 
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.nx_ln_mlp_bwd(
-            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w1),
-            build.ptr(b1), build.ptr(w2), build.ptr(g, "g"), build.ptr(z), build.ptr(a),
-            build.ptr(dpre), build.ptr(dz), build.ptr(dx), build.DTYPE_CODES[dt], m, d,
-            hidden, build.ACT_CODES[act], eps, build.stream(dev)),
+            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w1_t),
+            build.ptr(b1), build.ptr(w1), build.ptr(w2), build.ptr(g, "g"), build.ptr(z),
+            build.ptr(a), build.ptr(dpre), build.ptr(dz), build.ptr(dx), build.DTYPE_CODES[dt],
+            m, d, hidden, build.ACT_CODES[act], eps, build.stream(dev)),
             "fused_ln_mlp_residual backward")
     fused_ln_mlp_residual_backward.launches += 1
     return dx
@@ -161,7 +174,7 @@ class _FusedLnMlp(torch.autograd.Function):
             return fused_ln_mlp_residual_plain(x, ln, mlp, act=act, eps=eps)
         if x.device.type != "cuda":
             raise ValueError(f"fused_ln_mlp_residual: unsupported device {x.device}")
-        return _forward_cuda(x, *_weights(ln, mlp, x.dtype), act, eps)
+        return _forward_cuda(x, *_kernel_weights(ln, mlp, x.dtype), act, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,6 +1,6 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k7|k11|bench]
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|bench]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -14,8 +14,14 @@ the sum of every kernel whose name holds "flash" per call). ``k11`` prints
 the same for the attention block's forward and dx backward
 (``fused_attn_block``, ``fused_attn_block_backward``) at each of
 ``K11_SHAPES`` in bf16, its kernels being every one whose name holds
-"gemm" or "flash". ``bench`` prints the port's bench step (batch 64, bf16,
-fused MONA) with the K11 and the hybrid attention block, CUDA-event ms per
+"gemm" or "flash". ``k6`` and ``k8`` print the same for K6 (attention +
+o-projection + residual, ``fused_attn_o_residual`` and its backward) and K8
+(LayerNorm + MLP + residual, ``fused_ln_mlp_residual`` and its backward) at
+each of ``BLOCK_SHAPES`` in bf16, their kernels being every one whose name
+holds "gemm", "flash", "attention" or "layernorm". ``bench`` prints the
+port's bench step (batch 64, bf16) by each of ``BENCH_ROUTES``: the default
+route (``attn_impl='auto'``, composed MONA), ``auto`` with fused MONA, and
+with fused MONA the K11 and the hybrid attention block, CUDA-event ms per
 step over three 10-step windows each. The timing scripts import nothing of
 this module, since they run in the other tree.
 """
@@ -35,6 +41,10 @@ K7_SHAPES = (  # (B, H, N, layout, key bias): DINOv2 at 518 px, then the path sh
 K11_SHAPES = (  # (B, N, D, heads, causal, key bias): the bench step's, the causal case
     (64, 197, 768, 12, False, True),
     (16, 77, 512, 8, True, False))
+
+BLOCK_SHAPES = ((64, 197, 768, 12), (32, 197, 768, 12))  # the bench step's, the supervised step's
+
+BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
 
 K1 = r'''
 import sys, torch
@@ -134,15 +144,51 @@ for b, n, d, heads, causal, bias in SHAPES:
               f"{op_ms(bwd, 20):.4f} kernel {kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
 '''
 
-BENCH = r'''
+K6 = f"SHAPES = {BLOCK_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
+from nextgen_uia_tpu_torch.ops import fused_attn_o as fao
+for b, n, d, heads in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    blk = Block(g, ViTConfig(width=d, heads=heads)).to(dev)
+    q, k, v = (torch.randn(b, heads, n, d // heads, generator=g).to(dev).to(bf16)
+               for _ in range(3))
+    x, go = (torch.randn(b, n, d, generator=g).to(dev).to(bf16) for _ in range(2))
+    wo = blk.attn.o.w.to(bf16)
+    kernels = ("gemm", "flash", "attention")
+    with torch.no_grad():
+        fwd = lambda: fao.fused_attn_o_residual(q, k, v, x, blk.attn.o, heads=heads)
+        bwd = lambda: fao.fused_attn_o_residual_backward(q, k, v, wo, go)
+        print(f"K6 [{b}, {n}, {d}] {heads} heads: fwd op {op_ms(fwd, 20):.4f} kernel "
+              f"{kernel_ms(fwd, 20, kernels):.4f}; bwd op {op_ms(bwd, 20):.4f} kernel "
+              f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
+'''
+
+K8 = f"SHAPES = {BLOCK_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
+from nextgen_uia_tpu_torch.ops import fused_ln_mlp as flm
+for b, n, d, heads in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    blk = Block(g, ViTConfig(width=d, heads=heads)).to(dev)
+    x, go = (torch.randn(b, n, d, generator=g).to(dev).to(bf16) for _ in range(2))
+    gamma, beta, w1, b1, w2, _ = flm._weights(blk.ln2, blk.mlp, bf16)
+    kernels = ("gemm", "layernorm")
+    with torch.no_grad():
+        fwd = lambda: flm.fused_ln_mlp_residual(x, blk.ln2, blk.mlp)
+        bwd = lambda: flm.fused_ln_mlp_residual_backward(x, gamma, beta, w1, b1, w2, go)
+        print(f"K8 [{b}, {n}, {d}] hidden {4 * d}: fwd op {op_ms(fwd, 20):.4f} kernel "
+              f"{kernel_ms(fwd, 20, kernels):.4f}; bwd op {op_ms(bwd, 20):.4f} kernel "
+              f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
+'''
+
+BENCH = f"ROUTES = {BENCH_ROUTES!r}" + r'''
 import dataclasses, os, sys, torch
 sys.path.insert(0, ".")
-os.environ["NEXTGEN_UIA_FUSED_MONA"] = "1"
 from nextgen_uia_tpu_torch import bench
 dev = torch.device("cuda")
 bn = bench.build(dev, bench.Knobs())
 vision = bn.cfg.vision
-for attn in ("fused_block", "hybrid_block"):
+for attn, fused in ROUTES:
+    os.environ["NEXTGEN_UIA_FUSED_MONA"] = fused
     bn.cfg = bn.cfg.replace(vision=dataclasses.replace(vision, attn_impl=attn))
     step = bn.train_step()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -157,12 +203,13 @@ for attn in ("fused_block", "hybrid_block"):
         e.record()
         torch.cuda.synchronize()
         res.append(s.elapsed_time(e) / 10)
-    print(f"BENCH step, fused MONA + {attn}: " + " ".join(f"{r:.2f}" for r in res) + " ms",
+    mona = "fused MONA" if fused == "1" else "composed MONA"
+    print(f"BENCH step, {mona} + {attn}: " + " ".join(f"{r:.2f}" for r in res) + " ms",
           flush=True)
 '''
 
-TIMINGS = {"k1": (K1, "K1_MS"), "k7": (K7, "K7 "), "k11": (K11, "K11 "),
-           "bench": (BENCH, "BENCH ")}
+TIMINGS = {"k1": (K1, "K1_MS"), "k6": (K6, "K6 "), "k7": (K7, "K7 "), "k8": (K8, "K8 "),
+           "k11": (K11, "K11 "), "bench": (BENCH, "BENCH ")}
 
 
 def main(argv=None):
@@ -170,7 +217,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k7|k11|bench]")
+                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|bench]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

@@ -34,7 +34,11 @@ parameter gradient within 1e-4 * the largest max|ref| and 3e-2 * its own
 equal; the attention block (K11) forward and dx backward and the hybrid
 forward, 1e-4 / 3e-2 * max|ref|, also where the flat GEMM tiles cross
 sequences and the last one is ragged, and its bf16 backward bitwise equal
-over two calls; on the card neither route reaches a plain version.
+over two calls; on the card neither route reaches a plain version. K6 and
+K8 (on K7 and the Hopper GEMM core in bf16) also at the bench step's [64,
+197, 768], their bf16 backwards bitwise equal over two calls, a bf16 K6
+with head dim 32 refused, and no bf16 K6 or K8 call reaching a WMMA GEMM
+or a SIMT attention kernel (profiler kernel names).
 """
 
 import pytest
@@ -149,12 +153,13 @@ def _check(kern, plain, args, args_plain=None, scaled=False):
 
 
 @pytest.mark.parametrize("b,n,width,heads,act", [
-    (2, 17, 128, 2, "gelu"), (3, 50, 128, 2, "quick_gelu"), (2, 197, 768, 12, "gelu")])
+    (2, 17, 128, 2, "gelu"), (3, 50, 128, 2, "quick_gelu"), (2, 197, 768, 12, "gelu"),
+    (64, 197, 768, 12, "gelu")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_path_kernels_match_plain(cuda, b, n, width, heads, act, dtype):
     """K5, K6 and K8 forward and backward, and K3, against their plain
     versions; bfloat16 inputs against the float32 plain version on the
-    bf16-rounded inputs."""
+    bf16-rounded inputs. [64, 197, 768] is the bench step's shape."""
     from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp, fused_ln_qkv
 
     blk = _block(cuda, width, heads)
@@ -971,3 +976,97 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     assert [fm.mona_block_fused.launches, fm.mona_block_fused_backward.launches,
             fa.fused_attn_block.launches, fa.fused_attn_block_backward.launches] == \
         [counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + 2]
+
+
+def _k6_k8_backward_args(device, b, n, width, heads, seed):
+    from nextgen_uia_tpu_torch.ops import fused_ln_mlp
+
+    blk = _block(device, width, heads)
+    gen = torch.Generator().manual_seed(seed)
+    bf16, dh = torch.bfloat16, width // heads
+    q, k, v = (torch.randn(b, heads, n, dh, generator=gen).to(device, bf16) for _ in range(3))
+    x, g = (torch.randn(b, n, width, generator=gen).to(device, bf16) for _ in range(2))
+    ws = fused_ln_mlp._weights(blk.ln2, blk.mlp, torch.float32)[:5]
+    return blk, (q, k, v), x, g, ws
+
+
+@pytest.mark.parametrize("b,n,width,heads", [(64, 197, 768, 12), (3, 50, 128, 2)])
+def test_k6_k8_backward_is_bitwise_deterministic(cuda, b, n, width, heads):
+    """Two calls of K6's and of K8's bf16 backward give bitwise-equal
+    gradients (no atomics, no split of K in their products or K7's
+    backward); K6 also with a key bias and n_real < N."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp
+
+    blk, (q, k, v), x, g, ws = _k6_k8_backward_args(cuda, b, n, width, heads, seed=n)
+    wo = blk.attn.o.w.to(torch.bfloat16)
+    kb = torch.randn(b, n, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.no_grad():
+        for kw in ({}, dict(bias=kb, n_real=n - 7)):
+            first, second = (fused_attn_o.fused_attn_o_residual_backward(q, k, v, wo, g, **kw)
+                             for _ in range(2))
+            assert all(torch.equal(a, c) for a, c in zip(first, second))
+        first, second = (fused_ln_mlp.fused_ln_mlp_residual_backward(x, *ws, g)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_bf16_k6_refuses_head_dim_not_64(cuda):
+    """The bf16 K6 kernels are K7's wgmma kernels and the Hopper GEMM core:
+    a head dim other than 64 raises, forward and backward, naming the
+    shape; float32 takes it."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o
+
+    blk = _block(cuda, 128, 4)
+    q = torch.randn(2, 4, 17, 32, device=cuda)
+    x = torch.randn(2, 17, 128, device=cuda)
+    bf = [t.to(torch.bfloat16) for t in (q, x)]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match=r"q \(2, 4, 17, 32\).*head dim 32"):
+            fused_attn_o.fused_attn_o_residual(bf[0], bf[0], bf[0], bf[1], blk.attn.o, heads=4)
+        with pytest.raises(ValueError, match=r"q \(2, 4, 17, 32\).*head dim 32"):
+            fused_attn_o.fused_attn_o_residual_backward(bf[0], bf[0], bf[0], blk.attn.o.w, bf[1])
+        out = fused_attn_o.fused_attn_o_residual(q, q, q, x, blk.attn.o, heads=4)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def _device_kernel_names(fn, windows=3):
+    """The names of the kernels torch.profiler sees in a call of fn (a
+    window with no device records is profiled again, up to ``windows``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    pytest.fail("the profiler recorded no device activity in any window")
+
+
+def test_bf16_k6_k8_reach_no_wmma_gemm(cuda):
+    """A bf16 K6 or K8 call, forward or backward, runs its products on the
+    Hopper GEMM core and its attention on K7's kernels: the profiler sees
+    no WMMA GEMM (gemm_bf16) and no SIMT attention kernel."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_ln_mlp
+
+    blk, (q, k, v), x, g, ws = _k6_k8_backward_args(cuda, 4, 197, 768, 12, seed=3)
+    wo = blk.attn.o.w.to(torch.bfloat16)
+    calls = {
+        "K6 forward": lambda: fused_attn_o.fused_attn_o_residual(q, k, v, x, blk.attn.o,
+                                                                 heads=12),
+        "K6 backward": lambda: fused_attn_o.fused_attn_o_residual_backward(q, k, v, wo, g),
+        "K8 forward": lambda: fused_ln_mlp.fused_ln_mlp_residual(x, blk.ln2, blk.mlp),
+        "K8 backward": lambda: fused_ln_mlp.fused_ln_mlp_residual_backward(x, *ws, g)}
+    with torch.no_grad():
+        for what, fn in calls.items():
+            names = _device_kernel_names(fn)
+            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
+            bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
+                   or "simt" in k]
+            assert not bad, (what, bad)
