@@ -36,8 +36,12 @@
    both K5 raw-x rows also at [7, 197, 768] and [1, 16, 768], the
    Hopper GEMM's ragged and sub-tile M; its backward bitwise equal over
    two calls; each beside the GEMM kernel's device time and the shared
-   WMMA GEMM's time at the same product), with CUDA-event times and the
-   bound from the card's peak rates:
+   WMMA GEMM's time at the same product; K1 in its three layouts and K6
+   post-LN, on K7 and the Hopper GEMM core in bf16, with their kernels'
+   device time alone and no WMMA GEMM and no SIMT attention kernel in a
+   bf16 call, K1 beside torch.nn.TransformerEncoderLayer holding the same
+   weights under inference_mode, and whether its fast path ran), with
+   CUDA-event times and the bound from the card's peak rates:
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
    max(1, max|ref|) (3e-2 * max|ref| for the flash-attention output and
@@ -57,7 +61,7 @@
    by the same per-batch function the predict CLI runs. Checks finite
    outputs of the right shape, that each block kernel launched once per
    block and batch, and the logits against a plain-path run on the card;
-   prints img/s at batch 32.
+   prints img/s at batch 32 and a profiler table of one batch.
 6. Train phase: the BiomedCLIP seg step at batch 32 (launch counts, loss
    and gradient norm against the plain path, and in float32 the loss and each trainable
    tensor, the loss falling over 10 steps), timed with augmentation off and
@@ -197,6 +201,7 @@ def kernel_phase(dev):
     from nextgen_uia_tpu_torch.models.vit import VIT_B16_OPENAI, VIT_B16_TIMM, Block, ViTConfig
     from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_block, fused_ln_mlp
     from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+    from nextgen_uia_tpu_torch.tools.compare_trees import encoder_layer
 
     gen = torch.Generator().manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -217,11 +222,13 @@ def kernel_phase(dev):
         return t.to(bf16).float() if t.is_floating_point() else t
 
     def check(name, kern, plain, inputs, odd_inputs, cost, library=None, scaled=False,
-              more=()):
+              more=(), kernels=False):
         """kern/plain(*inputs) -> tensor or tuple; inputs float32 on the
         card (the first `main` shape, then the odd one, then any in
         ``more``, each held in float32 and in bf16). ``scaled`` holds
-        bf16 to 3e-2 max|ref| instead of 3e-2 max(1, max|ref|)."""
+        bf16 to 3e-2 max|ref| instead of 3e-2 max(1, max|ref|).
+        ``kernels``: also the bf16 call's kernels alone, none of them a
+        WMMA GEMM or the SIMT attention (``hopper_kernels_ms``)."""
         def unit(scale):
             return scale if scaled else max(1.0, scale)
 
@@ -242,6 +249,11 @@ def kernel_phase(dev):
             ms = cuda_ms(lambda: kern(*args_b), 20)
             plain_ms = cuda_ms(lambda: plain(*args_b), 5, warmup=1)
             lib_ms = cuda_ms(lambda: library(*args_b), 20) if library else None
+            if kernels:
+                k_ms, seen, wmma = hopper_kernels_ms(name, lambda: kern(*args_b))
+                print(f"{name}: bf16 kernels alone {k_ms:.4f} ms of device time ({wmma})")
+                for key, ms_ in sorted(seen.items(), key=lambda kv: -kv[1])[:10]:
+                    print(f"{name}:   {ms_:.4f} ms {key[:100]}")
         b_ms, b_by = bound(*cost)
         print(f"{name}: f32 rel max|d| {rels[0]:.3e} (odd shape {rels[1]:.3e}; <= 1e-4); "
               f"bf16 max|d| {err_b:.3e} (<= {lim_b:.3e}, max|ref| {scale_b:.3e}); kernel {ms:.4f} ms, plain "
@@ -264,15 +276,19 @@ def kernel_phase(dev):
     # odd shape: 50 tokens (not a multiple of 16), 2 heads of 64, quick_gelu
     ob, on, oh = 3, 50, 2
 
-    # K1: the whole block, forward (serving path)
+    # K1: the whole block, forward (serving path), beside the library's
+    # TransformerEncoderLayer holding the same weights
     kw = dict(heads=h, act=cfg.act, eps=cfg.ln_eps)
     okw = dict(heads=oh, act="quick_gelu", key_bias=randn(ob, on), n_real=41)
+    enc = encoder_layer(blk, "prenorm", h, cfg.act, cfg.ln_eps)
     check("fused_block_infer",
           lambda x, p=None: fused_block.fused_block_infer(x, p or blk, **(okw if p else kw)),
           lambda x, p=None: fused_block.fused_block_infer_plain(x, p or blk,
                                                                 **(okw if p else kw)),
           [randn(b, n, d)], [randn(ob, on, 128), small],
-          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d)))
+          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d)),
+          library=inference(enc), kernels=True)
+    encoder_fast_path("fused_block_infer", inference(enc), randn(b, n, d).to(bf16))
 
     # K5: LN + q/k/v, forward and backward
     def qkv_fwd(x, p=None):
@@ -502,13 +518,18 @@ def kernel_phase(dev):
     tblk, tdh, tm = block(td, th), td // th, TEXT_CHUNK * tcfg.context_length
     ckw = dict(heads=th, act=tcfg.act, eps=tcfg.ln_eps, causal=True)
     cokw = dict(heads=oh, act="quick_gelu", causal=True, key_bias=randn(ob, on))
+    tenc = encoder_layer(tblk, "prenorm", th, tcfg.act, tcfg.ln_eps)
+    causal_mask = torch.nn.Transformer.generate_square_subsequent_mask(tn, device=dev,
+                                                                       dtype=bf16)
+    causal_lib = inference(lambda x: tenc(x, src_mask=causal_mask, is_causal=True))
     check("fused_block_infer_causal",
           lambda x, p=None: fused_block.fused_block_infer(x, p or tblk, **(cokw if p else ckw)),
           lambda x, p=None: fused_block.fused_block_infer_plain(x, p or tblk,
                                                                 **(cokw if p else ckw)),
           [randn(tb, tn, td)], [randn(ob, on, 128), small],
           (2 * tm * 12 * td * td + 4 * tb * th * tdh * tn * (tn + 1) // 2,
-           2 * (2 * tm * td + 12 * td * td)))
+           2 * (2 * tm * td + 12 * td * td)), library=causal_lib, kernels=True)
+    encoder_fast_path("fused_block_infer_causal", causal_lib, randn(tb, tn, td).to(bf16))
 
     # K10: the fused MLP forward, [24 * 1370, 768] x 3072 gelu, and an odd
     # float32 [77, 128] x 512 quick_gelu
@@ -646,19 +667,10 @@ def k6_k8_rows(dev, blk):
                     f"{name} bf16 is not bitwise repeatable at [{b}, {n}, {d}]")
             if name.endswith("quick_gelu"):
                 continue
-            seen = {}
             op_ms = cuda_ms(lambda: kern(*args_b), 20)
-            kern_ms = kernel_device_ms(lambda: kern(*args_b), ("gemm", "flash", "layernorm"),
-                                       seen=seen)
+            kern_ms, seen, check = hopper_kernels_ms(name, lambda: kern(*args_b))
             for key, ms_ in sorted(seen.items(), key=lambda kv: -kv[1]):
                 print(f"{name}:   {ms_:.4f} ms {key[:100]}")
-            bad = sorted(k[:60] for k in seen
-                         if "gemm_bf16" in k or "attention_kernel" in k or "simt" in k)
-            require(not bad and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
-                    f"{name} bf16 ran {bad or 'no Hopper GEMM'}: every product must run on "
-                    f"hopper_gemm.cuh's core and the attention on K7's wgmma kernels")
-            check = ("no WMMA GEMM, no SIMT attention" if seen else
-                     "WMMA check not made: the profiler recorded no device activity")
             plain_ms = cuda_ms(lambda: plain(*args_b), 3, warmup=1)
             b_ms, b_by = bound(*costs[name.split()[0]])
             print(f"{name}: bf16 [{b}, {n}, {d}]: op {op_ms:.4f} ms, kernels alone "
@@ -1060,6 +1072,46 @@ def kernel_device_ms(fn, name, iters=20, windows=3, seen=None):
     return float("nan")
 
 
+def hopper_kernels_ms(name, fn):
+    """(device ms per call of fn's kernels alone, {kernel: ms per call},
+    what the check saw): the profiler's gemm, flash and layernorm kernels.
+    A bf16 call must run its products on hopper_gemm.cuh's core and its
+    attention on K7's wgmma kernels: a WMMA GEMM (gemm_bf16) or a SIMT
+    attention kernel fails the run; a window with no device activity leaves
+    that check unmade and says so."""
+    seen = {}
+    ms = kernel_device_ms(fn, ("gemm", "flash", "layernorm"), seen=seen)
+    bad = sorted(k[:60] for k in seen
+                 if "gemm_bf16" in k or "attention_kernel" in k or "simt" in k)
+    require(not bad and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
+            f"{name} bf16 ran {bad or 'no Hopper GEMM'}: every product must run on "
+            f"hopper_gemm.cuh's core and the attention on K7's wgmma kernels")
+    return ms, seen, ("no WMMA GEMM, no SIMT attention" if seen else
+                      "WMMA check not made: the profiler recorded no device activity")
+
+
+def inference(fn):
+    """fn under torch.inference_mode, as a library layer is timed."""
+    import torch
+
+    def run(*args):
+        with torch.inference_mode():
+            return fn(*args)
+    return run
+
+
+def encoder_fast_path(name, library, x):
+    """Prints whether the library's TransformerEncoderLayer call took
+    PyTorch's fused fast path (torch._transformer_encoder_layer_fwd in the
+    profiler's operator names) on x."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        library(x)
+    fast = any("_transformer_encoder_layer_fwd" in e.key for e in prof.key_averages())
+    print(f"{name}: library TransformerEncoderLayer, fast path: {'yes' if fast else 'no'}")
+
+
 def wmma_gemm_ms(a, w, bias):
     """CUDA-event ms of block_kernels.cuh's WMMA GEMM (nx_gemm, the bf16
     product K5 raw-x ran on until its Hopper core) on a [M, K] @ w [K, N]
@@ -1087,6 +1139,7 @@ def bert_kernel_rows(dev, gen, check):
 
     from nextgen_uia_tpu_torch.models.bert import BertConfig, BertLayer
     from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
+    from nextgen_uia_tpu_torch.tools.compare_trees import encoder_layer
 
     cfg = BertConfig()
     b, n, d, h, hid, eps = TEXT_CHUNK, cfg.context_length, cfg.width, cfg.heads, \
@@ -1149,7 +1202,8 @@ def bert_kernel_rows(dev, gen, check):
     check("fused_attn_o_residual_postln", attn(fused_attn_o.fused_attn_o_residual),
           attn(fused_attn_o.fused_attn_o_residual_plain), qkv_x(b, n, x),
           qkv_x(7, 96, odd_x) + [True],
-          (4 * b * h * n * n * dh + 2 * m * d * d, 2 * (5 * m * d + d * d) + 4 * b * n))
+          (4 * b * h * n * n * dh + 2 * m * d * d, 2 * (5 * m * d + d * d) + 4 * b * n),
+          kernels=True)
     check("fused_postnorm_mlp_ln",
           lambda t: fused_ln_mlp.fused_postnorm_mlp_ln(t, layer.ffn, layer.ffn_ln, eps=eps),
           lambda t: fused_ln_mlp.fused_postnorm_mlp_ln_plain(t, layer.ffn, layer.ffn_ln,
@@ -1160,9 +1214,15 @@ def bert_kernel_rows(dev, gen, check):
         return lambda t, odd=False: fn(t, layer, heads=h, eps=eps, layout="postnorm",
                                        key_bias=odd_bias if odd else bias)
 
+    # the library's layer gives NaN on a wholly padded row (its fast path's
+    # key-padding mask); it is timed only
+    benc = encoder_layer(layer, "postnorm", h, "gelu", eps)
+    bert_lib = inference(lambda t: benc(t, src_key_padding_mask=bias))
     check("fused_block_infer_postnorm", whole(fused_block.fused_block_infer),
           whole(fused_block.fused_block_infer_plain), [x], [odd_x, True],
-          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d) + 4 * b * n))
+          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d) + 4 * b * n),
+          library=bert_lib, kernels=True)
+    encoder_fast_path("fused_block_infer_postnorm", bert_lib, x.to(torch.bfloat16))
 
 
 def text_lora_kernel_rows(dev, gen, check):
@@ -1395,6 +1455,7 @@ def slice_phase(dev, work):
     print(f"slice: batch {BATCH} forward {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s "
           f"(plain path {plain_ms:.2f} ms = {BATCH * 1000 / plain_ms:.1f} img/s); "
           f"peak device memory {peak_gb:.2f} GB")
+    profile_steps(lambda: infer(x), 5, ms)
     return launches, files
 
 

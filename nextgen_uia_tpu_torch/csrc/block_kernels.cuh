@@ -1,13 +1,12 @@
 // The transformer-block building blocks every block kernel of the port is cut
-// from: LayerNorm forward and backward over rows, a GEMM with a fused
+// from: LayerNorm forward and backward over rows and a GEMM with a fused
 // epilogue (bf16 tensor cores, or float32 SIMT so the float32 path stays
-// exact), and a SIMT attention forward for short sequences. The whole-block
-// forward (fused_block.cu), K5 pre-norm (fused_ln_qkv.cu), K6 post-LN, K9
-// and K10 launch these, and the float32 paths of K6 pre-norm and K8 their
-// LayerNorms and SIMT GEMM, so they share one implementation (the bf16
-// paths of K5 raw-x, K6 pre-norm, K8 and K11 run on hopper_gemm.cuh).
-// Everything here is a template or `static`, so each .cu that includes the
-// header builds on its own (the sources compile in parallel) and the
+// exact). K5 pre-norm (fused_ln_qkv.cu), K9 and K10 launch these, and the
+// float32 paths of K1, K6, K8 and K11 their LayerNorms and SIMT GEMM, so
+// they share one implementation (the bf16 products of K1, K5 raw-x, K6, K8
+// and K11 run on hopper_gemm.cuh, their attention on flash_attention.cu's
+// K7). Everything here is a template or `static`, so each .cu that includes
+// the header builds on its own (the sources compile in parallel) and the
 // objects link without clashes.
 //
 // Layouts: activations are row-major [rows, cols]; weights are the JAX
@@ -446,9 +445,8 @@ static cudaError_t launch_gemm(Operand a, const void* w, int dtype, bool bt, Epi
 }
 
 // ---------------------------------------------------------------------------
-// Attention: q, k, v at base + b*sb + h*sh + n*sn + d (element strides), so
-// one kernel reads both the packed [B*N, 3D] q|k|v rows of the whole-block
-// kernel and the head-major [B, H, N, dh] tensors of the split kernels.
+// q, k, v at base + b*sb + h*sh + n*sn + d (element strides), as the
+// flash-attention kernels' float32 SIMT variants read them
 // ---------------------------------------------------------------------------
 
 struct QKV {
@@ -457,160 +455,5 @@ struct QKV {
   const void* v;
   int sb, sh, sn;  // element strides; offsets are formed in size_t
 };
-
-// Each warp owns ATT_ROWS rows at once, so every shared-memory element read
-// feeds ATT_ROWS multiply-adds; 8 warps x 4 rows = one 32-row tile per CTA.
-// Needs dh % 4 == 0, 32 <= dh <= 64, n <= 256. Masking is the JAX kernels':
-// -1e30 for keys >= n_real, then the key bias, then (``causal``, the CLIP
-// text tower) -1e30 where key > row; with ``causal`` a CTA loads and a warp
-// scores only the keys up to its last row.
-constexpr int ATT_THREADS = 256, ATT_ROWS = 4, ATT_WARPS = ATT_THREADS / 32;
-constexpr int ATT_QTILE = ATT_WARPS * ATT_ROWS;
-
-// forward shared memory: Qs [warps][rows][dh] f32 | Ps [warps][rows][n] f32 |
-// Kt [dh][n | 1] T | Vs [n][dh] T
-static inline size_t attention_smem(int n, int dh, size_t t_size) {
-  const int nk = n | 1;  // odd stride: the transposed stores hit distinct banks
-  return sizeof(float) * ATT_WARPS * ATT_ROWS * ((size_t)dh + n) +
-         t_size * ((size_t)dh * nk + (size_t)n * dh);
-}
-
-// s[r] = a[r] . bt[:, j] for this warp's ATT_ROWS rows (a [rows][dh] f32)
-// against column j of bt [dh][nk] (transposed, storage type)
-template <typename T>
-__device__ __forceinline__ void scores4(const float* a, const T* bt, int j, int nk, int dh,
-                                        float* s) {
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) s[r] = 0.f;
-  for (int d = 0; d < dh; d += 4) {
-    const float b0 = to_f32(bt[d * nk + j]), b1 = to_f32(bt[(d + 1) * nk + j]);
-    const float b2 = to_f32(bt[(d + 2) * nk + j]), b3 = to_f32(bt[(d + 3) * nk + j]);
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float4 av = *reinterpret_cast<const float4*>(a + r * dh + d);
-      s[r] = fmaf(av.x, b0, s[r]);
-      s[r] = fmaf(av.y, b1, s[r]);
-      s[r] = fmaf(av.z, b2, s[r]);
-      s[r] = fmaf(av.w, b3, s[r]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(QKV in, const float* __restrict__ key_bias, T* __restrict__ out, int n,
-                 int heads, int dh, int n_real, float scale, int causal) {
-  extern __shared__ __align__(16) float sm[];
-  const int nk = n | 1;
-  float* Qs = sm;
-  float* Ps = Qs + ATT_WARPS * ATT_ROWS * dh;
-  T* Kt = reinterpret_cast<T*>(Ps + ATT_WARPS * ATT_ROWS * n);
-  T* Vs = Kt + dh * nk;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d_model = heads * dh;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kbase = static_cast<const T*>(in.k) + off;
-  const T* vbase = static_cast<const T*>(in.v) + off;
-  // causal: keys past the tile's last query are masked for all its rows
-  const int n_cta = causal ? min(n, (int)(blockIdx.x + 1) * ATT_QTILE) : n;
-  for (int i = threadIdx.x; i < n_cta * dh; i += ATT_THREADS) {
-    const int k = i / dh, d = i % dh;
-    Kt[d * nk + k] = kbase[(size_t)k * in.sn + d];
-    Vs[k * dh + d] = vbase[(size_t)k * in.sn + d];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i0 = blockIdx.x * ATT_QTILE + warp * ATT_ROWS;
-  if (i0 >= n) return;  // no block-wide barrier follows
-  const int rows = min(ATT_ROWS, n - i0);
-  const int n_keys = causal ? min(n, i0 + ATT_ROWS) : n;  // and past the warp's last row
-  float* q = Qs + warp * ATT_ROWS * dh;  // [rows][dh]; rows past n are zero
-  float* p = Ps + warp * ATT_ROWS * n;   // [rows][n]
-  for (int e = lane; e < ATT_ROWS * dh; e += 32) {
-    const int r = e / dh, d = e % dh;
-    q[e] = r < rows ? to_f32(qb[(size_t)(i0 + r) * in.sn + d]) : 0.f;
-  }
-  __syncwarp();
-
-  const float* kb = key_bias ? key_bias + (size_t)b * n : nullptr;
-  float mx[ATT_ROWS], sum[ATT_ROWS];
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = -FLT_MAX, sum[r] = 0.f;
-  for (int k = lane; k < n_keys; k += 32) {
-    float s[ATT_ROWS];
-    scores4(q, Kt, k, nk, dh, s);
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      float v = s[r] * scale;
-      if (k >= n_real) v = -1e30f;
-      if (kb) v += kb[k];
-      if (causal && k > i0 + r) v = -1e30f;
-      p[r * n + k] = v;
-      mx[r] = fmaxf(mx[r], v);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) mx[r] = warp_max(mx[r]);
-  for (int k = lane; k < n_keys; k += 32) {
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float e = expf(p[r * n + k] - mx[r]);
-      p[r * n + k] = e;
-      sum[r] += e;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) sum[r] = warp_sum(sum[r]);
-  for (int k = lane; k < n_keys; k += 32) {
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) p[r * n + k] = round_to<T>(p[r * n + k] / sum[r]);
-  }
-  __syncwarp();
-
-  // lane owns output columns d = lane and lane + 32
-  const int d0 = lane, d1 = lane + 32;
-  const bool has1 = d1 < dh;
-  float o0[ATT_ROWS] = {}, o1[ATT_ROWS] = {};
-  for (int k = 0; k < n_keys; ++k) {
-    const float v0 = to_f32(Vs[k * dh + d0]);
-    const float v1 = has1 ? to_f32(Vs[k * dh + d1]) : 0.f;
-#pragma unroll
-    for (int r = 0; r < ATT_ROWS; ++r) {
-      const float pk = p[r * n + k];
-      o0[r] = fmaf(pk, v0, o0[r]);
-      o1[r] = fmaf(pk, v1, o1[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ATT_ROWS; ++r) {
-    if (r >= rows) break;
-    T* orow = out + ((size_t)b * n + i0 + r) * d_model + h * dh;
-    orow[d0] = from_f32<T>(o0[r]);
-    if (has1) orow[d1] = from_f32<T>(o1[r]);
-  }
-}
-
-static inline bool attention_shape_ok(int n, int dh) {
-  return dh % 4 == 0 && dh <= 64 && dh >= 32 && n >= 1 && n <= 256;
-}
-
-template <typename T>
-static cudaError_t launch_attention(const QKV& in, const float* key_bias, void* out, int b,
-                                    int n, int heads, int dh, int n_real, float scale,
-                                    cudaStream_t stream, int causal = 0) {
-  if (!attention_shape_ok(n, dh)) return cudaErrorInvalidValue;
-  const size_t smem = attention_smem(n, dh, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((n + ATT_QTILE - 1) / ATT_QTILE, heads, b);
-  attention_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
-      in, key_bias, static_cast<T*>(out), n, heads, dh, n_real, scale, causal);
-  return cudaGetLastError();
-}
 
 }  // namespace nx

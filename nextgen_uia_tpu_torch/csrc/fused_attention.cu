@@ -55,49 +55,9 @@
 // float32 runs the same layout on block_kernels.cuh's SIMT GEMM and K7's
 // SIMT kernels: the exact float32 check of the algorithm.
 
-#include "block_kernels.cuh"
-#include "hopper_gemm.cuh"
+#include "block_products.cuh"
 
 using namespace nx;
-
-extern "C" int nx_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  const float* bias, float* lse, int dtype, int b, int heads,
-                                  int n, int dh, int sb, int sh, int sn, int osb, int osh,
-                                  int osn, int causal, float scale, void* stream);
-extern "C" int nx_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                      const void* o, const void* g, const float* lse,
-                                      const float* bias, void* dq, void* dk, void* dv,
-                                      float* dbias, float* delta, int dtype, int b, int heads,
-                                      int n, int dh, int sb, int sh, int sn, int osb, int osh,
-                                      int osn, int causal, float scale, void* stream);
-
-namespace {
-
-// out[m, cols] (rows ldo apart) = a[m, k] (rows lda apart) @ w^T + bias
-// (float32 [cols] or null), w stored [cols, k]: bf16 as one flat product
-// (batch 1) on the Hopper core with BN-column tiles in a STAGES-deep ring,
-// float32 on the SIMT GEMM; no other dtype
-template <int BN, int STAGES>
-int project(const void* a, int lda, const void* w, const float* bias, void* out, int ldo, int m,
-            int cols, int k, int dtype, cudaStream_t s) {
-  if (dtype == F32) {
-    const Epilogue epi{bias, nullptr, 0, nullptr, ACT_NONE, row_major(out, ldo), dtype};
-    return (int)launch_gemm(row_major(a, lda), w, dtype, true, epi, m, cols, k, s);
-  }
-  if (dtype != BF16) return (int)cudaErrorInvalidValue;
-  hopper::TmaMatrix ta, to;
-  cudaError_t err = hopper::rows_matrix(ta, a, 1, m, k, hopper::BM, lda);
-  if (err == cudaSuccess) err = hopper::rows_matrix(to, out, 1, m, cols, 64, ldo);
-  if (err != cudaSuccess) return (int)err;
-  return (int)hopper::gemm<BN, STAGES>(ta, w, to, hopper::BiasEpilogue{bias}, 1, m, cols, k, s);
-}
-
-// the element `cols` columns into a row of `dtype`
-void* col(void* p, int cols, int dtype) {
-  return static_cast<char*>(p) + (size_t)cols * (dtype == BF16 ? 2 : 4);
-}
-
-}  // namespace
 
 extern "C" {
 

@@ -56,40 +56,22 @@
 // Post-LN variant (nx_attn_o_postln_fwd), forward only: out = LN(x + cat @
 // Wo + bo) -> T, eps 1e-12 for BERT. It replaces the same Pallas kernel with
 // post_ln given (the epilogue of _fwd_kernel), which the frozen PubMedBERT
-// text tower runs. The TPU kernel keeps the pre-LN sum in VMEM; here the
-// o-projection's epilogue writes it to a float32 scratch (never rounded to
-// T), and layernorm_rows reads it back and writes the output in T: one
-// [M, D] float32 round trip (~200 MB at the text cache's [256, 256, 768]
-// chunk, which L2 does not hold) in place of a fused row-LayerNorm epilogue,
-// which a GEMM tile of 128 columns cannot do alone. The key-padding bias
-// (-1e9 for padded keys) is added after the -1e30 of keys >= n_real, as on
-// the TPU; a row whose keys are all padding gets equal scores and comes out
-// finite. The TPU variant's backward is an XLA recomposition and is not
-// ported: autograd reaching it on the card raises.
+// text tower runs. It is K1 post-norm's attention half
+// (block_products.cuh::attn_o_f32): K7 into the row-major concat, then the
+// o-product whose staged epilogue adds bo and x and stores the pre-LN sum in
+// float32 (never rounded to T), then layernorm_rows writes the output in T.
+// The TPU kernel keeps that sum in VMEM; here it makes one [M, D] float32
+// round trip (~200 MB at the text cache's [256, 256, 768] chunk, which L2
+// does not hold) in place of a fused row-LayerNorm epilogue, which a GEMM
+// tile of 128 columns cannot do alone. The caller's key-padding bias (-1e9
+// for padded keys) reaches K7 with the -1e30 of keys >= n_real folded in, as
+// the pre-norm variant's; a row whose keys are all padding gets equal scores
+// and comes out finite. The TPU variant's backward is an XLA recomposition
+// and is not ported: autograd reaching it on the card raises.
 
-#include "block_kernels.cuh"
-#include "hopper_gemm.cuh"
+#include "block_products.cuh"
 
 using namespace nx;
-
-extern "C" int nx_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  const float* bias, float* lse, int dtype, int b, int heads,
-                                  int n, int dh, int sb, int sh, int sn, int osb, int osh,
-                                  int osn, int causal, float scale, void* stream);
-extern "C" int nx_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                      const void* o, const void* g, const float* lse,
-                                      const float* bias, void* dq, void* dk, void* dv,
-                                      float* dbias, float* delta, int dtype, int b, int heads,
-                                      int n, int dh, int sb, int sh, int sn, int osb, int osh,
-                                      int osn, int causal, float scale, void* stream);
-
-namespace {
-
-QKV head_major_qkv(const void* q, const void* k, const void* v, int n, int heads, int dh) {
-  return QKV{q, k, v, heads * n * dh, n * dh, dh};
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -152,27 +134,18 @@ int nx_attn_o_bwd(const void* q, const void* k, const void* v, const float* key_
                                 b, heads, n, dh, sb, sh, sn, sb, sh, sn, 0, scale, stream);
 }
 
-// as nx_attn_o_fwd, then out = LN(y32) -> T: gamma, beta [D] f32; y32
-// scratch [B*N, D] f32
+// as nx_attn_o_fwd (q, k, v at strides (sb, sh, sn)), then out = LN(x +
+// cat @ Wo + bo) -> T: gamma, beta [D] f32; y32 scratch [B*N, D] f32
 int nx_attn_o_postln_fwd(const void* q, const void* k, const void* v, const void* x,
-                         const float* key_bias, const void* wo, const float* bo,
+                         const float* key_bias, const void* wo_t, const float* bo,
                          const float* gamma, const float* beta, void* cat, float* y32,
-                         void* out, int dtype, int b, int n, int heads, int dh, int n_real,
-                         float scale, float eps, void* stream) {
+                         void* out, int dtype, int b, int n, int heads, int dh, int sb, int sh,
+                         int sn, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m = b * n, d = heads * dh;
-  const QKV in = head_major_qkv(q, k, v, n, heads, dh);
-  cudaError_t err =
-      dtype == BF16
-          ? launch_attention<__nv_bfloat16>(in, key_bias, cat, b, n, heads, dh, n_real, scale, s)
-          : launch_attention<float>(in, key_bias, cat, b, n, heads, dh, n_real, scale, s);
-  if (err != cudaSuccess) return (int)err;
-  const Epilogue epi{bo, x, dtype, nullptr, ACT_NONE, row_major(y32), F32};
-  err = launch_gemm(row_major(cat), wo, dtype, false, epi, m, d, d, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)(dtype == BF16
-                   ? launch_layernorm<float, __nv_bfloat16>(y32, gamma, beta, out, m, d, eps, s)
-                   : launch_layernorm<float, float>(y32, gamma, beta, out, m, d, eps, s));
+  const int err = attn_o_f32(q, k, v, sb, sh, sn, key_bias, 0, x, wo_t, bo, cat, y32, dtype, b,
+                             n, heads, dh, scale, s);
+  if (err) return err;
+  return (int)layernorm_f32(y32, gamma, beta, out, b * n, heads * dh, eps, dtype, s);
 }
 
 }  // extern "C"

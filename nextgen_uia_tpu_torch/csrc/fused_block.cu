@@ -1,99 +1,114 @@
-// Pre-norm transformer block forward for Hopper (sm_90a), as a small family
-// of kernels driven in order by ops/fused_block.py::fused_block_infer:
+// Whole transformer block forward for Hopper (sm_90a), pre-norm (ViT, the
+// CLIP text tower with the causal mask) or post-norm (BERT), as one entry
+// (nx_block_fwd) that launches, in order:
 //
-//   z   = LN1(x)                       layernorm_rows     (f32 stats) -> T
-//   qkv = z @ [Wq|Wk|Wv] + b           gemm               -> T
-//   cat = softmax(q k^T / sqrt(dh)) v  attention_kernel   (f32 scores) -> T
-//   y32 = cat @ Wo + bo + x            gemm               -> f32 scratch
-//   z2  = LN2(y32)                     layernorm_rows     -> T
-//   h   = act(z2 @ W1 + b1)            gemm               -> T
-//   out = h @ W2 + b2 + y32            gemm               -> T
+//   pre-norm:
+//     z   = LN1(x)                                   layernorm_rows   -> T
+//     qkv = z @ [Wq|Wk|Wv] + b                       core             -> T
+//     cat = softmax(q k^T / sqrt(dh) + key bias) v   K7               -> T
+//     y32 = x + cat @ Wo + bo                        core, epilogue A -> f32
+//     z2  = LN2(y32)                                 layernorm_rows   -> T
+//     h   = act(z2 @ W1 + b1)                        core             -> T
+//     out = y32 + h @ W2 + b2                        core, epilogue B -> T
+//   post-norm:
+//     qkv = x @ [Wq|Wk|Wv] + b                       core             -> T
+//     cat = softmax(q k^T / sqrt(dh) + key bias) v   K7               -> T
+//     s32 = x + cat @ Wo + bo                        core, epilogue A -> f32
+//     y32 = LN_a(s32), z2 = y32 -> T                 layernorm_rows_dual
+//     h   = act(z2 @ W1 + b1)                        core             -> T
+//     s32 = y32 + h @ W2 + b2                        core, epilogue B -> f32
+//     out = LN_b(s32)                                layernorm_rows   -> T
 //
 // Replaces nextgen_uia_tpu/ops/fused_block.py::fused_block_infer (the Pallas
-// kernel _fwd_kernel), pre-norm, with or without the causal mask (the CLIP
-// text tower: 77 tokens, width 512, 8 heads, quick_gelu, run unpadded). The rounding points are
-// that kernel's: z, q/k/v, the probabilities, the head concat, z2 and h are
-// rounded to the storage type T; y32 and the fc2 accumulation stay float32
-// and the output is rounded once.
+// kernel _fwd_kernel) in both layouts. The rounding points are that
+// kernel's: z, q/k/v, the probabilities, the head concat, z2 and h are
+// rounded to the storage type T; the residual stream (y32, s32) and every
+// product's sum stay float32 and the output is rounded once. Post-norm's y32
+// stays float32 as the MLP's residual, and only its copy z2 that feeds fc1
+// is rounded. Keys >= n_real reach K7 folded into its float32 key bias
+// (-1e30, added before the caller's bias there and beside it here: either
+// sum is -1e30 in float32); the causal mask (the CLIP text tower: 77
+// tokens, width 512, 8 heads, quick_gelu) is K7's.
 //
-// What bounds it on the H100: at the serving shape (B*N = 32*197 rows,
-// D = 768, hidden 3072) the four products hold ~99% of the block's
-// 2*M*12*D^2 + 4*B*H*N^2*dh operations, so the block is compute-bound. The
-// TPU kernel keeps every weight matrix resident in 64 MB of VMEM; a Hopper
-// block has 227 KB of shared memory (one [768,768] bf16 matrix is 1.2 MB),
-// so the port streams weight tiles through shared memory per output tile and
-// passes activations between launches through device memory (the 50 MB L2
-// holds most of them at this size).
+// What bounds it on the H100: at the serving shape (B*N = 32*197 rows, D =
+// 768, hidden 3072) the four products hold ~99% of the block's 2*M*12*D^2 +
+// 4*B*H*N^2*dh = 93 GFLOP, 0.094 ms at the bf16 peak, against ~50 MB of x,
+// out and the weights: compute-bound. The text cache's [256, 77, 512]
+// causal block is 0.127 ms of operations, BERT's [256, 256, 768] 0.99 ms.
 //
-// Design: the kernels are block_kernels.cuh's, shared with the train path's
-// split kernels. The bf16 product is a 128x128x32-tiled WMMA (mma.sync
-// 16x16x16, float32 accumulation) kernel fed by a 3-stage cp.async ring, with
-// the bias, exact-erf GELU or quick_gelu and an optional residual fused into
-// its epilogue; float32 inputs take a 64x64 SIMT tile, so the float32 path
-// stays exact float32 (no TF32). Attention runs one CTA per (image, head,
-// 32-query tile) with that head's K (transposed) and V in shared memory in
-// the storage type; each warp owns 4 query rows, so every K/V read feeds 4
-// multiply-adds: scores and softmax in float32, keys >= n_real masked,
-// key_bias added, attention on SIMT cores. The ragged edges (N = 197,
-// M = 6304) are masked in the kernels; nothing is padded. Still simple: no
-// TMA, no wgmma, no warp specialisation, attention off the tensor cores.
-//
-// Post-norm layout (BERT, layout="postnorm"), the same kernels in another
-// order:
-//
-//   qkv = x @ [Wq|Wk|Wv] + b           gemm (raw x, no LayerNorm) -> T
-//   cat = softmax(q k^T / sqrt(dh) + key bias) v                   -> T
-//   s32 = cat @ Wo + bo + x            gemm               -> f32 scratch
-//   y32 = LN_a(s32), z2 = y32 -> T     layernorm_rows_dual (f32 and T)
-//   h   = act(z2 @ W1 + b1)            gemm               -> T
-//   s32 = h @ W2 + b2 + y32            gemm               -> f32 scratch
-//   out = LN_b(s32)                    layernorm_rows     -> T
-//
-// Rounding points are the Pallas kernel's post-norm branch, which differ
-// from the three-kernel chain's: y32 stays float32 as the MLP's residual,
-// and only its copy z2 that feeds fc1 is rounded. At the text cache's chunk
-// ([256, 256, 768], 12 heads, hidden 3072) the block is ~0.98 TFLOP:
-// compute-bound (~0.99 ms at the bf16 peak).
+// Design. The TPU kernel keeps every weight matrix resident in 64 MB of
+// VMEM and one image's activations on chip. A Hopper block has 227 KB of
+// shared memory, so here the block is a short sequence of launches of the
+// port's other kernels, the activations crossing device memory between
+// them (the 50 MB L2 holds most of them at the serving size):
+// - every bf16 product is one flat call of hopper_gemm.cuh's core over the
+//   B*N tokens (TMA ring, wgmma, W multicast over a cluster of two,
+//   persistent grid; tiles cross sequences), reading its weight as W^T
+//   [cols, K], which the wrapper builds in its one copy of the weights;
+// - q|k|v is one row-major [B*N, 3D] buffer (K11's layout), which K7's
+//   wgmma forward reads through strides, writing the head concat row-major
+//   [B*N, D] (block_products.cuh::attn_o_f32, shared with K6 post-LN);
+// - the two residual sums are staged epilogues (hopper_gemm.cuh's
+//   ResidualEpilogue): A adds bo and the bf16 x and stores float32, B adds
+//   b2 and the float32 residual stream and stores bf16 (pre-norm) or
+//   float32 (post-norm, for the last LayerNorm); fc1's bias + activation is
+//   K8's staged BiasActEpilogue;
+// - LN1 writes z into the concat's buffer, which the q|k|v product has read
+//   before K7 overwrites it.
+// Each output element is one thread's sum in a fixed order (no atomics), so
+// two calls are bitwise equal. bf16 needs dh = 64 (K7's wgmma kernels),
+// D % 64 == 0 and hidden % 64 == 0 (the core); the wrapper refuses anything
+// else. float32 runs the same dataflow on K7's SIMT kernels and
+// block_kernels.cuh's SIMT GEMM: the exact float32 check of the algorithm.
 
-#include "block_kernels.cuh"
+#include "block_products.cuh"
 
 using namespace nx;
+
+namespace {
+
+// out (or, post-norm, s32) = res32 + act(z2 @ W1 + b1) @ W2 + b2, the hidden
+// activation through h [m, hidden] in `dtype`; fc2 on 128-column tiles in a
+// 4-deep ring, the fastest of 128 x 4, 192 x 3 and 256 x 2 at all three path
+// shapes (tools/epilogue_bench.cu, H100 80GB HBM3 at 700 W), fc1 on K8's
+// (192 x 3 was 1-5% faster at the text caches' shapes, 1.5% slower at
+// serving's)
+int mlp(const void* z2, const void* w1_t, const float* b1, const void* w2_t, const float* b2,
+        const float* res32, void* h, void* out, bool f32_out, int dtype, int m, int d,
+        int hidden, int act, cudaStream_t s) {
+  if (dtype == F32) {
+    const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), F32};
+    cudaError_t err = launch_gemm(row_major(z2), w1_t, F32, true, up, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue down{b2, res32, F32, nullptr, ACT_NONE, row_major(out), F32};
+    return (int)launch_gemm(row_major(h), w2_t, F32, true, down, m, d, hidden, s);
+  }
+  hopper::TmaMatrix ta, to;
+  cudaError_t err = flat(ta, z2, d, to, h, hidden, m);
+  if (err == cudaSuccess)
+    err = hidden_product<hopper::BiasActEpilogue>(ta, w1_t, to, act, m, hidden, d, s, b1);
+  if (err == cudaSuccess) err = flat(ta, h, hidden, to, f32_out ? nullptr : out, d, m);
+  if (err != cudaSuccess) return (int)err;
+  if (f32_out) {
+    const hopper::ResidualEpilogue<float, true> down{b2, res32, d, static_cast<float*>(out)};
+    return (int)hopper::gemm<128, 4>(ta, w2_t, to, down, 1, m, d, hidden, s);
+  }
+  return (int)hopper::gemm<128, 4>(
+      ta, w2_t, to, hopper::ResidualEpilogue<float, false>{b2, res32, d, nullptr}, 1, m, d,
+      hidden, s);
+}
+
+}  // namespace
 
 extern "C" {
 
 const char* nx_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// out[rows, cols] = LN(x) * gamma + beta; (x, out) dtypes: (bf16, bf16),
-// (f32, bf16) or (f32, f32)
-int nx_layernorm(const void* x, int x_dtype, const float* gamma, const float* beta,
-                 void* out, int out_dtype, int rows, int cols, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == BF16 && out_dtype == BF16)
-    return (int)launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, out, rows,
-                                                               cols, eps, s);
-  if (x_dtype == F32 && out_dtype == BF16)
-    return (int)launch_layernorm<float, __nv_bfloat16>(x, gamma, beta, out, rows, cols, eps,
-                                                       s);
-  if (x_dtype == F32 && out_dtype == F32)
-    return (int)launch_layernorm<float, float>(x, gamma, beta, out, rows, cols, eps, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// out32[rows, cols] = LN(x) * gamma + beta from float32 x, and (out_t not
-// null) the same rounded to `dtype` in out_t
-int nx_layernorm_dual(const float* x, const float* gamma, const float* beta, float* out32,
-                      void* out_t, int dtype, int rows, int cols, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16)
-    return (int)launch_layernorm_dual<__nv_bfloat16>(x, gamma, beta, out32, out_t, rows, cols,
-                                                     eps, s);
-  if (dtype == F32)
-    return (int)launch_layernorm_dual<float>(x, gamma, beta, out32, out_t, rows, cols, eps, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// out[M, N] = act(a[M, K] @ w[K, N] + bias) (+ res); a and w share `dtype`;
-// needs N % 64 == 0, K % 32 == 0, 16-byte aligned a and w
+// out[M, N] = act(a[M, K] @ w[K, N] + bias) (+ res) on block_kernels.cuh's
+// WMMA GEMM (bf16) or SIMT GEMM (float32); a and w share `dtype`; needs
+// N % 64 == 0, K % 32 == 0, 16-byte aligned a and w. No path of the port
+// calls it: chip_smoke.py times it beside the Hopper core (the WMMA GEMM
+// K5 pre-norm, K9, K10 and K12 still run on).
 int nx_gemm(const void* a, const void* w, int dtype, const float* bias, const void* res,
             int res_dtype, void* out, int out_dtype, int act, int M, int N, int K,
             void* stream) {
@@ -102,23 +117,46 @@ int nx_gemm(const void* a, const void* w, int dtype, const float* bias, const vo
                           static_cast<cudaStream_t>(stream));
 }
 
-// out[B*N, H*dh] = per-head softmax(q k^T * scale + mask + key_bias) v over
-// qkv[B*N, 3*H*dh] (q | k | v); key_bias [B, N] float32 or null; causal:
-// keys after the query row masked (the CLIP text tower)
-int nx_attention(const void* qkv, const float* key_bias, void* out, int dtype, int b,
-                 int n, int heads, int dh, int n_real, int causal, float scale, void* stream) {
+// x, out [B*N, D] in `dtype`; ga, ba (LN1, or post-norm LN_a), gb, bb (LN2,
+// or LN_b) [D] f32; wqkv_t [3D, D] = [Wq|Wk|Wv]^T, wo_t [D, D] = Wo^T, w1_t
+// [hidden, D] = W1^T, w2_t [D, hidden] = W2^T in `dtype`; bqkv [3D], bo,
+// b1 [hidden], b2 f32; key_bias [B, N] f32 (n_real folded in) or null;
+// scratch qkv [B*N, 3D], cat, z2 (post-norm float32: unused) [B*N, D] and
+// h [B*N, hidden] in `dtype`, y32 and (post-norm) s32 [B*N, D] f32
+int nx_block_fwd(const void* x, const float* ga, const float* ba, const void* wqkv_t,
+                 const float* bqkv, const void* wo_t, const float* bo, const float* gb,
+                 const float* bb, const void* w1_t, const float* b1, const void* w2_t,
+                 const float* b2, const float* key_bias, void* qkv, void* cat, float* y32,
+                 float* s32, void* z2, void* h, void* out, int dtype, int b, int n, int heads,
+                 int dh, int hidden, int act, int causal, int postnorm, float scale, float eps,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int d = heads * dh;
-  const size_t t_size = dtype == BF16 ? 2 : 4;
-  const char* base = static_cast<const char*>(qkv);
-  const QKV in{base, base + d * t_size, base + 2 * d * t_size, n * 3 * d, dh, 3 * d};
-  if (dtype == BF16)
-    return (int)launch_attention<__nv_bfloat16>(in, key_bias, out, b, n, heads, dh, n_real,
-                                                scale, s, causal);
-  if (dtype == F32)
-    return (int)launch_attention<float>(in, key_bias, out, b, n, heads, dh, n_real, scale, s,
-                                        causal);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
+  const int m = b * n, d = heads * dh, ld = 3 * d;
+  int err = 0;
+  if (!postnorm && (err = (int)layernorm(x, ga, ba, cat, m, d, eps, dtype, s))) return err;
+  // 192-column tiles in a 4-deep ring: 0.0406 ms against 0.0435 at 256 x 3
+  // (K11's) at serving's shape, within 2% at the text caches'
+  // (tools/epilogue_bench.cu, H100 80GB HBM3 at 700 W)
+  err = project<192, 4>(postnorm ? x : cat, d, wqkv_t, bqkv, qkv, ld, m, ld, d, dtype, s);
+  if (err) return err;
+  float* sum = postnorm ? s32 : y32;  // the attention sublayer's float32 sum
+  err = attn_o_f32(qkv, col(qkv, d, dtype), col(qkv, 2 * d, dtype), n * ld, dh, ld, key_bias,
+                   causal, x, wo_t, bo, cat, sum, dtype, b, n, heads, dh, scale, s);
+  if (err) return err;
+  if (!postnorm) {
+    if ((err = (int)layernorm_f32(y32, gb, bb, z2, m, d, eps, dtype, s))) return err;
+    return mlp(z2, w1_t, b1, w2_t, b2, y32, h, out, false, dtype, m, d, hidden, act, s);
+  }
+  // float32 feeds fc1 the float32 y32 itself: its rounded copy is it
+  if (dtype == F32) z2 = y32;
+  err = (int)(dtype == BF16
+                  ? launch_layernorm_dual<__nv_bfloat16>(s32, ga, ba, y32, z2, m, d, eps, s)
+                  : launch_layernorm_dual<float>(s32, ga, ba, y32, nullptr, m, d, eps, s));
+  if (err) return err;
+  if ((err = mlp(z2, w1_t, b1, w2_t, b2, y32, h, s32, true, dtype, m, d, hidden, act, s)))
+    return err;
+  return (int)layernorm_f32(s32, gb, bb, out, m, d, eps, dtype, s);
 }
 
 }  // extern "C"

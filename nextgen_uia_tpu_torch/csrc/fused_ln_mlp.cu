@@ -63,45 +63,9 @@
 // and [M, 768] in float32). Its backward is XLA on the TPU and is not
 // ported: autograd reaching it on the card raises.
 
-#include "block_kernels.cuh"
-#include "hopper_gemm.cuh"
+#include "block_products.cuh"
 
 using namespace nx;
-
-namespace {
-
-cudaError_t layernorm(const void* x, const float* gamma, const float* beta, void* z, int m,
-                      int d, float eps, int dtype, cudaStream_t s) {
-  return dtype == BF16
-             ? launch_layernorm<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, z, m, d, eps, s)
-             : launch_layernorm<float, float>(x, gamma, beta, z, m, d, eps, s);
-}
-
-// a [m, k] and (unless null) out [m, cols], bf16, as the core's flat
-// row-major operands
-cudaError_t flat(hopper::TmaMatrix& ta, const void* a, int k, hopper::TmaMatrix& to,
-                 const void* out, int cols, int m) {
-  const cudaError_t err = hopper::rows_matrix(ta, a, 1, m, k, hopper::BM);
-  return err != cudaSuccess || !out ? err : hopper::rows_matrix(to, out, 1, m, cols, 64);
-}
-
-// a hidden-wide product with an activation epilogue, Epi<ACT>{args...}
-// (the activation a template argument, so each instantiation holds one
-// activation's code): 128-column tiles in a 4-deep ring, as the staged
-// epilogues' products run (a 4-deep ring of wider tiles leaves no room for
-// their float32 stage)
-template <template <int> class Epi, class... Args>
-cudaError_t hidden_product(const hopper::TmaMatrix& ta, const void* w,
-                           const hopper::TmaMatrix& to, int act, int m, int hidden, int d,
-                           cudaStream_t s, Args... args) {
-  if (act == ACT_GELU)
-    return hopper::gemm<128, 4>(ta, w, to, Epi<ACT_GELU>{args...}, 1, m, hidden, d, s);
-  if (act == ACT_QUICK_GELU)
-    return hopper::gemm<128, 4>(ta, w, to, Epi<ACT_QUICK_GELU>{args...}, 1, m, hidden, d, s);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -184,9 +148,7 @@ int nx_postnorm_mlp_ln_fwd(const void* x, const void* w1, const float* b1, const
   const Epilogue down{b2, x, dtype, nullptr, ACT_NONE, row_major(y32), F32};
   err = launch_gemm(row_major(h), w2, dtype, false, down, m, d, hidden, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)(dtype == BF16
-                   ? launch_layernorm<float, __nv_bfloat16>(y32, gamma, beta, out, m, d, eps, s)
-                   : launch_layernorm<float, float>(y32, gamma, beta, out, m, d, eps, s));
+  return (int)layernorm_f32(y32, gamma, beta, out, m, d, eps, dtype, s);
 }
 
 }  // extern "C"

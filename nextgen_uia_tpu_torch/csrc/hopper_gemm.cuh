@@ -43,7 +43,8 @@
 //   then writes each box with a TMA store (128 contiguous bytes per row),
 //   one box per K step of the warpgroup's next tile, so the stores run
 //   under its products. A float32 output (DIRECT epilogue) is written from
-//   the registers instead, 32 contiguous bytes per quad of a warp.
+//   the registers instead, 32 contiguous bytes per quad of a warp, or, by a
+//   staged one, from its row-order pass, 256 contiguous bytes per warp.
 // Each output element is one thread's sum in a fixed order: no atomics, so
 // two calls are bitwise equal.
 //
@@ -52,6 +53,8 @@
 // against no libcuda; they reach the kernel as a __grid_constant__ parameter.
 
 #pragma once
+
+#include <type_traits>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
@@ -75,8 +78,8 @@ struct TmaMatrix {
 
 // An epilogue on a pair of float32 sums at columns c, c + 1. The result is
 // rounded once to bf16 and goes out through the TMA-store path, or, for a
-// DIRECT epilogue, store(row, c, v) writes it from registers to flat output
-// row `row` (b * n_tok + n; a float32 output). Two kinds:
+// DIRECT epilogue, store(row, c, v) writes it itself to flat output row
+// `row` (b * n_tok + n; a float32 output). Two kinds:
 // - in registers (STAGED false): each thread applies apply(v, fetch(c)) to
 //   its own sums, fully unrolled; fetch(c) runs at the start of the tile so
 //   its loads land while the products run. For the cheap ones: a bias.
@@ -85,7 +88,8 @@ struct TmaMatrix {
 //   order, 32 column pairs of a row per warp: first x = load(row, c) for
 //   all 16 pairs a thread, row the flat output row or -1 past the sequence
 //   (not to be read at; the loads of a row operand coalesce and are all in
-//   flight together), then finish(v, x, c). Applied per register, with the
+//   flight together), then finish(v, x, c), which a DIRECT staged epilogue
+//   then stores itself (a float32 output). Applied per register, with the
 //   activation's code unrolled for every register pair, a bias + GELU
 //   epilogue tripled the product's time (tools/epilogue_bench.cu, H100 80GB
 //   HBM3 at 700 W).
@@ -111,23 +115,38 @@ struct BiasEpilogue {
   }
 };
 
-// v + bias[c] + res[row, c]: a bf16 residual [rows, ld] read at the
-// output's own row (the sum stays float32 until the one rounding); staged
-struct BiasResidualEpilogue {
+__device__ __forceinline__ float2 pair_f32(float2 v) { return v; }
+__device__ __forceinline__ float2 pair_f32(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+// v + bias[c] + res[row, c]: a residual [rows, ld] of type R (bf16, or
+// float32: K1's residual stream) read at the output's own row, the sum
+// float32 until its one rounding to bf16; staged. F32_OUT: the sum is not
+// rounded but stored in float32 to out [rows, ld] from the staged pass
+// (DIRECT), each warp writing 256 contiguous bytes of a row, in place of
+// the bf16 TMA store
+template <class R, bool F32_OUT>
+struct ResidualEpilogue {
   const float* bias;
-  const __nv_bfloat16* res;
+  const R* res;
   int ld;
-  static constexpr bool DIRECT = false, STAGED = true;
-  using Row = __nv_bfloat162;
+  float* out;
+  static constexpr bool DIRECT = F32_OUT, STAGED = true;
+  using Row = typename std::conditional<std::is_same<R, float>::value, float2,
+                                        __nv_bfloat162>::type;
   __device__ __forceinline__ Row load(long row, int c) const {
-    return row < 0 ? __floats2bfloat162_rn(0.f, 0.f)
-                   : __ldg(reinterpret_cast<const __nv_bfloat162*>(res + row * ld + c));
+    return row < 0 ? Row{} : __ldg(reinterpret_cast<const Row*>(res + row * ld + c));
   }
   __device__ __forceinline__ float2 finish(float2 v, Row x, int c) const {
-    const float2 b = fetch_bias(bias, c), r = __bfloat1622float2(x);
+    const float2 b = fetch_bias(bias, c), r = pair_f32(x);
     return make_float2(v.x + b.x + r.x, v.y + b.y + r.y);
   }
+  __device__ __forceinline__ void store(long row, int c, float2 v) const {
+    *reinterpret_cast<float2*>(out + row * ld + c) = v;
+  }
 };
+
+// K6's and K8's: a bf16 residual, the sum rounded to bf16
+using BiasResidualEpilogue = ResidualEpilogue<__nv_bfloat16, false>;
 
 // act(v + bias[c]), ACT one of common.cuh's codes (GELU in its exact erf
 // form, quick_gelu); staged
@@ -326,7 +345,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       // uniform per warpgroup: a tile past the last one, or 64 rows past the sequence
       if (mt >= p.m_tiles || row0 >= p.n_tok) continue;
       const long seq0 = (long)b * p.n_tok;  // the sequence's first flat row
-      if constexpr (Epi::DIRECT) {
+      if constexpr (Epi::DIRECT && !Epi::STAGED) {
         const bool lo = row0 + r < p.n_tok, hi = row0 + r + 8 < p.n_tok;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -376,11 +395,16 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
             const int rr = (t >> 5) + 4 * i;
             const float2 v =
                 p.epi.finish(*reinterpret_cast<const float2*>(st + rr * SLD + cp), x[i], c);
-            unsigned char* at =
-                so + jb * (64 * 128) + rr * 128 + (((cp >> 3) ^ (rr & 7)) << 4) + (cp & 7) * 2;
-            *reinterpret_cast<__nv_bfloat162*>(at) = __float22bfloat162_rn(v);
+            if constexpr (Epi::DIRECT) {
+              if (row0 + rr < p.n_tok) p.epi.store(seq0 + row0 + rr, c, v);
+            } else {
+              unsigned char* at =
+                  so + jb * (64 * 128) + rr * 128 + (((cp >> 3) ^ (rr & 7)) << 4) + (cp & 7) * 2;
+              *reinterpret_cast<__nv_bfloat162*>(at) = __float22bfloat162_rn(v);
+            }
           }
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+          if constexpr (!Epi::DIRECT)
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
           warpgroup_sync(wg);  // the stage is free, the box staged
         }
       } else {
@@ -396,7 +420,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
         warpgroup_sync(wg);
       }
-      if (t == 0) {
+      if (t == 0 && !Epi::DIRECT) {  // a staged DIRECT epilogue has stored its tile
         out_b = b, out_row = row0, out_col = col0, out_next = 0;
         out_end = min(BN, p.cols - col0) / BOX;
       }

@@ -34,14 +34,11 @@ ACT_CODES = {"gelu": 1, "quick_gelu": 2}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
 SIGNATURES = {
-    # x, x_dtype, gamma, beta, out, out_dtype, rows, cols, eps, stream
-    "nx_layernorm": [P, I, P, P, P, I, I, I, F, P],
-    # x, gamma, beta, out32, out_t, dtype, rows, cols, eps, stream
-    "nx_layernorm_dual": [P, P, P, P, P, I, I, I, F, P],
     # a, w, dtype, bias, res, res_dtype, out, out_dtype, act, M, N, K, stream
     "nx_gemm": [P, P, I, P, P, I, P, I, I, I, I, I, P],
-    # qkv, key_bias, out, dtype, B, N, H, dh, n_real, causal, scale, stream
-    "nx_attention": [P, P, P, I, I, I, I, I, I, I, F, P],
+    # x, ga, ba, wqkv_t, bqkv, wo_t, bo, gb, bb, w1_t, b1, w2_t, b2, key_bias, qkv, cat, y32,
+    # s32, z2, h, out, dtype, B, N, H, dh, hidden, act, causal, postnorm, scale, eps, stream
+    "nx_block_fwd": [P] * 21 + [I] * 9 + [F, F, P],
     # s, freq, kernels, bias, out, dtype, B, H, W, C, stream
     "nx_mona_spatial": [P, P, P, P, P, I, I, I, I, I, P],
     # x, kernels, out, dtype, B, H, W, C, stream
@@ -61,9 +58,9 @@ SIGNATURES = {
     # q, k, v, x, key_bias, wo_t, bo, cat, out, dtype, B, N, H, dh, sb, sh, sn, csb, csh, csn,
     # scale, stream
     "nx_attn_o_fwd": [P] * 9 + [I] * 11 + [F, P],
-    # q, k, v, x, key_bias, wo, bo, gamma, beta, cat, y32, out, dtype, B, N, H, dh, n_real,
-    # scale, eps, stream
-    "nx_attn_o_postln_fwd": [P] * 12 + [I] * 6 + [F, F, P],
+    # q, k, v, x, key_bias, wo_t, bo, gamma, beta, cat, y32, out, dtype, B, N, H, dh, sb, sh,
+    # sn, scale, eps, stream
+    "nx_attn_o_postln_fwd": [P] * 12 + [I] * 8 + [F, F, P],
     # q, k, v, key_bias, wo, g, o, doh, lse, delta, dq, dk, dv, dtype, B, N, H, dh, sb, sh, sn,
     # scale, stream
     "nx_attn_o_bwd": [P] * 13 + [I] * 8 + [F, P],

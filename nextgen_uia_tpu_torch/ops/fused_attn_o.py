@@ -26,8 +26,10 @@ With ``post_ln`` (BERT's post-norm layout) the output is LayerNormed:
     out = LN(x + concat_h(softmax(q k^T / sqrt(dh) + bias) v) @ Wo + bo)
 
 with the pre-LN sum in float32 until the LayerNorm. On a CUDA tensor
-``fused_attn_o_residual_postln`` launches its forward kernel (counted in
-``fused_attn_o_residual_postln.launches``). Its backward (dq, dk, dv, dx) is
+``fused_attn_o_residual_postln`` launches its forward kernels (counted in
+``fused_attn_o_residual_postln.launches``): the same attention and
+o-product through the same helpers, the sum stored in float32, then the
+LayerNorm; its tokens are 1..256. Its backward (dq, dk, dv, dx) is
 autograd through the plain version recomputed from the saved inputs, as the
 JAX kernel's ``_bwd_rule`` differentiates its XLA recomposition: plain
 PyTorch on the card, no kernel of its own.
@@ -127,7 +129,7 @@ def fused_attn_o_residual_backward_plain(q, k, v, wo, g, *, bias=None,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _check_cuda(q, x, bias, n_real):
+def _check_cuda(q, x, bias, n_real, op="fused_attn_o_residual"):
     b, h, n, dh = q.shape
     problems = []
     if x.dtype not in build.DTYPE_CODES:
@@ -136,35 +138,15 @@ def _check_cuda(q, x, bias, n_real):
         problems.append(f"width {h * dh} with {h} heads (width % 64 == 0)")
     if (x.dtype == torch.bfloat16 and dh != 64) or not 1 <= dh <= 64:
         problems.append(f"head dim {dh} (bfloat16: 64; float32: 1..64)")
-    if not 0 < n_real <= n:
-        problems.append(f"n_real {n_real}")
-    if bias is not None and (tuple(bias.shape) != (b, n) or bias.device != x.device):
-        problems.append(f"bias {tuple(bias.shape)} on {bias.device}")
-    if problems:
-        raise ValueError(f"fused_attn_o_residual CUDA kernel does not take q {tuple(q.shape)}: "
-                         + "; ".join(problems))
-
-
-def _check_postln_cuda(q, x, bias, n_real):
-    b, h, n, dh = q.shape
-    problems = []
-    if x.dtype not in build.DTYPE_CODES:
-        problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
-    if (h * dh) % 64 or dh % 4 or not 32 <= dh <= 64:
-        problems.append(f"width {h * dh} with {h} heads (width % 64 == 0, head dim 32..64)")
-    if not 1 <= n <= 256:
+    if op.endswith("postln") and not 1 <= n <= 256:
         problems.append(f"{n} tokens (1..256)")
     if not 0 < n_real <= n:
         problems.append(f"n_real {n_real}")
     if bias is not None and (tuple(bias.shape) != (b, n) or bias.device != x.device):
         problems.append(f"bias {tuple(bias.shape)} on {bias.device}")
     if problems:
-        raise ValueError("fused_attn_o_residual_postln CUDA kernel does not take: "
+        raise ValueError(f"{op} CUDA kernel does not take q {tuple(q.shape)}: "
                          + "; ".join(problems))
-
-
-def _bias_arg(bias):
-    return None if bias is None else bias.detach().to(torch.float32).contiguous()
 
 
 def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real):
@@ -188,23 +170,24 @@ def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real):
     return out
 
 
-def _postln_cuda(q, k, v, x, wo, bo, gamma, beta, bias, n_real, eps):
+def _postln_cuda(q, k, v, x, wo_t, bo, gamma, beta, bias, n_real, eps):
     b, h, n, dh = q.shape
-    _check_postln_cuda(q, x, bias, n_real)
-    dt, d = x.dtype, h * dh
+    _check_cuda(q, x, bias, n_real, "fused_attn_o_residual_postln")
+    dt, d, dev = x.dtype, h * dh, x.device
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
     x = x.contiguous()
-    cat = torch.empty(b * n, d, device=x.device, dtype=dt)
-    y32 = torch.empty(b * n, d, device=x.device, dtype=torch.float32)
-    out = torch.empty(b, n, d, device=x.device, dtype=dt)
-    kb = _bias_arg(bias)
+    strides, _ = _layout(b, n, h, dh)
+    cat = torch.empty(b * n, d, device=dev, dtype=dt)
+    y32 = torch.empty(b * n, d, device=dev, dtype=torch.float32)
+    out = torch.empty(b, n, d, device=dev, dtype=dt)
+    kb = _key_bias(bias, b, n, n_real, dev)
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         build.check(lib.nx_attn_o_postln_fwd(
             build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(x, "x"),
-            build.ptr(kb), build.ptr(wo), build.ptr(bo), build.ptr(gamma), build.ptr(beta),
+            build.ptr(kb), build.ptr(wo_t), build.ptr(bo), build.ptr(gamma), build.ptr(beta),
             build.ptr(cat), build.ptr(y32), build.ptr(out), build.DTYPE_CODES[dt], b, n, h, dh,
-            n_real, 1.0 / math.sqrt(dh), eps, build.stream(x.device)),
+            *strides, 1.0 / math.sqrt(dh), eps, build.stream(dev)),
             "fused_attn_o_residual_postln")
     fused_attn_o_residual_postln.launches += 1
     return out
@@ -221,10 +204,10 @@ def fused_attn_o_residual_postln(q, k, v, x, o, ln, *, heads: int, bias=None,
                                            n_real=n_real, post_ln=ln, ln_eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attn_o_residual_postln: unsupported device {x.device}")
-    wo, bo = _weights(o, x.dtype)
+    wo_t, bo = _kernel_weights(o, x.dtype)
     gamma, beta = (t.detach().to(torch.float32).contiguous() for t in (ln.scale, ln.bias))
     return plain_backward(
-        lambda *t: _postln_cuda(*t, wo, bo, gamma, beta, bias, n_real, eps),
+        lambda *t: _postln_cuda(*t, wo_t, bo, gamma, beta, bias, n_real, eps),
         lambda *t: fused_attn_o_residual_plain(*t, o, heads=heads, bias=bias, n_real=n_real,
                                                post_ln=ln, ln_eps=eps), q, k, v, x)
 

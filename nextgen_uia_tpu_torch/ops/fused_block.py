@@ -11,6 +11,17 @@ csrc/fused_block.cu for a CUDA tensor and runs ``fused_block_infer_plain``
 for a CPU tensor only. The plain version follows the JAX package's
 ``_xla_reference`` and keeps the kernel's rounding points.
 
+The kernels are the flash-attention forward (K7, ops/flash_attention.py)
+and, in bf16, the Hopper GEMM core: one flat q|k|v product into a row-major
+[B*N, 3D] buffer that K7 reads through strides
+(``fused_attention._packed_layout``), the head concat row-major [B*N, D]
+(``fused_attn_o._layout``), keys >= n_real folded into the float32 key bias
+(``fused_attn_o._key_bias``), each weight read as W^T, built once per call
+(``_kernel_weights``), and the residual stream float32; the CPU tests
+compose the plain versions through the same helpers. A bf16 call needs head
+dim 64; float32 takes 1..64; the width and hidden are multiples of 64, the
+tokens 1..256.
+
 Forward only, with or without the causal mask (``causal=True``: the CLIP
 text tower, -1e30 where key > row, applied after ``key_bias``). The
 post-norm layout counts its launches in ``fused_block_infer_postnorm``;
@@ -28,8 +39,10 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-from ._frozen import forward_only
+from ._frozen import _cat, forward_only
 from .build import ACT_CODES, DTYPE_CODES
+from .fused_attention import _packed_layout
+from .fused_attn_o import _key_bias
 
 
 def bert_block_opted_in() -> bool:
@@ -110,8 +123,9 @@ def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):
     problems = []
     if x.dtype not in DTYPE_CODES:
         problems.append(f"dtype {x.dtype} (float32 or bfloat16)")
-    if d % 64 or dh not in (32, 64):
-        problems.append(f"width {d} with {heads} heads (width % 64 == 0, head dim 32 or 64)")
+    if d % 64 or (x.dtype == torch.bfloat16 and dh != 64) or not 1 <= dh <= 64:
+        problems.append(f"width {d} with {heads} heads, head dim {dh} (width % 64 == 0; "
+                        "head dim 64 in bfloat16, 1..64 in float32)")
     if hidden % 64:
         problems.append(f"hidden {hidden} (multiple of 64)")
     if not 1 <= n <= 256:
@@ -123,7 +137,8 @@ def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):
     if key_bias is not None and (key_bias.shape != (b, n) or key_bias.device != x.device):
         problems.append(f"key_bias {tuple(key_bias.shape)} on {key_bias.device}")
     if problems:
-        raise ValueError("fused_block_infer CUDA kernel does not take: " + "; ".join(problems))
+        raise ValueError(f"fused_block_infer CUDA kernel does not take x {tuple(x.shape)}: "
+                         + "; ".join(problems))
 
 
 def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
@@ -151,111 +166,62 @@ def fused_block_infer(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-5,
     if layout == "postnorm":
         return fused_block_infer_postnorm(x, p, heads=heads, act=act, eps=eps,
                                           key_bias=key_bias, n_real=n_real, causal=causal)
-    b, n, d = x.shape
-    n_real = n if n_real is None else n_real
-    _check_cuda_shapes(x, p.mlp, heads, key_bias, n_real)
-    w = _weights(x, p, "prenorm", key_bias)
-    dt, code = x.dtype, DTYPE_CODES[x.dtype]
-    m, hidden, dh = b * n, w["w1"].shape[1], d // heads
-
-    z = torch.empty(m, d, device=x.device, dtype=dt)
-    qkv = torch.empty(m, 3 * d, device=x.device, dtype=dt)
-    cat = torch.empty(m, d, device=x.device, dtype=dt)
-    y32 = torch.empty(m, d, device=x.device, dtype=torch.float32)
-    z2 = torch.empty(m, d, device=x.device, dtype=dt)
-    out = torch.empty(b, n, d, device=x.device, dtype=dt)
-
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = build.stream(x.device)
-        build.check(lib.nx_layernorm(x.data_ptr(), code, w["ga"].data_ptr(),
-                                     w["ba"].data_ptr(), z.data_ptr(), code, m, d, eps, stream),
-                    "LN1")
-        _attention(lib, z, w, qkv, cat, code, b, n, heads, dh, n_real, causal, stream)
-        build.check(lib.nx_gemm(build.ptr(cat), build.ptr(w["wo"]), code, w["bo"].data_ptr(),
-                                x.data_ptr(), code, y32.data_ptr(), 0, 0, m, d, d, stream),
-                    "o-proj")
-        build.check(lib.nx_layernorm(y32.data_ptr(), 0, w["gb"].data_ptr(), w["bb"].data_ptr(),
-                                     z2.data_ptr(), code, m, d, eps, stream), "LN2")
-        _mlp(lib, z2, y32, out, w, code, act, m, d, hidden, stream)
-    fused_block_infer.launches += 1
-    return out
+    return _block_cuda(x, p, "prenorm", heads, act, eps, key_bias,
+                       x.shape[1] if n_real is None else n_real, causal)
 
 
-def _weights(x, p, layout, key_bias):
-    """The block's weights as the kernels take them: matrices in x.dtype,
-    vectors float32, all on x's device."""
-    f32, dt = torch.float32, x.dtype
+def _kernel_weights(p, layout, dt):
+    """The block's weights as csrc/fused_block.cu takes them, one copy and
+    cast each: the products' matrices in dt as W^T [cols, K] (the Hopper
+    GEMM core's operand; q|k|v as one [3D, D]), vectors float32."""
     ln_a, att, ln_b, mlp = _parts(p, layout)
 
     def vec(t):
-        return t.detach().to(device=x.device, dtype=f32).contiguous()
+        return t.detach().to(torch.float32).contiguous()
 
-    def mat(t):
-        return t.detach().to(device=x.device, dtype=dt).contiguous()
-
-    return dict(w_qkv=mat(torch.cat([att.q.w, att.k.w, att.v.w], dim=1)),
-                b_qkv=vec(torch.cat([att.q.b, att.k.b, att.v.b])),
-                wo=mat(att.o.w), bo=vec(att.o.b), w1=mat(mlp.fc1.w), b1=vec(mlp.fc1.b),
-                w2=mat(mlp.fc2.w), b2=vec(mlp.fc2.b), ga=vec(ln_a.scale), ba=vec(ln_a.bias),
-                gb=vec(ln_b.scale), bb=vec(ln_b.bias),
-                kb=None if key_bias is None else vec(key_bias))
+    return dict(ga=vec(ln_a.scale), ba=vec(ln_a.bias),
+                wqkv_t=_cat([att.q.w.T, att.k.w.T, att.v.w.T], dt),
+                bqkv=_cat([att.q.b, att.k.b, att.v.b], torch.float32),
+                wo_t=_cat([att.o.w.T], dt),
+                bo=vec(att.o.b), gb=vec(ln_b.scale), bb=vec(ln_b.bias),
+                w1_t=_cat([mlp.fc1.w.T], dt), b1=vec(mlp.fc1.b),
+                w2_t=_cat([mlp.fc2.w.T], dt), b2=vec(mlp.fc2.b))
 
 
-def _attention(lib, z, w, qkv, cat, code, b, n, heads, dh, n_real, causal, stream):
-    """qkv = z @ [Wq|Wk|Wv] + b, then cat = the heads' attention over it."""
-    m, d = b * n, heads * dh
-    build.check(lib.nx_gemm(build.ptr(z), build.ptr(w["w_qkv"]), code, w["b_qkv"].data_ptr(),
-                            None, 0, qkv.data_ptr(), code, 0, m, 3 * d, d, stream), "qkv")
-    kb = w["kb"]
-    build.check(lib.nx_attention(qkv.data_ptr(), None if kb is None else kb.data_ptr(),
-                                 cat.data_ptr(), code, b, n, heads, dh, n_real, int(causal),
-                                 1.0 / math.sqrt(dh), stream), "attention")
-
-
-def _mlp(lib, z2, res, out, w, code, act, m, d, hidden, stream):
-    """out = act(z2 @ W1 + b1) @ W2 + b2 + res (res float32; out in the
-    dtype of ``code`` or float32)."""
-    h = torch.empty(m, hidden, device=z2.device, dtype=z2.dtype)
-    out_code = 0 if out.dtype == torch.float32 else code
-    build.check(lib.nx_gemm(build.ptr(z2), build.ptr(w["w1"]), code, w["b1"].data_ptr(), None,
-                            0, h.data_ptr(), code, ACT_CODES[act], m, hidden, d, stream), "fc1")
-    build.check(lib.nx_gemm(build.ptr(h), build.ptr(w["w2"]), code, w["b2"].data_ptr(),
-                            res.data_ptr(), 0, out.data_ptr(), out_code, 0, m, d, hidden,
-                            stream), "fc2")
-
-
-def _postnorm_cuda(x, p, heads, act, eps, key_bias, n_real, causal):
+def _block_cuda(x, p, layout, heads, act, eps, key_bias, n_real, causal):
+    """nx_block_fwd: q|k|v in one row-major [B*N, 3D] buffer
+    (``fused_attention._packed_layout``), which the attention reads through
+    strides, the head concat row-major [B*N, D] (``fused_attn_o._layout``),
+    keys >= n_real folded into the float32 key bias
+    (``fused_attn_o._key_bias``), the residual stream float32 (y32, and s32
+    post-norm); one launch counted in ``fused_block_infer.launches`` or, post-norm,
+    ``fused_block_infer_postnorm.launches``."""
     b, n, d = x.shape
-    _check_cuda_shapes(x, p.ffn, heads, key_bias, n_real)
-    w = _weights(x, p, "postnorm", key_bias)
-    dt, code = x.dtype, DTYPE_CODES[x.dtype]
-    f32 = torch.float32
-    m, hidden, dh = b * n, w["w1"].shape[1], d // heads
-
-    qkv = torch.empty(m, 3 * d, device=x.device, dtype=dt)
-    cat = torch.empty(m, d, device=x.device, dtype=dt)
-    s32 = torch.empty(m, d, device=x.device, dtype=f32)
-    y32 = torch.empty(m, d, device=x.device, dtype=f32)
-    # float32 blocks feed fc1 the float32 y32 itself: its rounded copy is it
-    z2 = y32 if dt == f32 else torch.empty(m, d, device=x.device, dtype=dt)
-    out = torch.empty(b, n, d, device=x.device, dtype=dt)
-
+    postnorm = layout == "postnorm"
+    _check_cuda_shapes(x, _parts(p, layout)[3], heads, key_bias, n_real)
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    w = _kernel_weights(p, layout, dt)
+    m, dh, hidden = b * n, d // heads, w["w1_t"].shape[0]
+    qkv = torch.empty(_packed_layout(b, n, heads, dh)[0], device=dev, dtype=dt)
+    cat = torch.empty(m, d, device=dev, dtype=dt)
+    y32 = torch.empty(m, d, device=dev, dtype=f32)
+    s32 = torch.empty(m, d, device=dev, dtype=f32) if postnorm else None
+    # float32 post-norm feeds fc1 the float32 y32 itself: its rounded copy is it
+    z2 = None if postnorm and dt == f32 else torch.empty(m, d, device=dev, dtype=dt)
+    h = torch.empty(m, hidden, device=dev, dtype=dt)
+    out = torch.empty(b, n, d, device=dev, dtype=dt)
+    kb = _key_bias(key_bias, b, n, n_real, dev)
     lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = build.stream(x.device)
-        _attention(lib, x, w, qkv, cat, code, b, n, heads, dh, n_real, causal, stream)
-        build.check(lib.nx_gemm(build.ptr(cat), build.ptr(w["wo"]), code, w["bo"].data_ptr(),
-                                x.data_ptr(), code, s32.data_ptr(), 0, 0, m, d, d, stream),
-                    "o-proj")
-        build.check(lib.nx_layernorm_dual(s32.data_ptr(), w["ga"].data_ptr(),
-                                          w["ba"].data_ptr(), y32.data_ptr(),
-                                          None if z2 is y32 else z2.data_ptr(), code, m, d,
-                                          eps, stream), "LN_attn")
-        _mlp(lib, z2, y32, s32, w, code, act, m, d, hidden, stream)
-        build.check(lib.nx_layernorm(s32.data_ptr(), 0, w["gb"].data_ptr(), w["bb"].data_ptr(),
-                                     out.data_ptr(), code, m, d, eps, stream), "LN_ffn")
-    fused_block_infer_postnorm.launches += 1
+    with torch.cuda.device(dev):
+        build.check(lib.nx_block_fwd(
+            build.ptr(x, "x"), *(build.ptr(w[k]) for k in (
+                "ga", "ba", "wqkv_t", "bqkv", "wo_t", "bo", "gb", "bb", "w1_t", "b1", "w2_t",
+                "b2")),
+            build.ptr(kb), build.ptr(qkv), build.ptr(cat), build.ptr(y32), build.ptr(s32),
+            build.ptr(z2), build.ptr(h), build.ptr(out), DTYPE_CODES[dt], b, n, heads, dh,
+            hidden, ACT_CODES[act], int(causal), int(postnorm), 1.0 / math.sqrt(dh), eps,
+            build.stream(dev)), f"fused_block_infer ({layout})")
+    (fused_block_infer_postnorm if postnorm else fused_block_infer).launches += 1
     return out
 
 
@@ -267,8 +233,8 @@ def fused_block_infer_postnorm(x, p, *, heads: int, act: str = "gelu", eps: floa
     ``fused_block_infer_postnorm.launches``); autograd reaching it raises."""
     n_real = x.shape[1] if n_real is None else n_real
     return forward_only("fused_block_infer_postnorm",
-                        lambda x_: _postnorm_cuda(x_, p, heads, act, eps, key_bias, n_real,
-                                                  causal), x.contiguous())
+                        lambda x_: _block_cuda(x_, p, "postnorm", heads, act, eps, key_bias,
+                                               n_real, causal), x.contiguous())
 
 
 fused_block_infer.launches = 0

@@ -1,12 +1,21 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|bench]
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|text|bench]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
 process that builds that tree's kernels, in the order other, this, this,
-other. ``k1`` (the default) prints three CUDA-event means of 20 calls of
-``fused_block_infer`` at [32, 197, 768] bf16, 12 heads. ``k7`` prints, for
+other. ``k1`` (the default) prints, for the whole-block forward
+(``fused_block_infer``) in bf16 at each of ``K1_SHAPES`` (pre-norm at
+serving's [32, 197, 768], causal at the CLIP text cache's [256, 77, 512],
+post-norm at BERT's [256, 256, 768] with a key-padding bias): the op's
+CUDA-event mean, its kernels' device time alone (every kernel whose name
+holds "gemm", "flash", "attention" or "layernorm"; the weight copies left
+out) and ``torch.nn.TransformerEncoderLayer``'s time holding the same
+weights under ``torch.inference_mode``. ``text`` prints the same op and
+kernel times for BERT's layer at ``TEXT_SHAPE`` with a key-padding bias: K5
+raw-x, K6 post-LN, K9, the three-kernel chain they make, and K1 post-norm.
+``k7`` prints, for
 the flash-attention forward and backward at each of ``K7_SHAPES`` in bf16:
 the op's CUDA-event mean over back-to-back calls through the wrapper (its
 host time included) and its kernels' device time alone (torch.profiler,
@@ -28,6 +37,7 @@ this module, since they run in the other tree.
 
 from __future__ import annotations
 
+import inspect
 import os
 import subprocess
 import sys
@@ -44,32 +54,42 @@ K11_SHAPES = (  # (B, N, D, heads, causal, key bias): the bench step's, the caus
 
 BLOCK_SHAPES = ((64, 197, 768, 12), (32, 197, 768, 12))  # the bench step's, the supervised step's
 
-BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
+def encoder_layer(p, layout, heads, act, eps):
+    """``torch.nn.TransformerEncoderLayer`` (bf16, eval, on the block's
+    device) holding the weights of a ViT Block (``layout="prenorm"``,
+    ``norm_first``) or a BertLayer: the one library call that computes K1,
+    timed beside it and used nowhere in the port."""
+    import torch
 
-K1 = r'''
-import sys, torch
-sys.path.insert(0, ".")
-from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
-from nextgen_uia_tpu_torch.ops import build, fused_block as fb
-build.build(); build.library()
-g = torch.Generator().manual_seed(0)
-blk = Block(g, ViTConfig(width=768, heads=12)).cuda()
-x = torch.randn(32, 197, 768, generator=g).cuda().to(torch.bfloat16)
-kw = dict(heads=12, act="gelu", eps=1e-6)
-with torch.no_grad():
-    for _ in range(3):
-        fb.fused_block_infer(x, blk, **kw)
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    res = []
-    for _ in range(3):
-        s.record()
-        for _ in range(20):
-            fb.fused_block_infer(x, blk, **kw)
-        e.record()
-        torch.cuda.synchronize()
-        res.append(s.elapsed_time(e) / 20)
-print("K1_MS", " ".join(f"{r:.4f}" for r in res))
-'''
+    pre = layout == "prenorm"
+    ln_a, att, ln_b, mlp = ((p.ln1, p.attn, p.ln2, p.mlp) if pre
+                            else (p.attn_ln, p.attn, p.ffn_ln, p.ffn))
+    d, hid = att.q.w.shape[0], mlp.fc1.w.shape[1]
+    fn = "gelu" if act == "gelu" else (lambda t: t * torch.sigmoid(1.702 * t))
+    enc = torch.nn.TransformerEncoderLayer(
+        d, heads, hid, dropout=0.0, activation=fn, layer_norm_eps=eps, batch_first=True,
+        norm_first=pre, device=att.q.w.device, dtype=torch.bfloat16).eval()
+    pairs = ((enc.self_attn.in_proj_weight, torch.cat([att.q.w.T, att.k.w.T, att.v.w.T])),
+             (enc.self_attn.in_proj_bias, torch.cat([att.q.b, att.k.b, att.v.b])),
+             (enc.self_attn.out_proj.weight, att.o.w.T), (enc.self_attn.out_proj.bias, att.o.b),
+             (enc.linear1.weight, mlp.fc1.w.T), (enc.linear1.bias, mlp.fc1.b),
+             (enc.linear2.weight, mlp.fc2.w.T), (enc.linear2.bias, mlp.fc2.b),
+             (enc.norm1.weight, ln_a.scale), (enc.norm1.bias, ln_a.bias),
+             (enc.norm2.weight, ln_b.scale), (enc.norm2.bias, ln_b.bias))
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(src)
+    return enc
+
+
+K1_SHAPES = (  # (layout, B, N, D, heads, act, eps, causal): serving, the CLIP and BERT caches
+    ("prenorm", 32, 197, 768, 12, "gelu", 1e-6, False),
+    ("prenorm", 256, 77, 512, 8, "quick_gelu", 1e-5, True),
+    ("postnorm", 256, 256, 768, 12, "gelu", 1e-12, False))
+
+TEXT_SHAPE = (256, 256, 768, 12)  # the BERT text cache's chunk, 12 heads
+
+BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
 
 TIMERS = r'''
 import sys, torch
@@ -144,6 +164,68 @@ for b, n, d, heads, causal, bias in SHAPES:
               f"{op_ms(bwd, 20):.4f} kernel {kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
 '''
 
+ENCODER = inspect.getsource(encoder_layer) + r'''
+def pad_bias(b, n, g):
+    # -1e9 on each caption's padded keys, seeded lengths, the last row wholly padded
+    lengths = torch.randint(2, n + 1, (b,), generator=g)
+    lengths[-1] = 0
+    return ((torch.arange(n)[None] >= lengths[:, None]).float() * -1e9).to(dev)
+'''
+
+K1 = f"SHAPES = {K1_SHAPES!r}" + TIMERS + ENCODER + r'''
+from nextgen_uia_tpu_torch.models.bert import BertConfig, BertLayer
+from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
+from nextgen_uia_tpu_torch.ops import fused_block as fb
+for layout, b, n, d, heads, act, eps, causal in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    if layout == "prenorm":
+        p = Block(g, ViTConfig(width=d, heads=heads)).to(dev)
+    else:
+        p = BertLayer(g, BertConfig(width=d, heads=heads, intermediate=4 * d)).to(dev)
+    x = torch.randn(b, n, d, generator=g).to(dev).to(bf16)
+    kb = pad_bias(b, n, g) if layout == "postnorm" else None
+    kw = dict(heads=heads, act=act, eps=eps, key_bias=kb, causal=causal, layout=layout)
+    enc = encoder_layer(p, layout, heads, act, eps)
+    mask = (torch.nn.Transformer.generate_square_subsequent_mask(n, device=dev, dtype=bf16)
+            if causal else None)
+    kernels = ("gemm", "flash", "attention", "layernorm")
+    with torch.inference_mode():
+        op = lambda: fb.fused_block_infer(x, p, **kw)
+        lib = lambda: enc(x, src_mask=mask, src_key_padding_mask=kb, is_causal=causal)
+        print(f"K1 {layout} [{b}, {n}, {d}] {heads} heads {act} causal={causal}: op "
+              f"{op_ms(op, 20):.4f} kernels {kernel_ms(op, 20, kernels):.4f}; "
+              f"TransformerEncoderLayer {op_ms(lib, 20):.4f} ms", flush=True)
+'''
+
+TEXT = f"SHAPE = {TEXT_SHAPE!r}" + TIMERS + ENCODER + r'''
+from nextgen_uia_tpu_torch.models.bert import BertConfig, BertLayer
+from nextgen_uia_tpu_torch.ops import fused_attn_o, fused_block, fused_ln_mlp, fused_ln_qkv
+b, n, d, heads = SHAPE
+g = torch.Generator().manual_seed(n)
+layer = BertLayer(g, BertConfig(width=d, heads=heads, intermediate=4 * d)).to(dev)
+x = torch.randn(b, n, d, generator=g).to(dev).to(bf16)
+kb = pad_bias(b, n, g)
+with torch.no_grad():
+    q, k, v = fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=heads)
+    ops = {
+        "K5 raw-x": lambda: fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=heads),
+        "K6 post-LN": lambda: fused_attn_o.fused_attn_o_residual(
+            q, k, v, x, layer.attn.o, heads=heads, bias=kb, post_ln=layer.attn_ln,
+            ln_eps=1e-12),
+        "K9": lambda: fused_ln_mlp.fused_postnorm_mlp_ln(x, layer.ffn, layer.ffn_ln, eps=1e-12),
+        "the chain": lambda: fused_ln_mlp.fused_postnorm_mlp_ln(
+            fused_attn_o.fused_attn_o_residual(
+                *fused_ln_qkv.fused_ln_qkv(x, None, layer.attn, heads=heads), x, layer.attn.o,
+                heads=heads, bias=kb, post_ln=layer.attn_ln, ln_eps=1e-12),
+            layer.ffn, layer.ffn_ln, eps=1e-12),
+        "K1 post-norm": lambda: fused_block.fused_block_infer(
+            x, layer, heads=heads, eps=1e-12, key_bias=kb, layout="postnorm")}
+    kernels = ("gemm", "flash", "attention", "layernorm")
+    for name, fn in ops.items():
+        print(f"TEXT {name} [{b}, {n}, {d}] + padding bias: op {op_ms(fn, 10):.4f} kernels "
+              f"{kernel_ms(fn, 10, kernels):.4f} ms", flush=True)
+'''
+
 K6 = f"SHAPES = {BLOCK_SHAPES!r}" + TIMERS + r'''
 from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
 from nextgen_uia_tpu_torch.ops import fused_attn_o as fao
@@ -208,8 +290,8 @@ for attn, fused in ROUTES:
           flush=True)
 '''
 
-TIMINGS = {"k1": (K1, "K1_MS"), "k6": (K6, "K6 "), "k7": (K7, "K7 "), "k8": (K8, "K8 "),
-           "k11": (K11, "K11 "), "bench": (BENCH, "BENCH ")}
+TIMINGS = {"k1": (K1, "K1 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "), "k8": (K8, "K8 "),
+           "k11": (K11, "K11 "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
 
 
 def main(argv=None):
@@ -217,7 +299,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|bench]")
+                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|text|bench]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

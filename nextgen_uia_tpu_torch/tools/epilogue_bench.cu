@@ -1,6 +1,8 @@
 // The Hopper GEMM core's epilogues timed alone on one card, at the bench
 // step's K8 and K6 products (M = 64 * 197 = 12,608 rows, D = 768, hidden
-// 3072, bf16, seeded data):
+// 3072, bf16, seeded data), then K1's four products at its three path
+// shapes (serving [32 * 197, 768] x 3072, the CLIP text cache's [256 * 77,
+// 512] x 2048, BERT's [256 * 256, 768] x 3072):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //        -o build/epilogue_bench nextgen_uia_tpu_torch/tools/epilogue_bench.cu
@@ -8,8 +10,8 @@
 //
 // Each line is the CUDA-event mean of 20 launches after 3, the whole list
 // twice: the products with no epilogue and with a bias (the tensor cores'
-// time), the staged epilogues at the tile configs their shared memory
-// allows, the float32 outputs, the same bias + GELU applied per register
+// time), the staged epilogues (K1's float32 residual stream among them) at
+// the tile configs their shared memory allows, the float32 outputs, the same bias + GELU applied per register
 // with a runtime activation code (the first design, kept as the
 // yardstick), and K6's doh product flat into a row-major buffer against
 // per sequence into a head-major one. It times and checks nothing: the GPU
@@ -81,6 +83,54 @@ void flat(const char* name, const void* a, int k, const void* w, void* out, int 
   time_product<BN, STAGES>(name, ta, w, to, 1, m, cols, k, epi, flops);
 }
 
+// K1's products at rows m, width d, hidden hd: q|k|v with its bias,
+// o with bo + x stored float32 (epilogue A), fc1 with bias + GELU, fc2 with
+// b2 + the float32 stream stored bf16 or float32 (epilogue B)
+void k1_products(const char* tag, int m, int d, int hd) {
+  __nv_bfloat16 *a, *x, *w, *out;
+  float *y32, *s32, *bias;
+  cudaMalloc(&a, (size_t)m * hd * 2), cudaMalloc(&x, (size_t)m * d * 2);
+  cudaMalloc(&w, (size_t)hd * d * 2), cudaMalloc(&out, (size_t)m * hd * 2);
+  cudaMalloc(&y32, (size_t)m * d * 4), cudaMalloc(&s32, (size_t)m * d * 4);
+  cudaMalloc(&bias, hd * 4);
+  fill<<<1024, 256>>>(a, (size_t)m * hd, 6), fill<<<1024, 256>>>(x, (size_t)m * d, 7);
+  fill<<<1024, 256>>>(w, (size_t)hd * d, 8), fill_f32<<<1024, 256>>>(y32, (size_t)m * d);
+  fill_f32<<<64, 256>>>(bias, hd);
+  cudaDeviceSynchronize();
+  const double qkv = 6.0 * m * d * d, sq = 2.0 * m * d * d, wide = 2.0 * m * d * hd;
+  char name[64];
+  auto at = [&](const char* what) {
+    snprintf(name, sizeof name, "%s %s", tag, what);
+    return name;
+  };
+  const BiasEpilogue b{bias};
+  flat<256, 3>(at("qkv BiasEpilogue"), a, d, w, out, 3 * d, m, b, qkv);
+  flat<192, 4>(at("qkv BiasEpilogue"), a, d, w, out, 3 * d, m, b, qkv);
+  flat<128, 4>(at("qkv BiasEpilogue"), a, d, w, out, 3 * d, m, b, qkv);
+  const ResidualEpilogue<__nv_bfloat16, true> ea{bias, x, d, y32};
+  flat<128, 4>(at("o ResidualEpilogue<bf16, f32 out>"), a, d, w, nullptr, d, m, ea, sq);
+  flat<192, 3>(at("o ResidualEpilogue<bf16, f32 out>"), a, d, w, nullptr, d, m, ea, sq);
+  flat<256, 2>(at("o ResidualEpilogue<bf16, f32 out>"), a, d, w, nullptr, d, m, ea, sq);
+  flat<128, 4>(at("o BiasResidualEpilogue (bf16 out)"), a, d, w, out, d, m,
+               BiasResidualEpilogue{bias, x, d}, sq);
+  flat<128, 4>(at("fc1 BiasActEpilogue<GELU>"), a, d, w, out, hd, m,
+               BiasActEpilogue<ACT_GELU>{bias}, wide);
+  flat<192, 3>(at("fc1 BiasActEpilogue<GELU>"), a, d, w, out, hd, m,
+               BiasActEpilogue<ACT_GELU>{bias}, wide);
+  const ResidualEpilogue<float, false> eb{bias, y32, d, nullptr};
+  flat<128, 4>(at("fc2 ResidualEpilogue<f32>"), a, hd, w, out, d, m, eb, wide);
+  flat<192, 3>(at("fc2 ResidualEpilogue<f32>"), a, hd, w, out, d, m, eb, wide);
+  flat<256, 2>(at("fc2 ResidualEpilogue<f32>"), a, hd, w, out, d, m, eb, wide);
+  const ResidualEpilogue<float, true> eb32{bias, y32, d, s32};
+  flat<128, 4>(at("fc2 ResidualEpilogue<f32, f32 out>"), a, hd, w, nullptr, d, m, eb32, wide);
+  flat<192, 3>(at("fc2 ResidualEpilogue<f32, f32 out>"), a, hd, w, nullptr, d, m, eb32, wide);
+  flat<256, 2>(at("fc2 ResidualEpilogue<f32, f32 out>"), a, hd, w, nullptr, d, m, eb32, wide);
+  flat<128, 4>(at("fc2 BiasEpilogue"), a, hd, w, out, d, m, b, wide);
+  cudaDeviceSynchronize();
+  cudaFree(a), cudaFree(x), cudaFree(w), cudaFree(out), cudaFree(y32), cudaFree(s32);
+  cudaFree(bias);
+}
+
 }  // namespace
 
 int main() {
@@ -144,6 +194,11 @@ int main() {
     heads_matrix(to, o, o, o, b, n, 12, 64, 64);
     time_product<192, 4>("doh per sequence, head-major", ta, w2_t, to, b, n, d, d, NoEpilogue{},
                          square);
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    k1_products("K1 serving", 32 * 197, 768, 3072);
+    k1_products("K1 text", 256 * 77, 512, 2048);
+    k1_products("K1 BERT", 256 * 256, 768, 3072);
   }
   return 0;
 }

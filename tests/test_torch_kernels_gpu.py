@@ -38,7 +38,10 @@ over two calls; on the card neither route reaches a plain version. K6 and
 K8 (on K7 and the Hopper GEMM core in bf16) also at the bench step's [64,
 197, 768], their bf16 backwards bitwise equal over two calls, a bf16 K6
 with head dim 32 refused, and no bf16 K6 or K8 call reaching a WMMA GEMM
-or a SIMT attention kernel (profiler kernel names).
+or a SIMT attention kernel (profiler kernel names). K1 (on K7 and the
+Hopper GEMM core in bf16) also at the serving shape [32, 197, 768], a bf16
+K1 with head dim 32 refused, and no bf16 K1 (pre-norm, causal, post-norm)
+or K6 post-LN call reaching a WMMA GEMM or a SIMT attention kernel.
 """
 
 import pytest
@@ -71,8 +74,11 @@ def _block(device, width, heads):
 
 
 @pytest.mark.parametrize("b,n,width,heads,act", [
-    (2, 17, 128, 2, "gelu"), (3, 197, 128, 4, "quick_gelu"), (2, 256, 768, 12, "gelu")])
+    (2, 17, 128, 2, "gelu"), (3, 197, 128, 4, "quick_gelu"), (2, 256, 768, 12, "gelu"),
+    (32, 197, 768, 12, "gelu")])
 def test_fused_block_kernel_matches_plain(cuda, b, n, width, heads, act):
+    """float32 at every shape; bf16 where the head dim is 64 (K7's wgmma
+    kernels), refused with a ValueError naming it elsewhere."""
     blk = _block(cuda, width, heads)
     gen = torch.Generator().manual_seed(n)
     x = torch.randn(b, n, width, generator=gen).to(cuda)
@@ -85,6 +91,11 @@ def test_fused_block_kernel_matches_plain(cuda, b, n, width, heads, act):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
         xb = x.to(torch.bfloat16)
+        if width // heads != 64:
+            with pytest.raises(ValueError, match=f"head dim {width // heads}"):
+                fb.fused_block_infer(xb, blk, heads=heads, act=act)
+            assert fb.fused_block_infer.launches == before + 1
+            return
         ref_b = fb.fused_block_infer_plain(xb.float(), blk, heads=heads, act=act)
         got_b = fb.fused_block_infer(xb, blk, heads=heads, act=act)
         assert got_b.dtype == torch.bfloat16
@@ -110,6 +121,9 @@ def test_fused_block_rejects_shapes_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="tokens"):
             fb.fused_block_infer(torch.zeros(1, 300, 128, device=cuda), _block(cuda, 128, 2),
                                  heads=2)
+        with pytest.raises(ValueError, match=r"x \(1, 5, 128\).*head dim 32"):
+            fb.fused_block_infer(torch.zeros(1, 5, 128, device=cuda, dtype=torch.bfloat16),
+                                 _block(cuda, 128, 4), heads=4)
 
 
 @pytest.mark.parametrize("shape", [(32, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
@@ -1067,6 +1081,40 @@ def test_bf16_k6_k8_reach_no_wmma_gemm(cuda):
         for what, fn in calls.items():
             names = _device_kernel_names(fn)
             assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
+            bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
+                   or "simt" in k]
+            assert not bad, (what, bad)
+
+
+def test_bf16_k1_k6post_reach_no_wmma_gemm(cuda):
+    """A bf16 K1 call (pre-norm, causal, post-norm with a padding bias) or K6
+    post-LN call runs its products on the Hopper GEMM core and its attention
+    on K7's kernels: the profiler sees hopper::gemm_kernel and a flash
+    kernel, no WMMA GEMM (gemm_bf16) and no SIMT attention kernel."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o
+
+    bf16 = torch.bfloat16
+    blk, tblk = _block(cuda, 768, 12), _block(cuda, 512, 8)
+    layer = _bert_layer(cuda, 768, 12, 3072)
+    gen = torch.Generator().manual_seed(4)
+    x, tx, bx = (torch.randn(*shape, generator=gen).to(cuda, bf16)
+                 for shape in ((4, 197, 768), (8, 77, 512), (4, 256, 768)))
+    q, k, v = (torch.randn(4, 12, 256, 64, generator=gen).to(cuda, bf16) for _ in range(3))
+    bias = torch.zeros(4, 256, device=cuda)
+    bias[0, 100:], bias[-1] = -1e9, -1e9
+    calls = {
+        "K1 pre-norm": lambda: fb.fused_block_infer(x, blk, heads=12, eps=1e-6),
+        "K1 causal": lambda: fb.fused_block_infer(tx, tblk, heads=8, act="quick_gelu",
+                                                  causal=True),
+        "K1 post-norm": lambda: fb.fused_block_infer(bx, layer, heads=12, eps=1e-12,
+                                                     key_bias=bias, layout="postnorm"),
+        "K6 post-LN": lambda: fused_attn_o.fused_attn_o_residual(
+            q, k, v, bx, layer.attn.o, heads=12, bias=bias, post_ln=layer.attn_ln)}
+    with torch.no_grad():
+        for what, fn in calls.items():
+            names = _device_kernel_names(fn)
+            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
+            assert any("flash" in k for k in names), (what, sorted(names))
             bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
                    or "simt" in k]
             assert not bad, (what, bad)
