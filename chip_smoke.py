@@ -20,7 +20,10 @@
    causal K11 case [16, 77, 512] (K11's bf16 backward bitwise equal over
    two calls; both cases timed, op and kernels alone, with no WMMA GEMM in
    a bf16 call); K10's backward at the BERT fine-tune's
-   [16 * 256, 768] x 3072, K5 raw-x's backward at [16, 256, 768], K4
+   [16 * 256, 768] x 3072 (and [1001, 768]; bitwise equal over two calls)
+   and K10's forward also at [16 * 256, 768] and [1001, 768], both and K9
+   on the Hopper GEMM core in bf16 (kernels alone, no WMMA GEMM),
+   K5 raw-x's backward at [16, 256, 768], K4
    forward and backward at [64, 14, 14, 64]; K6 and K8, on K7 and the
    Hopper GEMM core in bf16, also at the bench step's [64, 197, 768], K8
    with gelu and with quick_gelu, their bf16 backwards bitwise equal over
@@ -531,8 +534,10 @@ def kernel_phase(dev):
            2 * (2 * tm * td + 12 * td * td)), library=causal_lib, kernels=True)
     encoder_fast_path("fused_block_infer_causal", causal_lib, randn(tb, tn, td).to(bf16))
 
-    # K10: the fused MLP forward, [24 * 1370, 768] x 3072 gelu, and an odd
-    # float32 [77, 128] x 512 quick_gelu
+    # K10: the fused MLP forward, [24 * 1370, 768] x 3072 gelu (the last
+    # 128-row tile ragged), an odd float32 [77, 128] x 512 quick_gelu, and
+    # further at the BERT LoRA layers' [16 * 256, 768] and an odd row count
+    # [1001, 768]; its kernels alone (Hopper core, no WMMA GEMM)
     dm = db * dn
 
     def mlp_only(fn):
@@ -543,7 +548,8 @@ def kernel_phase(dev):
         return run
 
     check("fused_mlp", mlp_only(fm.fused_mlp), mlp_only(fm.fused_mlp_plain), [randn(dm, d)],
-          [randn(77, 128), True], (4 * dm * d * hid, 2 * (2 * dm * d + 2 * d * hid)))
+          [randn(77, 128), True], (4 * dm * d * hid, 2 * (2 * dm * d + 2 * d * hid)),
+          more=[[randn(FT_MICRO * 256, d)], [randn(1001, d)]], kernels=True)
 
     # K13: the table lookup and the histogram, exactly equal to their plain
     # versions at [24, 518, 518] and an odd [3, 37, 41]
@@ -1208,7 +1214,7 @@ def bert_kernel_rows(dev, gen, check):
           lambda t: fused_ln_mlp.fused_postnorm_mlp_ln(t, layer.ffn, layer.ffn_ln, eps=eps),
           lambda t: fused_ln_mlp.fused_postnorm_mlp_ln_plain(t, layer.ffn, layer.ffn_ln,
                                                              eps=eps),
-          [x], [odd_x], (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)))
+          [x], [odd_x], (4 * m * d * hid, 2 * (2 * m * d + 2 * d * hid)), kernels=True)
 
     def whole(fn):
         return lambda t, odd=False: fn(t, layer, heads=h, eps=eps, layout="postnorm",
@@ -1228,7 +1234,8 @@ def bert_kernel_rows(dev, gen, check):
 def text_lora_kernel_rows(dev, gen, check):
     """The kernels --tune_text_encoder adds, against their plain versions:
     K10's backward at the BERT fine-tune's microbatch [16 * 256, 768] x 3072
-    (odd: [77, 128] x 512, quick_gelu), K5 raw-x's backward at [16, 256,
+    (odd: [77, 128] x 512, quick_gelu; further [1001, 768]; its kernels
+    alone; two bf16 calls bitwise equal), K5 raw-x's backward at [16, 256,
     768], 12 heads (odd: [3, 40, 128], 2 heads), and K4, forward and
     backward, at the MONA bottleneck on the ViT-B/16 grid [64, 14, 14, 64]
     (odd: [3, 9, 11, 24]). Then the post-norm chain's other two backwards,
@@ -1253,13 +1260,21 @@ def text_lora_kernel_rows(dev, gen, check):
         return [randn(mm, dd), randn(dd, hh, scale=dd ** -0.5), randn(hh, scale=0.1),
                 randn(hh, dd, scale=hh ** -0.5), randn(mm, dd)]
 
-    check("fused_mlp_backward",
-          lambda x, w1, b1, w2, g, odd=False: fm.fused_mlp_backward(
-              x, w1, b1, w2, g, act="quick_gelu" if odd else "gelu"),
+    def mlp_bwd(x, w1, b1, w2, g, odd=False):
+        return fm.fused_mlp_backward(x, w1, b1, w2, g, act="quick_gelu" if odd else "gelu")
+
+    check("fused_mlp_backward", mlp_bwd,
           lambda x, w1, b1, w2, g, odd=False: fm.fused_mlp_backward_plain(
               x, w1, b1, w2, g, act="quick_gelu" if odd else "gelu"),
           mlp_args(m, d, hid), mlp_args(77, 128, 512) + [True],
-          (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid) + 4 * hid))
+          (6 * m * d * hid, 2 * (3 * m * d + 2 * d * hid) + 4 * hid),
+          more=[mlp_args(1001, d, hid)], kernels=True)
+    with torch.no_grad():
+        args_b = [t.to(torch.bfloat16) for t in mlp_args(m, d, hid)]
+        first, second = mlp_bwd(*args_b), mlp_bwd(*args_b)
+        torch.cuda.synchronize()
+    require(torch.equal(first, second), "two bf16 calls of K10's backward differ")
+    print(f"fused_mlp_backward: two bf16 calls bitwise equal at [{m}, {d}] x {hid}")
 
     def rawx_args(bb, nn_, hh, dd):
         return [randn(dd, 3 * dd, scale=dd ** -0.5)] + [randn(bb, hh, nn_, dd // hh)

@@ -1,4 +1,5 @@
-// The steps the block kernels compose (K1's whole block, K6, K8, K11): each
+// The steps the block kernels compose (K1's whole block, K6, K8, K9, K10,
+// K11): each
 // bf16 product one flat call of hopper_gemm.cuh's core over the B*N tokens
 // (tiles cross sequences), each float32 one the SIMT GEMM of
 // block_kernels.cuh, the attention K7's kernels (flash_attention.cu), which
@@ -87,6 +88,88 @@ static cudaError_t hidden_product(const hopper::TmaMatrix& ta, const void* w,
   if (act == ACT_QUICK_GELU)
     return hopper::gemm<128, 4>(ta, w, to, Epi<ACT_QUICK_GELU>{args...}, 1, m, hidden, d, s);
   return cudaErrorInvalidValue;
+}
+
+// The MLP's two products, written once for K1 (both layouts), K8, K9 and
+// K10:
+//   h   = act(z @ W1 + b1) -> T                       [m, hidden]
+//   out = h @ W2 + b2 (+ the residual)                 [m, d]
+// bf16: fc1 is hidden_product's BiasActEpilogue (128 x 4), fc2 one flat
+// product on BN-column tiles in a STAGES-deep ring (each caller's pair fixed
+// by tools/epilogue_bench.cu at its path shapes) through the caller's
+// epilogue `down`, which adds b2 and the residual (none: K10; bf16 x: K8,
+// K9; the float32 stream: K1) and either rounds to bf16 for the TMA store
+// into out, or, DIRECT, stores the float32 sum itself (K9, K1 post-norm:
+// the LayerNorm that follows reads it; out is then that buffer). The last
+// row tile may be ragged: TMA zero-fills its loads and clips its stores,
+// the staged epilogues mask its rows. w1_t [hidden, d] = W1^T, w2_t [d,
+// hidden] = W2^T in `dtype`. float32: the SIMT GEMM, res float32 [m, d] or
+// null, out float32 (the exact check of the same dataflow).
+template <int BN, int STAGES, class Down>
+static int mlp(const void* z, const void* w1_t, const float* b1, const void* w2_t,
+               const float* b2, const void* res, Down down, void* h, void* out, int dtype,
+               int m, int d, int hidden, int act, cudaStream_t s) {
+  if (dtype == F32) {
+    const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), F32};
+    cudaError_t err = launch_gemm(row_major(z), w1_t, F32, true, up, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue fc2{b2, res, F32, nullptr, ACT_NONE, row_major(out), F32};
+    return (int)launch_gemm(row_major(h), w2_t, F32, true, fc2, m, d, hidden, s);
+  }
+  if (dtype != BF16) return (int)cudaErrorInvalidValue;
+  hopper::TmaMatrix ta, to;
+  cudaError_t err = flat(ta, z, d, to, h, hidden, m);
+  if (err == cudaSuccess)
+    err = hidden_product<hopper::BiasActEpilogue>(ta, w1_t, to, act, m, hidden, d, s, b1);
+  if (err == cudaSuccess) err = flat(ta, h, hidden, to, Down::DIRECT ? nullptr : out, d, m);
+  if (err != cudaSuccess) return (int)err;
+  return (int)hopper::gemm<BN, STAGES>(ta, w2_t, Down::DIRECT ? hopper::TmaMatrix{} : to, down,
+                                       1, m, d, hidden, s);
+}
+
+// The MLP's dx products, written once for K8's and K10's backward:
+//   a    = z @ W1 + b1 (float32, recomputed)           [m, hidden]
+//   dpre = (g @ W2^T) * act'(a) -> T                   [m, hidden]
+//   out  = dpre @ W1^T                                 [m, d]
+// bf16: a from registers (StoreF32Epilogue, 256 x 3), dpre by
+// hidden_product's staged ActGradEpilogue (reading a back in row order),
+// the last product on BN x STAGES through the caller's epilogue `back`:
+// float32 dz for K8's LayerNorm backward (StoreF32Epilogue, DIRECT) or bf16
+// dx by TMA store into out (K10, NoEpilogue). w1_t [hidden, d] = W1^T, w1
+// [d, hidden] and w2 [hidden, d] as stored (each read as [cols, K]), in
+// `dtype`. Each output element is one thread's sum in a fixed order (no
+// atomics): two calls are bitwise equal. float32: the SIMT GEMM, out
+// float32.
+template <int BN, int STAGES, class Back>
+static int mlp_bwd(const void* z, const void* w1_t, const float* b1, const void* w1,
+                   const void* w2, const void* g, float* a, void* dpre, Back back, void* out,
+                   int dtype, int m, int d, int hidden, int act, cudaStream_t s) {
+  cudaError_t err;
+  if (dtype == F32) {
+    const Epilogue pre{b1, nullptr, 0, nullptr, ACT_NONE, row_major(a), F32};
+    err = launch_gemm(row_major(z), w1_t, F32, true, pre, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue dact{nullptr, nullptr, 0, a, act, row_major(dpre), F32};
+    err = launch_gemm(row_major(g), w2, F32, true, dact, m, hidden, d, s);
+    if (err != cudaSuccess) return (int)err;
+    const Epilogue dx{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(out), F32};
+    return (int)launch_gemm(row_major(dpre), w1, F32, true, dx, m, d, hidden, s);
+  }
+  if (dtype != BF16) return (int)cudaErrorInvalidValue;
+  const hopper::TmaMatrix none{};
+  hopper::TmaMatrix ta, to;
+  if ((err = flat(ta, z, d, to, nullptr, 0, m)) != cudaSuccess) return (int)err;
+  err = hopper::gemm<256, 3>(ta, w1_t, none, hopper::StoreF32Epilogue{b1, a, hidden}, 1, m,
+                             hidden, d, s);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = flat(ta, g, d, to, dpre, hidden, m)) != cudaSuccess) return (int)err;
+  err = hidden_product<hopper::ActGradEpilogue>(ta, w2, to, act, m, hidden, d, s,
+                                                 static_cast<const float*>(a), hidden);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = flat(ta, dpre, hidden, to, Back::DIRECT ? nullptr : out, d, m)) != cudaSuccess)
+    return (int)err;
+  return (int)hopper::gemm<BN, STAGES>(ta, w1, Back::DIRECT ? none : to, back, 1, m, d, hidden,
+                                       s);
 }
 
 // The attention sublayer's float32 sum, K1's and K6 post-LN's:

@@ -52,7 +52,8 @@
 //   ResidualEpilogue): A adds bo and the bf16 x and stores float32, B adds
 //   b2 and the float32 residual stream and stores bf16 (pre-norm) or
 //   float32 (post-norm, for the last LayerNorm); fc1's bias + activation is
-//   K8's staged BiasActEpilogue;
+//   K8's staged BiasActEpilogue; the MLP's two products are
+//   block_products.cuh::mlp, shared with K8, K9 and K10;
 // - LN1 writes z into the concat's buffer, which the q|k|v product has read
 //   before K7 overwrites it.
 // Each output element is one thread's sum in a fixed order (no atomics), so
@@ -65,41 +66,6 @@
 
 using namespace nx;
 
-namespace {
-
-// out (or, post-norm, s32) = res32 + act(z2 @ W1 + b1) @ W2 + b2, the hidden
-// activation through h [m, hidden] in `dtype`; fc2 on 128-column tiles in a
-// 4-deep ring, the fastest of 128 x 4, 192 x 3 and 256 x 2 at all three path
-// shapes (tools/epilogue_bench.cu, H100 80GB HBM3 at 700 W), fc1 on K8's
-// (192 x 3 was 1-5% faster at the text caches' shapes, 1.5% slower at
-// serving's)
-int mlp(const void* z2, const void* w1_t, const float* b1, const void* w2_t, const float* b2,
-        const float* res32, void* h, void* out, bool f32_out, int dtype, int m, int d,
-        int hidden, int act, cudaStream_t s) {
-  if (dtype == F32) {
-    const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), F32};
-    cudaError_t err = launch_gemm(row_major(z2), w1_t, F32, true, up, m, hidden, d, s);
-    if (err != cudaSuccess) return (int)err;
-    const Epilogue down{b2, res32, F32, nullptr, ACT_NONE, row_major(out), F32};
-    return (int)launch_gemm(row_major(h), w2_t, F32, true, down, m, d, hidden, s);
-  }
-  hopper::TmaMatrix ta, to;
-  cudaError_t err = flat(ta, z2, d, to, h, hidden, m);
-  if (err == cudaSuccess)
-    err = hidden_product<hopper::BiasActEpilogue>(ta, w1_t, to, act, m, hidden, d, s, b1);
-  if (err == cudaSuccess) err = flat(ta, h, hidden, to, f32_out ? nullptr : out, d, m);
-  if (err != cudaSuccess) return (int)err;
-  if (f32_out) {
-    const hopper::ResidualEpilogue<float, true> down{b2, res32, d, static_cast<float*>(out)};
-    return (int)hopper::gemm<128, 4>(ta, w2_t, to, down, 1, m, d, hidden, s);
-  }
-  return (int)hopper::gemm<128, 4>(
-      ta, w2_t, to, hopper::ResidualEpilogue<float, false>{b2, res32, d, nullptr}, 1, m, d,
-      hidden, s);
-}
-
-}  // namespace
-
 extern "C" {
 
 const char* nx_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -108,7 +74,7 @@ const char* nx_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 // WMMA GEMM (bf16) or SIMT GEMM (float32); a and w share `dtype`; needs
 // N % 64 == 0, K % 32 == 0, 16-byte aligned a and w. No path of the port
 // calls it: chip_smoke.py times it beside the Hopper core (the WMMA GEMM
-// K5 pre-norm, K9, K10 and K12 still run on).
+// K5 pre-norm and K12 still run on).
 int nx_gemm(const void* a, const void* w, int dtype, const float* bias, const void* res,
             int res_dtype, void* out, int out_dtype, int act, int M, int N, int K,
             void* stream) {
@@ -144,9 +110,14 @@ int nx_block_fwd(const void* x, const float* ga, const float* ba, const void* wq
   err = attn_o_f32(qkv, col(qkv, d, dtype), col(qkv, 2 * d, dtype), n * ld, dh, ld, key_bias,
                    causal, x, wo_t, bo, cat, sum, dtype, b, n, heads, dh, scale, s);
   if (err) return err;
+  // fc2 on 128-column tiles in a 4-deep ring, the fastest of 128 x 4,
+  // 192 x 3 and 256 x 2 at all three path shapes (tools/epilogue_bench.cu,
+  // H100 80GB HBM3 at 700 W)
   if (!postnorm) {
     if ((err = (int)layernorm_f32(y32, gb, bb, z2, m, d, eps, dtype, s))) return err;
-    return mlp(z2, w1_t, b1, w2_t, b2, y32, h, out, false, dtype, m, d, hidden, act, s);
+    return mlp<128, 4>(z2, w1_t, b1, w2_t, b2, y32,
+                       hopper::ResidualEpilogue<float, false>{b2, y32, d, nullptr}, h, out,
+                       dtype, m, d, hidden, act, s);
   }
   // float32 feeds fc1 the float32 y32 itself: its rounded copy is it
   if (dtype == F32) z2 = y32;
@@ -154,8 +125,10 @@ int nx_block_fwd(const void* x, const float* ga, const float* ba, const void* wq
                   ? launch_layernorm_dual<__nv_bfloat16>(s32, ga, ba, y32, z2, m, d, eps, s)
                   : launch_layernorm_dual<float>(s32, ga, ba, y32, nullptr, m, d, eps, s));
   if (err) return err;
-  if ((err = mlp(z2, w1_t, b1, w2_t, b2, y32, h, s32, true, dtype, m, d, hidden, act, s)))
-    return err;
+  err = mlp<128, 4>(z2, w1_t, b1, w2_t, b2, y32,
+                    hopper::ResidualEpilogue<float, true>{b2, y32, d, s32}, h, s32, dtype, m, d,
+                    hidden, act, s);
+  if (err) return err;
   return (int)layernorm_f32(s32, gb, bb, out, m, d, eps, dtype, s);
 }
 

@@ -25,7 +25,8 @@
 // the M rows (TMA ring, wgmma, W multicast over a cluster of two,
 // persistent grid), and the [M, 3072] hidden tensor crosses device memory
 // between them; the LayerNorm and its backward are block_kernels.cuh's row
-// kernels:
+// kernels. The products are block_products.cuh's mlp and mlp_bwd, shared
+// with K1 and K10:
 // - forward: z = LN(x); h = act(z W1 + b1) (BiasActEpilogue); out = h W2 +
 //   b2 + x (BiasResidualEpilogue, the residual read at the output's own
 //   row, one rounding). Both epilogues are staged (hopper_gemm.cuh): the
@@ -45,7 +46,7 @@
 // = D (z W1 and g W2^T) would save. float32 runs the same dataflow on
 // block_kernels.cuh's SIMT GEMM: the exact float32 check of the algorithm.
 //
-// Post-norm variant (nx_postnorm_mlp_ln_fwd), forward only:
+// Post-norm variant (nx_postnorm_mlp_ln_fwd, K9), forward only:
 //
 //   h = act(x @ W1 + b1) -> T;  y32 = x + h @ W2 + b2 (float32 scratch);
 //   out = LN(y32) -> T
@@ -55,13 +56,17 @@
 // erf GELU, eps 1e-12. Rounding points are that kernel's: h rounded to T,
 // the residual sum float32 until the LayerNorm, the output rounded once. At
 // the text cache's chunk (M = 65536 rows, D = 768, hidden 3072) it is 619
-// GFLOP against ~0.6 GB of x, out and the float32 sum: compute-bound (~0.63
-// ms at the bf16 peak). Three launches: the two WMMA GEMMs (bias and GELU in
-// the first epilogue, bias and residual in the second, which writes the
-// float32 sum) and layernorm_rows. The TPU kernel keeps the hidden chunk
-// and the sum in VMEM; here both go through device memory ([M, 3072] in T
-// and [M, 768] in float32). Its backward is XLA on the TPU and is not
-// ported: autograd reaching it on the card raises.
+// GFLOP (0.625 ms at the bf16 peak) against 210 MB of x, out and the
+// weights (0.063 ms): compute-bound. It is K1 post-norm's MLP half with x
+// as a bf16 residual, as K6 post-LN is its attention half: the same
+// block_products.cuh::mlp, three launches. fc1 with bias + GELU
+// (BiasActEpilogue, 128 x 4); fc2 adding b2 and the bf16 x at the output's
+// own row and storing the sum in float32 (ResidualEpilogue<bf16, true>,
+// staged); layernorm_rows from the float32 sum into the output. The TPU
+// kernel keeps the hidden chunk and the sum in VMEM; here both go through
+// device memory ([M, 3072] in T and [M, 768] in float32). Its backward is
+// autograd through the plain recomposition (ops/fused_ln_mlp.py), as the
+// JAX package differentiates its XLA recomposition: no kernel of its own.
 
 #include "block_products.cuh"
 
@@ -77,22 +82,11 @@ int nx_ln_mlp_fwd(const void* x, const float* gamma, const float* beta, const vo
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
-  cudaError_t err = layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
+  const cudaError_t err = layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
   if (err != cudaSuccess) return (int)err;
-  if (dtype == F32) {
-    const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), F32};
-    err = launch_gemm(row_major(z), w1_t, F32, true, up, m, hidden, d, s);
-    if (err != cudaSuccess) return (int)err;
-    const Epilogue down{b2, x, F32, nullptr, ACT_NONE, row_major(out), F32};
-    return (int)launch_gemm(row_major(h), w2_t, F32, true, down, m, d, hidden, s);
-  }
-  hopper::TmaMatrix ta, to;
-  if ((err = flat(ta, z, d, to, h, hidden, m)) != cudaSuccess) return (int)err;
-  err = hidden_product<hopper::BiasActEpilogue>(ta, w1_t, to, act, m, hidden, d, s, b1);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = flat(ta, h, hidden, to, out, d, m)) != cudaSuccess) return (int)err;
-  const hopper::BiasResidualEpilogue down{b2, static_cast<const __nv_bfloat16*>(x), d};
-  return (int)hopper::gemm<128, 4>(ta, w2_t, to, down, 1, m, d, hidden, s);
+  return mlp<128, 4>(z, w1_t, b1, w2_t, b2, x,
+                     hopper::BiasResidualEpilogue{b2, static_cast<const __nv_bfloat16*>(x), d},
+                     h, out, dtype, m, d, hidden, act, s);
 }
 
 // g, dx [M, D] (x's dtype); w1_t [Hd, D] = W1^T, w1 [D, Hd] and w2 [Hd, D]
@@ -104,50 +98,35 @@ int nx_ln_mlp_bwd(const void* x, const float* gamma, const float* beta, const vo
                   int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
-  cudaError_t err = layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
-  if (err != cudaSuccess) return (int)err;
-  if (dtype == F32) {
-    const Epilogue pre{b1, nullptr, 0, nullptr, ACT_NONE, row_major(a), F32};
-    err = launch_gemm(row_major(z), w1_t, F32, true, pre, m, hidden, d, s);
-    if (err != cudaSuccess) return (int)err;
-    const Epilogue dact{nullptr, nullptr, 0, a, act, row_major(dpre), F32};
-    err = launch_gemm(row_major(g), w2, F32, true, dact, m, hidden, d, s);
-    if (err != cudaSuccess) return (int)err;
-    const Epilogue back{nullptr, nullptr, 0, nullptr, ACT_NONE, row_major(dz), F32};
-    err = launch_gemm(row_major(dpre), w1, F32, true, back, m, d, hidden, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_layernorm_bwd<float>(x, gamma, dz, g, dx, m, d, eps, s);
-  }
-  const hopper::TmaMatrix none{};
-  hopper::TmaMatrix ta, to;
-  if ((err = flat(ta, z, d, to, nullptr, 0, m)) != cudaSuccess) return (int)err;
-  err = hopper::gemm<256, 3>(ta, w1_t, none, hopper::StoreF32Epilogue{b1, a, hidden}, 1, m,
-                             hidden, d, s);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = flat(ta, g, d, to, dpre, hidden, m)) != cudaSuccess) return (int)err;
-  err = hidden_product<hopper::ActGradEpilogue>(ta, w2, to, act, m, hidden, d, s,
-                                                 static_cast<const float*>(a), hidden);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = flat(ta, dpre, hidden, to, nullptr, 0, m)) != cudaSuccess) return (int)err;
-  err = hopper::gemm<192, 4>(ta, w1, none, hopper::StoreF32Epilogue{nullptr, dz, d}, 1, m, d,
-                             hidden, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, g, dx, m, d, eps, s);
+  int err = (int)layernorm(x, gamma, beta, z, m, d, eps, dtype, s);
+  if (err) return err;
+  err = mlp_bwd<192, 4>(z, w1_t, b1, w1, w2, g, a, dpre, hopper::StoreF32Epilogue{nullptr, dz, d},
+                        dz, dtype, m, d, hidden, act, s);
+  if (err) return err;
+  return (int)(dtype == BF16
+                   ? launch_layernorm_bwd<__nv_bfloat16>(x, gamma, dz, g, dx, m, d, eps, s)
+                   : launch_layernorm_bwd<float>(x, gamma, dz, g, dx, m, d, eps, s));
 }
 
-// x, out [M, D]; w1 [D, Hd], w2 [Hd, D] (x's dtype); b1 [Hd], b2, gamma,
-// beta [D] f32; scratch: h [M, Hd] (x's dtype), y32 [M, D] f32
-int nx_postnorm_mlp_ln_fwd(const void* x, const void* w1, const float* b1, const void* w2,
+// x, out [M, D]; w1_t [Hd, D] = W1^T, w2_t [D, Hd] = W2^T (x's dtype); b1
+// [Hd], b2, gamma, beta [D] f32; scratch: h [M, Hd] (x's dtype), y32 [M, D]
+// f32
+int nx_postnorm_mlp_ln_fwd(const void* x, const void* w1_t, const float* b1, const void* w2_t,
                            const float* b2, const float* gamma, const float* beta, void* h,
                            float* y32, void* out, int dtype, int m, int d, int hidden, int act,
                            float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Epilogue up{b1, nullptr, 0, nullptr, act, row_major(h), dtype};
-  cudaError_t err = launch_gemm(row_major(x), w1, dtype, false, up, m, hidden, d, s);
-  if (err != cudaSuccess) return (int)err;
-  const Epilogue down{b2, x, dtype, nullptr, ACT_NONE, row_major(y32), F32};
-  err = launch_gemm(row_major(h), w2, dtype, false, down, m, d, hidden, s);
-  if (err != cudaSuccess) return (int)err;
+  if (dtype != F32 && dtype != BF16) return (int)cudaErrorInvalidValue;
+  // fc2 stores x + h W2 + b2 in float32 on 128-column tiles in a 4-deep
+  // ring: at [256 * 256, 768] x 3072 0.6314-0.6440 ms against 0.6617-0.6737
+  // at 192 x 3 and 0.8958-0.9073 at 256 x 2 (tools/epilogue_bench.cu, H100
+  // 80GB HBM3 at 700 W)
+  const int err = mlp<128, 4>(
+      x, w1_t, b1, w2_t, b2, x,
+      hopper::ResidualEpilogue<__nv_bfloat16, true>{b2, static_cast<const __nv_bfloat16*>(x),
+                                                    d, y32},
+      h, y32, dtype, m, d, hidden, act, s);
+  if (err) return err;
   return (int)layernorm_f32(y32, gamma, beta, out, m, d, eps, dtype, s);
 }
 

@@ -75,12 +75,12 @@ SIGNATURES = {
     # q, k, v, o, g, lse, bias, dq, dk, dv, dbias, delta, dtype, B, H, N, dh, sb, sh, sn,
     # osb, osh, osn, causal, scale, stream
     "nx_flash_attention_bwd": [P] * 12 + [I] * 12 + [F, P],
-    # x, w1, b1, w2, b2, gamma, beta, h, y32, out, dtype, M, D, hidden, act, eps, stream
+    # x, w1_t, b1, w2_t, b2, gamma, beta, h, y32, out, dtype, M, D, hidden, act, eps, stream
     "nx_postnorm_mlp_ln_fwd": [P] * 10 + [I] * 5 + [F, P],
-    # x, w1, b1, w2, b2, h, out, dtype, M, D, hidden, act, stream
+    # x, w1_t, b1, w2_t, b2, h, out, dtype, M, D, hidden, act, stream
     "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # x, w1, b1, w2, g, a, dpre, dx, dtype, M, D, hidden, act, stream
-    "nx_mlp_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, w1_t, b1, w1, w2, g, a, dpre, dx, dtype, M, D, hidden, act, stream
+    "nx_mlp_bwd": [P] * 9 + [I] * 5 + [P],
     # x, mask, prm, uw, out, stats, zd, zcat, gd, y2, img, dtype, B, N, D, h, w, has_noise,
     # stream
     "nx_mona_fused_fwd": [P] * 11 + [I] * 7 + [P],

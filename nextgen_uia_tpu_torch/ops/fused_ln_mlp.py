@@ -21,7 +21,9 @@ W1^T, and W1^T again for the recomputed fc1.
     out = LN(x + fc2(act(fc1(x))))
 
 with the residual sum in float32 until the LayerNorm. On a CUDA tensor it
-launches its forward kernel (counted in ``fused_postnorm_mlp_ln.launches``).
+launches its forward kernel (counted in ``fused_postnorm_mlp_ln.launches``),
+whose bf16 products run on the Hopper GEMM core from ``_kernel_weights``'
+W1^T and W2^T, built once per call.
 Its backward (dx) is autograd through the plain version recomputed from the
 saved x, as the JAX kernel's ``_postnorm_bwd_rule`` differentiates its XLA
 recomposition: plain PyTorch on the card, no kernel of its own.
@@ -98,7 +100,7 @@ def fused_ln_mlp_residual_backward_plain(x, gamma, beta, w1, b1, w2, g, *, act: 
     return (g.to(f32) + (dxhat - m1 - xhat * m2) * rstd).to(dt)
 
 
-def _check_cuda(x, hidden, act):
+def _check_cuda(x, hidden, act, op="fused_ln_mlp_residual"):
     d = x.shape[-1]
     problems = []
     if x.dtype not in build.DTYPE_CODES:
@@ -108,7 +110,7 @@ def _check_cuda(x, hidden, act):
     if act not in build.ACT_CODES:
         problems.append(f"activation {act!r}")
     if problems:
-        raise ValueError(f"fused_ln_mlp_residual CUDA kernel does not take x "
+        raise ValueError(f"{op} CUDA kernel does not take x "
                          f"{tuple(x.shape)} with hidden {hidden}: " + "; ".join(problems))
 
 
@@ -208,9 +210,9 @@ def fused_postnorm_mlp_ln_plain(x, mlp, ln, *, act: str = "gelu", eps: float = 1
     return (layernorm_parts(y, eps)[0] * ln.scale + ln.bias).to(dt)
 
 
-def _postnorm_cuda(x, w1, b1, w2, b2, gamma, beta, act, eps):
-    d, hidden = x.shape[-1], w1.shape[1]
-    _check_cuda(x, hidden, act)
+def _postnorm_cuda(x, gamma, beta, w1_t, b1, w2_t, b2, act, eps):
+    d, hidden = x.shape[-1], w1_t.shape[0]
+    _check_cuda(x, hidden, act, "fused_postnorm_mlp_ln")
     m, dt, dev = x.numel() // d, x.dtype, x.device
     h = torch.empty(m, hidden, device=dev, dtype=dt)
     y32 = torch.empty(m, d, device=dev, dtype=torch.float32)
@@ -218,7 +220,7 @@ def _postnorm_cuda(x, w1, b1, w2, b2, gamma, beta, act, eps):
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.nx_postnorm_mlp_ln_fwd(
-            build.ptr(x, "x"), build.ptr(w1), build.ptr(b1), build.ptr(w2), build.ptr(b2),
+            build.ptr(x, "x"), build.ptr(w1_t), build.ptr(b1), build.ptr(w2_t), build.ptr(b2),
             build.ptr(gamma), build.ptr(beta), build.ptr(h), build.ptr(y32), build.ptr(out),
             build.DTYPE_CODES[dt], m, d, hidden, build.ACT_CODES[act], eps, build.stream(dev)),
             "fused_postnorm_mlp_ln")
@@ -237,9 +239,9 @@ def fused_postnorm_mlp_ln(x, mlp, ln, *, act: str = "gelu", eps: float = 1e-12):
         return fused_postnorm_mlp_ln_plain(x, mlp, ln, act=act, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_postnorm_mlp_ln: unsupported device {x.device}")
-    gamma, beta, w1, b1, w2, b2 = _weights(ln, mlp, x.dtype)
+    w = _kernel_weights(ln, mlp, x.dtype)
     return plain_backward(
-        lambda x_: _postnorm_cuda(x_, w1, b1, w2, b2, gamma, beta, act, eps),
+        lambda x_: _postnorm_cuda(x_, *w, act, eps),
         lambda x_: fused_postnorm_mlp_ln_plain(x_, mlp, ln, act=act, eps=eps), x.contiguous())
 
 

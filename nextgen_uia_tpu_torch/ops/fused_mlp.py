@@ -10,7 +10,11 @@ W2^T) * act'(a) rounded to x.dtype, dx = dpre @ W1^T. ``fused_mlp`` is
 differentiable in x: on a CUDA tensor its forward and backward launch the
 hand-written kernels of csrc/fused_mlp.cu for any row count (counted in
 ``fused_mlp.launches`` and ``fused_mlp_backward.launches``); on a CPU tensor
-they run ``fused_mlp_plain`` and ``fused_mlp_backward_plain``.
+they run ``fused_mlp_plain`` and ``fused_mlp_backward_plain``. In bf16 the
+kernels' products run on the Hopper GEMM core, which reads each weight as
+[cols, K]: the forward takes W1^T and W2^T, built once per forward
+(``_kernel_weights``), the backward W1^T again for the recomputed fc1 and W2,
+W1 as stored for g W2^T and dpre W1^T.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from ..nn.layers import ACTIVATIONS
 from . import build
-from ._frozen import check_frozen
+from ._frozen import _cat, check_frozen
 from .fused_ln_mlp import act_grad
 
 
@@ -58,36 +62,38 @@ def _check_cuda(x, hidden, act):
 
 
 def _kernel_weights(w1, b1, w2, b2, dt):
-    """(w1, b1, w2, b2) as the kernels take them: the matrices in dt, the
-    biases float32, detached (frozen)."""
-    w1, w2 = w1.detach().to(dt).contiguous(), w2.detach().to(dt).contiguous()
-    b1, b2 = (t.detach().to(torch.float32).contiguous() for t in (b1, b2))
-    return w1, b1, w2, b2
+    """The forward kernel's weights, detached (frozen): W1^T [hidden, D]
+    and W2^T [D, hidden] in dt (the core's [cols, K]), the biases
+    float32."""
+    f32 = torch.float32
+    return {"w1_t": _cat([w1.T], dt), "b1": b1.detach().to(f32).contiguous(),
+            "w2_t": _cat([w2.T], dt), "b2": b2.detach().to(f32).contiguous()}
 
 
-def _forward_cuda(x, w1, b1, w2, b2, act):
-    d, hidden = x.shape[-1], w1.shape[1]
+def _forward_cuda(x, w, act):
+    d, hidden = x.shape[-1], w["w1_t"].shape[0]
     _check_cuda(x, hidden, act)
     dt, m = x.dtype, x.numel() // d
     xm = x.contiguous().reshape(m, d)
-    w1, b1, w2, b2 = _kernel_weights(w1, b1, w2, b2, dt)
     h = torch.empty(m, hidden, device=x.device, dtype=dt)
     out = torch.empty(m, d, device=x.device, dtype=dt)
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_mlp_fwd(
-            build.ptr(xm, "x"), build.ptr(w1), build.ptr(b1), build.ptr(w2), build.ptr(b2),
-            build.ptr(h), build.ptr(out), build.DTYPE_CODES[dt], m, d, hidden,
-            build.ACT_CODES[act], build.stream(x.device)), "fused_mlp")
+            build.ptr(xm, "x"), build.ptr(w["w1_t"]), build.ptr(w["b1"]), build.ptr(w["w2_t"]),
+            build.ptr(w["b2"]), build.ptr(h), build.ptr(out), build.DTYPE_CODES[dt], m, d,
+            hidden, build.ACT_CODES[act], build.stream(x.device)), "fused_mlp")
     fused_mlp.launches += 1
     return out.reshape(x.shape)
 
 
-def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu"):
+def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu", w1_t=None):
     """dx for the output gradient g: on a CUDA tensor the backward kernels
     of csrc/fused_mlp.cu (counted in ``fused_mlp_backward.launches``), on a
     CPU tensor ``fused_mlp_backward_plain``. Weights already in x.dtype
-    (w1, w2) and float32 (b1), as ``_FusedMlp`` keeps them, are not copied."""
+    (w1, w2) and float32 (b1), as ``_FusedMlp`` keeps them, are not copied;
+    ``w1_t`` (W1^T in x.dtype, the forward's copy) is built here if not
+    given."""
     if x.device.type == "cpu":
         return fused_mlp_backward_plain(x, w1, b1, w2, g, act=act)
     if x.device.type != "cuda":
@@ -96,6 +102,7 @@ def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu"):
     _check_cuda(x, hidden, act)
     dt, m, dev = x.dtype, x.numel() // d, x.device
     xm, g = x.contiguous().reshape(m, d), g.to(dt).contiguous().reshape(m, d)
+    w1_t = _cat([w1.T], dt) if w1_t is None else w1_t
     w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     b1 = b1.to(torch.float32).contiguous()
     a = torch.empty(m, hidden, device=dev, dtype=torch.float32)
@@ -104,9 +111,10 @@ def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu"):
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.nx_mlp_bwd(
-            build.ptr(xm, "x"), build.ptr(w1), build.ptr(b1), build.ptr(w2), build.ptr(g, "g"),
-            build.ptr(a), build.ptr(dpre), build.ptr(dx), build.DTYPE_CODES[dt], m, d, hidden,
-            build.ACT_CODES[act], build.stream(dev)), "fused_mlp backward")
+            build.ptr(xm, "x"), build.ptr(w1_t), build.ptr(b1), build.ptr(w1), build.ptr(w2),
+            build.ptr(g, "g"), build.ptr(a), build.ptr(dpre), build.ptr(dx),
+            build.DTYPE_CODES[dt], m, d, hidden, build.ACT_CODES[act], build.stream(dev)),
+            "fused_mlp backward")
     fused_mlp_backward.launches += 1
     return dx.reshape(x.shape)
 
@@ -117,19 +125,20 @@ class _FusedMlp(torch.autograd.Function):
         ctx.save_for_backward(x)
         ctx.act = act
         if x.device.type == "cpu":
-            ctx.weights = w1, b1, w2
+            ctx.weights, ctx.w1_t = (w1, b1, w2), None
             return fused_mlp_plain(x, w1, b1, w2, b2, act=act)
         if x.device.type != "cuda":
             raise ValueError(f"fused_mlp: unsupported device {x.device}")
-        # the frozen weights are cast once, in forward, for both passes
-        w1, b1, w2, b2 = _kernel_weights(w1, b1, w2, b2, x.dtype)
-        ctx.weights = w1, b1, w2
-        return _forward_cuda(x, w1, b1, w2, b2, act)
+        # W1^T and W2^T built once, in forward; W1^T kept for the backward's
+        # recomputed fc1, W1 and W2 as stored for its other two products
+        w = _kernel_weights(w1, b1, w2, b2, x.dtype)
+        ctx.weights, ctx.w1_t = (w1.detach(), w["b1"], w2.detach()), w["w1_t"]
+        return _forward_cuda(x, w, act)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        dx = fused_mlp_backward(x, *ctx.weights, g, act=ctx.act)
+        dx = fused_mlp_backward(x, *ctx.weights, g, act=ctx.act, w1_t=ctx.w1_t)
         return dx, None, None, None, None, None
 
 

@@ -1,6 +1,6 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|text|bench]
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|mlp|text|bench]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -27,7 +27,12 @@ the same for the attention block's forward and dx backward
 o-projection + residual, ``fused_attn_o_residual`` and its backward) and K8
 (LayerNorm + MLP + residual, ``fused_ln_mlp_residual`` and its backward) at
 each of ``BLOCK_SHAPES`` in bf16, their kernels being every one whose name
-holds "gemm", "flash", "attention" or "layernorm". ``bench`` prints the
+holds "gemm", "flash", "attention" or "layernorm". ``mlp`` prints the same
+for K10 (the MLP with frozen weights, ``fused_mlp``) at each of
+``MLP_SHAPES`` in bf16: the forward at DINOv2's [24 * 1370, 768] x 3072 and
+the dx backward (``fused_mlp_backward``, W1^T built in the call) at the
+BERT LoRA layers' [16 * 256, 768] x 3072, its kernels being every one whose
+name holds "gemm". ``bench`` prints the
 port's bench step (batch 64, bf16) by each of ``BENCH_ROUTES``: the default
 route (``attn_impl='auto'``, composed MONA), ``auto`` with fused MONA, and
 with fused MONA the K11 and the hybrid attention block, CUDA-event ms per
@@ -88,6 +93,10 @@ K1_SHAPES = (  # (layout, B, N, D, heads, act, eps, causal): serving, the CLIP a
     ("postnorm", 256, 256, 768, 12, "gelu", 1e-12, False))
 
 TEXT_SHAPE = (256, 256, 768, 12)  # the BERT text cache's chunk, 12 heads
+
+MLP_SHAPES = (  # (pass, M, D, hidden, act): DINOv2's encoder, the BERT LoRA layers' backward
+    ("fwd", 24 * 1370, 768, 3072, "gelu"),
+    ("bwd", 16 * 256, 768, 3072, "gelu"))
 
 BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
 
@@ -262,6 +271,23 @@ for b, n, d, heads in SHAPES:
               f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
 '''
 
+MLP = f"SHAPES = {MLP_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+for what, m, d, hid, act in SHAPES:
+    g = torch.Generator().manual_seed(m)
+    x, go = (torch.randn(m, d, generator=g).to(dev).to(bf16) for _ in range(2))
+    w1 = (torch.randn(d, hid, generator=g) / d ** 0.5).to(dev).to(bf16)
+    w2 = (torch.randn(hid, d, generator=g) / hid ** 0.5).to(dev).to(bf16)
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dev) for n in (hid, d))
+    with torch.no_grad():
+        if what == "fwd":
+            fn = lambda: fm.fused_mlp(x, w1, b1, w2, b2, act=act)
+        else:
+            fn = lambda: fm.fused_mlp_backward(x, w1, b1, w2, go, act=act)
+        print(f"K10 {what} [{m}, {d}] x {hid} {act}: op {op_ms(fn, 20):.4f} kernels "
+              f"{kernel_ms(fn, 20, ('gemm',)):.4f} ms", flush=True)
+'''
+
 BENCH = f"ROUTES = {BENCH_ROUTES!r}" + r'''
 import dataclasses, os, sys, torch
 sys.path.insert(0, ".")
@@ -291,7 +317,8 @@ for attn, fused in ROUTES:
 '''
 
 TIMINGS = {"k1": (K1, "K1 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "), "k8": (K8, "K8 "),
-           "k11": (K11, "K11 "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
+           "k11": (K11, "K11 "), "mlp": (MLP, "K10 "), "text": (TEXT, "TEXT "),
+           "bench": (BENCH, "BENCH ")}
 
 
 def main(argv=None):
@@ -299,7 +326,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|text|bench]")
+                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|mlp|text|bench]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

@@ -2,7 +2,10 @@
 // step's K8 and K6 products (M = 64 * 197 = 12,608 rows, D = 768, hidden
 // 3072, bf16, seeded data), then K1's four products at its three path
 // shapes (serving [32 * 197, 768] x 3072, the CLIP text cache's [256 * 77,
-// 512] x 2048, BERT's [256 * 256, 768] x 3072):
+// 512] x 2048, BERT's [256 * 256, 768] x 3072), then the fc2 of K9 (BERT's
+// [256 * 256, 768] x 3072) and of K10 (DINOv2's [24 * 1370, 768], the BERT
+// LoRA layers' [16 * 256, 768]) and K10's backward dx product ([16 * 256,
+// 768]) at the tile configs their shared memory allows:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //        -o build/epilogue_bench nextgen_uia_tpu_torch/tools/epilogue_bench.cu
@@ -131,6 +134,40 @@ void k1_products(const char* tag, int m, int d, int hd) {
   cudaFree(bias);
 }
 
+// the last product of an MLP at rows m, K = hd: K9's fc2 (b2 + the bf16 x,
+// the sum stored float32 for its LayerNorm), K10's fc2 (b2 alone, bf16 TMA
+// store) and K10's backward dx = dpre W1^T (no epilogue, bf16 TMA store)
+void mlp_products(const char* tag, int m, int d, int hd) {
+  __nv_bfloat16 *a, *x, *w, *out;
+  float *y32, *bias;
+  cudaMalloc(&a, (size_t)m * hd * 2), cudaMalloc(&x, (size_t)m * d * 2);
+  cudaMalloc(&w, (size_t)hd * d * 2), cudaMalloc(&out, (size_t)m * d * 2);
+  cudaMalloc(&y32, (size_t)m * d * 4), cudaMalloc(&bias, d * 4);
+  fill<<<1024, 256>>>(a, (size_t)m * hd, 9), fill<<<1024, 256>>>(x, (size_t)m * d, 10);
+  fill<<<1024, 256>>>(w, (size_t)hd * d, 11), fill_f32<<<64, 256>>>(bias, d);
+  cudaDeviceSynchronize();
+  const double wide = 2.0 * m * d * hd;
+  char name[64];
+  auto at = [&](const char* what) {
+    snprintf(name, sizeof name, "%s %s", tag, what);
+    return name;
+  };
+  const ResidualEpilogue<__nv_bfloat16, true> k9{bias, x, d, y32};
+  flat<128, 4>(at("K9 fc2 ResidualEpilogue<bf16, f32 out>"), a, hd, w, nullptr, d, m, k9, wide);
+  flat<192, 3>(at("K9 fc2 ResidualEpilogue<bf16, f32 out>"), a, hd, w, nullptr, d, m, k9, wide);
+  flat<256, 2>(at("K9 fc2 ResidualEpilogue<bf16, f32 out>"), a, hd, w, nullptr, d, m, k9, wide);
+  const BiasEpilogue k10{bias};
+  flat<128, 4>(at("K10 fc2 BiasEpilogue"), a, hd, w, out, d, m, k10, wide);
+  flat<192, 3>(at("K10 fc2 BiasEpilogue"), a, hd, w, out, d, m, k10, wide);
+  flat<192, 4>(at("K10 fc2 BiasEpilogue"), a, hd, w, out, d, m, k10, wide);
+  flat<256, 3>(at("K10 fc2 BiasEpilogue"), a, hd, w, out, d, m, k10, wide);
+  flat<128, 4>(at("K10 dx NoEpilogue"), a, hd, w, out, d, m, NoEpilogue{}, wide);
+  flat<192, 4>(at("K10 dx NoEpilogue"), a, hd, w, out, d, m, NoEpilogue{}, wide);
+  flat<256, 3>(at("K10 dx NoEpilogue"), a, hd, w, out, d, m, NoEpilogue{}, wide);
+  cudaDeviceSynchronize();
+  cudaFree(a), cudaFree(x), cudaFree(w), cudaFree(out), cudaFree(y32), cudaFree(bias);
+}
+
 }  // namespace
 
 int main() {
@@ -199,6 +236,11 @@ int main() {
     k1_products("K1 serving", 32 * 197, 768, 3072);
     k1_products("K1 text", 256 * 77, 512, 2048);
     k1_products("K1 BERT", 256 * 256, 768, 3072);
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    mlp_products("BERT chunk", 256 * 256, 768, 3072);
+    mlp_products("DINOv2", 24 * 1370, 768, 3072);
+    mlp_products("BERT LoRA", 16 * 256, 768, 3072);
   }
   return 0;
 }

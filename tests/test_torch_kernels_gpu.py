@@ -41,7 +41,11 @@ with head dim 32 refused, and no bf16 K6 or K8 call reaching a WMMA GEMM
 or a SIMT attention kernel (profiler kernel names). K1 (on K7 and the
 Hopper GEMM core in bf16) also at the serving shape [32, 197, 768], a bf16
 K1 with head dim 32 refused, and no bf16 K1 (pre-norm, causal, post-norm)
-or K6 post-LN call reaching a WMMA GEMM or a SIMT attention kernel.
+or K6 post-LN call reaching a WMMA GEMM or a SIMT attention kernel. K9 and
+K10 (forward and backward, on the Hopper GEMM core in bf16): K10's forward
+also at DINOv2's [24 * 1370, 768], [16 * 256, 768] and an odd [1001, 768],
+its bf16 backward bitwise equal over two calls, and no bf16 K9 or K10 call
+reaching a WMMA GEMM.
 """
 
 import pytest
@@ -292,8 +296,12 @@ def test_flash_attention_kernel_matches_plain(cuda, layout, b, h, n, bias, causa
 
 @pytest.mark.parametrize("m,d,hidden,act,dtype", [
     (2000, 768, 3072, "gelu", torch.bfloat16), (77, 128, 512, "quick_gelu", torch.float32),
-    (77, 128, 512, "gelu", torch.bfloat16)])
+    (77, 128, 512, "gelu", torch.bfloat16), (24 * 1370, 768, 3072, "gelu", torch.bfloat16),
+    (4096, 768, 3072, "gelu", torch.bfloat16), (1001, 768, 3072, "quick_gelu", torch.bfloat16),
+    (1001, 768, 3072, "gelu", torch.float32)])
 def test_fused_mlp_kernel_matches_plain(cuda, m, d, hidden, act, dtype):
+    """K10's forward: DINOv2's [24 * 1370, 768] (its last 128-row tile
+    ragged), the BERT LoRA layers' [16 * 256, 768], an odd row count."""
     from nextgen_uia_tpu_torch.ops import fused_mlp as fm
 
     gen = torch.Generator().manual_seed(m)
@@ -1004,6 +1012,24 @@ def _k6_k8_backward_args(device, b, n, width, heads, seed):
     return blk, (q, k, v), x, g, ws
 
 
+@pytest.mark.parametrize("m", [4096, 1001])
+def test_fused_mlp_backward_is_bitwise_deterministic(cuda, m):
+    """Two calls of K10's bf16 backward give bitwise-equal dx (each output
+    element one thread's sum in a fixed order, no atomics)."""
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(m)
+    bf16 = torch.bfloat16
+    x, g = (torch.randn(m, 768, generator=gen).to(cuda, bf16) for _ in range(2))
+    w1 = (torch.randn(768, 3072, generator=gen) / 768 ** 0.5).to(cuda, bf16)
+    w2 = (torch.randn(3072, 768, generator=gen) / 3072 ** 0.5).to(cuda, bf16)
+    b1 = (0.1 * torch.randn(3072, generator=gen)).to(cuda)
+    with torch.no_grad():
+        first, second = (fm.fused_mlp_backward(x, w1, b1, w2, g) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("b,n,width,heads", [(64, 197, 768, 12), (3, 50, 128, 2)])
 def test_k6_k8_backward_is_bitwise_deterministic(cuda, b, n, width, heads):
     """Two calls of K6's and of K8's bf16 backward give bitwise-equal
@@ -1118,3 +1144,28 @@ def test_bf16_k1_k6post_reach_no_wmma_gemm(cuda):
             bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
                    or "simt" in k]
             assert not bad, (what, bad)
+
+
+def test_bf16_k9_k10_reach_no_wmma_gemm(cuda):
+    """A bf16 K9 call (BERT's chunk [256, 256, 768]) and K10's forward (an
+    odd row count) and backward run every product on the Hopper GEMM core:
+    the profiler sees hopper::gemm_kernel and no WMMA GEMM (gemm_bf16)."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_mlp
+    from nextgen_uia_tpu_torch.ops import fused_mlp as fm
+
+    bf16 = torch.bfloat16
+    layer = _bert_layer(cuda, 768, 12, 3072)
+    gen = torch.Generator().manual_seed(9)
+    bx = torch.randn(256, 256, 768, generator=gen).to(cuda, bf16)
+    x, g = (torch.randn(1001, 768, generator=gen).to(cuda, bf16) for _ in range(2))
+    fc1, fc2 = layer.ffn.fc1, layer.ffn.fc2
+    w1, w2 = fc1.w.to(bf16), fc2.w.to(bf16)
+    calls = {
+        "K9": lambda: fused_ln_mlp.fused_postnorm_mlp_ln(bx, layer.ffn, layer.ffn_ln),
+        "K10 forward": lambda: fm.fused_mlp(x, fc1.w, fc1.b, fc2.w, fc2.b),
+        "K10 backward": lambda: fm.fused_mlp_backward(x, w1, fc1.b, w2, g)}
+    with torch.no_grad():
+        for what, fn in calls.items():
+            names = _device_kernel_names(fn)
+            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
+            assert not [k for k in names if "gemm_bf16" in k], (what, sorted(names))
