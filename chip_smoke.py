@@ -43,7 +43,13 @@
    post-LN, on K7 and the Hopper GEMM core in bf16, with their kernels'
    device time alone and no WMMA GEMM and no SIMT attention kernel in a
    bf16 call, K1 beside torch.nn.TransformerEncoderLayer holding the same
-   weights under inference_mode, and whether its fast path ran), with
+   weights under inference_mode, and whether its fast path ran; K5
+   pre-norm, on the Hopper GEMM core in bf16, at [64, 197, 768], [32, 197,
+   768], [3, 37, 768] and [1, 1, 768], its bf16 backward bitwise equal over
+   two calls, timed op and kernels alone; K12 in each of its four variants,
+   its bf16 products on wgmma, the hybrid one timed op and kernels alone;
+   no bf16 call of K5 or K12 reaching the WMMA GEMM, colgemm_kernel or
+   mona_down_kernel), with
    CUDA-event times and the bound from the card's peak rates:
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
@@ -101,7 +107,8 @@
    blocks, cached text, batch 64 as one microbatch, bf16) by the composed
    route, the fused MONA route (K12), and with it the fused (K11) and the
    hybrid attention block: launch counts, ms and img/s, the device's busy
-   share, peak memory; in float32 the fused route on the kernels against
+   share, peak memory, no WMMA GEMM, colgemm_kernel or mona_down_kernel in
+   the profile; in float32 the fused route on the kernels against
    the composed plain path (loss, every MONA tensor); bench.main's JSON.
 11. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
@@ -582,6 +589,7 @@ def kernel_phase(dev):
     text_lora_kernel_rows(dev, gen, check)
     fused_kernel_rows(dev, gen, results)
     k6_k8_rows(dev, block(d, h))
+    k5_rows(dev, block(d, h))
     return results
 
 
@@ -684,14 +692,83 @@ def k6_k8_rows(dev, blk):
                   f"{b_ms:.4f} ms ({b_by})")
 
 
+K5_SHAPES = ((FT_BATCH, 197), (BATCH, 197), (3, 37), (1, 1))  # bench, supervised, ragged
+
+
+def k5_rows(dev, blk):
+    """K5 pre-norm (LayerNorm + q/k/v, forward and dx backward), on the
+    Hopper GEMM core in bf16, at K5_SHAPES x 768, 12 heads: float32 against
+    the plain version within 1e-4 * max|ref|, bf16 on the bf16-rounded
+    inputs within 3e-2 * max(1, max|ref|), each output against its own
+    scale; the bf16 backward bitwise equal over two calls. At the bench
+    step's and the supervised step's shapes, in bf16: the op by CUDA events,
+    its kernels alone (the gemm and layernorm kernels; no kernel of
+    OLD_KERNELS), each kernel with its device ms, the plain version and the
+    bound."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv as flq
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    d, h = 768, 12
+    dh = d // h
+    gen = torch.Generator().manual_seed(14)
+    gamma, _, w_qkv, _ = flq._weights(blk.ln1, blk.attn, f32)
+    ops = {"fused_ln_qkv": (
+               lambda x, *_: flq.fused_ln_qkv(x, blk.ln1, blk.attn, heads=h),
+               lambda x, *_: flq.fused_ln_qkv_plain(x, blk.ln1, blk.attn, heads=h)),
+           "fused_ln_qkv_backward": (
+               lambda x, *dy: flq.fused_ln_qkv_backward(x, gamma, w_qkv.to(x.dtype), *dy),
+               lambda x, *dy: flq.fused_ln_qkv_backward_plain(x, gamma, w_qkv, *dy))}
+    for b, n in K5_SHAPES:
+        m = b * n
+        args32 = [torch.randn(b, n, d, generator=gen).to(dev)] + [
+            torch.randn(b, h, n, dh, generator=gen).to(dev) for _ in range(3)]
+        args_b = [t.to(bf16) for t in args32]
+        args_r = [t.float() for t in args_b]
+        costs = {"fused_ln_qkv": (2 * m * d * 3 * d, 2 * (4 * m * d + 3 * d * d)),
+                 "fused_ln_qkv_backward": (2 * m * d * 3 * d, 2 * (5 * m * d + 3 * d * d))}
+        with torch.no_grad():
+            for name, (kern, plain) in ops.items():
+                rel32 = max(e / sc for e, sc in errors(kern(*args32), plain(*args32)))
+                err_b, scale_b = max(errors(kern(*args_b), plain(*args_r)),
+                                     key=lambda e: e[0] / max(1.0, e[1]))
+                first, second = kern(*args_b), kern(*args_b)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, c) for a, c in
+                           zip(first if isinstance(first, tuple) else (first,),
+                               second if isinstance(second, tuple) else (second,)))
+                print(f"{name}: [{b}, {n}, {d}], {h} heads: f32 rel max|d| {rel32:.3e} (<= 1e-4); "
+                      f"bf16 max|d| {err_b:.3e} (<= {BF16_BOUND * max(1.0, scale_b):.3e}, max|ref| "
+                      f"{scale_b:.3e}); two bf16 calls bitwise equal: {same}")
+                require(rel32 <= F32_BOUND, f"{name} float32 mismatch at [{b}, {n}, {d}]")
+                require(err_b <= BF16_BOUND * max(1.0, scale_b),
+                        f"{name} bfloat16 mismatch at [{b}, {n}, {d}]")
+                require(same or "backward" not in name,
+                        f"{name} bf16 is not bitwise repeatable at [{b}, {n}, {d}]")
+                if n != 197:
+                    continue
+                op_ms = cuda_ms(lambda: kern(*args_b), 20)
+                kern_ms, seen, check = hopper_kernels_ms(name, lambda: kern(*args_b),
+                                                         ("gemm", "layernorm"))
+                for key, ms_ in sorted(seen.items(), key=lambda kv: -kv[1]):
+                    print(f"{name}:   {ms_:.4f} ms {key[:100]}")
+                plain_ms = cuda_ms(lambda: plain(*args_b), 3, warmup=1)
+                b_ms, b_by = bound(*costs[name])
+                print(f"{name}: bf16 [{b}, {n}, {d}]: op {op_ms:.4f} ms, kernels alone "
+                      f"{kern_ms:.4f} ms ({check}), plain {plain_ms:.4f} ms, library -, bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+
+
 def fused_kernel_rows(dev, gen, results):
     """K12 (the whole MONA adapter) and K11 (the attention block) at the
     bench step's shapes, x [64, 197, 768]: each against its plain version on
-    the same inputs, float32 and bfloat16. K12 (hybrid, c = 64, a dropout
-    mask): output and dx within 1e-4 * max|ref| (float32) or 3e-2 * max|ref|
-    (bf16); each parameter gradient within min(1e-4 * the largest max|ref|,
-    3e-2 * its own) in float32, 3e-2 * the largest in bf16; two backward
-    calls bitwise equal. K11 (12 heads, a key-padding bias) forward, dx
+    the same inputs, float32 and bfloat16. K12 (each of the four variants,
+    c = 64, a dropout mask): output and dx within 1e-4 * max|ref| (float32)
+    or 3e-2 * max|ref| (bf16); each parameter gradient within min(1e-4 * the
+    largest max|ref|, 3e-2 * its own) in float32, 3e-2 * the largest in
+    bf16; two backward calls bitwise equal; the hybrid adapter's bf16 op and
+    kernels alone (no WMMA GEMM, colgemm_kernel or mona_down_kernel). K11 (12 heads, a key-padding bias) forward, dx
     backward and the hybrid forward (plain products around K7), and a causal
     case [16, 77, 512] with 8 heads: 1e-4 / 3e-2 * max|ref|, the bf16
     backward bitwise equal over two calls. CUDA-event times in bf16 beside
@@ -713,66 +790,83 @@ def fused_kernel_rows(dev, gen, results):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
-    mona = Mona(gen, d, c, "hybrid")
-    with torch.no_grad():  # the init's gamma (1e-6) would hide the LayerNorm branch
-        mona.gamma.copy_(0.5 * torch.randn(d, generator=gen))
-        mona.norm.scale.add_(0.1 * torch.randn(d, generator=gen))
-        mona.norm.bias.add_(0.1 * torch.randn(d, generator=gen))
-        mona.freq_filter.add_(0.3 * torch.randn(c, generator=gen))
-    mona.to(dev)
+    def adapter(variant):
+        mona = Mona(gen, d, c, variant)
+        with torch.no_grad():  # the init's gamma (1e-6) would hide the LayerNorm branch
+            mona.gamma.copy_(0.5 * torch.randn(d, generator=gen))
+            mona.norm.scale.add_(0.1 * torch.randn(d, generator=gen))
+            mona.norm.bias.add_(0.1 * torch.randn(d, generator=gen))
+            if hasattr(mona, "freq_filter"):
+                mona.freq_filter.add_(0.3 * torch.randn(c, generator=gen))
+        return mona.to(dev)
+
     x32, g32 = randn(b, n, d), randn(b, n, d)
-    mkw = dict(variant="hybrid",
-               mask=((torch.rand(b, n, c, generator=gen) < 0.9).float() / 0.9).to(dev))
+    mkw = dict(mask=((torch.rand(b, n, c, generator=gen) < 0.9).float() / 0.9).to(dev))
     bf16_err = {}
-    for dtype in (f32, bf16):
-        x, g = x32.to(dtype), g32.to(dtype)
-        with torch.no_grad():
-            out, saved = fm.mona_block_fused_forward(mona, x, hw, **mkw)
-            ref = fm.mona_block_fused_plain(mona, x, hw, **mkw)
-            dx, grads = fm.mona_block_fused_backward(mona, x, hw, g, saved, **mkw)
-            dx2, grads2 = fm.mona_block_fused_backward(mona, x, hw, g, saved, **mkw)
-            want_dx, want = fm.mona_block_fused_backward_plain(mona, x, hw, g, **mkw)
-            torch.cuda.synchronize()
-        lim = F32_BOUND if dtype == f32 else BF16_BOUND
-        (e_out, s_out), (e_dx, s_dx) = errors((out, dx), (ref, want_dx))
-        if dtype == f32:
-            worst, name = worst_ratio(grads, want, lambda k: False)
-        else:
-            top = max(r.abs().max().item() for r in want.values())
-            worst, name = max(((grads[k] - r).abs().max().item() / (lim * top), k)
-                              for k, r in want.items())
-        same = torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k]) for k in want)
-        print(f"mona_block_fused: {dtype} [{b}, {n}, {d}] hybrid: output max|d| {e_out:.3e} "
-              f"(<= {lim * s_out:.3e}), dx {e_dx:.3e} (<= {lim * s_dx:.3e}); {len(want)} "
-              f"parameter gradients worst max|d| / limit {worst:.3f} ({name}); two backward "
-              f"calls bitwise equal: {same}")
-        require(e_out <= lim * s_out, f"mona_block_fused {dtype} output mismatch")
-        require(e_dx <= lim * s_dx, f"mona_block_fused backward {dtype} dx mismatch")
-        require(worst <= 1.0, f"mona_block_fused backward {dtype} gradient of {name} mismatch")
-        require(set(grads) == {k for k, _ in mona.named_parameters()},
-                "mona_block_fused backward does not cover every parameter")
-        require(same, f"mona_block_fused backward {dtype} is not bitwise repeatable")
-        if dtype == bf16:
-            bf16_err = {"fwd": e_out, "bwd": max([e_dx] + [(grads[k] - r).abs().max().item()
-                                                          for k, r in want.items()])}
+    for variant in ("baseline", "freq_enhanced", "noise_aware", "hybrid"):
+        mona = adapter(variant)
+        mkw["variant"] = variant
+        for dtype in (f32, bf16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            with torch.no_grad():
+                out, saved = fm.mona_block_fused_forward(mona, x, hw, **mkw)
+                ref = fm.mona_block_fused_plain(mona, x, hw, **mkw)
+                dx, grads = fm.mona_block_fused_backward(mona, x, hw, g, saved, **mkw)
+                dx2, grads2 = fm.mona_block_fused_backward(mona, x, hw, g, saved, **mkw)
+                want_dx, want = fm.mona_block_fused_backward_plain(mona, x, hw, g, **mkw)
+                torch.cuda.synchronize()
+            lim = F32_BOUND if dtype == f32 else BF16_BOUND
+            (e_out, s_out), (e_dx, s_dx) = errors((out, dx), (ref, want_dx))
+            if dtype == f32:
+                worst, name = worst_ratio(grads, want, lambda k: False)
+            else:
+                top = max(r.abs().max().item() for r in want.values())
+                worst, name = max(((grads[k] - r).abs().max().item() / (lim * top), k)
+                                  for k, r in want.items())
+            same = torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k]) for k in want)
+            print(f"mona_block_fused: {dtype} [{b}, {n}, {d}] {variant}: output max|d| "
+                  f"{e_out:.3e} (<= {lim * s_out:.3e}), dx {e_dx:.3e} (<= {lim * s_dx:.3e}); "
+                  f"{len(want)} parameter gradients worst max|d| / limit {worst:.3f} ({name}); "
+                  f"two backward calls bitwise equal: {same}")
+            require(e_out <= lim * s_out, f"mona_block_fused {dtype} {variant} output mismatch")
+            require(e_dx <= lim * s_dx, f"mona_block_fused backward {dtype} {variant} dx mismatch")
+            require(worst <= 1.0, f"mona_block_fused backward {dtype} {variant} gradient of "
+                                  f"{name} mismatch")
+            require(set(grads) == {k for k, _ in mona.named_parameters()},
+                    f"mona_block_fused backward ({variant}) does not cover every parameter")
+            require(same, f"mona_block_fused backward {dtype} {variant} is not bitwise "
+                          f"repeatable")
+            if dtype == bf16 and variant == "hybrid":
+                bf16_err = {"fwd": e_out, "bwd": max([e_dx] + [(grads[k] - r).abs().max().item()
+                                                              for k, r in want.items()])}
+    # the hybrid adapter in bf16: op and kernels alone (the wgmma products,
+    # the spatial and LayerNorm kernels, the ordered sums; no kernel of
+    # OLD_KERNELS), plain version, bound
     x, g = x32.to(bf16), g32.to(bf16)
+    k12_kernels = ("gemm", "mona", "sum_splits")
     with torch.no_grad():
         _, saved = fm.mona_block_fused_forward(mona, x, hw, **mkw)
-        times = {"fwd": (cuda_ms(lambda: fm.mona_block_fused_forward(mona, x, hw, **mkw), 20),
+        fwd = lambda: fm.mona_block_fused_forward(mona, x, hw, **mkw)  # noqa: E731
+        bwd = lambda: fm.mona_block_fused_backward(mona, x, hw, g, saved, **mkw)  # noqa: E731
+        times = {"fwd": (cuda_ms(fwd, 20),
                          cuda_ms(lambda: fm.mona_block_fused_plain(mona, x, hw, **mkw), 5,
                                  warmup=1)),
-                 "bwd": (cuda_ms(lambda: fm.mona_block_fused_backward(mona, x, hw, g, saved,
-                                                                      **mkw), 20),
+                 "bwd": (cuda_ms(bwd, 20),
                          cuda_ms(lambda: fm.mona_block_fused_backward_plain(mona, x, hw, g,
                                                                             **mkw), 3,
                                  warmup=1))}
+        alone = {"fwd": hopper_kernels_ms("mona_block_fused", fwd, k12_kernels),
+                 "bwd": hopper_kernels_ms("mona_block_fused_backward", bwd, k12_kernels)}
     mono = 2 * 49 * b * grid * grid * c + 2 * b * grid * grid * c * c
     costs = {"fwd": (4 * m * d * c + mono, 2 * 2 * m * d + 4 * m * c),
              "bwd": (8 * m * d * c + 2 * mono, 3 * 2 * m * d + 4 * m * c)}
     for key, name in (("fwd", "mona_block_fused"), ("bwd", "mona_block_fused_backward")):
         (ms, plain_ms), (b_ms, b_by) = times[key], bound(*costs[key])
-        print(f"{name}: bf16 [{b}, {n}, {d}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library -, bound {b_ms:.4f} ms ({b_by})")
+        k_ms, seen, check = alone[key]
+        for kname, ms_ in sorted(seen.items(), key=lambda kv: -kv[1]):
+            print(f"{name}:   {ms_:.4f} ms {kname[:100]}")
+        print(f"{name}: bf16 [{b}, {n}, {d}] op {ms:.4f} ms, kernels alone {k_ms:.4f} ms "
+              f"({check}), plain {plain_ms:.4f} ms, library -, bound {b_ms:.4f} ms ({b_by})")
         results[name] = dict(max_abs_err=bf16_err[key], ms=ms, plain_ms=plain_ms,
                              library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
@@ -1078,21 +1172,29 @@ def kernel_device_ms(fn, name, iters=20, windows=3, seen=None):
     return float("nan")
 
 
-def hopper_kernels_ms(name, fn):
+# the port's old product kernels, which no bf16 call may reach: the WMMA
+# GEMM, K12's SIMT down product and weight products (named as the port
+# names them: a whole step also runs library kernels)
+OLD_PRODUCTS = ("nx::gemm_bf16", "colgemm_kernel", "mona_down_kernel")
+# ... and, inside a redesigned op's own window, no SIMT attention either
+OLD_KERNELS = OLD_PRODUCTS + ("attention_kernel", "simt")
+
+
+def hopper_kernels_ms(name, fn, kernels=("gemm", "flash", "layernorm")):
     """(device ms per call of fn's kernels alone, {kernel: ms per call},
-    what the check saw): the profiler's gemm, flash and layernorm kernels.
-    A bf16 call must run its products on hopper_gemm.cuh's core and its
-    attention on K7's wgmma kernels: a WMMA GEMM (gemm_bf16) or a SIMT
-    attention kernel fails the run; a window with no device activity leaves
-    that check unmade and says so."""
+    what the check saw): the profiler's kernels whose names hold one of
+    ``kernels``. A bf16 call must run its products on hopper_gemm.cuh's core
+    (or another wgmma kernel) and its attention on K7's wgmma kernels: a
+    kernel of OLD_KERNELS (the WMMA GEMM, a SIMT attention, K12's SIMT
+    products) fails the run; a window with no device activity leaves that
+    check unmade and says so."""
     seen = {}
-    ms = kernel_device_ms(fn, ("gemm", "flash", "layernorm"), seen=seen)
-    bad = sorted(k[:60] for k in seen
-                 if "gemm_bf16" in k or "attention_kernel" in k or "simt" in k)
+    ms = kernel_device_ms(fn, kernels, seen=seen)
+    bad = sorted(k[:60] for k in seen if any(old in k for old in OLD_KERNELS))
     require(not bad and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
             f"{name} bf16 ran {bad or 'no Hopper GEMM'}: every product must run on "
-            f"hopper_gemm.cuh's core and the attention on K7's wgmma kernels")
-    return ms, seen, ("no WMMA GEMM, no SIMT attention" if seen else
+            f"wgmma and the attention on K7's wgmma kernels")
+    return ms, seen, ("no WMMA GEMM, no SIMT product or attention" if seen else
                       "WMMA check not made: the profiler recorded no device activity")
 
 
@@ -2422,7 +2524,8 @@ def bench_phase(dev):
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(bn.batch, gen), 10, warmup=1)
             peak = torch.cuda.max_memory_allocated() / 1e9
-            busy = profile_steps(lambda: step(bn.batch, gen), 2, ms)
+            seen = set()
+            busy = profile_steps(lambda: step(bn.batch, gen), 2, ms, seen)
         want = bench_launches(depth, attn, fused)
         print(f"bench: {label}: batch {knobs.batch} step {ms:.2f} ms = "
               f"{knobs.batch * 1000 / ms:.1f} img/s, device busy {busy:.1f}%, peak device "
@@ -2430,6 +2533,10 @@ def bench_phase(dev):
         require(np.isfinite(metrics["loss"]) and metrics["skipped"] == 0,
                 f"bench step ({label}) {metrics}")
         require(counts == want, f"a bench step ({label}) launched {counts}, want {want}")
+        old = sorted(k[:60] for k in seen if any(o in k for o in OLD_PRODUCTS))
+        print(f"bench: {label}: {len(seen)} kernels in the profile, "
+              f"{old or 'no WMMA GEMM, colgemm_kernel or mona_down_kernel'}")
+        require(not seen or not old, f"the bf16 bench step ({label}) ran {old}")
         launches.update({k: counts[k] for k in ("mona_block_fused", "mona_block_fused_backward",
                                                 "fused_attn_block", "fused_attn_block_backward")
                          if k in counts and attn != "hybrid_block"})
@@ -2488,12 +2595,13 @@ def bench_phase(dev):
     return launches
 
 
-def profile_steps(fn, steps, step_ms):
+def profile_steps(fn, steps, step_ms, seen=None):
     """torch.profiler over ``steps`` calls: device time per call by kernel
     (top 14) and in all, and the share of ``step_ms`` (the call's time
     without the profiler) that the card was busy (kernel times summed,
     returned in %); the host time per call blocked on the device and inside
-    the 'augment' range (tasks/supervised.py::preprocess)."""
+    the 'augment' range (tasks/supervised.py::preprocess). The kernels'
+    names go into the set ``seen`` if given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2516,6 +2624,8 @@ def profile_steps(fn, steps, step_ms):
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
+    if seen is not None:
+        seen.update(r[2] for r in rows)
     total = sum(r[0] for r in rows)
     # the host blocked on the device: .item(), .cpu() and explicit syncs
     waits = [e for e in prof.key_averages()

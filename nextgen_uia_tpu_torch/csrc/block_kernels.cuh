@@ -1,11 +1,13 @@
 // The transformer-block building blocks every block kernel of the port is cut
 // from: LayerNorm forward and backward over rows and a GEMM with a fused
 // epilogue (bf16 tensor cores, or float32 SIMT so the float32 path stays
-// exact). K5 pre-norm (fused_ln_qkv.cu), K9 and K10 launch these, and the
-// float32 paths of K1, K6, K8 and K11 their LayerNorms and SIMT GEMM, so
-// they share one implementation (the bf16 products of K1, K5 raw-x, K6, K8
-// and K11 run on hopper_gemm.cuh, their attention on flash_attention.cu's
-// K7). Everything here is a template or `static`, so each .cu that includes
+// exact). The LayerNorms serve K1, K5, K6, K8 and K9 in both dtypes; the
+// float32 paths of every block kernel (and of K12's up and dgd products)
+// run the SIMT GEMM, so they share one implementation. The bf16 products
+// all run on hopper_gemm.cuh (and K12's weight gradients on its own wgmma
+// kernel), their attention on flash_attention.cu's K7: no path of the port
+// runs the bf16 WMMA GEMM, which nx_gemm keeps as chip_smoke.py's
+// yardstick. Everything here is a template or `static`, so each .cu that includes
 // the header builds on its own (the sources compile in parallel) and the
 // objects link without clashes.
 //

@@ -73,8 +73,8 @@ const char* nx_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 // out[M, N] = act(a[M, K] @ w[K, N] + bias) (+ res) on block_kernels.cuh's
 // WMMA GEMM (bf16) or SIMT GEMM (float32); a and w share `dtype`; needs
 // N % 64 == 0, K % 32 == 0, 16-byte aligned a and w. No path of the port
-// calls it: chip_smoke.py times it beside the Hopper core (the WMMA GEMM
-// K5 pre-norm and K12 still run on).
+// runs the bf16 WMMA GEMM: chip_smoke.py times it here as the yardstick
+// beside the Hopper core; float32 products still run the SIMT GEMM.
 int nx_gemm(const void* a, const void* w, int dtype, const float* bias, const void* res,
             int res_dtype, void* out, int out_dtype, int act, int M, int N, int K,
             void* stream) {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (hopper_gemm.cuh's GEMM core, flash_attention.cu's attention): mbarriers,
+// (hopper_gemm.cuh's GEMM core, flash_attention.cu's attention, fused_mona.cu's
+// weight gradients): mbarriers,
 // TMA loads and stores of tensor maps, wgmma descriptors and products, and
 // the host-side tensor-map encoder.
 //
@@ -333,6 +334,30 @@ __device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[32], const uint32_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64, 64] (+)= A[64, 16] @ B[16, 64], A and B both MN-major in shared
+// memory (rows of 16 K indices, M or N contiguous, 128-byte swizzled as TMA
+// writes a box of 64 columns: both transpose bits; descriptors as for the
+// MN-major B above, the next 16 K indices 2048 bytes on), bf16 in, float32
+// accumulators; scale_d = 0 overwrites D. A product over rows, such as a
+// weight gradient X^T Y of row-major X and Y, reads both this way.
+__device__ __forceinline__ void wgmma_bf16_tt64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -148,6 +148,27 @@ struct ResidualEpilogue {
 // K6's and K8's: a bf16 residual, the sum rounded to bf16
 using BiasResidualEpilogue = ResidualEpilogue<__nv_bfloat16, false>;
 
+// round(res[row, c] + round(v + bias[c])) for a bf16 residual res [rows,
+// ld]: the bias-add rounded to bf16 before the residual is added, the sum
+// rounded again by the bf16 store (MONA's up projection, K12, whose two
+// rounding points ResidualEpilogue's one would not keep); staged
+struct RoundResidualEpilogue {
+  const float* bias;
+  const __nv_bfloat16* res;
+  int ld;
+  static constexpr bool DIRECT = false, STAGED = true;
+  using Row = __nv_bfloat162;
+  __device__ __forceinline__ Row load(long row, int c) const {
+    return row < 0 ? Row{} : __ldg(reinterpret_cast<const Row*>(res + row * ld + c));
+  }
+  __device__ __forceinline__ float2 finish(float2 v, Row x, int c) const {
+    const float2 b = fetch_bias(bias, c);
+    const float2 u = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x + b.x, v.y + b.y)));
+    const float2 r = __bfloat1622float2(x);
+    return make_float2(r.x + u.x, r.y + u.y);
+  }
+};
+
 // act(v + bias[c]), ACT one of common.cuh's codes (GELU in its exact erf
 // form, quick_gelu); staged
 template <int ACT>

@@ -81,12 +81,13 @@ SIGNATURES = {
     "nx_mlp_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, w1_t, b1, w1, w2, g, a, dpre, dx, dtype, M, D, hidden, act, stream
     "nx_mlp_bwd": [P] * 9 + [I] * 5 + [P],
-    # x, mask, prm, uw, out, stats, zd, zcat, gd, y2, img, dtype, B, N, D, h, w, has_noise,
-    # stream
-    "nx_mona_fused_fwd": [P] * 11 + [I] * 7 + [P],
-    # x, mask, prm, uw, g, stats, zd, zcat, gd, y2, img, dx, dgd, dzd, part_img, part_row,
-    # part_up, part_down, grads, dtype, B, N, D, h, w, has_freq, has_noise, splits, stream
-    "nx_mona_fused_bwd": [P] * 19 + [I] * 9 + [P],
+    # x, mask, prm, uw, uw_t, wd_t, out, stats, zd, zcat, gd, y2, img, z1, dtype, B, N, D, h,
+    # w, has_noise, strips, stream
+    "nx_mona_fused_fwd": [P] * 14 + [I] * 8 + [P],
+    # x, mask, prm, uw, wd, g, stats, zd, zcat, gd, y2, img, z1, dx, dgd, dzd, dzd_t, dz1,
+    # part_img, part_row, part_up, part_down, grads, dtype, B, N, D, h, w, has_freq,
+    # has_noise, strips, splits, rows_per, stream
+    "nx_mona_fused_bwd": [P] * 23 + [I] * 11 + [P],
     # x, wqkv_t, bqkv, wo_t, bo, key_bias, qkv, cat, out, dtype, B, N, H, dh, causal, scale,
     # stream
     "nx_fused_attn_fwd": [P] * 9 + [I] * 6 + [F, P],

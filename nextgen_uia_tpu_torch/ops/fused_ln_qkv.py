@@ -38,12 +38,13 @@ def _rawx_weights(attn, dt, transposed=False):
     return w.detach().to(dt).contiguous(), b
 
 
-def _weights(ln, attn, dt):
-    """(gamma, beta, w_qkv [D, 3D] in dt, b_qkv [3D]) as the kernels take
-    them; float32 vectors, detached (the weights are frozen)."""
+def _weights(ln, attn, dt, transposed=False):
+    """(gamma, beta, w_qkv [D, 3D] in dt, or with ``transposed`` W_qkv^T
+    [3D, D] (the forward kernel's), b_qkv [3D]) as the kernels take them;
+    float32 vectors, detached (the weights are frozen)."""
     f32 = torch.float32
     return (ln.scale.detach().to(f32).contiguous(), ln.bias.detach().to(f32).contiguous(),
-            *_rawx_weights(attn, dt))
+            *_rawx_weights(attn, dt, transposed))
 
 
 def fused_ln_qkv_plain(x, ln, attn, *, heads: int, eps: float = 1e-5):
@@ -112,19 +113,19 @@ def _check_cuda(x, heads):
         raise ValueError("fused_ln_qkv CUDA kernel does not take: " + "; ".join(problems))
 
 
-def _check_rawx_cuda(x, heads):
+def _check_hopper_cuda(x, heads, name):
     """_check_cuda, and in bf16 the Hopper GEMM's limit: each 64-column K
     step (backward) and output box (forward) is one head's, so dh % 64."""
     _check_cuda(x, heads)
     dh = x.shape[-1] // heads
     if x.dtype == torch.bfloat16 and dh % 64:
-        raise ValueError(f"fused_ln_qkv_rawx bf16 CUDA kernel does not take head dim {dh} "
+        raise ValueError(f"{name} bf16 CUDA kernel does not take head dim {dh} "
                          f"(head dim % 64 == 0)")
 
 
 def _rawx_cuda(x, w_qkv_t, b_qkv, heads):
     b, n, d = x.shape
-    _check_rawx_cuda(x, heads)
+    _check_hopper_cuda(x, heads, "fused_ln_qkv_rawx")
     dt, dh = x.dtype, d // heads
     q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
     lib = build.library()
@@ -148,7 +149,7 @@ def fused_ln_qkv_rawx_backward(w_qkv, dq, dk, dv, *, dtype):
         raise ValueError(f"fused_ln_qkv_rawx: unsupported device {dq.device}")
     b, h, n, dh = dq.shape
     dx = torch.empty(b, n, h * dh, device=dq.device, dtype=dtype)
-    _check_rawx_cuda(dx, h)
+    _check_hopper_cuda(dx, h, "fused_ln_qkv_rawx")
     dq, dk, dv = (t.to(dtype).contiguous() for t in (dq, dk, dv))
     w_qkv = w_qkv.to(dtype).contiguous()
     lib = build.library()
@@ -185,16 +186,16 @@ def fused_ln_qkv_rawx(x, attn, *, heads: int):
     return _QkvRawx.apply(x, attn, heads)
 
 
-def _forward_cuda(x, gamma, beta, w_qkv, b_qkv, heads, eps):
+def _forward_cuda(x, gamma, beta, w_qkv_t, b_qkv, heads, eps):
     b, n, d = x.shape
-    _check_cuda(x, heads)
+    _check_hopper_cuda(x, heads, "fused_ln_qkv")
     dt, dh = x.dtype, d // heads
     z = torch.empty(b * n, d, device=x.device, dtype=dt)
     q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_ln_qkv_fwd(
-            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w_qkv),
+            build.ptr(x, "x"), build.ptr(gamma), build.ptr(beta), build.ptr(w_qkv_t),
             build.ptr(b_qkv), build.ptr(z), build.ptr(q), build.ptr(k), build.ptr(v),
             build.DTYPE_CODES[dt], b, n, heads, dh, eps, build.stream(x.device)),
             "fused_ln_qkv")
@@ -212,7 +213,7 @@ def fused_ln_qkv_backward(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-5):
         raise ValueError(f"fused_ln_qkv: unsupported device {x.device}")
     b, n, d = x.shape
     heads = dq.shape[1]
-    _check_cuda(x, heads)
+    _check_hopper_cuda(x, heads, "fused_ln_qkv")
     dt = x.dtype
     dq, dk, dv = (t.to(dt).contiguous() for t in (dq, dk, dv))
     gamma, w_qkv = gamma.to(torch.float32).contiguous(), w_qkv.to(dt).contiguous()
@@ -238,7 +239,8 @@ class _FusedLnQkv(torch.autograd.Function):
             return fused_ln_qkv_plain(x, ln, attn, heads=heads, eps=eps)
         if x.device.type != "cuda":
             raise ValueError(f"fused_ln_qkv: unsupported device {x.device}")
-        return _forward_cuda(x.contiguous(), *_weights(ln, attn, x.dtype), heads, eps)
+        return _forward_cuda(x.contiguous(), *_weights(ln, attn, x.dtype, transposed=True),
+                             heads, eps)
 
     @staticmethod
     def backward(ctx, dq, dk, dv):

@@ -1,6 +1,6 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k6|k7|k8|k11|mlp|text|bench]
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|text|bench]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -32,7 +32,13 @@ for K10 (the MLP with frozen weights, ``fused_mlp``) at each of
 ``MLP_SHAPES`` in bf16: the forward at DINOv2's [24 * 1370, 768] x 3072 and
 the dx backward (``fused_mlp_backward``, W1^T built in the call) at the
 BERT LoRA layers' [16 * 256, 768] x 3072, its kernels being every one whose
-name holds "gemm". ``bench`` prints the
+name holds "gemm". ``k5`` prints the same for K5 pre-norm (LayerNorm + q/k/v,
+``fused_ln_qkv`` and its dx backward) at each of ``BLOCK_SHAPES``, its
+kernels being every one whose name holds "gemm" or "layernorm". ``k12``
+prints the same for K12 (the whole MONA adapter, hybrid, a dropout mask,
+``mona_block_fused_forward`` and its full backward) at ``K12_SHAPE``, its
+kernels being every one whose name holds "gemm", "mona" or "sum_splits"
+(the parameter packing and weight copies left out). ``bench`` prints the
 port's bench step (batch 64, bf16) by each of ``BENCH_ROUTES``: the default
 route (``attn_impl='auto'``, composed MONA), ``auto`` with fused MONA, and
 with fused MONA the K11 and the hybrid attention block, CUDA-event ms per
@@ -97,6 +103,8 @@ TEXT_SHAPE = (256, 256, 768, 12)  # the BERT text cache's chunk, 12 heads
 MLP_SHAPES = (  # (pass, M, D, hidden, act): DINOv2's encoder, the BERT LoRA layers' backward
     ("fwd", 24 * 1370, 768, 3072, "gelu"),
     ("bwd", 16 * 256, 768, 3072, "gelu"))
+
+K12_SHAPE = (64, 197, 768, 14)  # the bench step's: B, N, D, the h = w grid
 
 BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
 
@@ -288,6 +296,45 @@ for what, m, d, hid, act in SHAPES:
               f"{kernel_ms(fn, 20, ('gemm',)):.4f} ms", flush=True)
 '''
 
+K5 = f"SHAPES = {BLOCK_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
+from nextgen_uia_tpu_torch.ops import fused_ln_qkv as flq
+for b, n, d, heads in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    blk = Block(g, ViTConfig(width=d, heads=heads)).to(dev)
+    x = torch.randn(b, n, d, generator=g).to(dev).to(bf16)
+    dy = [torch.randn(b, heads, n, d // heads, generator=g).to(dev).to(bf16) for _ in range(3)]
+    gamma, _, w_qkv, _ = flq._weights(blk.ln1, blk.attn, bf16)
+    kernels = ("gemm", "layernorm")
+    with torch.no_grad():
+        fwd = lambda: flq.fused_ln_qkv(x, blk.ln1, blk.attn, heads=heads)
+        bwd = lambda: flq.fused_ln_qkv_backward(x, gamma, w_qkv, *dy)
+        print(f"K5 pre-norm [{b}, {n}, {d}] {heads} heads: fwd op {op_ms(fwd, 20):.4f} kernel "
+              f"{kernel_ms(fwd, 20, kernels):.4f}; bwd op {op_ms(bwd, 20):.4f} kernel "
+              f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
+'''
+
+K12 = f"SHAPE = {K12_SHAPE!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.adapters.mona import Mona
+from nextgen_uia_tpu_torch.ops import fused_mona as fm
+b, n, d, grid = SHAPE
+g = torch.Generator().manual_seed(n)
+mona = Mona(g, d, 64, "hybrid")
+with torch.no_grad():
+    mona.gamma.copy_(0.5 * torch.randn(d, generator=g))
+mona = mona.to(dev)
+x, go = (torch.randn(b, n, d, generator=g).to(dev).to(bf16) for _ in range(2))
+kw = dict(variant="hybrid", mask=((torch.rand(b, n, 64, generator=g) < 0.9).float() / 0.9).to(dev))
+kernels = ("gemm", "mona", "sum_splits")
+with torch.no_grad():
+    _, saved = fm.mona_block_fused_forward(mona, x, (grid, grid), **kw)
+    fwd = lambda: fm.mona_block_fused_forward(mona, x, (grid, grid), **kw)
+    bwd = lambda: fm.mona_block_fused_backward(mona, x, (grid, grid), go, saved, **kw)
+    print(f"K12 hybrid [{b}, {n}, {d}] grid {grid}: fwd op {op_ms(fwd, 20):.4f} kernel "
+          f"{kernel_ms(fwd, 20, kernels):.4f}; bwd op {op_ms(bwd, 20):.4f} kernel "
+          f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
+'''
+
 BENCH = f"ROUTES = {BENCH_ROUTES!r}" + r'''
 import dataclasses, os, sys, torch
 sys.path.insert(0, ".")
@@ -316,9 +363,9 @@ for attn, fused in ROUTES:
           flush=True)
 '''
 
-TIMINGS = {"k1": (K1, "K1 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "), "k8": (K8, "K8 "),
-           "k11": (K11, "K11 "), "mlp": (MLP, "K10 "), "text": (TEXT, "TEXT "),
-           "bench": (BENCH, "BENCH ")}
+TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
+           "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
+           "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
 
 
 def main(argv=None):
@@ -326,7 +373,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k6|k7|k8|k11|mlp|text|bench]")
+                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|text|bench]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

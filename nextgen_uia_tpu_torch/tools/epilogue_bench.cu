@@ -5,7 +5,13 @@
 // 512] x 2048, BERT's [256 * 256, 768] x 3072), then the fc2 of K9 (BERT's
 // [256 * 256, 768] x 3072) and of K10 (DINOv2's [24 * 1370, 768], the BERT
 // LoRA layers' [16 * 256, 768]) and K10's backward dx product ([16 * 256,
-// 768]) at the tile configs their shared memory allows:
+// 768]), then K5 pre-norm's backward dz product (head-major dq|dk|dv
+// against W_qkv, the float32 dz stored from the registers) at the bench
+// step's [64 * 197, 768] and the supervised step's [32 * 197, 768], and
+// K12's products at the bench step's [64 * 197, 768] with bottleneck 64
+// (the down and dgd products to 64 float32 columns, the up product with its
+// two-rounding residual epilogue, d(z1) to 768 float32 columns) at the tile
+// configs their shared memory allows:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //        -o build/epilogue_bench nextgen_uia_tpu_torch/tools/epilogue_bench.cu
@@ -168,6 +174,58 @@ void mlp_products(const char* tag, int m, int d, int hd) {
   cudaFree(a), cudaFree(x), cudaFree(w), cudaFree(out), cudaFree(y32), cudaFree(bias);
 }
 
+// K5 pre-norm's backward dz = [dq|dk|dv] @ W_qkv^T at b sequences of 197
+// tokens (head-major A, per-sequence tiles, float32 out from the registers)
+void k5_dz(int b) {
+  const int n = 197, d = 768, m = b * n;
+  __nv_bfloat16 *dq, *w;
+  float* dz;
+  cudaMalloc(&dq, (size_t)3 * m * d * 2), cudaMalloc(&w, (size_t)3 * d * d * 2);
+  cudaMalloc(&dz, (size_t)m * d * 4);
+  fill<<<1024, 256>>>(dq, (size_t)3 * m * d, 12), fill<<<1024, 256>>>(w, (size_t)3 * d * d, 13);
+  cudaDeviceSynchronize();
+  TmaMatrix ta, none = TmaMatrix{};
+  heads_matrix(ta, dq, dq + (size_t)m * d, dq + (size_t)2 * m * d, b, n, 12, 64, BM);
+  const StoreF32Epilogue e{nullptr, dz, d};
+  const double f = 6.0 * m * d * d;
+  char name[64];
+  snprintf(name, sizeof name, "K5 dz [%d x 197] StoreF32Epilogue", b);
+  time_product<128, 4>(name, ta, w, none, b, n, d, 3 * d, e, f);
+  time_product<192, 4>(name, ta, w, none, b, n, d, 3 * d, e, f);
+  time_product<256, 3>(name, ta, w, none, b, n, d, 3 * d, e, f);
+  cudaDeviceSynchronize();
+  cudaFree(dq), cudaFree(w), cudaFree(dz);
+}
+
+// K12's four products at m rows, width d, bottleneck 64
+void k12_products(int m, int d) {
+  const int c = 64;
+  __nv_bfloat16 *x, *gd, *w, *out;
+  float *zd, *dz1, *bias;
+  cudaMalloc(&x, (size_t)m * d * 2), cudaMalloc(&gd, (size_t)m * c * 2);
+  cudaMalloc(&w, (size_t)c * d * 2), cudaMalloc(&out, (size_t)m * d * 2);
+  cudaMalloc(&zd, (size_t)m * c * 4), cudaMalloc(&dz1, (size_t)m * d * 4);
+  cudaMalloc(&bias, d * 4);
+  fill<<<1024, 256>>>(x, (size_t)m * d, 14), fill<<<1024, 256>>>(gd, (size_t)m * c, 15);
+  fill<<<1024, 256>>>(w, (size_t)c * d, 16), fill_f32<<<64, 256>>>(bias, d);
+  cudaDeviceSynchronize();
+  const double f = 2.0 * m * d * c;
+  const StoreF32Epilogue narrow{bias, zd, c}, wide{nullptr, dz1, d};
+  flat<64, 4>("K12 down/dgd [m, 768] -> 64 StoreF32", x, d, w, nullptr, c, m, narrow, f);
+  flat<64, 6>("K12 down/dgd [m, 768] -> 64 StoreF32", x, d, w, nullptr, c, m, narrow, f);
+  const RoundResidualEpilogue up{bias, x, d};
+  flat<128, 2>("K12 up RoundResidualEpilogue", gd, c, w, out, d, m, up, f);
+  flat<128, 3>("K12 up RoundResidualEpilogue", gd, c, w, out, d, m, up, f);
+  flat<192, 2>("K12 up RoundResidualEpilogue", gd, c, w, out, d, m, up, f);
+  flat<256, 2>("K12 up RoundResidualEpilogue", gd, c, w, out, d, m, up, f);
+  flat<128, 4>("K12 dz1 StoreF32Epilogue", gd, c, w, nullptr, d, m, wide, f);
+  flat<192, 3>("K12 dz1 StoreF32Epilogue", gd, c, w, nullptr, d, m, wide, f);
+  flat<256, 2>("K12 dz1 StoreF32Epilogue", gd, c, w, nullptr, d, m, wide, f);
+  cudaDeviceSynchronize();
+  cudaFree(x), cudaFree(gd), cudaFree(w), cudaFree(out), cudaFree(zd), cudaFree(dz1);
+  cudaFree(bias);
+}
+
 }  // namespace
 
 int main() {
@@ -241,6 +299,11 @@ int main() {
     mlp_products("BERT chunk", 256 * 256, 768, 3072);
     mlp_products("DINOv2", 24 * 1370, 768, 3072);
     mlp_products("BERT LoRA", 16 * 256, 768, 3072);
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    k5_dz(64);
+    k5_dz(32);
+    k12_products(64 * 197, 768);
   }
   return 0;
 }

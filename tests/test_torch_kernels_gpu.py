@@ -45,7 +45,13 @@ or K6 post-LN call reaching a WMMA GEMM or a SIMT attention kernel. K9 and
 K10 (forward and backward, on the Hopper GEMM core in bf16): K10's forward
 also at DINOv2's [24 * 1370, 768], [16 * 256, 768] and an odd [1001, 768],
 its bf16 backward bitwise equal over two calls, and no bf16 K9 or K10 call
-reaching a WMMA GEMM.
+reaching a WMMA GEMM. K5 pre-norm (on the Hopper GEMM core in bf16) at
+[64, 197, 768], [32, 197, 768] and ragged token counts, its bf16 backward
+bitwise equal over two calls and a bf16 head dim of 32 refused; K12 in
+bf16 (its products on wgmma) at [64, 197, 768], [32, 197, 768] and row
+counts no tile divides, its backward bitwise equal over two calls, a bf16
+width above 1536 refused; no bf16 K5 or K12 call reaching a WMMA GEMM,
+colgemm_kernel or mona_down_kernel.
 """
 
 import pytest
@@ -1169,3 +1175,150 @@ def test_bf16_k9_k10_reach_no_wmma_gemm(cuda):
             names = _device_kernel_names(fn)
             assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
             assert not [k for k in names if "gemm_bf16" in k], (what, sorted(names))
+
+
+@pytest.mark.parametrize("b,n,width,heads", [
+    (64, 197, 768, 12), (32, 197, 768, 12), (3, 37, 768, 12), (1, 1, 768, 12),
+    (2, 130, 128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_prenorm_kernels_match_plain(cuda, b, n, width, heads, dtype):
+    """K5 pre-norm (on the Hopper GEMM core in bf16) forward and dx backward
+    against their plain versions at the bench step's and the supervised
+    step's [B, 197, 768] and at ragged token counts (37, 130: a sequence's
+    last 128-row tile ragged; 1: under one tile), one launch each; the bf16
+    backward bitwise equal over two calls."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+
+    blk = _block(cuda, width, heads)
+    gen = torch.Generator().manual_seed(n + b)
+    x = _rounded(torch.randn(b, n, width, generator=gen).to(cuda), dtype)
+    dy = [_rounded(torch.randn(b, heads, n, width // heads, generator=gen).to(cuda), dtype)
+          for _ in range(3)]
+    gamma, _, w_qkv, _ = fused_ln_qkv._weights(blk.ln1, blk.attn, torch.float32)
+    w_qkv = _rounded(w_qkv, dtype)
+    before = (fused_ln_qkv.fused_ln_qkv.launches, fused_ln_qkv.fused_ln_qkv_backward.launches)
+    with torch.no_grad():
+        _check(lambda t: fused_ln_qkv.fused_ln_qkv(t, blk.ln1, blk.attn, heads=heads),
+               lambda t: fused_ln_qkv.fused_ln_qkv_plain(t, blk.ln1, blk.attn, heads=heads),
+               [x.to(dtype)], [x])
+        _check(lambda *t: fused_ln_qkv.fused_ln_qkv_backward(t[0], gamma, w_qkv, *t[1:]),
+               lambda *t: fused_ln_qkv.fused_ln_qkv_backward_plain(t[0], gamma, w_qkv, *t[1:]),
+               [t.to(dtype) for t in [x, *dy]], [x, *dy])
+        again = [fused_ln_qkv.fused_ln_qkv_backward(x.to(dtype), gamma, w_qkv,
+                                                    *[t.to(dtype) for t in dy])
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fused_ln_qkv.fused_ln_qkv.launches, fused_ln_qkv.fused_ln_qkv_backward.launches) \
+        == (before[0] + 1, before[1] + 3)
+    assert torch.equal(*again)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_k5_prenorm_bf16_refuses_head_dim_not_a_multiple_of_64(cuda, backward):
+    """K5 pre-norm's bf16 products are the Hopper GEMM core's, whose K step
+    (backward) and output box (forward) are one head's 64 columns: bf16
+    with dh = 32 raises and names the limit; float32 (the SIMT GEMM) runs."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+
+    blk = _block(cuda, 128, 4)
+    x = torch.randn(2, 24, 128, device=cuda)
+    dy = [torch.randn(2, 4, 24, 32, device=cuda) for _ in range(3)]
+    gamma, _, w_qkv, _ = fused_ln_qkv._weights(blk.ln1, blk.attn, torch.float32)
+
+    def run(dtype):
+        if backward:
+            return fused_ln_qkv.fused_ln_qkv_backward(x.to(dtype), gamma, w_qkv,
+                                                      *[t.to(dtype) for t in dy])
+        return fused_ln_qkv.fused_ln_qkv(x.to(dtype), blk.ln1, blk.attn, heads=4)
+
+    with torch.no_grad():
+        with pytest.raises(ValueError, match=r"fused_ln_qkv bf16 .*head dim 32"):
+            run(torch.bfloat16)
+        run(torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,grid,tail,variant", [
+    (64, 14, 0, "hybrid"), (32, 14, 0, "hybrid"), (3, 14, 5, "noise_aware"),
+    (5, 7, 3, "freq_enhanced"), (1, 14, 0, "baseline")])
+def test_fused_mona_bf16_at_path_and_ragged_shapes(cuda, b, grid, tail, variant):
+    """K12 in bf16 (its products on wgmma) at the bench step's [64, 197,
+    768], the supervised step's [32, 197, 768] and row counts no tile
+    divides (3 * 201, 5 * 53, 197), against its plain version within 3e-2
+    * max|ref| (output, dx; parameter gradients against the largest); two
+    backward calls bitwise equal, also without dx."""
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    m = _mona(cuda, 768, variant, seed=b + tail)
+    n = grid * grid + 1 + tail
+    gen = torch.Generator().manual_seed(n + b)
+    x = torch.randn(b, n, 768, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(b, n, 768, generator=gen).to(cuda, torch.bfloat16)
+    mask = ((torch.rand(b, n, 64, generator=gen) < 0.9).float() / 0.9).to(cuda)
+    kw = dict(variant=variant, mask=mask)
+    hw = (grid, grid)
+    with torch.no_grad():
+        out, saved = fm.mona_block_fused_forward(m, x, hw, **kw)
+        ref = fm.mona_block_fused_plain(m, x, hw, **kw)
+        dx, grads = fm.mona_block_fused_backward(m, x, hw, g, saved, **kw)
+        dx2, grads2 = fm.mona_block_fused_backward(m, x, hw, g, saved, **kw)
+        none, grads3 = fm.mona_block_fused_backward(m, x, hw, g, saved, need_dx=False, **kw)
+        want_dx, want = fm.mona_block_fused_backward_plain(m, x, hw, g, **kw)
+    torch.cuda.synchronize()
+    for got, r in ((out, ref), (dx, want_dx)):
+        assert (got.float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item()
+    assert none is None and torch.equal(dx, dx2)
+    top = max(t.abs().max().item() for t in want.values())
+    for k, r in want.items():
+        assert torch.equal(grads[k], grads2[k]) and torch.equal(grads[k], grads3[k]), k
+        diff = (grads[k] - r).abs().max().item()
+        assert diff <= 3e-2 * top, f"{k}: {diff:.3e} > 3e-2 * {top:.3e}"
+
+
+def test_fused_mona_bf16_refuses_widths_its_kernels_do_not_take(cuda):
+    """K12's bf16 LayerNorm backward stages 16 rows of the width in shared
+    memory: a bf16 width above 1536 raises and names the limit, before any
+    launch; float32 (the SIMT kernels) is not held to it."""
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    m = _mona(cuda, 1600, "baseline", seed=1)
+    x = torch.randn(2, 17, 1600, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match=r"mona_block_fused.*bf16 width 1600"):
+            fm.mona_block_fused_forward(m, x.to(torch.bfloat16), (4, 4), variant="baseline")
+        fm.mona_block_fused_forward(m, x, (4, 4), variant="baseline")
+    torch.cuda.synchronize()
+
+
+def test_bf16_k5_k12_reach_no_wmma_or_simt_product(cuda):
+    """A bf16 K5 pre-norm call (forward, dx backward) and a bf16 K12 call
+    (forward, full backward) run every product on wgmma: the profiler sees
+    hopper::gemm_kernel (and K12's mona_wgrad_kernel), no WMMA GEMM
+    (gemm_bf16), no colgemm_kernel and no mona_down_kernel."""
+    from nextgen_uia_tpu_torch.ops import fused_ln_qkv
+    from nextgen_uia_tpu_torch.ops import fused_mona as fm
+
+    bf16 = torch.bfloat16
+    blk = _block(cuda, 768, 12)
+    mona = _mona(cuda, 768, "hybrid", seed=2)
+    gen = torch.Generator().manual_seed(5)
+    x, g = (torch.randn(4, 197, 768, generator=gen).to(cuda, bf16) for _ in range(2))
+    dy = [torch.randn(4, 12, 197, 64, generator=gen).to(cuda, bf16) for _ in range(3)]
+    gamma, _, w_qkv, _ = fused_ln_qkv._weights(blk.ln1, blk.attn, bf16)
+    with torch.no_grad():
+        _, saved = fm.mona_block_fused_forward(mona, x, (14, 14), variant="hybrid")
+    calls = {
+        "K5 forward": lambda: fused_ln_qkv.fused_ln_qkv(x, blk.ln1, blk.attn, heads=12),
+        "K5 backward": lambda: fused_ln_qkv.fused_ln_qkv_backward(x, gamma, w_qkv, *dy),
+        "K12 forward": lambda: fm.mona_block_fused_forward(mona, x, (14, 14), variant="hybrid"),
+        "K12 backward": lambda: fm.mona_block_fused_backward(mona, x, (14, 14), g, saved,
+                                                             variant="hybrid")}
+    with torch.no_grad():
+        for what, fn in calls.items():
+            names = _device_kernel_names(fn)
+            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
+            if what == "K12 backward":
+                assert any("mona_wgrad_kernel" in k for k in names), (what, sorted(names))
+            bad = [k for k in names
+                   if "gemm_bf16" in k or "colgemm_kernel" in k or "mona_down_kernel" in k]
+            assert not bad, (what, bad)
