@@ -8,7 +8,10 @@
    per source, sm_90a, all started together).
 3. Kernel phase: each kernel, forward and backward, against its plain
    PyTorch version on the card, at the main paths' shapes ([32, 197, 768],
-   12 heads, hidden 3072; MONA [32, 14, 14, 64]; flash attention [24, 12,
+   12 heads, hidden 3072; the MONA spatial op K2 and its backward K3 at
+   [64, 14, 14, 64], [32, 14, 14, 64] and 70 rows (strips of rows a
+   sample), their kernels alone at both path shapes, one device record a
+   call and K3 bitwise equal over two calls; flash attention [24, 12,
    1370, 64] and the fused MLP [32880, 768] x 3072, DINOv2-B/14 at 518 px;
    the flash-attention backward at the LoRA fine-tune's [16, 197, 12, 64]
    and at [24, 12, 1370, 64]; the causal text block [256, 77, 512], 8
@@ -50,7 +53,8 @@
    its bf16 products on wgmma, the hybrid one timed op and kernels alone;
    no bf16 call of K5 or K12 reaching the WMMA GEMM, colgemm_kernel or
    mona_down_kernel), with
-   CUDA-event times and the bound from the card's peak rates:
+   CUDA-event times and the bound from the card's peak rates (the CUDA
+   cores' float32 rate for the depthwise stencils K2, K3 and K4):
    float32 max|d| <= 1e-4 * max|ref| for every output; bfloat16 against
    the float32 plain version on the bf16-rounded inputs max|d| <= 3e-2 *
    max(1, max|ref|) (3e-2 * max|ref| for the flash-attention output and
@@ -177,13 +181,15 @@ def environ(**values):
 
 
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM: dense bf16, HBM3 (data sheet)
+CUDA_CORE_FLOPS = 67e12  # float32 outside the tensor cores: the stencils K2, K3, K4
 BF16_BOUND, F32_BOUND = 3e-2, 1e-4
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of flops at the bf16 tensor-core peak
-    and bytes at the memory rate."""
-    t_ops, t_mem = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak=PEAK_FLOPS):
+    """(bound_ms, bound_by): the larger of flops at ``peak`` (the bf16
+    tensor-core peak, or CUDA_CORE_FLOPS for a depthwise stencil, which has
+    no matrix product) and bytes at the memory rate."""
+    t_ops, t_mem = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -388,25 +394,32 @@ def kernel_phase(dev):
           mlp_bwd_args(blk, b, n, d), mlp_bwd_args(small, ob, on, 128) + [True],
           costs["fused_ln_mlp_residual_backward"])
 
-    # K2/K3: the MONA spatial op, forward and backward, [32, 14, 14, 64] and
-    # an odd [3, 9, 11, 24]
+    # K2/K3: the MONA spatial op, forward and backward, at the bench step's
+    # [64, 14, 14, 64], the supervised step's [32, 14, 14, 64], 70 rows (strips
+    # of rows a sample) and an odd [3, 9, 11, 24]
     def mona_args(bb, hh, ww, c, last):
         return [randn(bb, hh, ww, c), 1 + randn(c, scale=0.3), randn(bb, 7, 7, c, scale=0.2),
                 randn(*last(bb, hh, ww, c))]
 
-    g2 = cfg.grid
-    px = b * g2 * g2 * 64
+    def with_bias(bb, hh, ww, c):
+        return bb, c
+
+    g2, sb = cfg.grid, FT_BATCH
+    px = sb * g2 * g2 * 64
     check("mona_spatial", dwconv.mona_spatial, dwconv.mona_spatial_plain,
-          mona_args(b, g2, g2, 64, lambda bb, hh, ww, c: (bb, c)),
-          mona_args(3, 9, 11, 24, lambda bb, hh, ww, c: (bb, c)),
-          (2 * 49 * px, 2 * (2 * px + b * 50 * 64 + 64)),
+          mona_args(sb, g2, g2, 64, with_bias), mona_args(3, 9, 11, 24, with_bias),
+          (2 * 49 * px, 2 * (2 * px + sb * 50 * 64 + 64), CUDA_CORE_FLOPS),
           library=lambda s, f, k, _: F.conv2d(
               s.permute(3, 0, 1, 2).reshape(1, -1, g2, g2),
-              k.permute(3, 0, 1, 2).reshape(-1, 1, 7, 7), padding=3, groups=s.shape[0] * 64))
+              k.permute(3, 0, 1, 2).reshape(-1, 1, 7, 7), padding=3, groups=s.shape[0] * 64),
+          more=(mona_args(b, g2, g2, 64, with_bias), mona_args(2, 70, 5, 16, with_bias)))
     check("mona_spatial_backward", dwconv.mona_spatial_backward,
           dwconv.mona_spatial_backward_plain,
-          mona_args(b, g2, g2, 64, lambda *sh: sh), mona_args(3, 9, 11, 24, lambda *sh: sh),
-          (4 * 49 * px, 2 * 3 * px + 4 * b * 51 * 64 + 2 * 64))
+          mona_args(sb, g2, g2, 64, lambda *sh: sh), mona_args(3, 9, 11, 24, lambda *sh: sh),
+          (4 * 49 * px, 2 * (3 * px + 2 * sb * 49 * 64 + 2 * 64) + 4 * sb * 64, CUDA_CORE_FLOPS),
+          more=(mona_args(b, g2, g2, 64, lambda *sh: sh),
+                mona_args(2, 70, 5, 16, lambda *sh: sh)))
+    spatial_checks(dwconv, mona_args, with_bias, g2)
 
     # K7: flash attention forward at DINOv2-B/14's 518 px shape, and an odd
     # float32 shape with a key bias and the causal mask. Unit-variance q, k
@@ -1180,22 +1193,73 @@ OLD_PRODUCTS = ("nx::gemm_bf16", "colgemm_kernel", "mona_down_kernel")
 OLD_KERNELS = OLD_PRODUCTS + ("attention_kernel", "simt")
 
 
-def hopper_kernels_ms(name, fn, kernels=("gemm", "flash", "layernorm")):
+def hopper_kernels_ms(name, fn, kernels=("gemm", "flash", "layernorm"), gemm=True):
     """(device ms per call of fn's kernels alone, {kernel: ms per call},
     what the check saw): the profiler's kernels whose names hold one of
     ``kernels``. A bf16 call must run its products on hopper_gemm.cuh's core
-    (or another wgmma kernel) and its attention on K7's wgmma kernels: a
-    kernel of OLD_KERNELS (the WMMA GEMM, a SIMT attention, K12's SIMT
-    products) fails the run; a window with no device activity leaves that
-    check unmade and says so."""
+    (or another wgmma kernel; ``gemm=False`` for an op with no product) and
+    its attention on K7's wgmma kernels: a kernel of OLD_KERNELS (the WMMA
+    GEMM, a SIMT attention, K12's SIMT products) fails the run; a window
+    with no device activity leaves that check unmade and says so."""
     seen = {}
     ms = kernel_device_ms(fn, kernels, seen=seen)
     bad = sorted(k[:60] for k in seen if any(old in k for old in OLD_KERNELS))
-    require(not bad and (not seen or any("hopper::gemm_kernel" in k for k in seen)),
+    require(not bad and (not seen or not gemm or any("hopper::gemm_kernel" in k for k in seen)),
             f"{name} bf16 ran {bad or 'no Hopper GEMM'}: every product must run on "
             f"wgmma and the attention on K7's wgmma kernels")
     return ms, seen, ("no WMMA GEMM, no SIMT product or attention" if seen else
                       "WMMA check not made: the profiler recorded no device activity")
+
+
+def device_records(fn, windows=3):
+    """(device records per call of fn, their names): every kernel, copy and
+    fill the profiler sees in one call after a warm-up call; (None, ()) if
+    no window recorded device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.count for e in events), sorted(e.key[:60] for e in events)
+    return None, ()
+
+
+def spatial_checks(dwconv, mona_args, with_bias, grid):
+    """K2 and K3 in bf16 at [64 | 32, grid, grid, 64]: the kernels alone
+    (profiler device time of csrc/mona_spatial.cu's stencil kernels), one
+    device record a call (no sum, cast, copy or fill beside the kernel;
+    fails otherwise), and K3's backward bitwise equal over two calls in
+    float32 and bf16 (fails otherwise)."""
+    import torch
+
+    ops = {"mona_spatial": (dwconv.mona_spatial, with_bias),
+           "mona_spatial_backward": (dwconv.mona_spatial_backward, lambda *sh: sh)}
+    with torch.no_grad():
+        for name, (fn, last) in ops.items():
+            for bb in (64, 32):
+                args = [t.to(torch.bfloat16) for t in mona_args(bb, grid, grid, 64, last)]
+                k_ms, _, _ = hopper_kernels_ms(name, lambda: fn(*args), ("spatial_stencil",),
+                                               gemm=False)
+                count, names = device_records(lambda: fn(*args))
+                print(f"{name} [{bb}, {grid}, {grid}, 64] bf16: kernels alone {k_ms:.4f} ms; "
+                      f"device records a call: "
+                      f"{'not measured' if count is None else count} {list(names)}")
+                require(count in (None, 1), f"{name} ran {count} device records a call: "
+                                            f"{names}")
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in mona_args(64, grid, grid, 64, lambda *sh: sh)]
+            first, second = (dwconv.mona_spatial_backward(*args) for _ in range(2))
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(first, second)),
+                    f"mona_spatial_backward {dtype} differs between two calls")
+        print("mona_spatial_backward: two calls bitwise equal (float32, bf16)")
 
 
 def inference(fn):
@@ -1422,13 +1486,14 @@ def text_lora_kernel_rows(dev, gen, check):
 
     check("dwconv7_per_sample", dwconv.dwconv7_per_sample, dwconv.dwconv7_per_sample_plain,
           conv_args(kb, kh, kh, kc, False), conv_args(3, 9, 11, 24, False),
-          (2 * 49 * px, 2 * (2 * px + kb * 49 * kc)), library=grouped_conv)
+          (2 * 49 * px, 2 * (2 * px + kb * 49 * kc), CUDA_CORE_FLOPS), library=grouped_conv)
     xg, kg, gg = (t.to(torch.bfloat16).requires_grad_() for t in conv_args(kb, kh, kh, kc, True))
     y = grouped_conv(xg, kg)
     g_conv = gg.detach().permute(3, 0, 1, 2).reshape(y.shape)
     check("dwconv7_per_sample_backward", dwconv.dwconv7_per_sample_backward,
           dwconv.dwconv7_per_sample_backward_plain, conv_args(kb, kh, kh, kc, True),
-          conv_args(3, 9, 11, 24, True), (4 * 49 * px, 2 * (3 * px + 2 * kb * 49 * kc)),
+          conv_args(3, 9, 11, 24, True),
+          (4 * 49 * px, 2 * (3 * px + 2 * kb * 49 * kc), CUDA_CORE_FLOPS),
           library=lambda *_: torch.autograd.grad(y, (xg, kg), g_conv, retain_graph=True))
 
     # K6 post-LN's and K9's backward: autograd through the plain version,

@@ -39,14 +39,15 @@ SIGNATURES = {
     # x, ga, ba, wqkv_t, bqkv, wo_t, bo, gb, bb, w1_t, b1, w2_t, b2, key_bias, qkv, cat, y32,
     # s32, z2, h, out, dtype, B, N, H, dh, hidden, act, causal, postnorm, scale, eps, stream
     "nx_block_fwd": [P] * 21 + [I] * 9 + [F, F, P],
-    # s, freq, kernels, bias, out, dtype, B, H, W, C, stream
-    "nx_mona_spatial": [P, P, P, P, P, I, I, I, I, I, P],
-    # x, kernels, out, dtype, B, H, W, C, stream
-    "nx_dwconv7": [P, P, P, I, I, I, I, I, P],
-    # x, kernels, g, dx, dk, dtype, B, H, W, C, stream
-    "nx_dwconv7_bwd": [P, P, P, P, P, I, I, I, I, I, P],
-    # s, freq, kernels, g, ds, dk, dfreq_part, dbias, dtype, B, H, W, C, stream
-    "nx_mona_spatial_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # s, freq, kernels, bias, out, dtype, B, H, W, C, access, cg, strips, stream
+    "nx_mona_spatial": [P] * 5 + [I] * 8 + [P],
+    # x, kernels, out, dtype, B, H, W, C, access, cg, strips, stream
+    "nx_dwconv7": [P] * 3 + [I] * 8 + [P],
+    # x, kernels, g, dx, dk, part, tickets, dtype, B, H, W, C, access, cg, strips, stream
+    "nx_dwconv7_bwd": [P] * 7 + [I] * 8 + [P],
+    # s, freq, kernels, g, ds, dk, dfreq, dbias, dbias_dtype, part, tickets, dtype, B, H, W,
+    # C, access, cg, strips, stream
+    "nx_mona_spatial_bwd": [P] * 8 + [I, P, P] + [I] * 8 + [P],
     # x, gamma, beta, w_qkv, b_qkv, z, q, k, v, dtype, B, N, H, dh, eps, stream
     "nx_ln_qkv_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     # x, w_qkv_t ([3D, D]), b_qkv, q, k, v, dtype, B, N, H, dh, stream

@@ -1,6 +1,7 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
-    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|text|bench]
+    python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
+        [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -38,7 +39,13 @@ kernels being every one whose name holds "gemm" or "layernorm". ``k12``
 prints the same for K12 (the whole MONA adapter, hybrid, a dropout mask,
 ``mona_block_fused_forward`` and its full backward) at ``K12_SHAPE``, its
 kernels being every one whose name holds "gemm", "mona" or "sum_splits"
-(the parameter packing and weight copies left out). ``bench`` prints the
+(the parameter packing and weight copies left out). ``spatial`` prints
+the MONA spatial op K2 (``mona_spatial``) and its backward K3
+(``mona_spatial_backward``) at each of ``SPATIAL_SHAPES`` in bf16, and K4
+(``dwconv7_per_sample`` and its backward) at the first: the op's CUDA-event
+mean, its stencil kernels' device time alone (every kernel whose name holds
+"spatial") and every device record of the call (casts and sums beside the
+kernel included). ``bench`` prints the
 port's bench step (batch 64, bf16) by each of ``BENCH_ROUTES``: the default
 route (``attn_impl='auto'``, composed MONA), ``auto`` with fused MONA, and
 with fused MONA the K11 and the hybrid attention block, CUDA-event ms per
@@ -105,6 +112,8 @@ MLP_SHAPES = (  # (pass, M, D, hidden, act): DINOv2's encoder, the BERT LoRA lay
     ("bwd", 16 * 256, 768, 3072, "gelu"))
 
 K12_SHAPE = (64, 197, 768, 14)  # the bench step's: B, N, D, the h = w grid
+
+SPATIAL_SHAPES = ((64, 14, 14, 64), (32, 14, 14, 64))  # the bench step's, the supervised step's
 
 BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
 
@@ -335,6 +344,26 @@ with torch.no_grad():
           f"{kernel_ms(bwd, 20, kernels):.4f} ms", flush=True)
 '''
 
+SPATIAL = f"SHAPES = {SPATIAL_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.ops import dwconv
+for b, h, w, c in SHAPES:
+    g = torch.Generator().manual_seed(b)
+    s, go = (torch.randn(b, h, w, c, generator=g).to(dev).to(bf16) for _ in range(2))
+    freq = (1 + 0.3 * torch.randn(c, generator=g)).to(dev).to(bf16)
+    k = (0.2 * torch.randn(b, 7, 7, c, generator=g)).to(dev).to(bf16)
+    bias = torch.randn(b, c, generator=g).to(dev).to(bf16)
+    calls = [("K2", lambda: dwconv.mona_spatial(s, freq, k, bias)),
+             ("K3", lambda: dwconv.mona_spatial_backward(s, freq, k, go))]
+    if b == SHAPES[0][0]:  # K4, the same stencil without freq, bias or residual
+        calls += [("K4", lambda: dwconv.dwconv7_per_sample(s, k)),
+                  ("K4 backward", lambda: dwconv.dwconv7_per_sample_backward(s, k, go))]
+    with torch.no_grad():
+        for name, fn in calls:
+            print(f"SPATIAL {name} [{b}, {h}, {w}, {c}]: op {op_ms(fn, 50):.4f} kernel "
+                  f"{kernel_ms(fn, 50, ('spatial',)):.4f} all {kernel_ms(fn, 50, ('',)):.4f} ms",
+                  flush=True)
+'''
+
 BENCH = f"ROUTES = {BENCH_ROUTES!r}" + r'''
 import dataclasses, os, sys, torch
 sys.path.insert(0, ".")
@@ -365,7 +394,7 @@ for attn, fused in ROUTES:
 
 TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
            "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
-           "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
+           "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
 
 
 def main(argv=None):
@@ -373,7 +402,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|text|bench]")
+                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

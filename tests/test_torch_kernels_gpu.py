@@ -6,7 +6,12 @@ so here they skip. Run them there with
 Tolerances: float32 inputs, block max|d| <= 1e-4 * max|ref| and spatial op
 <= 1e-5 (the same float32 math summed in another order); bfloat16 inputs
 against the float32 plain version, block max|d| <= 3e-2 at unit scale and
-spatial op <= one bf16 ulp at the output's scale. The train path's kernels
+spatial op <= one bf16 ulp at the output's scale; the spatial op (K2) and
+its backward (K3) also at the bench step's [64, 14, 14, 64] and a bf16
+width of 12 (8-byte copies) and 70 rows (strips of rows a sample), K3
+bitwise equal over two calls, and one
+kernel on the card per K2, K3 or autograd backward call (profiler). The
+train path's kernels
 (forward and backward), the flash-attention (K7, forward and backward) and
 fused-MLP (K10) forwards, K1 with the causal mask: float32 max|d| <= 1e-4 *
 max|ref|, bfloat16 <= 3e-2 * max(1, max|ref|), for every output; K7's
@@ -136,7 +141,8 @@ def test_fused_block_rejects_shapes_it_does_not_take(cuda):
                                  _block(cuda, 128, 4), heads=4)
 
 
-@pytest.mark.parametrize("shape", [(32, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
+@pytest.mark.parametrize("shape", [(32, 14, 14, 64), (64, 14, 14, 64), (2, 9, 11, 32),
+                                   (2, 9, 11, 12), (1, 3, 5, 8), (2, 70, 5, 16)])
 def test_mona_spatial_kernel_matches_plain(cuda, shape):
     b, _, _, c = shape
     gen = torch.Generator().manual_seed(sum(shape))
@@ -232,18 +238,74 @@ def test_train_path_kernels_match_plain(cuda, b, n, width, heads, act, dtype):
                low([x, g]), [x, g])
 
 
-@pytest.mark.parametrize("shape", [(32, 14, 14, 64), (2, 9, 11, 32), (1, 3, 5, 8)])
+@pytest.mark.parametrize("shape", [(32, 14, 14, 64), (64, 14, 14, 64), (2, 9, 11, 32),
+                                   (2, 9, 11, 12), (1, 3, 5, 8), (2, 70, 5, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mona_spatial_backward_kernel_matches_plain(cuda, shape, dtype):
-    b, _, _, c = shape
-    gen = torch.Generator().manual_seed(sum(shape))
-    ins = [torch.randn(shape, generator=gen), 1 + 0.3 * torch.randn(c, generator=gen),
-           0.2 * torch.randn(b, 7, 7, c, generator=gen), torch.randn(shape, generator=gen)]
-    ins = [t.to(cuda).to(dtype) for t in ins]
+    ins = _spatial_backward_args(cuda, shape, dtype)
     before = dwconv.mona_spatial_backward.launches
     _check(dwconv.mona_spatial_backward, dwconv.mona_spatial_backward_plain, ins,
            [t.float() for t in ins])
     assert dwconv.mona_spatial_backward.launches == before + 1
+
+
+def _spatial_backward_args(device, shape, dtype):
+    b, _, _, c = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    ins = [torch.randn(shape, generator=gen), 1 + 0.3 * torch.randn(c, generator=gen),
+           0.2 * torch.randn(b, 7, 7, c, generator=gen), torch.randn(shape, generator=gen)]
+    return [t.to(device).to(dtype) for t in ins]
+
+
+@pytest.mark.parametrize("shape", [(64, 14, 14, 64), (32, 14, 14, 64), (3, 9, 11, 24),
+                                   (2, 70, 5, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mona_spatial_backward_is_bitwise_deterministic(cuda, shape, dtype):
+    """K3's cross-CTA sums (the strips of a sample where its rows span CTAs,
+    as at 70 rows, then dfreq over the batch) run in a fixed order inside
+    the one launch: two calls give the same bits."""
+    ins = _spatial_backward_args(cuda, shape, dtype)
+    first, second = (dwconv.mona_spatial_backward(*ins) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _device_kernel_count(fn):
+    """The device records (kernels, copies, fills) torch.profiler sees in one
+    call of fn, after a warm-up call; a window with none is profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.count for e in events), sorted(e.key for e in events)
+    pytest.fail("the profiler recorded no device activity in any window")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mona_spatial_calls_launch_one_kernel(cuda, dtype):
+    """One mona_spatial call and one mona_spatial_backward call each run
+    exactly one kernel on the card: no sum, cast, copy or fill beside it;
+    the autograd backward neither (its bias gradient is written in bias's
+    dtype by the kernel)."""
+    s, freq, kernels, g = _spatial_backward_args(cuda, (32, 14, 14, 64), dtype)
+    bias = g[:, 0, 0].contiguous()
+    with torch.no_grad():
+        assert _device_kernel_count(lambda: dwconv.mona_spatial(s, freq, kernels, bias))[0] == 1
+        assert _device_kernel_count(
+            lambda: dwconv.mona_spatial_backward(s, freq, kernels, g))[0] == 1
+    leaves = [t.clone().requires_grad_() for t in (s, freq, kernels, bias)]
+    y = dwconv.mona_spatial(*leaves)
+    count, names = _device_kernel_count(
+        lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+    assert count == 1, names
 
 
 def test_train_path_refuses_trainable_weights_on_the_card(cuda):
