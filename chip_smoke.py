@@ -15,7 +15,12 @@
    1370, 64] and the fused MLP [32880, 768] x 3072, DINOv2-B/14 at 518 px;
    the flash-attention backward at the LoRA fine-tune's [16, 197, 12, 64]
    and at [24, 12, 1370, 64]; the causal text block [256, 77, 512], 8
-   heads; the lookup and histogram [24, 518, 518]; BERT's post-norm
+   heads; the lookup and histogram [24, 518, 518] (and timed at [32, 224,
+   224]), and equalize, K13's one kernel a slot (in place, a cluster of
+   CTAs an image), bitwise equal to its plain version at [24, 518, 518]
+   over every image and over 3 (a constant image, one 70% one value), [3,
+   37, 41], [3, 301, 303], [32, 224, 224] and [1, 1024, 1024], one device
+   record a call, timed at cluster sizes 4, 8 and 16; BERT's post-norm
    kernels at the text cache's chunk [256, 256, 768], 12 heads, with a
    key-padding bias that leaves rows wholly padded; the whole MONA adapter,
    K12, forward and backward, and the attention block, K11, forward, dx
@@ -43,7 +48,8 @@
    Hopper GEMM's ragged and sub-tile M; its backward bitwise equal over
    two calls; each beside the GEMM kernel's device time and the shared
    WMMA GEMM's time at the same product; K1 in its three layouts and K6
-   post-LN, on K7 and the Hopper GEMM core in bf16, with their kernels'
+   post-LN, on K7 and the Hopper GEMM core in bf16 (K1 also at [4, 577,
+   768], above the 256 tokens it once refused), with their kernels'
    device time alone and no WMMA GEMM and no SIMT attention kernel in a
    bf16 call, K1 beside torch.nn.TransformerEncoderLayer holding the same
    weights under inference_mode, and whether its fast path ran; K5
@@ -66,7 +72,8 @@
    recompositions with no kernel of their own, timed per layer.
 4. Augmentation phase: one strong+weak plan at [32, 224, 224] and at [24,
    518, 518] through the kernels and through the plain versions (images and
-   masks equal; lookup/histogram launches = the slots that drew equalize).
+   masks equal; equalize launched once per slot that drew it, the lookup
+   and histogram never; the plan's device records).
 5. Serving phase: BiomedCLIP ViT-B/16 at 224 px with hybrid MONA in all 12
    blocks and a 2-class seg PyramidHead, seeded random weights written to
    .npz and loaded back through --backbone_ckpt/--mona_weights/--head_weights,
@@ -120,7 +127,7 @@
    CLI and the BiomedCLIP LoRA fine-tune CLI with --tune_text_encoder
    --lora_layers 6 (one epoch each).
 12. Prints each phase's host seconds, one JSON line of per-kernel results
-   (27 rows), then the final status line.
+   (28 rows), then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it,
 and refuses NEXTGEN_UIA_FUSED_MONA or NEXTGEN_UIA_FUSED_BLOCK_BERT set by the
@@ -305,6 +312,19 @@ def kernel_phase(dev):
           (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d)),
           library=inference(enc), kernels=True)
     encoder_fast_path("fused_block_infer", inference(enc), randn(b, n, d).to(bf16))
+    # K1 above 256 tokens (ViT-B/16 at 384 px: 577), which K7 takes
+    x577 = randn(4, 577, d)
+    with torch.no_grad():
+        for dt, lim in ((f32, F32_BOUND), (bf16, BF16_BOUND)):
+            got = fused_block.fused_block_infer(x577.to(dt), blk, **kw)
+            want = fused_block.fused_block_infer_plain(rounded(x577) if dt == bf16 else x577,
+                                                       blk, **kw)
+            torch.cuda.synchronize()
+            (err, scale), = errors(got, want)
+            limit = lim * (max(1.0, scale) if dt == bf16 else scale)
+            print(f"fused_block_infer: {dt} [4, 577, {d}] max|d| {err:.3e} (<= {limit:.3e}, "
+                  f"max|ref| {scale:.3e})")
+            require(err <= limit, f"fused_block_infer {dt} mismatch at 577 tokens")
 
     # K5: LN + q/k/v, forward and backward
     def qkv_fwd(x, p=None):
@@ -573,17 +593,19 @@ def kernel_phase(dev):
 
     # K13: the table lookup and the histogram, exactly equal to their plain
     # versions at [24, 518, 518] and an odd [3, 37, 41]
-    def exact(name, kern, plain, inputs, odd_inputs, nbytes):
+    def exact(name, kern, plain, inputs, odd_inputs, nbytes, kernel_name):
         with torch.no_grad():
             for args in (inputs, odd_inputs):
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 require(torch.equal(got, want), f"{name} differs from its plain version")
             ms = cuda_ms(lambda: kern(*inputs), 20)
+            k_ms = kernel_device_ms(lambda: kern(*inputs), kernel_name)
             plain_ms = cuda_ms(lambda: plain(*inputs), 5, warmup=1)
         b_ms, b_by = bound(0, nbytes)
-        print(f"{name}: equal to the plain version (main and odd shape); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library -, bound {b_ms:.4f} ms ({b_by})")
+        print(f"{name}: equal to the plain version (main and odd shape); kernel {ms:.4f} ms "
+              f"(alone {k_ms:.4f} ms, profiler), plain {plain_ms:.4f} ms, library -, bound "
+              f"{b_ms:.4f} ms ({b_by})")
         results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by)
 
@@ -593,17 +615,93 @@ def kernel_phase(dev):
 
     big, odd = images((db, DINO_IMG, DINO_IMG)), images((3, 37, 41))
     hw = DINO_IMG * DINO_IMG
-    exact("hist256", lut.hist256, lut.hist256_plain, [big], [odd], db * hw * 4 + db * 256 * 4)
+    exact("hist256", lut.hist256, lut.hist256_plain, [big], [odd], db * hw * 4 + db * 256 * 4,
+          "equalize_kernel")
     tables = [torch.randint(0, 256, (n, 256), generator=gen, dtype=torch.int32).to(dev)
               for n in (db, 3)]
     exact("lut_apply", lut.lut_apply, lut.lut_apply_plain, [big, tables[0]], [odd, tables[1]],
-          2 * db * hw * 4 + db * 256 * 4)
+          2 * db * hw * 4 + db * 256 * 4, "lut_apply_kernel")
+    small_imgs = images((BATCH, IMG, IMG))
+    small_table = tables[0][:1].expand(BATCH, 256)
+    with torch.no_grad():
+        hist_ms = cuda_ms(lambda: lut.hist256(small_imgs), 20)
+        apply_ms = cuda_ms(lambda: lut.lut_apply(small_imgs, small_table), 20)
+    print(f"hist256 [{BATCH}, {IMG}, {IMG}]: kernel {hist_ms:.4f} ms, bound "
+          f"{bound(0, small_imgs.numel() * 4 + BATCH * 1024)[0]:.4f} ms; lut_apply: kernel "
+          f"{apply_ms:.4f} ms, bound {bound(0, 2 * small_imgs.numel() * 4 + BATCH * 1024)[0]:.4f}"
+          f" ms")
+    results["equalize"] = equalize_rows(dev, gen, images)
     bert_kernel_rows(dev, gen, check)
     text_lora_kernel_rows(dev, gen, check)
     fused_kernel_rows(dev, gen, results)
     k6_k8_rows(dev, block(d, h))
     k5_rows(dev, block(d, h))
     return results
+
+
+def equalize_rows(dev, gen, images):
+    """K13's equalize (csrc/lut.cu::equalize_kernel, one cluster an image,
+    in place) bitwise equal to ``equalize_plain`` at DINOv2's [24, 518,
+    518] with every image and with 3 of them (a constant image, one 70% one
+    value, noise), the odd [3, 37, 41] and [3, 301, 303], the trainer's [32,
+    224, 224] and one [1, 1024, 1024] image; one device record a call with
+    a device index list; the kernel alone, the op and the plain version
+    timed at [24, 518, 518] (each call equalizing the last one's output in
+    place), and the kernel alone at cluster sizes 4, 8 and 16 with every
+    image and with 3. Returns the kernels line's row."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import lut
+
+    db, n518 = DINO_BATCH, DINO_IMG
+    big = images((db, n518, n518))
+    big[1] = 37 / 255  # constant: step 0, the identity
+    big[2] = torch.where(torch.rand(n518, n518, generator=gen).to(dev) < 0.7,
+                         torch.full_like(big[2], 5 / 255), big[2])  # 70% one dark value
+    cases = [(f"[{db}, {n518}, {n518}], all {db}", big, list(range(db))),
+             (f"[{db}, {n518}, {n518}], 3 of {db} (constant, 70% one value, noise)", big,
+              [1, 2, 20]),
+             ("odd [3, 37, 41]", images((3, 37, 41)), [2, 0, 1]),
+             ("odd [3, 301, 303]", images((3, 301, 303)), [1, 2]),
+             (f"[{BATCH}, {IMG}, {IMG}], every third", images((BATCH, IMG, IMG)),
+              list(range(0, BATCH, 3))),
+             ("[1, 1024, 1024]", images((1, 1024, 1024)), [0])]
+    with torch.no_grad():
+        for what, x, idx in cases:
+            got = lut.equalize_(x.clone(), idx)
+            want = lut.equalize_plain(x.clone(), idx)
+            torch.cuda.synchronize()
+            cluster, slice_ = lut._eq_grid(len(idx), x[0].numel())
+            require(torch.equal(got, want), f"equalize differs from its plain version at {what}")
+            print(f"equalize: {what}: equal to the plain version (clusters of {cluster}, "
+                  f"slices of {slice_} floats)")
+        grid = lut.unit_grid(dev)
+        quotient = torch.arange(256, dtype=torch.float32) / 255.0
+        print(f"equalize: the card's unit grid (quantize_u8(v / 255) on the card) differs from "
+              f"v / 255 (the CPU's) at {int((grid.cpu() != quotient).sum())} of 256 bytes")
+
+        idx = torch.arange(db, device=dev, dtype=torch.int32)
+        buf, buf_p = big.clone(), big.clone()
+        records, names = device_records(lambda: lut.equalize_(buf, idx))
+        require(records in (None, 1), f"equalize ran {records} device records a call: {names}")
+        ms = cuda_ms(lambda: lut.equalize_(buf, idx), 20)
+        host_ms = cuda_ms(lambda: lut.equalize_(buf, list(range(db))), 20)
+        k_ms = kernel_device_ms(lambda: lut.equalize_(buf, idx), "equalize_kernel")
+        plain_ms = cuda_ms(lambda: lut.equalize_plain(buf_p, idx.long()), 5, warmup=1)
+        flat, var_ms = buf.reshape(db, -1), []
+        for sel in (idx, idx[[1, 2, 20]]):  # the kernel alone: one call's host time is longer
+            for cluster in (4, 8, 16):
+                slice_ = 4 * -(-flat.shape[1] // (4 * cluster))
+                var_ms.append((len(sel), cluster, kernel_device_ms(
+                    lambda: lut._launch_equalize(flat, sel, cluster, slice_), "equalize_kernel")))
+    b_ms, b_by = bound(0, 2 * big.numel() * 4 + db * 4 + 1024)
+    print(f"equalize: [{db}, {n518}, {n518}] all {db}: kernel {ms:.4f} ms (device idx; "
+          f"{records} device record a call), op with a host index list {host_ms:.4f} ms, "
+          f"kernel alone {k_ms:.4f} ms (profiler), plain {plain_ms:.4f} ms, library -, bound "
+          f"{b_ms:.4f} ms ({b_by}); kernel alone by cluster size (images, cluster): "
+          + ", ".join(f"({n_}, {c}) {t:.4f} ms" for n_, c, t in var_ms))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def k6_k8_costs(b, n, d, heads, hid):
@@ -1211,23 +1309,27 @@ def hopper_kernels_ms(name, fn, kernels=("gemm", "flash", "layernorm"), gemm=Tru
                       "WMMA check not made: the profiler recorded no device activity")
 
 
-def device_records(fn, windows=3):
+def device_records(fn, windows=4):
     """(device records per call of fn, their names): every kernel, copy and
-    fill the profiler sees in one call after a warm-up call; (None, ()) if
-    no window recorded device activity."""
+    fill the profiler sees in one call after a warm-up call. A window that
+    comes back empty (the profiler has, for one short call) is profiled
+    again with twice the calls, 1 to 8, and the count divided by them;
+    (None, ()) if no window recorded device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(windows):
+    for window in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(1 << window):
+                fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
-            return sum(e.count for e in events), sorted(e.key[:60] for e in events)
+            return (sum(e.count for e in events) / (1 << window),
+                    sorted(e.key[:60] for e in events))
     return None, ()
 
 
@@ -1516,9 +1618,10 @@ def text_lora_kernel_rows(dev, gen, check):
 
 def augment_phase(dev):
     """One strong+weak plan per shape through the kernels and through the
-    plain versions: images and masks equal, the lookup and histogram
-    launched once per slot that drew equalize; ms per batch (CUDA events
-    around augment_batch, the plan's host read included)."""
+    plain versions: images and masks equal, equalize launched once per slot
+    that drew it and the lookup and histogram never; the plan's device
+    records (profiler); ms per batch (CUDA events around augment_batch, the
+    plan's host read included)."""
     import numpy as np
     import torch
 
@@ -1538,16 +1641,19 @@ def augment_phase(dev):
         want = aug.apply_plan(plan, x, m, out_size=size, ops=PLAIN)
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                 f"augmentation at {size} px: the kernel path differs from the plain path")
-        require(counts["lut_apply"] == counts["hist256"] == slots,
-                f"augmentation at {size} px launched lut_apply {counts['lut_apply']} and "
-                f"hist256 {counts['hist256']} times for {slots} equalize slots")
+        require(counts["equalize"] == slots and counts["lut_apply"] == counts["hist256"] == 0,
+                f"augmentation at {size} px launched equalize {counts['equalize']}, lut_apply "
+                f"{counts['lut_apply']} and hist256 {counts['hist256']} times for {slots} "
+                f"equalize slots")
+        records, _ = device_records(lambda: aug.apply_plan(plan, x, m, out_size=size))
         gen = torch.Generator(device=dev).manual_seed(1)
         ms = cuda_ms(lambda: aug.augment_batch(gen, x, m, out_size=size), 10)
         plain_ms = cuda_ms(lambda: aug.augment_batch(gen, x, m, out_size=size, ops=PLAIN), 5,
                            warmup=1)
         print(f"augment [{b}, {size}, {size}]: kernel path equals plain path; {slots} equalize "
-              f"slots, lookup/histogram launches {counts['lut_apply']}/{counts['hist256']}; "
-              f"{ms:.2f} ms per batch (plain lookups {plain_ms:.2f} ms)")
+              f"slots, equalize launches {counts['equalize']} (lookup/histogram "
+              f"{counts['lut_apply']}/{counts['hist256']}); {records} device records a plan; "
+              f"{ms:.2f} ms per batch (plain path {plain_ms:.2f} ms)")
 
 
 def slice_phase(dev, work):
@@ -1663,7 +1769,8 @@ TRAIN_LAUNCHES = {  # per train step: see PERF.md (blocks 1-9 backward, MONA 0-9
     "mona_spatial": 12, "fused_ln_qkv_backward": 9, "fused_attn_o_residual_backward": 9,
     "fused_ln_mlp_residual_backward": 9, "mona_spatial_backward": 10, "fused_block_infer": 0,
     "flash_attention": 0, "fused_mlp": 0}
-NEW_KERNELS = ("flash_attention", "fused_mlp", "lut_apply", "hist256")  # the DINOv2 path's
+# the DINOv2 path's (lut_apply and hist256: 0, equalize took both)
+NEW_KERNELS = ("flash_attention", "fused_mlp", "lut_apply", "hist256", "equalize")
 DINO_LAUNCHES = {"flash_attention": 12, "fused_mlp": 12, "fused_ln_qkv": 0,
                  "fused_attn_o_residual": 0, "fused_ln_mlp_residual": 0, "fused_block_infer": 0}
 
@@ -1679,14 +1786,15 @@ def launch_counters():
            fused_attn_o.fused_attn_o_residual, fused_attn_o.fused_attn_o_residual_backward,
            fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_ln_mlp_residual_backward,
            flash_attention.flash_attention, flash_attention.flash_attention_backward,
-           fused_mlp.fused_mlp, lut.lut_apply, lut.hist256, fused_ln_qkv.fused_ln_qkv_rawx,
+           fused_mlp.fused_mlp, lut.lut_apply, lut.hist256, lut.equalize_,
+           fused_ln_qkv.fused_ln_qkv_rawx,
            fused_attn_o.fused_attn_o_residual_postln, fused_ln_mlp.fused_postnorm_mlp_ln,
            fused_block.fused_block_infer_postnorm, fused_mona.mona_block_fused,
            fused_mona.mona_block_fused_backward, fused_attention.fused_attn_block,
            fused_attention.fused_attn_block_backward, fused_mlp.fused_mlp_backward,
            fused_ln_qkv.fused_ln_qkv_rawx_backward, dwconv.dwconv7_per_sample,
            dwconv.dwconv7_per_sample_backward]
-    return {f.__name__: f for f in fns}
+    return {f.__name__.rstrip("_"): f for f in fns}  # equalize_ counts as "equalize"
 
 
 def reset_counts():
@@ -1709,7 +1817,7 @@ def train_phase(dev, files):
 
     from nextgen_uia_tpu_torch.core import train as T
     from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
-    from nextgen_uia_tpu_torch.data.augment import augment_batch
+    from nextgen_uia_tpu_torch.data.augment import augment_batch, sample_plan
     from nextgen_uia_tpu_torch.losses import dice_ce_loss
     from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
     from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
@@ -1809,12 +1917,17 @@ def train_phase(dev, files):
         return dice_ce_loss(logits, m)
 
     aug_step = T.TrainStep(aug_loss, opt, tcfg)
+    # the plan the step draws first from gen (augment_batch, before any dropout)
+    twin = torch.Generator(device=dev)
+    twin.set_state(gen.get_state())
+    eq_slots = int((sample_plan(twin, BATCH).strong_ids == 2).any(0).sum())
     reset_counts()
     aug_loss_value = aug_step(batch, gen)["loss"]
     torch.cuda.synchronize()
     aug_counts = read_counts()
     require(np.isfinite(aug_loss_value), "non-finite augmented train loss")
-    for name, want in TRAIN_LAUNCHES.items():
+    want_aug = {**TRAIN_LAUNCHES, "equalize": eq_slots, "lut_apply": 0, "hist256": 0}
+    for name, want in want_aug.items():
         require(aug_counts[name] == want, f"{name} launched {aug_counts[name]} times in an "
                                           f"augmented train step, want {want}")
     aug_ms = cuda_ms(lambda: aug_step(batch, gen), 10, warmup=1)
@@ -1833,8 +1946,8 @@ def dino_phase(dev):
     classes, strong+weak augmentation, bf16 encoder, float32 head, AdamW as
     run_supervised sets it. LayerScale is drawn from U[0.5, 1.5] (the init's
     1e-5 would hide any attention or MLP error). Checks one step's launches
-    (K7 and K10 12 each, K5 0, the lookup and histogram once per slot that
-    drew equalize), the first step's loss and every head gradient against
+    (K7 and K10 12 each, K5 0, equalize once per slot that drew it, the
+    lookup and histogram 0), the first step's loss and every head gradient against
     the plain path, that the BatchNorm running statistics moved and that
     the loss falls over 10 steps on one batch; times the step and the eval
     forward. Returns the step's launch counts."""
@@ -1899,7 +2012,7 @@ def dino_phase(dev):
     launches = read_counts()
     peak_k = torch.cuda.max_memory_allocated() / 1e9
     print(f"dino: one step's launches {launches} ({eq_slots} slots drew equalize)")
-    want = {**DINO_LAUNCHES, "lut_apply": eq_slots, "hist256": eq_slots}
+    want = {**DINO_LAUNCHES, "equalize": eq_slots, "lut_apply": 0, "hist256": 0}
     for name, n in want.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times in a dino step, "
                                      f"want {n}")
@@ -3077,6 +3190,7 @@ def main():
               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:64"),
               "lut_apply": ("lut.cu", "lut.py:53"),
               "hist256": ("lut.cu", "lut.py:143"),
+              "equalize": ("lut.cu", "lut.py:53, " + jax_ops + "lut.py:143"),
               "fused_ln_qkv_rawx": ("hopper_gemm.cuh", "fused_ln_qkv.py:36"),
               "fused_attn_o_residual_postln": ("fused_attn_o.cu", "fused_attn_o.py:73"),
               "fused_postnorm_mlp_ln": ("fused_ln_mlp.cu", "fused_ln_mlp.py:144"),

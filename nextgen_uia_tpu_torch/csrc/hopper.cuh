@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (hopper_gemm.cuh's GEMM core, flash_attention.cu's attention, fused_mona.cu's
-// weight gradients): mbarriers,
+// weight gradients; lut.cu's equalize takes the cluster helpers): mbarriers,
 // TMA loads and stores of tensor maps, wgmma descriptors and products, and
 // the host-side tensor-map encoder.
 //
@@ -70,6 +70,24 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the two halves of cluster_sync, with work between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the int at the shared-memory offset of p in CTA `cta` of the cluster
+__device__ __forceinline__ int ld_cluster_s32(const int* p, uint32_t cta) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)),
+               "r"(cta));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // TMA 2-D load multicast to the CTAs of the cluster in `mask`: the same

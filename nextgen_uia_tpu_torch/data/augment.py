@@ -19,10 +19,11 @@ so a plan rebuilt from ``jax.random``'s draws reproduces the JAX output.
 
 Where the JAX package's vmapped switch evaluates every branch for every
 image, ``apply_plan`` runs each op once per slot over the images that drew
-it (the plan's op ids come to the host once per batch): equalize's two
-kernels (``ops.hist256``, ``ops.lut_apply``, csrc/lut.cu) take that subset
-as one batch. Images are float32 [B, H, W, 1] in [0, 1] (grayscale), masks
-float32 {0, 1} of the same shape, as in the JAX package.
+it (the plan's op ids come to the host once per batch); equalize
+(``ops.equalize``, csrc/lut.cu) takes the batch and that subset's indices
+and rewrites those images in place, one launch a slot. Images are float32
+[B, H, W, 1] in [0, 1] (grayscale), masks float32 {0, 1} of the same shape,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,9 +34,11 @@ import torch
 
 from ..nn.layers import scale_translate_weights, triangle_kernel
 from ..ops import KERNELS
+from ..ops.lut import equalize_lut, quantize_u8  # noqa: F401  (equalize_lut: importable here)
 
 N_STRONG = 9  # [identity, autocontrast, equalize, blur, contrast, brightness, sharpness,
 #               posterize, solarize] - the reference get_strong_aug_list order
+EQUALIZE = 2
 N_WEAK = 4    # [crop, hflip, vflip, identity] - the reference WeakAugmentation order
 WEAK_IDENTITY = 3
 F32 = torch.float32
@@ -61,23 +64,10 @@ def _autocontrast(x, u, ops):
     return torch.clamp((x - lo) * scale, 0.0, 1.0)
 
 
-def equalize_lut(hist):
-    """PIL ImageOps.equalize's table from [n, 256] counts: step = (total -
-    count of the last non-zero bin) // 255, lut = (shifted cumsum + step //
-    2) // step, the identity where step is 0."""
-    h = hist.long()
-    last = 255 - (h > 0).flip(-1).to(torch.uint8).argmax(-1)
-    step = (h.sum(-1) - h.gather(1, last[:, None])[:, 0]) // 255
-    cum = h.cumsum(-1)
-    shifted = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
-    ident = torch.arange(256, device=h.device).expand_as(h)
-    lut = torch.where(step[:, None] > 0,
-                      (shifted + (step // 2)[:, None]) // step.clamp(min=1)[:, None], ident)
-    return lut.clamp(0, 255)
-
-
 def _equalize(x, u, ops):
-    return ops.lut_apply(x, equalize_lut(ops.hist256(x))) / 255.0
+    """Every image of x equalized (a copy, through the in-place
+    ``ops.equalize``; ``apply_plan`` calls that on the batch itself)."""
+    return ops.equalize(x.clone(), torch.arange(len(x)))
 
 
 def _band(taps, size):
@@ -148,11 +138,6 @@ def _solarize(x, u, ops):
 
 STRONG_OPS = (None, _autocontrast, _equalize, _blur, _contrast, _brightness, _sharpness,
               _posterize, _solarize)
-
-
-def quantize_u8(x):
-    """The uint8 grid PIL images live on between ops."""
-    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +218,7 @@ def sample_plan(gen: torch.Generator, b: int, *, strong: bool = True, weak: bool
 
 
 def _groups(ids_host, slot: int, op: int, device):
+    """The images whose op at ``slot`` is ``op``, on ``device``, or None."""
     sel = torch.nonzero(ids_host[:, slot] == op)[:, 0]
     return sel.to(device) if len(sel) else None
 
@@ -248,6 +234,11 @@ def apply_plan(plan: Plan, images, masks=None, *, out_size: int | None = None, o
         ids = plan.strong_ids.cpu()  # the one device-to-host read of a batch
         for slot in range(N_STRONG):
             for op in range(1, N_STRONG):
+                if op == EQUALIZE:  # in place: no gather, no copy; its output is on the grid
+                    sel = _groups(ids, slot, op, "cpu")
+                    if sel is not None:
+                        ops.equalize(x, sel)
+                    continue
                 idx = _groups(ids, slot, op, x.device)
                 if idx is not None:
                     y = STRONG_OPS[op](x.index_select(0, idx), plan.strong_u[idx, slot], ops)

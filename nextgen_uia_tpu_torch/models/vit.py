@@ -13,11 +13,14 @@ through them (frozen tower, trainable adapters). A block whose attention
 holds LoRA pairs takes ``mha``'s LoRA route at either ``block_impl`` (the
 whole-block kernel declines it, as the JAX one does): LayerNorm, the
 projections with their LoRA updates, the flash-attention kernel, then the
-LN+MLP+residual kernel. ``attn_impl`` 'fused_block' or 'hybrid_block'
-(opt-in, frozen attention without LoRA) replaces the composed route's
-LN+QKV and attention+o-projection kernels with LayerNorm and ``mha``'s
-whole-attention-block op (K11). Either route then applies the block's MONA
-adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``) take their own
+LN+MLP+residual kernel. A block the whole-block kernel does not take
+(``fused_block_eligible``: a bf16 head dim other than 64, a width not a
+multiple of 64) takes the composed route, as the JAX package falls back
+where its ``fused_block_infer`` returns None. ``attn_impl`` 'fused_block'
+or 'hybrid_block' (opt-in, frozen attention without LoRA) replaces the
+composed route's LN+QKV and attention+o-projection kernels with LayerNorm
+and ``mha``'s whole-attention-block op (K11). Either route then applies the
+block's MONA adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``) take their own
 route at any ``block_impl``: attention without the residual (``mha``'s
 LayerScale routes, through the flash-attention kernel), then the MLP
 through the fused-MLP kernel, each scaled before its residual add. The
@@ -37,6 +40,7 @@ from ..adapters.mona import mona_apply
 from ..nn.attention import Attention, mha
 from ..nn.layers import Conv, LayerNorm, Linear, layernorm, linear, normal, param
 from ..ops import KERNELS
+from ..ops.fused_block import fused_block_eligible
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +168,8 @@ def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=Non
         x = x + a * p.ls1.to(a.dtype)
         m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops)
         x = x + m * p.ls2.to(m.dtype)
-    elif cfg.block_impl == "fused_infer" and "lora" not in p.attn._modules:
+    elif (cfg.block_impl == "fused_infer" and "lora" not in p.attn._modules
+          and fused_block_eligible(x, p, heads=cfg.heads, act=cfg.act)):
         x = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
                                   eps=cfg.ln_eps)
     else:

@@ -28,8 +28,7 @@ class BlockOps:
     fused_postnorm_mlp_ln: Callable
     flash_attention: Callable
     fused_mlp: Callable
-    lut_apply: Callable
-    hist256: Callable
+    equalize: Callable  # in place: (x, idx) -> x
     mona_block_fused: Callable
     fused_attn_block: Callable
     hybrid_attn_block: Callable
@@ -39,13 +38,13 @@ KERNELS = BlockOps(fused_block.fused_block_infer, dwconv.mona_spatial,
                    fused_ln_qkv.fused_ln_qkv, fused_attn_o.fused_attn_o_residual,
                    fused_ln_mlp.fused_ln_mlp_residual, fused_ln_mlp.fused_postnorm_mlp_ln,
                    flash_attention.flash_attention,
-                   fused_mlp.fused_mlp, lut.lut_apply, lut.hist256,
+                   fused_mlp.fused_mlp, lut.equalize_,
                    fused_mona.mona_block_fused, fused_attention.fused_attn_block,
                    fused_attention.hybrid_attn_block)
 PLAIN = BlockOps(fused_block.fused_block_infer_plain, dwconv.mona_spatial_plain,
                  fused_ln_qkv.fused_ln_qkv_plain, fused_attn_o.fused_attn_o_residual_plain,
                  fused_ln_mlp.fused_ln_mlp_residual_plain,
                  fused_ln_mlp.fused_postnorm_mlp_ln_plain, flash_attention.flash_attention_plain,
-                 fused_mlp.fused_mlp_plain, lut.lut_apply_plain, lut.hist256_plain,
-                 fused_mona.mona_block_fused_plain, fused_attention.fused_attn_block_plain,
-                 fused_attention.hybrid_attn_block_plain)
+                 fused_mlp.fused_mlp_plain, lut.equalize_plain,
+                 fused_mona.mona_block_fused_plain,
+                 fused_attention.fused_attn_block_plain, fused_attention.hybrid_attn_block_plain)

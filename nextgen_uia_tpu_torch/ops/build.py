@@ -97,8 +97,10 @@ SIGNATURES = {
     "nx_fused_attn_bwd": [P] * 13 + [I] * 6 + [F, P],
     # img, lut, out, B, HW, stream
     "nx_lut_apply": [P, P, P, I, I, P],
-    # img, hist, B, HW, stream
-    "nx_hist256": [P, P, I, I, P],
+    # img, hist, B, HW, cluster, slice, stream
+    "nx_hist256": [P, P, I, I, I, I, P],
+    # x, idx, grid, n, images, HW, cluster, slice, stream
+    "nx_equalize": [P, P, P, I, I, I, I, I, P],
 }
 
 

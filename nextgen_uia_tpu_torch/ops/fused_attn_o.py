@@ -29,7 +29,7 @@ with the pre-LN sum in float32 until the LayerNorm. On a CUDA tensor
 ``fused_attn_o_residual_postln`` launches its forward kernels (counted in
 ``fused_attn_o_residual_postln.launches``): the same attention and
 o-product through the same helpers, the sum stored in float32, then the
-LayerNorm; its tokens are 1..256. Its backward (dq, dk, dv, dx) is
+LayerNorm, at any token count (K7's). Its backward (dq, dk, dv, dx) is
 autograd through the plain version recomputed from the saved inputs, as the
 JAX kernel's ``_bwd_rule`` differentiates its XLA recomposition: plain
 PyTorch on the card, no kernel of its own.
@@ -138,8 +138,6 @@ def _check_cuda(q, x, bias, n_real, op="fused_attn_o_residual"):
         problems.append(f"width {h * dh} with {h} heads (width % 64 == 0)")
     if (x.dtype == torch.bfloat16 and dh != 64) or not 1 <= dh <= 64:
         problems.append(f"head dim {dh} (bfloat16: 64; float32: 1..64)")
-    if op.endswith("postln") and not 1 <= n <= 256:
-        problems.append(f"{n} tokens (1..256)")
     if not 0 < n_real <= n:
         problems.append(f"n_real {n_real}")
     if bias is not None and (tuple(bias.shape) != (b, n) or bias.device != x.device):

@@ -19,8 +19,8 @@ and, in bf16, the Hopper GEMM core: one flat q|k|v product into a row-major
 (``fused_attn_o._key_bias``), each weight read as W^T, built once per call
 (``_kernel_weights``), and the residual stream float32; the CPU tests
 compose the plain versions through the same helpers. A bf16 call needs head
-dim 64; float32 takes 1..64; the width and hidden are multiples of 64, the
-tokens 1..256.
+dim 64; float32 takes 1..64; the width and hidden are multiples of 64; any
+token count (``fused_block_eligible`` says which blocks it takes).
 
 Forward only, with or without the causal mask (``causal=True``: the CLIP
 text tower, -1e30 where key > row, applied after ``key_bias``). The
@@ -116,7 +116,11 @@ def fused_block_infer_plain(x, p, *, heads: int, act: str = "gelu", eps: float =
     return (out if prenorm else ln(out, ln_b)).to(dt)
 
 
-def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):
+def _problems(x, mlp, heads, key_bias, n_real):
+    """What the kernels of csrc/fused_block.cu do not take of this call
+    (empty: they take it). The tokens are not bounded: K7 computes the
+    attention over any N (1370 at DINOv2's 518 px) and every other step is a
+    product or a LayerNorm over the B*N rows."""
     b, n, d = x.shape
     hidden = mlp.fc1.w.shape[1]
     dh = d // heads if d % heads == 0 else 0
@@ -128,14 +132,28 @@ def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):
                         "head dim 64 in bfloat16, 1..64 in float32)")
     if hidden % 64:
         problems.append(f"hidden {hidden} (multiple of 64)")
-    if not 1 <= n <= 256:
-        problems.append(f"{n} tokens (1..256)")
+    if n < 1:
+        problems.append(f"{n} tokens")
     if not 0 < n_real <= n:
         problems.append(f"n_real {n_real}")
-    if not x.is_contiguous():
-        problems.append("non-contiguous x")
     if key_bias is not None and (key_bias.shape != (b, n) or key_bias.device != x.device):
         problems.append(f"key_bias {tuple(key_bias.shape)} on {key_bias.device}")
+    return problems
+
+
+def fused_block_eligible(x, p, *, heads: int, act: str) -> bool:
+    """Whether ``fused_block_infer`` takes this pre-norm block (a
+    models.vit.Block) and input: the shapes, dtypes and activations its
+    kernels take, on any device (the JAX package's ``fused_block_infer``
+    returns None where this is False, and its callers run the composed
+    route)."""
+    return act in ACT_CODES and not _problems(x, p.mlp, heads, None, x.shape[1])
+
+
+def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):
+    problems = _problems(x, mlp, heads, key_bias, n_real)
+    if not x.is_contiguous():
+        problems.append("non-contiguous x")
     if problems:
         raise ValueError(f"fused_block_infer CUDA kernel does not take x {tuple(x.shape)}: "
                          + "; ".join(problems))

@@ -1,7 +1,7 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
     python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
-        [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench]
+        [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench|aug]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -49,7 +49,15 @@ kernel included). ``bench`` prints the
 port's bench step (batch 64, bf16) by each of ``BENCH_ROUTES``: the default
 route (``attn_impl='auto'``, composed MONA), ``auto`` with fused MONA, and
 with fused MONA the K11 and the hybrid attention block, CUDA-event ms per
-step over three 10-step windows each. The timing scripts import nothing of
+step over three 10-step windows each. ``aug`` prints, at each of
+``AUG_SHAPES``, one strong+weak plan's ``apply_plan`` (CUDA-event ms over
+five 10-call windows and its device records, every kernel, copy and fill) and equalize of every
+image as one slot, the way the tree's ``apply_plan`` runs it (this tree:
+``ops.equalize`` in place; a tree before it: the gather, ``_equalize``'s
+histogram and lookup kernels and the torch ops around them, the quantize
+and the copy back): the op's ms, its device records, its K13 kernels'
+device time and all its device time; then hist256 and lut_apply over the
+batch, op and kernel alone. The timing scripts import nothing of
 this module, since they run in the other tree.
 """
 
@@ -116,6 +124,8 @@ K12_SHAPE = (64, 197, 768, 14)  # the bench step's: B, N, D, the h = w grid
 SPATIAL_SHAPES = ((64, 14, 14, 64), (32, 14, 14, 64))  # the bench step's, the supervised step's
 
 BENCH_ROUTES = (("auto", "0"), ("auto", "1"), ("fused_block", "1"), ("hybrid_block", "1"))
+
+AUG_SHAPES = ((32, 224), (24, 518))  # (B, px): the supervised trainer's, DINOv2's
 
 TIMERS = r'''
 import sys, torch
@@ -392,9 +402,56 @@ for attn, fused in ROUTES:
           flush=True)
 '''
 
+AUG = f"SHAPES = {AUG_SHAPES!r}" + TIMERS + r'''
+from nextgen_uia_tpu_torch.data import augment as aug
+from nextgen_uia_tpu_torch.ops import KERNELS, lut
+
+def records(fn):
+    # every device record (kernel, copy, fill) of one call
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+for b, size in SHAPES:
+    g = torch.Generator().manual_seed(size)
+    x = (torch.round(torch.rand(b, size, size, 1, generator=g) * 255) / 255).to(dev)
+    m = (torch.rand(b, size, size, 1, generator=g) > 0.5).float().to(dev)
+    plan = aug.sample_plan(torch.Generator(device=dev).manual_seed(size), b)
+    slots = int((plan.strong_ids == 2).any(0).sum())
+    run = lambda: aug.apply_plan(plan, x, m, out_size=size)
+    xs, idx = x[..., 0].clone(), list(range(b))
+    if hasattr(KERNELS, "equalize"):
+        eq = lambda: KERNELS.equalize(xs, idx)
+    else:
+        def eq():
+            i = torch.tensor(idx).to(dev)
+            y = aug._equalize(xs.index_select(0, i), plan.strong_u[i, 0], KERNELS)
+            xs.index_copy_(0, i, aug.quantize_u8(y))
+    k13 = ("lut_apply", "hist256", "equalize")
+    windows = " ".join(f"{op_ms(run, 10):.2f}" for _ in range(5))  # host-bound: it spreads
+    print(f"AUG [{b}, {size}, {size}] {slots} equalize slots: apply_plan {windows} ms (5 windows), "
+          f"{records(run)} device records; equalize of all {b} images: op {op_ms(eq, 20):.4f} "
+          f"ms, {records(eq)} device records, K13 kernels {kernel_ms(eq, 20, k13):.4f} ms, all "
+          f"device time {kernel_ms(eq, 20, ('',)):.4f} ms", flush=True)
+    table = torch.randint(0, 256, (b, 256), generator=g, dtype=torch.int32).to(dev)
+    for name, fn in (("hist256", lambda: lut.hist256(xs)),
+                     ("lut_apply", lambda: lut.lut_apply(xs, table))):
+        print(f"AUG [{b}, {size}, {size}] {name}: op {op_ms(fn, 20):.4f} ms, kernel alone "
+              f"{kernel_ms(fn, 20, k13):.4f} ms", flush=True)
+'''
+
 TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
            "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
-           "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH ")}
+           "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH "),
+           "aug": (AUG, "AUG ")}
 
 
 def main(argv=None):
@@ -402,7 +459,7 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench]")
+                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench|aug]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

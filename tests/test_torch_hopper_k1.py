@@ -215,3 +215,43 @@ def test_bf16_refuses_head_dim_not_64(op, dh):
         with pytest.raises(ValueError, match=rf"{op}.*q \(2, 4, 17, {dh}\).*head dim {dh}"):
             fao._check_cuda(q, x, None, 17, op)
         fao._check_cuda(q.float(), x.float(), None, 17, op)
+
+
+@pytest.mark.parametrize("n", [197, 256, 577, 1370])
+def test_k1_and_k6_postln_take_any_token_count(n):
+    """K7 computes K1's and K6 post-LN's attention and takes any N, so
+    neither bounds the tokens: ``fused_block_eligible`` accepts a bf16
+    block of head dim 64 at 197, 256, 577 and 1370 tokens, and neither
+    wrapper's check refuses them."""
+    blk = Block(torch.Generator().manual_seed(n), ViTConfig(width=128, heads=2))
+    x = torch.zeros(1, n, 128, dtype=torch.bfloat16)
+    assert fb.fused_block_eligible(x, blk, heads=2, act="gelu")
+    fb._check_cuda_shapes(x, blk.mlp, 2, None, n)
+    q = torch.zeros(1, 2, n, 64, dtype=torch.bfloat16)
+    fao._check_cuda(q, x, None, n, "fused_attn_o_residual_postln")
+
+
+def test_block_apply_runs_the_composed_route_where_k1_refuses():
+    """A bf16 block of head dim 32, which K1 does not take: ``block_apply``
+    with ``block_impl='fused_infer'`` returns the composed route's output
+    (as the JAX package's block_apply does where its fused_block_infer
+    returns None), not the whole-block kernel's; float32 (head dim 1..64)
+    is taken, contiguous or not (``block_apply`` hands K1 a contiguous
+    copy), and an activation K1 lacks is not."""
+    from nextgen_uia_tpu_torch.models import vit
+
+    gen = torch.Generator().manual_seed(5)
+    cfg = ViTConfig(width=128, heads=4, depth=1, block_impl="fused_infer")
+    blk = Block(gen, cfg)
+    x = torch.randn(2, 17, 128, generator=gen).to(torch.bfloat16)
+    assert not fb.fused_block_eligible(x, blk, heads=4, act=cfg.act)
+    assert fb.fused_block_eligible(x.float(), blk, heads=4, act=cfg.act)
+    assert fb.fused_block_eligible(x.float().transpose(0, 1).contiguous().transpose(0, 1),
+                                   blk, heads=4, act=cfg.act)
+    assert not fb.fused_block_eligible(x.float(), blk, heads=4, act="relu")
+    with torch.no_grad():
+        got = vit.block_apply(blk, x, cfg)
+        composed = vit.block_apply(blk, x, ViTConfig(width=128, heads=4, depth=1))
+        whole = fb.fused_block_infer_plain(x, blk, heads=4, act=cfg.act, eps=cfg.ln_eps)
+    assert torch.equal(got, composed)
+    assert not torch.equal(got, whole)

@@ -117,6 +117,35 @@ def test_fused_block_kernel_matches_plain(cuda, b, n, width, heads, act):
         assert (got_b.float() - ref_b).abs().max() <= 3e-2
 
 
+@pytest.mark.parametrize("b,n", [(4, 577), (2, 1370)])
+def test_fused_block_kernel_above_256_tokens(cuda, b, n):
+    """K1 (ViT-B, 12 heads of 64) and K6 post-LN at ViT-B/16's 384 px and
+    DINOv2's 518 px token counts, which K7 takes: float32 within 1e-4 *
+    max|ref|, bf16 within 3e-2 * max(1, max|ref|) of the plain versions."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o
+
+    blk = _block(cuda, 768, 12)
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(b, n, 768, generator=gen).to(cuda)
+    q, k, v = (torch.randn(b, 12, n, 64, generator=gen).to(cuda) for _ in range(3))
+    with torch.no_grad():
+        for dt, lim in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            xd = x.to(dt)
+            got = fb.fused_block_infer(xd, blk, heads=12, eps=1e-6)
+            ref = fb.fused_block_infer_plain(xd.float(), blk, heads=12, eps=1e-6)
+            scale = ref.abs().max().item()
+            assert (got.float() - ref).abs().max().item() <= lim * max(
+                scale, 1.0 if dt == torch.bfloat16 else 0.0), dt
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            got = fused_attn_o.fused_attn_o_residual(qd, kd, vd, xd, blk.attn.o, heads=12,
+                                                     post_ln=blk.ln2)
+            ref = fused_attn_o.fused_attn_o_residual_plain(
+                qd.float(), kd.float(), vd.float(), xd.float(), blk.attn.o, heads=12,
+                post_ln=blk.ln2)
+            assert (got.float() - ref).abs().max().item() <= lim * max(
+                ref.abs().max().item(), 1.0 if dt == torch.bfloat16 else 0.0), dt
+
+
 def test_fused_block_key_bias_and_n_real(cuda):
     blk = _block(cuda, 128, 2)
     gen = torch.Generator().manual_seed(1)
@@ -133,9 +162,9 @@ def test_fused_block_rejects_shapes_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="head dim"):
             fb.fused_block_infer(torch.zeros(1, 5, 96, device=cuda), _block(cuda, 96, 4),
                                  heads=4)
-        with pytest.raises(ValueError, match="tokens"):
+        with pytest.raises(ValueError, match="n_real 0"):
             fb.fused_block_infer(torch.zeros(1, 300, 128, device=cuda), _block(cuda, 128, 2),
-                                 heads=2)
+                                 heads=2, n_real=0)
         with pytest.raises(ValueError, match=r"x \(1, 5, 128\).*head dim 32"):
             fb.fused_block_infer(torch.zeros(1, 5, 128, device=cuda, dtype=torch.bfloat16),
                                  _block(cuda, 128, 4), heads=4)
@@ -408,6 +437,53 @@ def test_augmentation_plan_kernel_path_equals_plain_path(cuda):
     got = aug.apply_plan(plan, x, m, ops=KERNELS)
     want = aug.apply_plan(plan, x, m, ops=PLAIN)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _equalize_images(cuda, n, h, w, seed):
+    """n images on the byte grid: noise, one constant image (step 0), one
+    70% one dark value, in turn."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.round(torch.rand(n, h, w, generator=gen) * 255) / 255
+    x[1::3] = 37 / 255
+    dark = torch.rand(n, h, w, generator=gen) < 0.7
+    x[2::3] = torch.where(dark[2::3], torch.full_like(x[2::3], 5 / 255), x[2::3])
+    return x.to(cuda)
+
+
+@pytest.mark.parametrize("n,h,w,idx", [
+    (24, 518, 518, list(range(24))), (24, 518, 518, [20, 2, 11]), (3, 37, 41, [0, 1, 2]),
+    (3, 301, 303, [2, 0, 1]), (32, 224, 224, list(range(0, 32, 3))), (2, 1024, 1024, [1])])
+def test_equalize_kernel_equals_plain(cuda, n, h, w, idx):
+    """K13's equalize (one cluster an image, in place) bitwise equal to
+    ``equalize_plain`` at the chip-smoke shapes: DINOv2's [24, 518, 518]
+    with every image (clusters of 8) and with 3 of them (16), the odd [3,
+    37, 41] (one CTA an image) and [3, 301, 303] (slices off 16-byte
+    boundaries), the trainer's [32, 224, 224], and one [1024, 1024] image
+    (64K floats a CTA); the images left out untouched; two calls bitwise
+    equal; a device index list as a host one; one launch a call."""
+    from nextgen_uia_tpu_torch.ops import lut
+
+    x = _equalize_images(cuda, n, h, w, h * w)
+    want = lut.equalize_plain(x.clone(), idx)
+    before = lut.equalize_.launches
+    got = lut.equalize_(x.clone(), idx)
+    again = lut.equalize_(x.clone(), torch.tensor(idx, device=cuda))
+    torch.cuda.synchronize()
+    assert lut.equalize_.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_equalize_kernel_unit_grid(cuda):
+    """The card's unit grid (the plain path's quantize_u8(v / 255) there) is
+    on the byte grid, and equalize of an image holding every byte once is
+    PIL's table on it, bitwise as the plain path."""
+    from nextgen_uia_tpu_torch.ops import lut
+
+    grid = lut.unit_grid(cuda)
+    assert torch.equal(lut.to_bytes(grid).cpu(), torch.arange(256))
+    x = grid.repeat(2, 3)[:, None, :]
+    want = lut.equalize_plain(x.clone(), [0, 1])
+    assert torch.equal(lut.equalize_(x, [0, 1]), want)
 
 
 def test_k7_k10_backward_refuses_on_the_card(cuda):
@@ -1139,22 +1215,35 @@ def test_bf16_k6_refuses_head_dim_not_64(cuda):
     assert bool(torch.isfinite(out).all())
 
 
-def _device_kernel_names(fn, windows=3):
-    """The names of the kernels torch.profiler sees in a call of fn (a
-    window with no device records is profiled again, up to ``windows``)."""
+def _device_kernel_names(fn, what, expect, forbid):
+    """The names of the kernels torch.profiler sees in calls of fn. A
+    window can hold only part of the calls' kernels, or none at all (the
+    profiler has come back empty on the card for a window of one short
+    call), so a window that lacks a kernel whose name holds each of
+    ``expect`` is profiled again with twice the calls: 6 windows, 2 to 64
+    calls, as chip_smoke.py::kernel_device_ms profiles 20 calls. Every
+    window that shows a kernel whose name holds one of ``forbid`` fails, and
+    so does a run of windows that never held the expected ones, whether
+    they recorded other kernels or no device activity at all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(windows):
+    seen = set()
+    for window in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(2 << window):
+                fn()
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA}
-        if names:
+        bad = sorted(k for k in names if any(f in k for f in forbid))
+        assert not bad, (what, bad)
+        if all(any(e in k for k in names) for e in expect):
             return names
-    pytest.fail("the profiler recorded no device activity in any window")
+        seen |= names
+    pytest.fail(f"{what}: no profiler window of 6 (2 to 64 calls) held a kernel named like "
+                f"each of {list(expect)}; seen {sorted(seen) or 'no device activity'}")
 
 
 def test_bf16_k6_k8_reach_no_wmma_gemm(cuda):
@@ -1173,11 +1262,8 @@ def test_bf16_k6_k8_reach_no_wmma_gemm(cuda):
         "K8 backward": lambda: fused_ln_mlp.fused_ln_mlp_residual_backward(x, *ws, g)}
     with torch.no_grad():
         for what, fn in calls.items():
-            names = _device_kernel_names(fn)
-            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
-            bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
-                   or "simt" in k]
-            assert not bad, (what, bad)
+            _device_kernel_names(fn, what, ("hopper::gemm_kernel",),
+                                 ("gemm_bf16", "attention_kernel", "simt"))
 
 
 def test_bf16_k1_k6post_reach_no_wmma_gemm(cuda):
@@ -1206,12 +1292,8 @@ def test_bf16_k1_k6post_reach_no_wmma_gemm(cuda):
             q, k, v, bx, layer.attn.o, heads=12, bias=bias, post_ln=layer.attn_ln)}
     with torch.no_grad():
         for what, fn in calls.items():
-            names = _device_kernel_names(fn)
-            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
-            assert any("flash" in k for k in names), (what, sorted(names))
-            bad = [k for k in names if "gemm_bf16" in k or "attention_kernel" in k
-                   or "simt" in k]
-            assert not bad, (what, bad)
+            _device_kernel_names(fn, what, ("hopper::gemm_kernel", "flash"),
+                                 ("gemm_bf16", "attention_kernel", "simt"))
 
 
 def test_bf16_k9_k10_reach_no_wmma_gemm(cuda):
@@ -1234,9 +1316,7 @@ def test_bf16_k9_k10_reach_no_wmma_gemm(cuda):
         "K10 backward": lambda: fm.fused_mlp_backward(x, w1, fc1.b, w2, g)}
     with torch.no_grad():
         for what, fn in calls.items():
-            names = _device_kernel_names(fn)
-            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
-            assert not [k for k in names if "gemm_bf16" in k], (what, sorted(names))
+            _device_kernel_names(fn, what, ("hopper::gemm_kernel",), ("gemm_bf16",))
 
 
 @pytest.mark.parametrize("b,n,width,heads", [
@@ -1377,10 +1457,7 @@ def test_bf16_k5_k12_reach_no_wmma_or_simt_product(cuda):
                                                              variant="hybrid")}
     with torch.no_grad():
         for what, fn in calls.items():
-            names = _device_kernel_names(fn)
-            assert any("hopper::gemm_kernel" in k for k in names), (what, sorted(names))
-            if what == "K12 backward":
-                assert any("mona_wgrad_kernel" in k for k in names), (what, sorted(names))
-            bad = [k for k in names
-                   if "gemm_bf16" in k or "colgemm_kernel" in k or "mona_down_kernel" in k]
-            assert not bad, (what, bad)
+            expect = ("hopper::gemm_kernel",) + (
+                ("mona_wgrad_kernel",) if what == "K12 backward" else ())
+            _device_kernel_names(fn, what, expect,
+                                 ("gemm_bf16", "colgemm_kernel", "mona_down_kernel"))
