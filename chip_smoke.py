@@ -52,7 +52,8 @@
    768], above the 256 tokens it once refused), with their kernels'
    device time alone and no WMMA GEMM and no SIMT attention kernel in a
    bf16 call, K1 beside torch.nn.TransformerEncoderLayer holding the same
-   weights under inference_mode, and whether its fast path ran; K5
+   weights under inference_mode, and whether its fast path ran, K1 pre-norm
+   also at the OpenAI layout ([32, 197, 768], quick_gelu, eps 1e-5); K5
    pre-norm, on the Hopper GEMM core in bf16, at [64, 197, 768], [32, 197,
    768], [3, 37, 768] and [1, 1, 768], its bf16 backward bitwise equal over
    two calls, timed op and kernels alone; K12 in each of its four variants,
@@ -113,6 +114,15 @@
    24, K5 raw-x's backward 0 and 24), loss and gradient norm against the
    plain path, in float32 the loss and every LoRA and bias gradient, the
    loss falling over 10 updates, ms per update, a profiler table.
+   Zero-shot phase: BiomedCLIP (the 12-layer PubMedBERT at ctx 256) and
+   the OpenAI layout (quick_gelu, ln_pre, the 12-layer causal text tower at
+   ctx 77, width 512) at full width with their CLIs' default MONA in all 12
+   blocks: the BUSI ensemble's 2 x 10 prompts (12 text launches a class),
+   4 batches of 32 seeded uint8 images (K1 and K2 12 a batch), text
+   features, logits and image features against the plain path in bf16
+   (3e-2 * max|ref|) and float32 (1e-4 * max|ref|), img/s at batch 32, a
+   profiler table; retrieval on 256 synthetic pairs at batch 128 (features
+   held alike, the float32 recalls equal).
 10. Bench phase: the port's headline step (nextgen_uia_tpu_torch/bench.py,
    the JAX bench.py's step: BiomedCLIP ViT-B/16 with hybrid MONA in 12
    blocks, cached text, batch 64 as one microbatch, bf16) by the composed
@@ -125,9 +135,13 @@
    augmentation, the predict CLIs on their best_model.npz, both cls
    trainers, the OpenAI LoRA fine-tune CLI, the BiomedCLIP MONA fine-tune
    CLI and the BiomedCLIP LoRA fine-tune CLI with --tune_text_encoder
-   --lora_layers 6 (one epoch each).
+   --lora_layers 6 (one epoch each); then the CLIP families' CLIs at full
+   width: clip.classification (the hidden cls head in best_model.npz),
+   metaclip.segmentation, the unimedclip, biomedclip and clip zero-shot
+   CLIs, biomedclip.retrieval and clip.predict at its default task,
+   zero-shot, each with its launch counts.
 12. Prints each phase's host seconds, one JSON line of per-kernel results
-   (28 rows), then the final status line.
+   (29 rows), then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it,
 and refuses NEXTGEN_UIA_FUSED_MONA or NEXTGEN_UIA_FUSED_BLOCK_BERT set by the
@@ -325,6 +339,19 @@ def kernel_phase(dev):
             print(f"fused_block_infer: {dt} [4, 577, {d}] max|d| {err:.3e} (<= {limit:.3e}, "
                   f"max|ref| {scale:.3e})")
             require(err <= limit, f"fused_block_infer {dt} mismatch at 577 tokens")
+
+    # K1 at the OpenAI layout (quick_gelu, eps 1e-5): every image forward of the
+    # openai, metaclip and unimedclip families (zero-shot, retrieval, predict, eval)
+    ocfg = VIT_B16_OPENAI
+    qkw = dict(heads=ocfg.heads, act=ocfg.act, eps=ocfg.ln_eps)
+    check("fused_block_infer_quick_gelu",
+          lambda x, p=None: fused_block.fused_block_infer(x, p or blk, **(okw if p else qkw)),
+          lambda x, p=None: fused_block.fused_block_infer_plain(x, p or blk,
+                                                                **(okw if p else qkw)),
+          [randn(b, ocfg.seq_len, ocfg.width)], [randn(ob, on, 128), small],
+          (2 * m * 12 * d * d + 4 * b * h * n * n * dh, 2 * (2 * m * d + 12 * d * d)),
+          library=inference(encoder_layer(blk, "prenorm", h, ocfg.act, ocfg.ln_eps)),
+          kernels=True)
 
     # K5: LN + q/k/v, forward and backward
     def qkv_fwd(x, p=None):
@@ -592,8 +619,10 @@ def kernel_phase(dev):
           more=[[randn(FT_MICRO * 256, d)], [randn(1001, d)]], kernels=True)
 
     # K13: the table lookup and the histogram, exactly equal to their plain
-    # versions at [24, 518, 518] and an odd [3, 37, 41]
-    def exact(name, kern, plain, inputs, odd_inputs, nbytes, kernel_name):
+    # versions at [24, 518, 518] and an odd [3, 37, 41]; ``library`` times the
+    # one PyTorch call of the same function on the byte indices (x + 256 *
+    # image, int64, made before the timing)
+    def exact(name, kern, plain, inputs, odd_inputs, nbytes, kernel_name, library):
         with torch.no_grad():
             for args in (inputs, odd_inputs):
                 got, want = kern(*args), plain(*args)
@@ -602,11 +631,12 @@ def kernel_phase(dev):
             ms = cuda_ms(lambda: kern(*inputs), 20)
             k_ms = kernel_device_ms(lambda: kern(*inputs), kernel_name)
             plain_ms = cuda_ms(lambda: plain(*inputs), 5, warmup=1)
+            lib_ms = cuda_ms(library, 20)
         b_ms, b_by = bound(0, nbytes)
         print(f"{name}: equal to the plain version (main and odd shape); kernel {ms:.4f} ms "
-              f"(alone {k_ms:.4f} ms, profiler), plain {plain_ms:.4f} ms, library -, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+              f"(alone {k_ms:.4f} ms, profiler), plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})")
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=b_by)
 
     def images(shape):
@@ -615,12 +645,22 @@ def kernel_phase(dev):
 
     big, odd = images((db, DINO_IMG, DINO_IMG)), images((3, 37, 41))
     hw = DINO_IMG * DINO_IMG
+    flat = (lut.to_bytes(big).reshape(db, hw)
+            + 256 * torch.arange(db, device=dev)[:, None]).reshape(-1)
+    with torch.no_grad():
+        require(torch.equal(torch.bincount(flat, minlength=256 * db).reshape(db, 256).int(),
+                            lut.hist256_plain(big)), "bincount is not hist256's function")
     exact("hist256", lut.hist256, lut.hist256_plain, [big], [odd], db * hw * 4 + db * 256 * 4,
-          "equalize_kernel")
+          "equalize_kernel", lambda: torch.bincount(flat, minlength=256 * db))
     tables = [torch.randint(0, 256, (n, 256), generator=gen, dtype=torch.int32).to(dev)
               for n in (db, 3)]
+    with torch.no_grad():
+        require(torch.equal(tables[0].reshape(-1)[flat].reshape(big.shape).float(),
+                            lut.lut_apply_plain(big, tables[0])),
+                "the flat lookup is not lut_apply's function")
     exact("lut_apply", lut.lut_apply, lut.lut_apply_plain, [big, tables[0]], [odd, tables[1]],
-          2 * db * hw * 4 + db * 256 * 4, "lut_apply_kernel")
+          2 * db * hw * 4 + db * 256 * 4, "lut_apply_kernel",
+          lambda: tables[0].reshape(-1)[flat])
     small_imgs = images((BATCH, IMG, IMG))
     small_table = tables[0][:1].expand(BATCH, 256)
     with torch.no_grad():
@@ -1311,26 +1351,42 @@ def hopper_kernels_ms(name, fn, kernels=("gemm", "flash", "layernorm"), gemm=Tru
 
 def device_records(fn, windows=4):
     """(device records per call of fn, their names): every kernel, copy and
-    fill the profiler sees in one call after a warm-up call. A window that
-    comes back empty (the profiler has, for one short call) is profiled
-    again with twice the calls, 1 to 8, and the count divided by them;
-    (None, ()) if no window recorded device activity."""
+    fill the profiler sees in one call after a warm-up call. Each window
+    opens and closes with a spin kernel, left out of the count: the profiler
+    has dropped one record of a window (1 of 2 calls, 3 of 4, 7 of 8), and
+    the markers stand where that record was lost. A window that comes back
+    empty, or with fewer records than calls (every call launches at least
+    one kernel, so the profiler lost some), is profiled again with twice the
+    calls, 1 to 8, and the count divided by them; the last such window's
+    count if none was whole; (None, ()) if no window recorded device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    last = None, ()
     for window in range(windows):
+        calls = 1 << window
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(1 << window):
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
+        device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in device if "spin_kernel" not in e.key]
+        spins = sum(e.count for e in device) - sum(e.count for e in events)
+        if spins != 2:
+            print(f"device_records: a window of {calls} calls held {spins} of its 2 markers")
         if events:
-            return (sum(e.count for e in events) / (1 << window),
-                    sorted(e.key[:60] for e in events))
-    return None, ()
+            count = sum(e.count for e in events)
+            last = count / calls, sorted(e.key[:60] for e in events)
+            if count >= calls:
+                return last
+            print(f"device_records: a window of {calls} calls held {count} device records")
+    return last
 
 
 def spatial_checks(dwconv, mona_args, with_bias, grid):
@@ -2635,6 +2691,211 @@ def text_lora_phase(dev, lora_layers):
     return launched
 
 
+ZS_FAMILIES = (("biomedclip", "freq_enhanced"), ("openai", "noise_aware"))  # CLI defaults
+ZS_BATCHES, N_PAIRS, RET_BATCH = 4, 256, 128  # image batches; retrieval pairs and batch
+
+
+def held(tag, got, ref, dtype):
+    """Fails unless each of got's tensors is within the dtype's bound of ref's,
+    the float32 plain path's: bf16 3e-2 * max|ref|, float32 1e-4 * max|ref|;
+    prints the worst."""
+    bf16 = dtype == "bfloat16"
+    errs = [(d, scale) for g, r in zip(got, ref, strict=True) for d, scale in errors(g, r)]
+    d, scale = max(errs, key=lambda e: e[0] / e[1])
+    limit = (BF16_BOUND if bf16 else F32_BOUND) * scale
+    print(f"zero-shot: {tag} {dtype} vs the float32 plain path max|d| {d:.3e} (<= "
+          f"{limit:.3e}; max|ref| {scale:.3e}, max|d| / max|ref| {d / scale:.3e})")
+    require(d <= limit, f"{tag} {dtype} disagrees with the plain path")
+
+
+def bf16_logits_held(tag, outs, text, refs):
+    """The bf16 logits, held as the function of the held features that they
+    are: each within 1e-4 * max|want| of the mean over prompts of 100 * cos
+    recomputed in float64 from the run's own image and text features. Their
+    distance from the float32 plain path's logits is printed, not held: at
+    random weights |cos| is a few hundredths, so bf16's feature error moves
+    a logit by several percent of max|logit|."""
+    import torch
+
+    from nextgen_uia_tpu_torch.tasks import prompts as PR
+
+    want = [torch.stack([(100.0 * f.double() @ text[c].double().T).mean(dim=1)
+                         for c in PR.LESION_TYPES], dim=1) for _, f in outs]
+    d, scale = max((x for o, w in zip(outs, want) for x in errors(o[0], w)),
+                   key=lambda e: e[0] / e[1])
+    print(f"zero-shot: {tag} bfloat16 vs 100 * cos of its own features max|d| {d:.3e} (<= "
+          f"{F32_BOUND * scale:.3e}; max|want| {scale:.3e})")
+    require(d <= F32_BOUND * scale, f"{tag} bfloat16 are not 100 * cos of their features")
+    d, scale = max((x for o, r in zip(outs, refs) for x in errors(o[0], r[0])),
+                   key=lambda e: e[0] / e[1])
+    print(f"zero-shot: {tag} bfloat16 vs the float32 plain path max|d| {d:.3e} (not held; "
+          f"max|ref| {scale:.3e}, max|d| / max|ref| {d / scale:.3e})")
+
+
+def zero_shot_phase(dev):
+    """Zero-shot classification at full width, as zero_shot_main runs it, with
+    seeded random weights and each family's CLI default MONA variant in all 12
+    blocks (its slots drawn away from their init): BiomedCLIP (timm ViT-B/16
+    at 224 px, the 12-layer PubMedBERT at ctx 256) and the OpenAI layout
+    (ViT-B/16 with quick_gelu and ln_pre, the 12-layer causal text tower at
+    ctx 77, width 512). Per family: the BUSI ensemble's 2 x 10 prompts (text
+    launches 12 per class: K1 causal, or K5 raw-x, K6 post-LN and K9), then 4
+    batches of 32 seeded uint8 images (K1 and K2 12 per batch); text
+    and image features, bf16 and float32, and the float32 logits against
+    the float32 plain path on the card (``held``), the bf16 logits against
+    100 * cos of their own features (``bf16_logits_held``); img/s at batch
+    32 and a
+    profiler table. Then retrieval at BiomedCLIP's weights on 256
+    synthetic image/caption pairs at batch 128: features held alike, the
+    recalls of the kernels' and the plain path's float32 features equal.
+    Returns the OpenAI layout's K1 image launches."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import PLAIN
+    from nextgen_uia_tpu_torch.tasks import prompts as PR
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import (build_text_features,
+                                                        make_zero_shot_logits_fn)
+    from nextgen_uia_tpu_torch.tasks.common import (base_parser, build_clip_model,
+                                                    get_text_tokenizer)
+
+    ensemble = PR.prompt_ensemble_for("BUSI")
+    rng = np.random.default_rng(4)
+    images = [torch.from_numpy(rng.integers(0, 256, (BATCH, IMG, IMG), dtype=np.uint8)).to(dev)
+              for _ in range(ZS_BATCHES)]
+    out = {}
+    for family, variant in ZS_FAMILIES:
+        t0 = time.perf_counter()
+        args = base_parser("chip_zero_shot", mona_variant=variant).parse_args(
+            ["--device", "cuda", "--seed", "3"])
+        gen = torch.Generator().manual_seed(3)
+        cfg, params = build_clip_model(args, family, adapter="mona", gen=gen)
+        with torch.no_grad():
+            for name, t in params.named_parameters():
+                if "/mona/" in name.replace(".", "/"):
+                    t.add_(0.05 * torch.randn(t.shape, generator=gen))
+        params.to(dev)
+        tokenizer = get_text_tokenizer(args, family)
+        text_names = BERT_CHAIN if cfg.text_kind == "bert" else ("fused_block_infer",)
+        print(f"zero-shot: {family} (ViT-B/16 + {cfg.text.depth}-layer "
+              f"{cfg.text_kind} text at ctx {cfg.text.context_length}, {variant} MONA) built "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = build_text_features(params, cfg, tokenizer, ensemble)
+        torch.cuda.synchronize()
+        text_s = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        want = {k: cfg.text.depth * len(PR.LESION_TYPES) for k in text_names}
+        print(f"zero-shot: {family} prompt features of 2 x {len(ensemble['benign'])} prompts in "
+              f"{text_s * 1e3:.1f} ms (host clock, first call); launches {counts}")
+        require(counts == want, f"{family} text launches {counts}, want {want}")
+
+        fn = make_zero_shot_logits_fn(cfg, text)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(params, x) for x in images]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        want = {"fused_block_infer": cfg.vision.depth * ZS_BATCHES,
+                "mona_spatial": cfg.vision.depth * ZS_BATCHES}
+        print(f"zero-shot: {family} {ZS_BATCHES} batches of {BATCH} in {wall_s:.2f} s (host "
+              f"clock, first batch included); launches {counts}")
+        require(counts == want, f"{family} image launches {counts}, want {want}")
+        out[family] = counts.get("fused_block_infer", 0)
+        for logits, feats in outs:
+            require(logits.shape == (BATCH, 2) and feats.shape == (BATCH, cfg.vision.proj_dim)
+                    and bool(torch.isfinite(logits).all()), f"{family} logits {logits.shape}")
+
+        # the float32 plain path on the card is the reference of both dtypes
+        cfg32 = cfg.replace(compute_dtype="float32")
+        ref_text = build_text_features(params, cfg32, tokenizer, ensemble, ops=PLAIN)
+        text32 = build_text_features(params, cfg32, tokenizer, ensemble)
+        for dtype, feats in (("bfloat16", text), ("float32", text32)):
+            held(f"{family} text features", [feats[c] for c in PR.LESION_TYPES],
+                 [ref_text[c] for c in PR.LESION_TYPES], dtype)
+        refs = [make_zero_shot_logits_fn(cfg32, ref_text)(params, x, PLAIN) for x in images]
+        outs32 = [make_zero_shot_logits_fn(cfg32, text32)(params, x) for x in images]
+        for dtype, got in (("bfloat16", outs), ("float32", outs32)):
+            held(f"{family} image features", [o[1] for o in got], [r[1] for r in refs], dtype)
+        held(f"{family} logits", [o[0] for o in outs32], [r[0] for r in refs], "float32")
+        bf16_logits_held(f"{family} logits", outs, text, refs)
+
+        ms = cuda_ms(lambda: fn(params, images[0]), 10)
+        plain_ms = cuda_ms(lambda: fn(params, images[0], PLAIN), 3, warmup=1)
+        print(f"zero-shot: {family} batch {BATCH} forward {ms:.2f} ms = {BATCH * 1000 / ms:.1f} "
+              f"img/s (plain path {plain_ms:.2f} ms = {BATCH * 1000 / plain_ms:.1f} img/s)")
+        profile_steps(lambda: fn(params, images[0]), 5, ms)
+        if family == "biomedclip":
+            retrieval_check(dev, params, cfg, tokenizer)
+        del params
+    return out["openai"]
+
+
+def retrieval_check(dev, params, cfg, tokenizer):
+    """Retrieval features of N_PAIRS seeded images (a brighter disc each)
+    and synthetic captions, batch RET_BATCH, through the kernels in bf16 and
+    float32, held to the float32 plain path as zero-shot's; the recalls
+    (R@1, 2, 5, 10 both ways) and rSum of the float32 kernel and plain
+    features equal. MedR and MeanR are printed: at random weights the
+    similarities of many pairs lie within float32 rounding of each other."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+
+    imgs, _ = disc_batch(np.random.default_rng(8), N_PAIRS, IMG)
+    rgb = np.stack([imgs, imgs[:, ::-1], imgs[:, :, ::-1]], axis=-1)
+    tokens = tokenizer(synthetic_captions(N_PAIRS, 8), cfg.text.context_length)
+    batches = [(torch.from_numpy(np.ascontiguousarray(rgb[s:s + RET_BATCH])).to(dev),
+                torch.from_numpy(tokens[s:s + RET_BATCH]).to(dev))
+               for s in range(0, N_PAIRS, RET_BATCH)]
+
+    def encode(c, ops):
+        fn = ft.make_pair_features(c)
+        parts = [fn(params, x, t, ops) for x, t in batches]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = encode(cfg, KERNELS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    n_b = len(batches)
+    want = {"fused_block_infer": 12 * n_b, "mona_spatial": 12 * n_b,
+            **{k: 12 * n_b for k in BERT_CHAIN}}
+    print(f"retrieval: {N_PAIRS} pairs in {n_b} batches of {RET_BATCH} encoded in {wall_s:.2f} s "
+          f"(host clock, first call); launches {counts}")
+    require(counts == want, f"retrieval launches {counts}, want {want}")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    got32, ref32 = encode(cfg32, KERNELS), encode(cfg32, PLAIN)
+    for dtype, feats in (("bfloat16", got), ("float32", got32)):
+        held("retrieval image, text features", feats, ref32, dtype)
+    sims = [(i @ t.T).cpu().numpy() for i, t in (got32, ref32)]
+    m, m_ref = (ft.retrieval_metrics(s) for s in sims)
+    err = np.abs(sims[0] - sims[1]).max()
+    # a caption whose similarity to an image lies within err of the true
+    # pair's may rank either side of it: MedR and MeanR can move, R@K only
+    # if such a tie straddles rank K
+    ties = int((np.abs(sims[1] - np.diagonal(sims[1])[:, None]) <= err).sum()) - N_PAIRS
+    recalls = [(d, k) for d in ("i2t", "t2i") for k in m[d] if k.startswith("r")]
+    print(f"retrieval: float32 rsum {m['rsum']:.4f} (plain path {m_ref['rsum']:.4f}); "
+          + ", ".join(f"{d} {k} {m[d][k]:.2f}" for d, k in recalls)
+          + f"; MedR/MeanR i2t {m['i2t']['medr']}/{m['i2t']['meanr']:.4f} (plain "
+          f"{m_ref['i2t']['medr']}/{m_ref['i2t']['meanr']:.4f}), t2i {m['t2i']['medr']}/"
+          f"{m['t2i']['meanr']:.4f} ({m_ref['t2i']['medr']}/{m_ref['t2i']['meanr']:.4f}); sim "
+          f"max|d| {err:.3e}, {ties} image-caption pairs within it of their true pair's sim")
+    require(m["rsum"] == m_ref["rsum"] and all(m[d][k] == m_ref[d][k] for d, k in recalls),
+            "retrieval recalls differ between the kernels and the plain path")
+
+
 BENCH_ROUTES = (  # (label, ViT attn_impl, NEXTGEN_UIA_FUSED_MONA)
     ("composed", "auto", False), ("fused MONA (K12)", "auto", True),
     ("fused MONA + fused attention block (K11)", "fused_block", True),
@@ -3103,6 +3364,112 @@ def text_lora_cli_phase(work):
             "kernels")
 
 
+def clip_cli_phase(work):
+    """The CLIP families' CLIs at full width on cli_phase's dataset (80
+    seeded 224 px images, also listed as BUSI for the prompt ensemble), with
+    NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1 (no HF tokenizer files): the
+    clip.classification trainer (one augmented epoch, freq_enhanced MONA
+    from seeded slots; best_model.npz holds the hidden cls head's four
+    tensors), metaclip.segmentation (noise_aware MONA), the unimedclip,
+    biomedclip and clip zero-shot CLIs (text launches 12 per class, K1 12
+    per image batch), biomedclip.retrieval on caption_data's 160 pairs and
+    clip.predict at its default task, zero-shot."""
+    import csv
+    import glob
+
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.adapters.mona import inject_mona
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.models.vit import VIT_B16_OPENAI, vit_init
+    from nextgen_uia_tpu_torch.tasks.biomedclip import retrieval
+    from nextgen_uia_tpu_torch.tasks.biomedclip import zero_shot as biomedclip_zero_shot
+    from nextgen_uia_tpu_torch.tasks.clip import classification as clip_classification
+    from nextgen_uia_tpu_torch.tasks.clip import predict as clip_predict
+    from nextgen_uia_tpu_torch.tasks.clip import zero_shot as clip_zero_shot
+    from nextgen_uia_tpu_torch.tasks.metaclip import segmentation as metaclip_segmentation
+    from nextgen_uia_tpu_torch.tasks.unimedclip import zero_shot as unimedclip_zero_shot
+
+    data = os.path.join(work, "data")
+    busi = os.path.join(data, "classification", "BUSI")
+    shutil.copytree(os.path.join(data, "classification", "SYNTH"), busi, dirs_exist_ok=True)
+    # the OpenAI layout's MONA slots, seeded, in each variant its CLIs default to
+    mona = {}
+    gen = torch.Generator().manual_seed(11)
+    vit = vit_init(gen, VIT_B16_OPENAI)
+    for variant in ("freq_enhanced", "noise_aware"):
+        inject_mona(gen, vit, dim=VIT_B16_OPENAI.width, variant=variant)
+        mona[variant] = os.path.join(work, f"openai_{variant}.npz")
+        ckpt.save(mona[variant], torch.nn.ModuleDict({"visual": vit}), keyword_filter=["mona"])
+    captions = caption_data(work)
+    common = ["--num_workers", "4", "--device", "cuda"]
+    trainer = ["--dataset", "SYNTH", "--data_root", data, "--epochs", "1", "--val_interval", "1",
+               *common]
+    zero_shot = ["--dataset", "BUSI", "--data_root", data, *common]
+    bert = {k: 12 * 2 for k in BERT_CHAIN}  # 2 classes, 12 layers
+    images = 12 * 3  # 80 images: 3 batches of 32
+    rows = (
+        ("clip cls", clip_classification.main, trainer + ["--exp", "chip_clip_cls", "--mona_weights",
+                                                          mona["freq_enhanced"]]),
+        ("metaclip seg", metaclip_segmentation.main,
+         trainer + ["--exp", "chip_metaclip_seg", "--mona_weights", mona["noise_aware"]]),
+        ("unimedclip zero-shot", unimedclip_zero_shot.main, zero_shot + ["--exp", "chip_umc_zs"]),
+        ("biomedclip zero-shot", biomedclip_zero_shot.main, zero_shot + ["--exp", "chip_bmc_zs"]),
+        ("clip zero-shot", clip_zero_shot.main, zero_shot + ["--exp", "chip_clip_zs"]),
+        ("biomedclip retrieval", retrieval.main,
+         ["--csv", os.path.join(captions, "captions.csv"), "--img_dir",
+          os.path.join(captions, "images"), "--exp", "chip_retrieval", *common]),
+        ("clip predict", clip_predict.main,
+         ["--images", os.path.join(work, "predict.txt"), "--out",
+          os.path.join(work, "clip_predict_out"), *common]))
+    want = {"unimedclip zero-shot": {"fused_block_infer": 24 + images},
+            "biomedclip zero-shot": {"fused_block_infer": images, **bert},
+            "clip zero-shot": {"fused_block_infer": 24 + images},
+            "biomedclip retrieval": {"fused_block_infer": 24, **bert},  # 160 pairs: 2 of 128
+            "clip predict": {"fused_block_infer": 24 + 12}}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with environ(NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK="1"):
+            for name, fn, argv in rows:
+                reset_counts()
+                t0 = time.perf_counter()
+                out = fn(argv)
+                seconds = time.perf_counter() - t0
+                counts = {k: v for k, v in read_counts().items() if v}
+                shown = {k: round(float(v), 4) for k, v in out.items() if np.isscalar(v)
+                         and not isinstance(v, str)}
+                print(f"cli: {name} in {seconds:.1f} s (host clock: build, data decode "
+                      f"included); {shown}; launches {counts}")
+                if name in want:
+                    require(counts == want[name], f"{name} launches {counts}, want {want[name]}")
+                else:  # the trainers: the backward kernels, then K1 in evaluation
+                    require(np.isfinite(out["loss"])
+                            and all(counts.get(k, 0) > 0 for k in (
+                                "fused_ln_qkv_backward", "fused_attn_o_residual_backward",
+                                "fused_ln_mlp_residual_backward", "mona_spatial_backward",
+                                "fused_block_infer")),
+                            f"the {name} CLI did not train through the backward kernels")
+    finally:
+        os.chdir(cwd)
+    best = os.path.join(work, "runs", "chip_clip_cls", "SYNTH", "train", "best_model.npz")
+    heads = sorted(k for k in ckpt.peek_keys(best) if "/cls_head/" in k)
+    require(heads == [f"params/head/cls_head/{fc}/{t}" for fc in ("fc1", "fc2") for t in "bw"],
+            f"clip cls best_model.npz head tensors {heads}")
+    for exp in ("chip_umc_zs", "chip_bmc_zs", "chip_clip_zs"):
+        require(glob.glob(os.path.join(work, "runs", exp, "BUSI", "test", "*acc*",
+                                       "results.csv")), f"{exp} wrote no results.csv")
+    require(os.path.exists(os.path.join(work, "runs", "chip_retrieval", "BUSI", "test",
+                                        "results.csv")), "retrieval wrote no results.csv")
+    with open(os.path.join(work, "clip_predict_out", "predictions.csv")) as f:
+        preds = list(csv.DictReader(f))
+    require(len(preds) == 8 and all(r["status"] == "ok" and r["pred"] in ("benign", "malignant")
+                                    for r in preds), "clip predict --task zero_shot failed")
+    print(f"cli: clip cls best_model.npz holds {heads}; clip predict wrote {len(preds)} "
+          f"zero-shot predictions")
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -3166,16 +3533,19 @@ def main():
             "text LoRA 6", text_lora_phase, dev, 6)["fused_ln_qkv_rawx_backward"]
         # K4: no product path calls it, in either package
         launches.update(dwconv7_per_sample=0, dwconv7_per_sample_backward=0)
+        launches["fused_block_infer_quick_gelu"] = timed("zero-shot", zero_shot_phase, dev)
         launches.update(timed("bench", bench_phase, dev))
         timed("trainer CLIs", cli_phase, dev, work, files)
         timed("finetune CLIs", lambda: [finetune_cli_phase(work),
                                         biomedclip_finetune_cli_phase(work),
                                         text_lora_cli_phase(work)])
+        timed("CLIP family CLIs", clip_cli_phase, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     csrc, jax_ops = "nextgen_uia_tpu_torch/csrc/", "nextgen_uia_tpu/ops/"
     source = {"fused_block_infer": ("fused_block.cu", "fused_block.py:78"),
+              "fused_block_infer_quick_gelu": ("fused_block.cu", "fused_block.py:78"),
               "mona_spatial": ("mona_spatial.cu", "dwconv.py:156"),
               "mona_spatial_backward": ("mona_spatial.cu", "dwconv.py:171"),
               "fused_ln_qkv": ("fused_ln_qkv.cu", "fused_ln_qkv.py:36"),

@@ -5,8 +5,11 @@
   biomedclip   timm ViT-B/16 (gelu)     PubMedBERT + MLP proj, ctx 256
   openai       OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
   metaclip     OpenAI ViT-B/16 (qgelu)  CLIP text transformer, BPE, ctx 77
+  unimedclip   OpenAI ViT-B/16 (qgelu)  CLIP text transformer, ctx 77 (*)
 
-The unimedclip family is not ported yet: ROADMAP.md, section A, item 10.
+(*) UniMedCLIP's text weights are never loaded by the reference: the tower
+exists and holds converted weights only if they are given. Its tokenizer is
+BiomedBERT's where cached, else the CLIP BPE (tasks/common.py).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from .bert import BertConfig, bert_apply, bert_init
 from .text_clip import TextConfig, text_apply, text_init
 from .vit import VIT_B16_OPENAI, VIT_B16_TIMM, ViTConfig, vit_apply, vit_init
 
-FAMILIES = ("biomedclip", "openai", "metaclip")
+FAMILIES = ("biomedclip", "openai", "metaclip", "unimedclip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +48,7 @@ class CLIPConfig:
 def clip_config(family: str, *, compute_dtype: str = "float32", mona_variant: str = "hybrid",
                 lora_alpha: float = 32.0, lora_dropout: float = 0.0) -> CLIPConfig:
     if family not in FAMILIES:
-        raise NotImplementedError(
-            f"CLIP family {family!r} is not ported yet (ROADMAP.md, section A, "
-            f"item 10); ported: {FAMILIES}")
+        raise ValueError(f"Unknown CLIP family {family!r}; choose from {FAMILIES}")
     adapters = dict(mona_variant=mona_variant, lora_alpha=lora_alpha, lora_dropout=lora_dropout)
     if family == "biomedclip":
         return CLIPConfig(family, dataclasses.replace(VIT_B16_TIMM, **adapters),

@@ -1,8 +1,9 @@
 """Feature-pyramid adapter head (counterpart of nextgen_uia_tpu/models/heads.py's
 PyramidHead): tap ViT activations, reduce each D -> reduce_dim, process with
 LN-MLP blocks deep to shallow, sum into a grid x grid map, then a seg head
-(1x1 conv, then bilinear upsample) or a cls head (GAP -> dropout 0.5 ->
-linear; the dropout in train mode only).
+(1x1 conv, then bilinear upsample) or a cls head: GAP -> dropout 0.5 ->
+linear (the timm adapter), or with ``cls_hidden`` GAP -> fc1 -> ReLU ->
+dropout 0.1 -> fc2 (the OpenAI adapter); the dropout in train mode only.
 """
 
 from __future__ import annotations
@@ -24,12 +25,14 @@ class PyramidHeadConfig:
     num_classes: int = 2
     img_size: int = 224
     task: str = "seg"              # 'seg' | 'cls'
+    # the cls head's hidden layer (the OpenAI family's adapter): cls_head/fc1,
+    # ReLU, dropout 0.1, cls_head/fc2
+    cls_hidden: bool = False
 
 
 class PyramidHead(nn.Module):
     """``pyramid_head_init``: reduces, LN-MLP blocks, and seg_head (1x1 conv,
-    HWIO) or cls_head (linear; the OpenAI family's hidden cls layer comes
-    with that family)."""
+    HWIO) or cls_head (linear, or fc1 and fc2 with ``cls_hidden``)."""
 
     def __init__(self, gen, cfg: PyramidHeadConfig):
         super().__init__()
@@ -44,6 +47,10 @@ class PyramidHead(nn.Module):
             self.blocks.append(blk)
         if cfg.task == "seg":
             self.seg_head = Conv(gen, 1, 1, cfg.reduce_dim, cfg.num_classes)
+        elif cfg.cls_hidden:
+            self.cls_head = nn.Module()
+            self.cls_head.fc1 = Linear(gen, cfg.reduce_dim, cfg.reduce_dim)
+            self.cls_head.fc2 = Linear(gen, cfg.reduce_dim, cfg.num_classes)
         else:
             self.cls_head = Linear(gen, cfg.reduce_dim, cfg.num_classes)
 
@@ -60,7 +67,8 @@ def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, d
     Without ``dtype`` the products run in the promoted type, so bf16 tower
     activations meet the float32 head weights in float32. Train mode (a
     dropout generator ``gen``) drops the cls head's pooled features at rate
-    0.5; the seg head has no dropout.
+    0.5, or with ``cls_hidden`` its hidden features at rate 0.1; the seg head
+    has no dropout.
     """
     fused = None
     # deep to shallow; zip pairs the taps with the reduces from the end
@@ -81,5 +89,8 @@ def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, d
         logits = fmap @ seg.w[0, 0].to(fmap.dtype) + seg.b.to(fmap.dtype)
         logits = resize_bilinear(logits, (cfg.img_size, cfg.img_size))
         return logits.permute(0, 3, 1, 2)
-    pooled = dropout(fmap.mean(dim=(1, 2)), 0.5, gen=gen)
-    return linear(p.cls_head, pooled, dtype=dtype)
+    pooled = fmap.mean(dim=(1, 2))
+    if cfg.cls_hidden:
+        h = torch.relu(linear(p.cls_head.fc1, pooled, dtype=dtype))
+        return linear(p.cls_head.fc2, dropout(h, 0.1, gen=gen), dtype=dtype)
+    return linear(p.cls_head, dropout(pooled, 0.5, gen=gen), dtype=dtype)

@@ -1,5 +1,5 @@
-"""Contrastive fine-tuning of the CLIP families on one device (counterpart
-of nextgen_uia_tpu/tasks/clip_finetune.py::finetune_main).
+"""Contrastive fine-tuning and image-text retrieval of the CLIP families on
+one device (counterpart of nextgen_uia_tpu/tasks/clip_finetune.py).
 
 Methods ``lora`` (LoRA pairs in every vision block, trained with the
 q/k/v/o biases of the blocks that hold them) and ``mona`` (MONA adapters);
@@ -11,12 +11,13 @@ cached once (or encoded in the step with ``--no-cache_text_features``, under
 no_grad, trimmed to 32-token buckets); validation each epoch through the
 forward-only kernels; the best-by-validation-loss checkpoint holding only
 the adapter tensors; early stop; ``--resume`` from the full train state and
-SIGTERM preemption.
+SIGTERM preemption; ``--chain_zero_shot`` then evaluates the best adapter
+zero-shot on each dataset it names, in the same process.
 
 The frozen text towers run forward only: the CLIP text transformer
-(openai, metaclip; context 77) through the whole-block kernel with the
-causal mask, BiomedCLIP's PubMedBERT (context 256) through its post-norm
-kernels (models/bert.py). With ``--tune_text_encoder`` BiomedCLIP's text is
+(openai, metaclip, unimedclip; context 77) through the whole-block kernel
+with the causal mask, BiomedCLIP's PubMedBERT (context 256) through its
+post-norm kernels (models/bert.py). With ``--tune_text_encoder`` BiomedCLIP's text is
 encoded in the step, never cached, through the BERT tower under autograd
 with its own dropout stream (the JAX step splits its key for it): with
 ``--method lora`` LoRA pairs sit in BERT's q/k/v/o of the first
@@ -28,10 +29,12 @@ PubMedBERT tokenizer where its HuggingFace files are cached, else the folded
 CLIP-BPE fallback, which a full-size run refuses unless
 NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
 
+``retrieval_main`` encodes an image-caption CSV through both towers,
+forward only, and reports Recall@K in both directions, MedR, MeanR and rSum.
+
 Not ported, each refused naming its ROADMAP.md item: ``--method full``,
 ``--tune_text_encoder`` for the OpenAI-layout families (the CLIP text
-tower's composed route), ``--chain_zero_shot``, ``--n_data``/``--n_model``,
-the UniMedCLIP family and retrieval.
+tower's composed route) and ``--n_data``/``--n_model``.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import torch
 
 from ..core import checkpoint as ckpt
 from ..core import train as T
-from ..core.experiment import TBWriter, model_summary
+from ..core.experiment import TBWriter, model_summary, save_results_csv
 from ..core.partition import by_keywords, partition, path_str
 from ..data import datasets as D
 from ..data import pipeline as P
@@ -55,7 +58,7 @@ from ..models import clip as clip_mod
 from ..ops import KERNELS
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
                      not_ported, require_real_tokenizer, resolve_device, seed_everything,
-                     setup_logging)
+                     setup_logging, setup_run)
 
 
 def _finetune_parser(family: str):
@@ -86,7 +89,8 @@ def _finetune_parser(family: str):
                    help="encode every caption once with the frozen text tower and reuse "
                         "the features every step (exact: the tower has no dropout)")
     p.add_argument("--chain_zero_shot", type=str, nargs="*", default=None,
-                   help="not ported: zero-shot evaluation after fine-tuning")
+                   help="datasets to evaluate zero-shot with the trained adapter after "
+                        "fine-tuning, in the same process")
     return p
 
 
@@ -126,13 +130,8 @@ def _refuse_unported(args, family):
     if args.tune_text_encoder and family != "biomedclip":
         raise not_ported("--tune_text_encoder for the OpenAI-layout families (the CLIP text "
                          "tower's composed route)", "section A, item 17")
-    if args.chain_zero_shot:
-        raise not_ported("--chain_zero_shot (zero-shot of the CLIP families)",
-                         "section A, item 10")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-    if family not in clip_mod.FAMILIES:
-        raise not_ported(f"Fine-tuning the {family} family", "section A, item 10")
 
 
 def make_text_encoder(params, cfg, device, ops=KERNELS):
@@ -331,8 +330,145 @@ def finetune_main(family: str, argv=None):
                 "best_epoch": stopper.best_step}
     logging.info(f"Training completed. Best val loss {stopper.best:.4f} at epoch "
                  f"{stopper.best_step + 1}")
+    if args.chain_zero_shot:
+        chain_zero_shot(args, family, best_path)
     return {"best_val_loss": stopper.best, "best_epoch": stopper.best_step}
 
 
+def chain_zero_shot(args, family: str, best_path: str):
+    """Zero-shot evaluation of the best adapter on each dataset of
+    ``--chain_zero_shot``, with the JAX package's argument list (and this
+    run's ``--device``)."""
+    from .clip_tasks import zero_shot_main
+
+    weight_flag = {"mona": "--mona_weights", "lora": "--lora_weights"}[args.method]
+    for ds in args.chain_zero_shot:
+        logging.info(f"Chaining zero-shot evaluation on {ds}")
+        zs_argv = ["--exp", f"{args.exp}_zero_shot", "--dataset", ds,
+                   "--data_root", args.data_root, "--img_size", str(args.img_size),
+                   "--seed", str(args.seed), "--device", args.device, weight_flag, best_path]
+        if args.method == "mona":
+            zs_argv += ["--mona_variant", args.mona_variant]
+        if args.backbone_ckpt:
+            zs_argv += ["--backbone_ckpt", args.backbone_ckpt]
+        if args.debug_tiny:
+            zs_argv += ["--debug_tiny"]
+        zero_shot_main(family, zs_argv)
+
+
+def retrieval_metrics(sim: np.ndarray, k_values=(1, 2, 5, 10)):
+    """sim [N_img, N_txt] with the true pairs on the diagonal -> image-to-text
+    and text-to-image Recall@K for each K (in percent), MedR and MeanR, and
+    rSum, the sum of all 2 * len(K) recalls. A tie ranks by index (numpy's
+    argsort of -sim)."""
+    k_values = tuple(int(k) for k in k_values)
+
+    def directed(s):
+        order = np.argsort(-s, axis=1)
+        ranks = np.empty(s.shape[0])
+        for i in range(s.shape[0]):
+            ranks[i] = np.nonzero(order[i] == i)[0][0]
+        out = {f"r{k}": float(np.mean(ranks < k) * 100) for k in k_values}
+        out["medr"] = float(np.median(ranks) + 1)
+        out["meanr"] = float(np.mean(ranks) + 1)
+        return out
+
+    i2t = directed(sim)
+    t2i = directed(sim.T)
+    rsum = sum(i2t[f"r{k}"] for k in k_values) + sum(t2i[f"r{k}"] for k in k_values)
+    return {"i2t": i2t, "t2i": t2i, "rsum": rsum}
+
+
+def make_pair_features(cfg):
+    """(params, images_u8 [B, H, W, 3], tokens [B, ctx]) -> (image, text)
+    float32 L2-normalised features, forward only: both towers' blocks
+    through the whole-block kernel (``infer_cfg``)."""
+    ecfg = clip_mod.infer_cfg(cfg)
+
+    @torch.inference_mode()
+    def features(params, images_u8, tokens, ops=KERNELS):
+        img, _ = clip_mod.encode_image(params, ecfg, images_u8.to(torch.float32) / 255.0,
+                                       ops=ops)
+        txt = clip_mod.encode_text(params, ecfg, tokens, ops=ops)
+        return clip_mod.normalize(img), clip_mod.normalize(txt)
+
+    return features
+
+
 def retrieval_main(family: str, argv=None):
-    raise not_ported("Image-text retrieval", "section A, item 7")
+    """Image-text retrieval over a CSV of (image file, caption) pairs
+    (reference CLI defaults: batch 128, seed 42); results.csv holds the
+    recalls, MedR, MeanR and rSum."""
+    p = base_parser(f"{family}_retrieval", batch_size=128, seed=42)
+    p.add_argument("--csv", type=str, required=False, default=None,
+                   help="CSV with filename,Caption columns (e.g. ROCO-v2 test)")
+    p.add_argument("--img_dir", type=str, default=None)
+    p.add_argument("--caption_key", type=str, default="Caption")
+    p.add_argument("--img_key", type=str, default="filename")
+    p.add_argument("--k_values", type=int, nargs="+", default=[1, 2, 5, 10],
+                   help="K values for the Recall@K metrics")
+    p.add_argument("--model_name", type=str, default=None,
+                   help="accepted for parity; the family fixes the model")
+    p.add_argument("--split", type=str, default="test",
+                   help="accepted for parity; the CSV given via --csv is the evaluated split")
+    p.add_argument("--cache_dir", type=str, default=None,
+                   help="accepted for parity; unused (no dataset download)")
+    p.add_argument("--output_dir", type=str, default=None,
+                   help="directory for results.csv (default: the run path)")
+    p.add_argument("--max_samples", type=int, default=None,
+                   help="cap the number of evaluated pairs")
+    p.add_argument("--save_features", default=False, action="store_true",
+                   help="also save the image and text features as features.npz")
+    args = p.parse_args(argv)
+    apply_compat_flags(args)
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device evaluation)", "section A, item 14")
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = setup_run(args, "test")
+
+    adapter = "lora" if args.lora_weights else ("mona" if args.mona_weights else None)
+    cfg, params = build_clip_model(args, family, adapter=adapter, gen=gen)
+    tokenizer = get_text_tokenizer(args, family)
+    require_real_tokenizer(args, tokenizer, family)
+
+    import pandas as pd
+
+    rows = []
+    for _, r in pd.read_csv(args.csv).iterrows():
+        path = os.path.join(args.img_dir or ".", os.path.basename(str(r[args.img_key])))
+        if os.path.exists(path):
+            rows.append((path, D.clean_caption(r[args.caption_key])))
+    if args.max_samples is not None:
+        rows = rows[: args.max_samples]
+    ds = D.FinetuneDataset(rows, args.img_size)
+    logging.info(f"Retrieval set: {len(ds)} pairs")
+
+    ctx = cfg.text.context_length
+    params.to(device)
+    features = make_pair_features(cfg)
+
+    def tokenized():
+        for b in P.batches(ds, args.batch_size, shuffle=False, drop_last=False,
+                           workers=args.num_workers):
+            yield {"image": b["image"], "tokens": np.asarray(tokenizer(b["caption"], ctx))}
+
+    all_img, all_txt = [], []
+    for batch in P.prefetch_to_device(tokenized(), device=device):
+        fi, ft = features(params, batch["image"], batch["tokens"])
+        all_img.append(fi.cpu().numpy())
+        all_txt.append(ft.cpu().numpy())
+
+    img_feats, txt_feats = np.concatenate(all_img), np.concatenate(all_txt)
+    m = retrieval_metrics(img_feats @ txt_feats.T, k_values=args.k_values)
+    flat = {f"i2t_{k}": v for k, v in m["i2t"].items()}
+    flat.update({f"t2i_{k}": v for k, v in m["t2i"].items()})
+    flat["rsum"] = m["rsum"]
+    logging.info("  ".join(f"{k}={v:.2f}" for k, v in flat.items()))
+    out_dir = args.output_dir or run_path
+    os.makedirs(out_dir, exist_ok=True)
+    save_results_csv(flat, os.path.join(out_dir, "results.csv"), scale100=())
+    if args.save_features:
+        np.savez(os.path.join(out_dir, "features.npz"), image_features=img_feats,
+                 text_features=txt_feats)
+    return flat

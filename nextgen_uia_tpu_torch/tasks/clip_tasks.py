@@ -1,14 +1,22 @@
-"""Supervised seg/cls for the CLIP families (counterpart of
-nextgen_uia_tpu/tasks/clip_tasks.py): the backbone with its adapters plus a
-PyramidHead, the train and eval forwards over decoded uint8 images, and the
-supervised trainer's entry point. Zero-shot comes with a later slice
-(ROADMAP.md, section A, item 10)."""
+"""Zero-shot classification and supervised seg/cls for the CLIP families
+(counterpart of nextgen_uia_tpu/tasks/clip_tasks.py), on one device.
+
+  - zero-shot: each class's 10-prompt ensemble through the frozen text tower
+    (forward only), L2-normalised; the logits are the mean over prompts of
+    100 * cos; the prompt-similarity warning above 0.95 and the
+    feature-collapse eigenvalue check over every test feature; metrics,
+    ROC and results.csv in the acc-tagged backup folder.
+  - supervised: the backbone with its adapters plus a PyramidHead (the
+    OpenAI family's with its hidden cls layer), the train and eval forwards
+    over decoded uint8 images, and the trainer's entry point.
+"""
 
 from __future__ import annotations
 
 import logging
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -16,17 +24,111 @@ from ..core import checkpoint as ckpt
 from ..core.experiment import model_summary
 from ..core.partition import by_keywords
 from ..data import datasets as D
+from ..data import pipeline as P
+from ..metrics.segmentation import ClsAccumulator
 from ..models import clip as clip_mod
 from ..models.heads import PyramidHeadConfig, pyramid_head_apply, pyramid_head_init
 from ..ops import KERNELS
-from .common import (apply_compat_flags, base_parser, build_clip_model, not_ported,
-                     resolve_device, seed_everything, setup_run)
-from .supervised import Bundle, preprocess, run_supervised
+from . import prompts as PR
+from .clip_finetune import make_text_encoder
+from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
+                     not_ported, require_real_tokenizer, resolve_device, seed_everything,
+                     setup_run)
+from .supervised import Bundle, finish_cls, preprocess, run_supervised
 
 
 def extract_layers_for(depth: int):
     """Pyramid taps {3,6,9} for ViT-B; the last three blocks for shrunk towers."""
     return (3, 6, 9) if depth >= 10 else tuple(range(max(depth - 3, 0), depth))
+
+
+def build_text_features(params, cfg, tokenizer, ensemble, *, classes=None, ops=KERNELS):
+    """class -> [n_prompts, embed] float32 L2-normalised prompt features on
+    the parameters' device: each class's ensemble through the frozen text
+    tower, forward only (``clip_finetune.make_text_encoder``)."""
+    classes = classes or PR.LESION_TYPES
+    encode = make_text_encoder(params, cfg, next(params.parameters()).device, ops=ops)
+    return {c: clip_mod.normalize(encode(tokenizer(ensemble[c]))) for c in classes}
+
+
+def make_zero_shot_logits_fn(cfg, text_feats, *, classes=None):
+    """(params, images_u8 [B, H, W] or [B, H, W, 3]) -> ([B, n_cls] logits,
+    [B, embed] normalised image features), forward only: the image tower's
+    blocks through the whole-block kernel (``infer_cfg``), each logit the
+    mean over the class's prompts of 100 * cos."""
+    classes = classes or PR.LESION_TYPES
+    ecfg = clip_mod.infer_cfg(cfg)
+
+    @torch.inference_mode()
+    def image_logits(params, images_u8, ops=KERNELS):
+        x = images_u8.to(torch.float32) / 255.0
+        if x.dim() == 3:  # grayscale [B, H, W]
+            x = x[..., None].expand(-1, -1, -1, 3)
+        feats, _ = clip_mod.encode_image(params, ecfg, x, ops=ops)
+        feats = clip_mod.normalize(feats)
+        cols = [(100.0 * feats @ text_feats[c].T).mean(dim=1) for c in classes]
+        return torch.stack(cols, dim=1), feats
+
+    return image_logits
+
+
+def zero_shot_main(family: str, argv=None):
+    """Zero-shot classification over the train, val and test splits together
+    (reference CLI defaults: batch 32, freq_enhanced MONA for biomedclip,
+    noise_aware for the others)."""
+    p = base_parser(f"{family}_zero_shot", batch_size=32,
+                    mona_variant="freq_enhanced" if family == "biomedclip" else "noise_aware")
+    args = p.parse_args(argv)
+    apply_compat_flags(args)
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device evaluation)", "section A, item 14")
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = setup_run(args, "test")
+    args.test_snapshot_path = run_path
+
+    adapter = "lora" if args.lora_weights else ("mona" if args.mona_weights else None)
+    cfg, params = build_clip_model(args, family, adapter=adapter, gen=gen)
+    tokenizer = get_text_tokenizer(args, family)
+    require_real_tokenizer(args, tokenizer, family)
+    params.to(device)
+
+    text_feats = build_text_features(params, cfg, tokenizer,
+                                     PR.prompt_ensemble_for(args.dataset))
+    proto = {c: text_feats[c].mean(dim=0) for c in PR.LESION_TYPES}
+    proto_sim = float(proto["benign"] @ proto["malignant"])
+    if proto_sim > 0.95:
+        logging.warning(f"Text prompts very similar: {proto_sim:.4f}")
+
+    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task="cls",
+                               zero_shot=True, cache=args.cache_images)
+    image_logits = make_zero_shot_logits_fn(cfg, text_feats)
+    acc = ClsAccumulator(criterion=cross_entropy_np)
+    collected = []
+    batches = P.batches(datasets["test"], args.batch_size, shuffle=False, drop_last=False,
+                        workers=args.num_workers)
+    for batch in P.prefetch_to_device(batches, device=device):
+        logits, feats = image_logits(params, batch["image"])
+        acc.update(logits.cpu().numpy(), batch["label"].cpu().numpy())
+        collected.append(feats.cpu().numpy())  # every test feature, for the check below
+
+    feats = np.concatenate(collected, axis=0)
+    if len(feats) > 10:  # feature collapse: one direction holding the covariance
+        cov = feats.T @ feats / len(feats)
+        eig = np.abs(np.linalg.eigvalsh(cov))[::-1]
+        ratio = eig[0] / max(eig.sum(), 1e-12)
+        if ratio > 0.95:
+            logging.warning(f"Features may be collapsed (ratio={ratio:.4f})")
+
+    stats = acc.compute()
+    finish_cls(args, acc, stats, run_path, f"roc_curve_{family}_zero_shot")
+    return stats
+
+
+def cross_entropy_np(logits, labels):
+    z = logits - logits.max(axis=1, keepdims=True)
+    logp = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+    return float(-np.mean(logp[np.arange(len(labels)), labels.astype(int)]))
 
 
 def _build_supervised(args, family: str, task: str, gen: torch.Generator):
@@ -37,7 +139,7 @@ def _build_supervised(args, family: str, task: str, gen: torch.Generator):
     cfg, backbone = build_clip_model(args, family, adapter=adapter, gen=gen)
     hcfg = PyramidHeadConfig(feature_dim=cfg.vision.width, reduce_dim=args.reduce_dim,
                              num_classes=args.num_classes, img_size=args.img_size,
-                             task=task)
+                             task=task, cls_hidden=family == "openai")
     head = pyramid_head_init(gen, hcfg)
     params = nn.ModuleDict({"backbone": backbone, "head": head})
     if args.head_weights:
@@ -85,13 +187,16 @@ def _make_forward(cfg, hcfg, *, train: bool, strong: bool = False, weak: bool = 
 
 
 def supervised_main(family: str, task: str, argv=None):
-    """The supervised seg/cls trainer (reference CLI defaults: 200 epochs,
-    batch 32, hybrid MONA for biomedclip, strong and weak augmentation on)."""
-    if family not in clip_mod.FAMILIES:
-        raise not_ported(f"Supervised training of the {family} family",
-                         "section A, items 10-13")
-    p = base_parser(f"{family}_{task}", epochs=200, batch_size=32, strong_augs=True,
-                    weak_augs=True, mona_variant="hybrid")
+    """The supervised seg/cls trainer (reference CLI defaults: batch 32,
+    strong and weak augmentation on; biomedclip 200 epochs and hybrid MONA,
+    the others 1000 epochs and noise_aware, except freq_enhanced for openai
+    cls)."""
+    defaults = dict(epochs=200 if family == "biomedclip" else 1000, batch_size=32,
+                    strong_augs=True, weak_augs=True,
+                    mona_variant="hybrid" if family == "biomedclip" else "noise_aware")
+    if family == "openai" and task == "cls":
+        defaults["mona_variant"] = "freq_enhanced"  # the reference's clip/classification.py
+    p = base_parser(f"{family}_{task}", **defaults)
     args = p.parse_args(argv)
     apply_compat_flags(args)
     if args.n_model != 1 or (args.n_data or 1) != 1:

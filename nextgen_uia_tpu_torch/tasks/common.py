@@ -33,6 +33,7 @@ from ..models.bert import BertConfig
 
 MONA_CHOICES = ["baseline", "noise_aware", "freq_enhanced", "hybrid"]
 BIOMEDCLIP_HF = "microsoft/BiomedCLIP-PubMedBERT_256-vit_base_patch16_224"
+UNIMEDCLIP_HF = "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract"
 
 
 def not_ported(what: str, item: str):
@@ -276,11 +277,19 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
 
 
 def get_text_tokenizer(args, family: str):
-    """The text tokenizer of a family: the CLIP BPE (context 77) for openai
-    and metaclip; for biomedclip the PubMedBERT tokenizer (context 256) when
-    its HuggingFace files are cached, else the CLIP BPE with its ids folded
-    into the BERT vocabulary (1 + id % 30521, padding 0), marked
-    ``is_fallback``."""
+    """The text tokenizer of a family: the CLIP BPE (context 77) for openai,
+    metaclip and any other family; for unimedclip the BiomedBERT tokenizer at context 77 when
+    its HuggingFace files are cached, else the CLIP BPE (context 77, not
+    marked as a fallback, as the JAX package has it); for biomedclip the
+    PubMedBERT tokenizer (context 256) when its HuggingFace files are cached,
+    else the CLIP BPE with its ids folded into the BERT vocabulary (1 + id %
+    30521, padding 0), marked ``is_fallback``."""
+    if family == "unimedclip":
+        tok = load_hf_tokenizer(UNIMEDCLIP_HF, context_length=77)
+        if tok is not None:
+            return tok
+        logging.warning("UniMedCLIP BiomedBERT tokenizer unavailable offline; falling back "
+                        "to CLIP BPE (ctx 77).")
     if family == "biomedclip":
         tok = load_hf_tokenizer(BIOMEDCLIP_HF, context_length=256)
         if tok is not None:
@@ -298,10 +307,8 @@ def get_text_tokenizer(args, family: str):
 
         fallback.is_fallback = True
         return fallback
-    if family in ("openai", "metaclip"):
-        tok = ClipTokenizer()
-        return lambda texts, ctx=77: tok(texts, context_length=ctx)
-    raise not_ported(f"The {family} text tokenizer", "section A, item 10")
+    tok = ClipTokenizer()
+    return lambda texts, ctx=77: tok(texts, context_length=ctx)
 
 
 def require_real_tokenizer(args, tokenizer, what: str):

@@ -1,14 +1,16 @@
-"""Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py): the
-supervised ``--task cls`` / ``--task seg`` route of the CLIP families, and
-the supervised-engine bundles of the DINOv2 family (served through the same
-``forward_eval`` the trainer evaluates with).
+"""Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py): for
+the CLIP families ``--task zero_shot`` (the default: the dataset's prompt
+ensemble, no head weights) and the supervised ``--task cls`` / ``--task
+seg``, and the supervised-engine bundles of the DINOv2 family (served
+through the same ``forward_eval`` the trainer evaluates with).
 
 Point it at a directory (or a .txt list) of images; it decodes them to
-uint8 grayscale batches, stages them on the device, runs the PyramidHead
-model forward and writes predictions.csv (cls) or <index>_<stem>_mask.png
-plus index.csv (seg). The model is assembled exactly as the JAX package
-assembles it (``--backbone_ckpt``, ``--mona_weights``, ``--head_weights``,
-the same ``.npz`` files), on one device given by ``--device``.
+uint8 grayscale batches, stages them on the device, runs the model forward
+and writes predictions.csv (zero_shot, cls; the prompt classes name the
+zero-shot columns) or <index>_<stem>_mask.png plus index.csv (seg). The
+model is assembled exactly as the JAX package assembles it
+(``--backbone_ckpt``, ``--mona_weights``, ``--head_weights``, the same
+``.npz`` files), on one device given by ``--device``.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ from ..data import pipeline as P
 from ..models import clip as clip_mod
 from ..ops import KERNELS
 from . import other_tasks as OT
-from .clip_tasks import _build_supervised, _make_forward
-from .common import (apply_compat_flags, base_parser, not_ported, resolve_device,
-                     seed_everything, setup_logging)
+from . import prompts as PR
+from .clip_tasks import (_build_supervised, _make_forward, build_text_features,
+                         make_zero_shot_logits_fn)
+from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
+                     not_ported, require_real_tokenizer, resolve_device, seed_everything,
+                     setup_logging)
 
 # supervised-engine families: (family, task) -> (dataset-free bundle factory,
 # the flag adder its parser needs); CLIPSeg and the baselines come later
@@ -92,15 +97,12 @@ def predict_main(family: str = "biomedclip", argv=None):
 
     is_clip = family in clip_mod.FAMILIES
     if not is_clip and not any(f == family for f, _ in BUNDLE_FAMILIES):
-        raise not_ported(f"Serving the {family} family", "section A, items 10-13")
+        raise not_ported(f"Serving the {family} family", "section A, items 12-13")
     default_task = "zero_shot" if is_clip else "cls"
     tasks = ["zero_shot", "cls", "seg"] if is_clip else ["cls", "seg"]
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--task", type=str, default=default_task)
     task = pre.parse_known_args(argv)[0].task
-    if task == "zero_shot":
-        raise not_ported("--task zero_shot (BERT text tower and tokenizer)",
-                         "section A, item 10")
     if task not in tasks:
         raise SystemExit(f"{family} predict supports --task {tasks}, not {task!r}")
 
@@ -113,17 +115,18 @@ def predict_main(family: str = "biomedclip", argv=None):
     p.add_argument("--out", type=str, default=None,
                    help="output directory (default runs/serve/<exp>)")
     p.add_argument("--class_names", type=str, default=None,
-                   help="comma-separated class names for csv headers")
+                   help="comma-separated class names for csv headers (default: the "
+                        "zero-shot prompt classes, or the class indices)")
     p.add_argument("--export", type=str, default=None,
-                   help="not ported (jax.export)")
+                   help="not ported (ROADMAP.md, section A, item 14)")
     args = p.parse_args(argv)
     apply_compat_flags(args)
     if args.export:
         raise not_ported("--export", "section A, item 14")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_model/--n_data (multi-device serving)", "section A, item 14")
-    if args.lora_weights:
-        raise not_ported("LoRA weights in the serving CLIs", "section A, item 4")
+    if args.lora_weights and args.task != "zero_shot":
+        raise not_ported("LoRA weights in the supervised serving CLIs", "section A, item 4")
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
 
@@ -135,6 +138,19 @@ def predict_main(family: str = "biomedclip", argv=None):
         raise SystemExit(f"no images found under {args.images}")
     logging.info(f"Serving {len(paths)} images -> {out_dir} on {device}")
 
+    if args.task == "zero_shot":
+        adapter = "lora" if args.lora_weights else ("mona" if args.mona_weights else None)
+        cfg, params = build_clip_model(args, family, adapter=adapter, gen=gen)
+        tokenizer = get_text_tokenizer(args, family)
+        require_real_tokenizer(args, tokenizer, f"{family} predict")
+        params.to(device)
+        classes = list(PR.LESION_TYPES)
+        text_feats = build_text_features(params, cfg, tokenizer,
+                                         PR.prompt_ensemble_for(args.dataset), classes=classes)
+        logits_fn = make_zero_shot_logits_fn(cfg, text_feats, classes=classes)
+        infer = make_infer(lambda p, x, ops: logits_fn(p, x, ops)[0], params, device)
+        _run_cls(paths, args, infer, device, _names(args, classes), out_dir)
+        return {"n_images": len(paths), "out": out_dir}
     if is_clip:
         cfg, hcfg, params = _build_supervised(args, family, args.task, gen)
         forward = _make_forward(cfg, hcfg, train=False)

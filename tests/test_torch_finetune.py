@@ -277,22 +277,17 @@ def test_finetune_cli_writes_what_the_jax_package_reads(ftdata, tmp_path):
 
 def test_finetune_refuses_what_is_not_ported(ftdata):
     from nextgen_uia_tpu_torch.tasks.clip.finetune import main
-    from nextgen_uia_tpu_torch.tasks.common import get_text_tokenizer
 
     base = _argv(ftdata, "ft_refuse")
     for extra, item in ((["--method", "full"], "item 3"), (["--tune_text_encoder"], "item 17"),
-                        (["--chain_zero_shot", "BUSI"], "item 10"),
                         (["--n_data", "2"], "item 14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             main(base + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        ft.finetune_main("unimedclip", base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.retrieval_main("openai", [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_text_tokenizer(None, "unimedclip")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clip_mod.clip_config("unimedclip")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        ft.retrieval_main("openai", ["--n_data", "2"])
+    # an unknown family: no such model (all four CLIP families are ported)
+    with pytest.raises(ValueError, match="Unknown CLIP family"):
+        clip_mod.clip_config("clipseg")
     # BiomedCLIP at full size refuses the folded fallback tokenizer
     with pytest.raises(SystemExit, match="FALLBACK|fallback"):
         ft.finetune_main("biomedclip", [a for a in base if a != "--debug_tiny"])

@@ -15,12 +15,19 @@ import pytest
 
 from nextgen_uia_tpu_torch.tasks.common import apply_compat_flags, base_parser
 
-# (module under tasks/, argv that reaches the parser): predict's default
-# task, zero-shot, is refused by the port before its parser is built
+# (module under tasks/, argv that reaches the parser)
 CLIS = [("biomedclip.classification", []), ("biomedclip.segmentation", []),
-        ("biomedclip.finetune", []), ("biomedclip.predict", ["--task", "seg"]),
-        ("clip.finetune", []), ("metaclip.finetune", []), ("dino.classification", []),
-        ("dino.segmentation", []), ("dino.predict", [])]
+        ("biomedclip.finetune", []), ("biomedclip.predict", []),
+        ("biomedclip.predict", ["--task", "seg"]), ("biomedclip.zero_shot", []),
+        ("biomedclip.retrieval", []),
+        ("clip.classification", []), ("clip.segmentation", []), ("clip.predict", []),
+        ("clip.predict", ["--task", "cls"]), ("clip.zero_shot", []), ("clip.finetune", []),
+        ("metaclip.classification", []), ("metaclip.segmentation", []),
+        ("metaclip.predict", []), ("metaclip.zero_shot", []), ("metaclip.finetune", []),
+        ("unimedclip.classification", []), ("unimedclip.segmentation", []),
+        ("unimedclip.predict", []), ("unimedclip.zero_shot", []),
+        ("unimedclip.finetune", []),
+        ("dino.classification", []), ("dino.segmentation", []), ("dino.predict", [])]
 DIFFERENT_DEFAULT = {"device"}
 
 
@@ -45,7 +52,7 @@ def _parser(package, cli, argv, monkeypatch):
     raise AssertionError(f"{package}.tasks.{cli} never parsed its arguments")
 
 
-@pytest.mark.parametrize("cli,argv", CLIS, ids=[c for c, _ in CLIS])
+@pytest.mark.parametrize("cli,argv", CLIS, ids=[" ".join([c, *a]) for c, a in CLIS])
 def test_port_accepts_the_jax_flags(cli, argv, monkeypatch):
     jax_flags = _parser("nextgen_uia_tpu", cli, argv, monkeypatch)
     port_flags = _parser("nextgen_uia_tpu_torch", cli, argv, monkeypatch)
