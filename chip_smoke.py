@@ -107,11 +107,12 @@
    text (launch counts, text features, loss and gradient norm against the
    plain path; in float32 the loss and every MONA gradient), the loss
    falling over 10 updates, ms per update, a profiler table. Then
-   ``--tune_text_encoder`` with LoRA (r=16, alpha 32, dropout 0.1) in all
-   12 blocks and layers of both towers, and in the first 6: one update
-   with the text in the step (seeded ids with a padded tail, a 256-token
-   bucket): launch counts derived from the code (K10's backward 48 and
-   24, K5 raw-x's backward 0 and 24), loss and gradient norm against the
+   ``--tune_text_encoder`` with both towers cut to 6 blocks and layers
+   (full width), LoRA (r=16, alpha 32, dropout 0.1) in all 6 of both, and
+   in the first 3: one update with the text in the step (seeded ids with a
+   padded tail, a 256-token bucket): launch counts derived from the code
+   (K10's backward 24 and 12, K5 raw-x's backward 0 and 12), loss and
+   gradient norm against the
    plain path, in float32 the loss and every LoRA and bias gradient, the
    loss falling over 10 updates, ms per update, a profiler table.
    Zero-shot phase: BiomedCLIP (the 12-layer PubMedBERT at ctx 256) and
@@ -131,17 +132,36 @@
    share, peak memory, no WMMA GEMM, colgemm_kernel or mona_down_kernel in
    the profile; in float32 the fused route on the kernels against
    the composed plain path (loss, every MONA tensor); bench.main's JSON.
-11. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
+11. Convert phase: full-size seeded state dicts under the reference
+   checkpoints' key names (open_clip's BiomedCLIP in float32, OpenAI's
+   ViT-B/16 CLIP in float16), each torch.save'd, converted by ``python -m
+   nextgen_uia_tpu_torch.convert`` in a process of its own, and loaded
+   into the port's CLIP with every tensor filled.
+12. Full phase: ``--method full`` from the converted weights (ViT-B/16,
+   bf16, batch 64 as 4 x 16, AdamW at the clamped 1e-6): BiomedCLIP with
+   its captions cached through PubMedBERT's mlp_impl='xla' layers (K7
+   forward with the padding bias), two updates against the plain path (K7
+   forward and backward 48 each, no other kernel), then with
+   --tune_text_encoder (BERT trained: K7 96 each), the OpenAI layout with
+   --tune_text_encoder (the causal text tower trained: K7 96 each), each
+   timed with a profiler table; then --method mona --tune_text_encoder on
+   the OpenAI layout (the frozen text tower's composed route in the step:
+   K7 causal forward and K10's forward 48 each, no text backward) against
+   the plain path.
+13. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
    trainers, the OpenAI LoRA fine-tune CLI, the BiomedCLIP MONA fine-tune
-   CLI and the BiomedCLIP LoRA fine-tune CLI with --tune_text_encoder
-   --lora_layers 6 (one epoch each); then the CLIP families' CLIs at full
+   CLI, the BiomedCLIP LoRA fine-tune CLI with --tune_text_encoder
+   --lora_layers 6 and the BiomedCLIP fine-tune CLI at its default
+   --method full from the converted checkpoint (whole-model
+   best_model.npz; one epoch each); then the CLIP families' CLIs at full
    width: clip.classification (the hidden cls head in best_model.npz),
    metaclip.segmentation, the unimedclip, biomedclip and clip zero-shot
    CLIs, biomedclip.retrieval and clip.predict at its default task,
    zero-shot, each with its launch counts.
-12. Prints each phase's host seconds, one JSON line of per-kernel results
-   (29 rows), then the final status line.
+14. Prints each phase's host seconds, one JSON line of per-kernel results
+   (37 rows: K7 also at the full route's shapes, K10 at the text tower's
+   composed route), then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it,
 and refuses NEXTGEN_UIA_FUSED_MONA or NEXTGEN_UIA_FUSED_BLOCK_BERT set by the
@@ -163,6 +183,7 @@ SEG_CLASSES, IMG, BATCH, RAGGED, N_BATCHES = 2, 224, 32, 5, 4
 DINO_IMG, DINO_BATCH, DINO_TOKENS = 518, 24, 37 * 37 + 1
 FT_BATCH, FT_ACCUM, FT_MICRO = 64, 4, 16     # the fine-tune's batch, accumulation, microbatch
 TEXT_CHUNK, N_CAPTIONS = 256, 512            # the text cache's chunk, captions cached
+TEXT_LORA_DEPTH = 6                          # blocks and layers of the text LoRA phases
 
 
 def require(cond, msg):
@@ -617,6 +638,21 @@ def kernel_phase(dev):
     check("fused_mlp", mlp_only(fm.fused_mlp), mlp_only(fm.fused_mlp_plain), [randn(dm, d)],
           [randn(77, 128), True], (4 * dm * d * hid, 2 * (2 * dm * d + 2 * d * hid)),
           more=[[randn(FT_MICRO * 256, d)], [randn(1001, d)]], kernels=True)
+    # ... and at the frozen CLIP text tower's composed route in the step
+    # (--tune_text_encoder under mona): [16 * L, 512] x 2048 quick_gelu, L the
+    # in-step text's trimmed length
+    tl = full_step_tokens()[1].shape[1]
+    tfm = FT_MICRO * tl
+
+    def text_mlp(fn):
+        def run(x, odd=False):
+            mod = (small if odd else tblk).mlp
+            return fn(x, mod.fc1.w, mod.fc1.b, mod.fc2.w, mod.fc2.b, act="quick_gelu")
+        return run
+
+    check("fused_mlp_text", text_mlp(fm.fused_mlp), text_mlp(fm.fused_mlp_plain),
+          [randn(tfm, td)], [randn(77, 128), True],
+          (4 * tfm * td * 4 * td, 2 * (2 * tfm * td + 2 * td * 4 * td)), kernels=True)
 
     # K13: the table lookup and the histogram, exactly equal to their plain
     # versions at [24, 518, 518] and an odd [3, 37, 41]; ``library`` times the
@@ -676,6 +712,7 @@ def kernel_phase(dev):
     fused_kernel_rows(dev, gen, results)
     k6_k8_rows(dev, block(d, h))
     k5_rows(dev, block(d, h))
+    results.update(full_path_k7_rows(dev))
     return results
 
 
@@ -2616,16 +2653,19 @@ def text_lora_launches(depth_v, depth_t, k, n_mb):
 
 def text_lora_phase(dev, lora_layers):
     """``--tune_text_encoder`` at full width: BiomedCLIP ViT-B/16 at 224 px
-    and the 12-layer PubMedBERT (ctx 256) with LoRA r=16, alpha 32, dropout
-    0.1 in the first ``lora_layers`` blocks and layers of both towers (built
-    through build_clip_model as the CLI builds it, the b matrices drawn
-    nonzero), bf16, batch 64 as 4 x 16, AdamW (0.9, 0.95), clip 1.0, the
+    and PubMedBERT (ctx 256), each cut to its first ``TEXT_LORA_DEPTH`` blocks and
+    layers, with LoRA r=16, alpha 32, dropout 0.1 in the first
+    ``lora_layers`` blocks and layers of both towers (built through
+    build_clip_model as the CLI builds it, the b matrices drawn nonzero),
+    bf16, batch 64 as 4 x 16, AdamW (0.9, 0.95), clip 1.0, the
     text of seeded ids (lengths 16-256, padded tail) encoded in the step
     and trimmed to its 32-token bucket. One update's launch counts against
     text_lora_launches; its loss and gradient norm against the plain path
     (bf16), and in float32 the loss and each LoRA and bias gradient; the
     loss falling over 10 updates with dropout on; ms per update, img/s,
     peak memory, the busy share. Returns the launch counts."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2636,7 +2676,8 @@ def text_lora_phase(dev, lora_layers):
     from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
     from nextgen_uia_tpu_torch.tasks.common import build_clip_model
 
-    tag = f"text LoRA ({lora_layers} layers)"
+    depth = TEXT_LORA_DEPTH
+    tag = f"text LoRA ({lora_layers} of {depth} layers)"
     args = ft._finetune_parser("biomedclip").parse_args(
         ["--method", "lora", "--tune_text_encoder", "--lora_layers", str(lora_layers),
          "--seed", "5"])
@@ -2648,6 +2689,10 @@ def text_lora_phase(dev, lora_layers):
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(5)
     cfg, params = build_clip_model(args, "biomedclip", adapter="lora", gen=gen)
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, depth=depth),
+                      text=dataclasses.replace(cfg.text, depth=depth))
+    params.visual.blocks = torch.nn.ModuleList(list(params.visual.blocks)[:depth])
+    params.text.layers = torch.nn.ModuleList(list(params.text.layers)[:depth])
     attns = [blk.attn for blk in params.visual.blocks] + [ly.attn for ly in params.text.layers]
     with torch.no_grad():
         for attn in attns:
@@ -2657,9 +2702,10 @@ def text_lora_phase(dev, lora_layers):
     require(n_lora == 2 * lora_layers, f"LoRA in {n_lora} attentions, want {2 * lora_layers}")
     trainable, frozen = partition(params, ft.lora_trainable_predicate(params))
     params.to(dev)
-    print(f"{tag}: built ViT-B/16 and the 12-layer PubMedBERT with LoRA in {n_lora} "
-          f"attentions in {time.perf_counter() - t0:.1f} s; {len(trainable)} trainable tensors "
-          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen")
+    print(f"{tag}: built ViT-B/16 and PubMedBERT, {depth} blocks and layers, with LoRA in "
+          f"{n_lora} attentions in {time.perf_counter() - t0:.1f} s; {len(trainable)} "
+          f"trainable tensors ({sum(p.numel() for p in trainable.values())} values), "
+          f"{len(frozen)} frozen")
 
     rng = np.random.default_rng(8)
     ctx = cfg.text.context_length
@@ -3470,6 +3516,586 @@ def clip_cli_phase(work):
           f"zero-shot predictions")
 
 
+# --- --method full, the converter and the CLIP text tower's composed route ---
+
+def full_step_tokens():
+    """The in-step token batches of the full fine-tune phase, FT_BATCH seeded
+    captions each: (BiomedCLIP's at context 256, the OpenAI layout's at 77),
+    tokenized and trimmed to 32-token buckets as the CLI trims them."""
+    import argparse
+
+    from nextgen_uia_tpu_torch.data.tokenizer import ClipTokenizer
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import get_text_tokenizer
+
+    captions = synthetic_captions(FT_BATCH, 14)
+    bert_tok = get_text_tokenizer(argparse.Namespace(), "biomedclip")
+    return (ft.trim_token_padding(bert_tok(captions, 256)),
+            ft.trim_token_padding(ClipTokenizer()(captions, 77)))
+
+
+def full_k7_shapes():
+    """K7 on this slice's routes: (JSON name, B, N, H, causal, padding bias,
+    backward): the ViT under full, the trained CLIP text tower at its
+    trimmed length, BERT trained at its trimmed length, BERT's text cache
+    under full (forward only, a chunk at full context)."""
+    bert_tokens, clip_tokens = full_step_tokens()
+    return (("flash_attention_full", FT_MICRO, 197, 12, False, False, True),
+            ("flash_attention_causal", FT_MICRO, clip_tokens.shape[1], 8, True, False, True),
+            ("flash_attention_bert", FT_MICRO, bert_tokens.shape[1], 12, False, True, True),
+            ("flash_attention_bert_cache", TEXT_CHUNK, 256, 12, False, True, False))
+
+
+def full_path_k7_rows(dev):
+    """K7 in bf16 at the shapes of ``full_k7_shapes``, q, k and v strided
+    views of one packed [B, N, 3, H, 64] product as ``mha`` hands them over:
+    output and (where the route trains) dq, dk, dv against the plain versions
+    on the bf16-rounded inputs (3e-2 * max|ref|); the op and its kernels alone
+    (profiler device time of the "flash" kernels) forward and backward,
+    scaled_dot_product_attention's forward and autograd backward on the same
+    views, the plain versions, and the bound (causal: the lower triangle's
+    work). Returns {name: JSON row}, the backward's under name + "_backward"."""
+    import torch
+    import torch.nn.functional as F
+
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16, rows = torch.bfloat16, {}
+    for name, b, n, h, causal, padded, backward in full_k7_shapes():
+        qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=dev).to(bf16)
+        q, k, v = qkv.unbind(2)
+        g = torch.randn(b, n, h, 64, generator=gen, device=dev).to(bf16)
+        kb = None
+        if padded:  # BERT's key-padding bias: a real length per sequence
+            lengths = torch.randint(8, n + 1, (b,), generator=gen, device=dev)
+            kb = (torch.arange(n, device=dev)[None] >= lengths[:, None]).float() * -1e9
+        f32 = [t.float() for t in (q, k, v, g)]
+        kw = dict(bias=kb, causal=causal, layout="bnhd")
+        with torch.no_grad():
+            out, lse = fa.flash_attention_forward(q, k, v, **kw)
+            want = fa.flash_attention_plain(*f32[:3], **kw)
+            err, scale = (out.float() - want).abs().max().item(), want.abs().max().item()
+            require(err <= BF16_BOUND * scale, f"{name}: max|d| {err:.3e} > 3e-2 * {scale:.3e}")
+            fwd = lambda: fa.flash_attention_forward(q, k, v, **kw)  # noqa: E731
+            bwd = lambda: fa.flash_attention_backward(q, k, v, out, g, lse,  # noqa: E731
+                                                      bias_grad=False, **kw)
+            sdpa_args = [t.transpose(1, 2) for t in (q, k, v)]
+            mask = None if kb is None else kb[:, None, None, :].to(bf16)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *sdpa_args, attn_mask=mask, is_causal=causal)
+            iters = 20
+            f_op, f_k = cuda_ms(fwd, iters), kernel_device_ms(fwd, "flash", iters)
+            f_lib = cuda_ms(sdpa, iters)
+            f_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3, warmup=1)
+        pairs = n * (n + 1) // 2 if causal else n * n
+        io = 2 * 4 * b * h * n * 64 + 4 * b * h * n + (4 * b * n if padded else 0)
+        f_bound = bound(4 * b * h * pairs * 64, io)
+        rows[name] = dict(max_abs_err=err, ms=f_op, plain_ms=f_plain, library_ms=f_lib,
+                          bound_ms=f_bound[0], bound_by=f_bound[1])
+        line = (f"{name}: K7 forward [{b}, {n}, {h}, 64] packed causal={causal} "
+                f"bias={padded} bf16: max|d| {err:.3e} (<= {BF16_BOUND * scale:.3e}); op "
+                f"{f_op:.4f} ms, kernel {f_k:.4f} ms, SDPA {f_lib:.4f} ms, plain "
+                f"{f_plain:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+        if backward:
+            with torch.no_grad():
+                got = bwd()[:3]
+                ref = fa.flash_attention_backward_plain(*f32[:3], kb, f32[3], causal=causal,
+                                                        layout="bnhd")[:3]
+                errs = errors(tuple(got), tuple(ref))
+                b_err = max(d / s for d, s in errs)
+                require(b_err <= BF16_BOUND, f"{name} backward: max|d| / max|ref| {b_err:.3e}")
+                b_op, b_k = cuda_ms(bwd, iters), kernel_device_ms(bwd, "flash", iters)
+                b_plain = cuda_ms(lambda: fa.flash_attention_backward_plain(
+                    q, k, v, kb, g, causal=causal, layout="bnhd"), 3, warmup=1)
+            leaves = [t.detach().requires_grad_() for t in sdpa_args]
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=causal)
+            b_lib = cuda_ms(lambda: torch.autograd.grad(o, leaves, g.transpose(1, 2),
+                                                        retain_graph=True), iters)
+            b_bound = bound(10 * b * h * pairs * 64,
+                            8 * b * h * n * 64 * 2 + 4 * b * h * n + (4 * b * n if padded else 0))
+            rows[name + "_backward"] = dict(
+                max_abs_err=max(d for d, _ in errs), ms=b_op, plain_ms=b_plain,
+                library_ms=b_lib, bound_ms=b_bound[0], bound_by=b_bound[1])
+            line += (f"; backward max|d| / max|ref| {b_err:.3e}, op {b_op:.4f} ms, kernel "
+                     f"{b_k:.4f} ms, SDPA backward {b_lib:.4f} ms, plain {b_plain:.4f} ms, "
+                     f"bound {b_bound[0]:.4f} ms ({b_bound[1]})")
+        print(line)
+    return rows
+
+
+def _scaled(gen, *shape, std):
+    import torch
+
+    return torch.randn(*shape, generator=gen) * std
+
+
+def reference_state_dict(kind, seed):
+    """A full-size state dict under the reference checkpoint's key names,
+    seeded: 'biomedclip' is open_clip's BiomedCLIP (a timm ViT-B/16 trunk
+    under visual.trunk, PubMedBERT under text.transformer, the MLP text
+    projection; float32), 'openai' OpenAI's ViT-B/16 CLIP (fused in_proj
+    q/k/v; float16, as ViT-B-16.pt holds it). Weights are normal of std
+    fan_in^-0.5, embeddings 0.02, LayerNorm scales near 1."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def lin(name, d_in, d_out, bias=True):
+        sd[name + ".weight"] = _scaled(gen, d_out, d_in, std=d_in ** -0.5)
+        if bias:
+            sd[name + ".bias"] = _scaled(gen, d_out, std=0.02)
+
+    def ln(name, d):
+        sd[name + ".weight"] = 1 + _scaled(gen, d, std=0.1)
+        sd[name + ".bias"] = _scaled(gen, d, std=0.1)
+
+    d, hid, depth = 768, 3072, 12
+    if kind == "biomedclip":
+        t = "visual.trunk."
+        sd[t + "patch_embed.proj.weight"] = _scaled(gen, d, 3, 16, 16, std=768 ** -0.5)
+        sd[t + "patch_embed.proj.bias"] = _scaled(gen, d, std=0.02)
+        sd[t + "cls_token"] = _scaled(gen, 1, 1, d, std=0.02)
+        sd[t + "pos_embed"] = _scaled(gen, 1, 197, d, std=0.02)
+        for i in range(depth):
+            b = f"{t}blocks.{i}."
+            lin(b + "attn.qkv", d, 3 * d)
+            lin(b + "attn.proj", d, d)
+            ln(b + "norm1", d)
+            ln(b + "norm2", d)
+            lin(b + "mlp.fc1", d, hid)
+            lin(b + "mlp.fc2", hid, d)
+        ln(t + "norm", d)
+        lin("visual.head.proj", d, 512, bias=False)
+        tt = "text.transformer."
+        for name, rows in (("word", 30522), ("position", 512), ("token_type", 2)):
+            sd[f"{tt}embeddings.{name}_embeddings.weight"] = _scaled(gen, rows, d, std=0.02)
+        ln(tt + "embeddings.LayerNorm", d)
+        for i in range(depth):
+            b = f"{tt}encoder.layer.{i}."
+            for name in ("query", "key", "value"):
+                lin(b + "attention.self." + name, d, d)
+            lin(b + "attention.output.dense", d, d)
+            ln(b + "attention.output.LayerNorm", d)
+            lin(b + "intermediate.dense", d, hid)
+            lin(b + "output.dense", hid, d)
+            ln(b + "output.LayerNorm", d)
+        lin("text.proj.0", d, 640, bias=False)
+        lin("text.proj.2", 640, 512, bias=False)
+    else:
+        sd["visual.conv1.weight"] = _scaled(gen, d, 3, 16, 16, std=768 ** -0.5)
+        sd["visual.class_embedding"] = _scaled(gen, d, std=0.02)
+        sd["visual.positional_embedding"] = _scaled(gen, 197, d, std=0.02)
+        ln("visual.ln_pre", d)
+        for prefix, w, n_blocks in (("visual.transformer.", d, depth), ("transformer.", 512, 12)):
+            for i in range(n_blocks):
+                b = f"{prefix}resblocks.{i}."
+                sd[b + "attn.in_proj_weight"] = _scaled(gen, 3 * w, w, std=w ** -0.5)
+                sd[b + "attn.in_proj_bias"] = _scaled(gen, 3 * w, std=0.02)
+                lin(b + "attn.out_proj", w, w)
+                ln(b + "ln_1", w)
+                ln(b + "ln_2", w)
+                lin(b + "mlp.c_fc", w, 4 * w)
+                lin(b + "mlp.c_proj", 4 * w, w)
+        ln("visual.ln_post", d)
+        sd["visual.proj"] = _scaled(gen, d, 512, std=d ** -0.5)
+        sd["token_embedding.weight"] = _scaled(gen, 49408, 512, std=0.02)
+        sd["positional_embedding"] = _scaled(gen, 77, 512, std=0.01)
+        ln("ln_final", 512)
+        sd["text_projection"] = _scaled(gen, 512, 512, std=512 ** -0.5)
+        sd = {k: v.half() for k, v in sd.items()}
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return sd
+
+
+def convert_phase(work):
+    """The checkpoint converter on full-size reference state dicts
+    (``reference_state_dict``): each ``torch.save``d and converted by
+    ``python -m nextgen_uia_tpu_torch.convert <kind>`` in a process of its
+    own (both at once), then loaded by ``load_into`` into the port's CLIP,
+    whose every tensor it must fill; two tensors checked against the source
+    after the layout rules (a split q/k/v weight transposed, the patch
+    convolution in HWIO). Returns {family: (converted .npz path, the loaded
+    CLIP module, cfg)}."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import build_clip_model
+
+    jobs = {}
+    for family, kind, seed in (("biomedclip", "biomedclip", 21), ("openai", "openai_clip", 22)):
+        t0 = time.perf_counter()
+        sd = reference_state_dict(family, seed)
+        src, dst = (os.path.abspath(os.path.join(work, f"{family}.{ext}")) for ext in ("pt", "npz"))
+        torch.save(sd, src)
+        made_s = time.perf_counter() - t0
+        proc = subprocess.Popen([sys.executable, "-m", "nextgen_uia_tpu_torch.convert", kind, src,
+                                 dst], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs[family] = (kind, sd, src, dst, made_s, proc, time.perf_counter())
+    out = {}
+    for family, (kind, sd, src, dst, made_s, proc, t0) in jobs.items():
+        args = ft._finetune_parser(family).parse_args(["--seed", "5"])
+        cfg, model = build_clip_model(args, family, gen=torch.Generator().manual_seed(5))
+        stdout, stderr = proc.communicate()
+        conv_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the converter failed on {kind}: {stderr[-2000:]}")
+        flat = ckpt.load_flat(dst)
+        _, n = ckpt.merge_flat(flat, model, source=dst)
+        n_model = len(model.state_dict())
+        if family == "biomedclip":
+            w = sd["visual.trunk.blocks.3.attn.qkv.weight"][768:1536].T
+            patch = sd["visual.trunk.patch_embed.proj.weight"]
+        else:
+            w = sd["visual.transformer.resblocks.3.attn.in_proj_weight"][768:1536].T.float()
+            patch = sd["visual.conv1.weight"].float()
+        same = (torch.equal(model.visual.blocks[3].attn.k.w, w)
+                and torch.equal(model.visual.patch.w, patch.permute(2, 3, 1, 0)))
+        print(f"convert: {kind}: {len(sd)} reference tensors "
+              f"({sum(v.numel() for v in sd.values())} values, "
+              f"{sd['visual.proj' if family == 'openai' else 'visual.head.proj.weight'].dtype}"
+              f" weights) made and saved in {made_s:.1f} s; `python -m "
+              f"nextgen_uia_tpu_torch.convert {kind}` done {conv_s:.1f} s after its start: "
+              f"{stdout.strip()}; load_into filled {n} of the port's {n_model} tensors "
+              f"({os.path.getsize(dst) / 1e6:.0f} MB .npz); split k and HWIO patch equal to the "
+              f"source: {same}")
+        require(n == n_model == len(flat), f"{kind}: {n} of {n_model} tensors loaded from "
+                                           f"{len(flat)} converted")
+        require(same, f"{kind}: a converted tensor differs from its source")
+        require(np.isfinite(flat["logit_scale"]).all(), "logit_scale")
+        os.remove(src)
+        out[family] = (dst, model, cfg)
+    return out
+
+
+def check_two_updates(tag, loss_for, cfg, trainable, args, batch, dev, lr, expect):
+    """Two AdamW updates at ``lr`` through the kernels, the first's launches
+    counted (every counter not in ``expect`` must stay 0), then the same two
+    updates on the plain path from the same weights: in bf16 the loss to 3e-2
+    * max(1, |ref|) and the gradient norm to 3e-2 of the plain path's, in
+    float32 both to 1e-4; the bf16 gradients' relative L2 distance printed.
+    The trainable weights are put back after each run. Returns the first
+    update's launch counts."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+
+    def run(ops, c, count=False):
+        step = make_update(loss_for, ops, c, trainable, args, lr)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        if count:
+            reset_counts()
+        ms = [step(batch, gen)]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        grads = {k: p.grad.float().clone() for k, p in trainable.items()}
+        ms.append(step(batch, gen))
+        with torch.no_grad():
+            for k, p in trainable.items():
+                p.copy_(start[k])
+                p.grad = None
+        return ms, counts, grads
+
+    m_k, counts, g_k = run(KERNELS, cfg, count=True)
+    m_p, _, g_p = run(PLAIN, cfg)
+    rel_l2 = bf16_gradient_gap(g_k, g_p)[2]
+    del g_k, g_p
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32_k, _, _ = run(KERNELS, cfg32)
+    m32_p, _, _ = run(PLAIN, cfg32)
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"{tag}: the first update's launches {launched}; bf16 losses kernel "
+          + " ".join(f"{m['loss']:.6f}" for m in m_k) + " plain "
+          + " ".join(f"{m['loss']:.6f}" for m in m_p) + "; gradient norms kernel "
+          + " ".join(f"{m['grad_norm']:.4f}" for m in m_k) + " plain "
+          + " ".join(f"{m['grad_norm']:.4f}" for m in m_p)
+          + f" (first update's gradients: relative L2 distance {rel_l2:.3e}); float32 losses "
+          + " ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in zip(m32_k, m32_p))
+          + ", gradient norms "
+          + " ".join(f"{a['grad_norm']:.6f}/{b['grad_norm']:.6f}" for a, b in zip(m32_k, m32_p)))
+    require(launched == expect, f"{tag}: an update launched {launched}, want {expect}")
+    for (a, b), (a32, b32) in zip(zip(m_k, m_p), zip(m32_k, m32_p)):
+        require(a["skipped"] == 0 and abs(a["loss"] - b["loss"]) <= BF16_BOUND * max(
+            1.0, abs(b["loss"])) and abs(a["grad_norm"] - b["grad_norm"])
+            <= BF16_BOUND * b["grad_norm"], f"{tag}: a bf16 update disagrees with the plain path")
+        require(abs(a32["loss"] - b32["loss"]) <= F32_BOUND * abs(b32["loss"])
+                and abs(a32["grad_norm"] - b32["grad_norm"]) <= F32_BOUND * b32["grad_norm"],
+                f"{tag}: a float32 update disagrees with the plain path")
+    return counts
+
+
+def time_update(tag, loss_for, cfg, trainable, args, batch, dev, lr):
+    """ms per update by CUDA events, img/s, peak memory, the profiler's
+    kernel sum and busy share over one update; the weights put back."""
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS
+
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    step = make_update(loss_for, KERNELS, cfg, trainable, args, lr)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, gen), 2, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}: batch {FT_BATCH} update ({FT_ACCUM} x {FT_MICRO}) {ms:.2f} ms = "
+          f"{FT_BATCH * 1000 / ms:.1f} img/s; peak device memory {peak_gb:.2f} GB")
+    busy = profile_steps(lambda: step(batch, gen), 1, ms)
+    with torch.no_grad():
+        for k, p in trainable.items():
+            p.copy_(start[k])
+    return ms, busy
+
+
+def full_finetune_phase(dev, converted):
+    """``--method full`` at full width from the converted weights (ViT-B/16
+    at 224 px, bf16, batch 64 as 4 x 16, AdamW at the CLI's clamped 1e-6):
+    BiomedCLIP with its 256 captions cached through PubMedBERT's plain
+    ``mlp_impl='xla'`` layers (K7 forward with the padding bias, 12 a chunk;
+    features against the plain path), then two updates against the plain
+    path (K7 forward and backward 48 each, nothing else), timed; the OpenAI
+    layout with ``--tune_text_encoder`` (the 12-layer causal text tower
+    trained in the step: K7 96 each, causal 48 of them); then ``--method
+    mona --tune_text_encoder`` on the OpenAI layout, the frozen text tower in
+    the step by its composed route (K7 causal forward and K10's forward 48
+    each, no text backward), one update at lr 0 against the plain path
+    (``check_update``), and its text tower forward alone at the 64-token
+    bucket against the plain path. Every update is timed. Returns the launch
+    counts of the new JSON rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.losses import info_nce
+    from nextgen_uia_tpu_torch.models import clip as clip_mod
+    from nextgen_uia_tpu_torch.ops import PLAIN
+    from nextgen_uia_tpu_torch.tasks import clip_finetune as ft
+    from nextgen_uia_tpu_torch.tasks.common import build_clip_model, get_text_tokenizer
+
+    n_mb, launches = FT_ACCUM, {}
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.integers(0, 256, (FT_BATCH, IMG, IMG, 3), dtype=np.uint8))
+
+    def loss_for(text):
+        def make(ops, c):
+            def fn(mb, g):
+                img, _ = clip_mod.encode_image(params, c, mb["image"].float() / 255.0, ops=ops,
+                                               gen=g)
+                txt = (mb["txt_feat"] if text == "cached"
+                       else clip_mod.encode_text(params, c, mb["tokens"], ops=ops))
+                return info_nce(img, txt, temperature=args.temperature)
+            return fn
+        return make
+
+    # BiomedCLIP, --method full (the CLI's defaults)
+    _, params, cfg = converted["biomedclip"]
+    args = ft._finetune_parser("biomedclip").parse_args(["--seed", "5"])
+    require(args.method == "full" and args.lr > 1e-5 and args.tune_layers == "all"
+            and args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM,
+            f"biomedclip fine-tune defaults changed: {args}")
+    lr = 1e-6  # finetune_main's clamp of any --lr above 1e-5 under full
+    cfg = ft.full_cfg(cfg)
+    trainable, frozen = partition(params, ft.full_ft_predicate(args, depth=cfg.vision.depth))
+    params.to(dev)
+    print(f"full: BiomedCLIP, {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values), {len(frozen)} frozen "
+          f"(logit_scale and the text tower)")
+    require("logit_scale" in frozen and not any(k.startswith("text/") for k in trainable),
+            "the full predicate trains logit_scale or the text tower")
+    with environ(NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK="1"):
+        tokenizer = get_text_tokenizer(args, "biomedclip")
+    captions = synthetic_captions(TEXT_CHUNK, 13)
+    tokens = tokenizer(captions, cfg.text.context_length)
+    encode = ft.make_text_encoder(params, cfg, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = encode(tokens)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    cache_counts = {k: v for k, v in read_counts().items() if v}
+    ref = ft.make_text_encoder(params, cfg, dev, ops=PLAIN)(tokens)
+    err, scale = (feats - ref).abs().max().item(), ref.abs().max().item()
+    cache_ms = cuda_ms(lambda: encode(tokens), 3, warmup=1)
+    print(f"full: BiomedCLIP text cache of {TEXT_CHUNK} captions by PubMedBERT's mlp_impl='xla' "
+          f"layers: {cache_s:.3f} s first call, {cache_ms:.2f} ms (CUDA events); launches "
+          f"{cache_counts}; features vs plain path max|d| {err:.3e} (<= "
+          f"{BF16_BOUND * max(1.0, scale):.3e})")
+    require(cache_counts == {"flash_attention": cfg.text.depth},
+            f"the BERT cache under full launched {cache_counts}")
+    require(bool(torch.isfinite(feats).all()) and err <= BF16_BOUND * max(1.0, scale),
+            "BERT features under full disagree with the plain path")
+    launches["flash_attention_bert_cache"] = cache_counts["flash_attention"]
+    batch = T.stack_microbatches({"image": images.to(dev), "txt_feat": feats[:FT_BATCH]}, n_mb)
+    k7 = cfg.vision.depth * n_mb
+    check_two_updates("full (BiomedCLIP)", loss_for("cached"), cfg, trainable, args, batch, dev,
+                      lr, {"flash_attention": k7, "flash_attention_backward": k7})
+    launches.update(flash_attention_full=k7, flash_attention_full_backward=k7)
+    time_update("full (BiomedCLIP)", loss_for("cached"), cfg, trainable, args, batch, dev, lr)
+
+    # BiomedCLIP, --method full --tune_text_encoder: PubMedBERT trains in the step
+    bert_tokens, clip_tokens = full_step_tokens()
+    args = ft._finetune_parser("biomedclip").parse_args(["--seed", "5", "--tune_text_encoder"])
+    trainable, frozen = partition(params, ft.full_ft_predicate(args, depth=cfg.vision.depth))
+    require(list(frozen) == ["logit_scale"], f"full --tune_text_encoder freezes {list(frozen)}")
+    batch = T.stack_microbatches({"image": images.to(dev),
+                                  "tokens": torch.from_numpy(bert_tokens).to(dev)}, n_mb)
+    kt = cfg.text.depth * n_mb
+    print(f"full: BiomedCLIP with --tune_text_encoder, {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values); text trimmed to "
+          f"{bert_tokens.shape[1]} tokens")
+    check_two_updates("full --tune_text_encoder (BiomedCLIP)", loss_for("in-step"), cfg,
+                      trainable, args, batch, dev, lr,
+                      {"flash_attention": k7 + kt, "flash_attention_backward": k7 + kt})
+    launches.update(flash_attention_bert=kt, flash_attention_bert_backward=kt)
+    time_update("full --tune_text_encoder (BiomedCLIP)", loss_for("in-step"), cfg, trainable,
+                args, batch, dev, lr)
+    params.cpu()
+    del params, trainable, frozen, batch
+    torch.cuda.empty_cache()
+
+    # the OpenAI layout, --method full --tune_text_encoder: the text trains
+    _, params, cfg = converted["openai"]
+    args = ft._finetune_parser("openai").parse_args(["--seed", "5", "--tune_text_encoder"])
+    cfg = ft.full_cfg(cfg)
+    trainable, frozen = partition(params, ft.full_ft_predicate(args, depth=cfg.vision.depth))
+    params.to(dev)
+    require(list(frozen) == ["logit_scale"], f"full --tune_text_encoder freezes {list(frozen)}")
+    step_tokens = clip_tokens
+    print(f"full: OpenAI layout with --tune_text_encoder, {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values())} values); text trimmed to "
+          f"{step_tokens.shape[1]} tokens")
+    batch = T.stack_microbatches({"image": images.to(dev),
+                                  "tokens": torch.from_numpy(step_tokens).to(dev)}, n_mb)
+    kt = cfg.text.depth * n_mb
+    check_two_updates("full --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg, trainable,
+                      args, batch, dev, lr, {"flash_attention": k7 + kt,
+                                             "flash_attention_backward": k7 + kt})
+    launches.update(flash_attention_causal=kt, flash_attention_causal_backward=kt)
+    time_update("full --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg, trainable, args,
+                batch, dev, lr)
+
+    # --method mona --tune_text_encoder: the frozen text tower's composed
+    # route in the step (K7 causal forward, K10 forward), MONA trained
+    from nextgen_uia_tpu_torch.adapters.mona import inject_mona
+
+    args = ft._finetune_parser("openai").parse_args(["--seed", "5", "--method", "mona",
+                                                     "--tune_text_encoder"])
+    cfg = converted["openai"][2]
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, mona_variant=args.mona_variant))
+    params.cpu()
+    inject_mona(torch.Generator().manual_seed(6), params.visual, dim=cfg.vision.width,
+                variant=args.mona_variant)
+    trainable, _ = partition(params, by_keywords("mona"))
+    params.to(dev)
+    last = f"visual/blocks/{cfg.vision.depth - 1}/mona/"
+
+    def reaches_no_feature(k):
+        return k.startswith(last) and not k.startswith((last + "down/", last + "up/"))
+
+    counts, _, _ = check_update("mona --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg,
+                                trainable, args, batch, dev, reaches_no_feature)
+    launched = {k: v for k, v in counts.items() if v}
+    require(launched.get("flash_attention") == kt and launched.get("fused_mlp") == kt
+            and "flash_attention_backward" not in launched
+            and "fused_mlp_backward" not in launched and "fused_block_infer" not in launched
+            and launched.get("fused_ln_qkv") == k7,
+            f"mona --tune_text_encoder launched {launched}: want K7 causal forward and K10 "
+            f"forward {kt} each beside the image tower's kernels, no text backward")
+    launches["fused_mlp_text"] = kt
+    time_update("mona --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg, trainable, args,
+                batch, dev, args.lr)
+
+    # the same frozen route at trim_token_padding's 64-token bucket (where
+    # the JAX package's kernel path takes its LN+QKV and causal attn+o
+    # kernels instead), one microbatch forward against the plain path
+    lengths = rng.integers(8, 65, FT_MICRO)
+    lengths[0] = 64
+    short = np.zeros((FT_MICRO, cfg.text.context_length), np.int32)
+    for i, n in enumerate(lengths):
+        short[i, :n - 1] = rng.integers(1, 49406, n - 1)
+        short[i, n - 1] = 49407  # EOT, the largest id
+    short = torch.from_numpy(ft.trim_token_padding(short)).to(dev)
+    with torch.no_grad():
+        reset_counts()
+        got = clip_mod.encode_text(params, cfg, short)
+        torch.cuda.synchronize()
+        short_counts = {k: v for k, v in read_counts().items() if v}
+        ref = clip_mod.encode_text(params, cfg, short, ops=PLAIN)
+    err, scale = (got.float() - ref.float()).abs().max().item(), ref.abs().max().item()
+    print(f"mona --tune_text_encoder (OpenAI): the frozen text tower at the "
+          f"{short.shape[1]}-token bucket, [{FT_MICRO}, {short.shape[1]}]: launches "
+          f"{short_counts}; features vs plain path max|d| {err:.3e} (<= "
+          f"{BF16_BOUND * max(1.0, scale):.3e})")
+    depth_t = cfg.text.depth
+    require(short.shape[1] == 64 and short_counts == {"flash_attention": depth_t,
+                                                       "fused_mlp": depth_t},
+            f"the frozen text tower at {short.shape[1]} tokens launched {short_counts}: want "
+            f"K7 causal forward and K10 forward {depth_t} each")
+    require(bool(torch.isfinite(got).all()) and err <= BF16_BOUND * max(1.0, scale),
+            "the frozen text tower at the 64-token bucket disagrees with the plain path")
+    params.cpu()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def full_finetune_cli_phase(work, converted):
+    """``python -m nextgen_uia_tpu_torch.tasks.biomedclip.finetune`` with no
+    ``--method`` (full) from the converted checkpoint (``--ckpt``), with
+    NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1, one epoch on the seeded caption
+    data (2 updates at batch 64): the learning rate clamped, K7 forward and
+    backward in every update and no frozen-weight kernel, best_model.npz
+    holding every tensor the converted checkpoint holds."""
+    import numpy as np
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.biomedclip.finetune import main as finetune_main
+
+    data = caption_data(work)
+    dst = converted["biomedclip"][0]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with environ(NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK="1"):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = finetune_main(["--epochs", "1", "--exp", "chip_full_ft", "--ckpt", dst,
+                                 "--finetune_csvs", os.path.join(data, "captions.csv"),
+                                 "--finetune_img_dirs", os.path.join(data, "images"),
+                                 "--num_workers", "4", "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        os.chdir(cwd)
+    run = os.path.join(work, "runs", "chip_full_ft")
+    best = os.path.join(run, "best_model.npz")
+    keys = ckpt.peek_keys(best) if os.path.exists(best) else []
+    with open(os.path.join(run, "log.log")) as f:
+        log = f.read()
+    print(f"cli: biomedclip fine-tune at its default --method full from the converted "
+          f"checkpoint, one epoch (2 updates + validation) in {seconds:.1f} s (host clock); "
+          f"best val loss {out['best_val_loss']:.4f}; best_model.npz {len(keys)} tensors; "
+          f"launches {counts}")
+    require(np.isfinite(out["best_val_loss"]), f"full fine-tune CLI result {out}")
+    require("Adjusted learning rate to 1e-06 for full fine-tuning" in log,
+            "the CLI did not clamp the full fine-tune's learning rate")
+    require(sorted(keys) == sorted(ckpt.peek_keys(dst)),
+            "best_model.npz does not hold the whole model")
+    require(set(counts) == {"flash_attention", "flash_attention_backward"}
+            and counts["flash_attention_backward"] == 2 * 12 * FT_ACCUM,
+            f"the full fine-tune CLI launched {counts}: want K7 alone, its backward "
+            f"{2 * 12 * FT_ACCUM} times")
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -3527,18 +4153,22 @@ def main():
         launches.update({k: finetune[k] for k in ("flash_attention_backward",
                                                   "fused_block_infer_causal")})
         launches.update(timed("biomedclip", biomedclip_finetune_phase, dev))
+        # both at 6 of the 12 blocks and layers, to keep the run's time
         launches["fused_mlp_backward"] = timed(
-            "text LoRA 12", text_lora_phase, dev, 12)["fused_mlp_backward"]
+            "text LoRA 6 of 6", text_lora_phase, dev, 6)["fused_mlp_backward"]
         launches["fused_ln_qkv_rawx_backward"] = timed(
-            "text LoRA 6", text_lora_phase, dev, 6)["fused_ln_qkv_rawx_backward"]
+            "text LoRA 3 of 6", text_lora_phase, dev, 3)["fused_ln_qkv_rawx_backward"]
         # K4: no product path calls it, in either package
         launches.update(dwconv7_per_sample=0, dwconv7_per_sample_backward=0)
         launches["fused_block_infer_quick_gelu"] = timed("zero-shot", zero_shot_phase, dev)
         launches.update(timed("bench", bench_phase, dev))
+        converted = timed("convert", convert_phase, work)
+        launches.update(timed("full", full_finetune_phase, dev, converted))
         timed("trainer CLIs", cli_phase, dev, work, files)
         timed("finetune CLIs", lambda: [finetune_cli_phase(work),
                                         biomedclip_finetune_cli_phase(work),
-                                        text_lora_cli_phase(work)])
+                                        text_lora_cli_phase(work),
+                                        full_finetune_cli_phase(work, converted)])
         timed("CLIP family CLIs", clip_cli_phase, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3572,7 +4202,16 @@ def main():
               "fused_mlp_backward": ("fused_mlp.cu", "fused_mlp.py:79"),
               "fused_ln_qkv_rawx_backward": ("hopper_gemm.cuh", "fused_ln_qkv.py:60"),
               "dwconv7_per_sample": ("mona_spatial.cu", "dwconv.py:60"),
-              "dwconv7_per_sample_backward": ("mona_spatial.cu", "dwconv.py:72")}
+              "dwconv7_per_sample_backward": ("mona_spatial.cu", "dwconv.py:72"),
+              "flash_attention_full": ("flash_attention.cu", "flash_attention.py:64"),
+              "flash_attention_full_backward": ("flash_attention.cu", "flash_attention.py:73"),
+              "flash_attention_causal": ("flash_attention.cu", "flash_attention.py:64"),
+              "flash_attention_causal_backward": ("flash_attention.cu",
+                                                  "flash_attention.py:73"),
+              "flash_attention_bert": ("flash_attention.cu", "flash_attention.py:64"),
+              "flash_attention_bert_backward": ("flash_attention.cu", "flash_attention.py:73"),
+              "flash_attention_bert_cache": ("flash_attention.cu", "flash_attention.py:64"),
+              "fused_mlp_text": ("fused_mlp.cu", "fused_mlp.py:64")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]

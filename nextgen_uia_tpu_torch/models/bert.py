@@ -15,9 +15,13 @@ kernel. A layer whose attention holds LoRA pairs (``--tune_text_encoder``,
 adapters/lora.py::inject_lora_bert) runs the composed route: ``mha``'s LoRA
 route with ``residual=x`` and the key-padding bias (the flash-attention
 kernel forward and backward), LayerNorm, the fused MLP kernel (forward and
-backward), LayerNorm. Padded keys carry a -1e9 score bias. Training the
-tower's own weights (``mlp_impl='xla'``, ``--method full``) is not ported
-and refuses.
+backward), LayerNorm. Training the tower's own weights (``mlp_impl='xla'``,
+``--method full --tune_text_encoder``) takes the JAX package's plain layer
+at any ``block_impl``: ``mha`` on the raw x with the key-padding bias (q/k/v
+products, the flash-attention kernel forward and backward, the
+o-projection; LoRA pairs where present), the residual add, LayerNorm, the
+MLP as plain products (exact GELU), the residual add, LayerNorm; no
+frozen-weight kernel runs on it. Padded keys carry a -1e9 score bias.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..nn.attention import Attention, mha
 from ..nn.layers import Embedding, LayerNorm, Linear, embedding, gelu, layernorm, linear
 from ..ops import KERNELS
 from ..ops.fused_block import bert_block_opted_in
+from .vit import run_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +51,7 @@ class BertConfig:
     embed_dim: int = 512          # the CLIP space
     ln_eps: float = 1e-12
     pad_id: int = 0
-    # 'auto': the frozen kernels; 'xla' (weights that train) is not ported
+    # 'auto': the frozen kernels; 'xla': plain products for weights that train
     mlp_impl: str = "auto"
     lora_alpha: float = 32.0      # text-tower LoRA scaling alpha / sqrt(r)
     lora_dropout: float = 0.0     # on the LoRA branch's input, in train mode
@@ -97,10 +102,8 @@ def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS, 
     """token_ids [B, L] -> CLS-pooled, projected embedding [B, embed_dim];
     the ids equal to ``pad_id`` are the padding. ``gen``: the LoRA dropout
     generator of a train forward (None: eval)."""
-    if cfg.mlp_impl != "auto":
-        raise NotImplementedError(
-            "bert_apply: training the BERT tower's own weights (mlp_impl='xla', --method "
-            "full) is not ported (ROADMAP.md, section A, item 3)")
+    if cfg.mlp_impl not in ("auto", "xla"):
+        raise ValueError(f"unknown mlp_impl {cfg.mlp_impl!r} ('auto' or 'xla')")
     token_ids = token_ids.long()
     emb = p.embeddings
     x = embedding(emb.word, token_ids, dtype=dtype)
@@ -111,9 +114,17 @@ def bert_apply(p: Bert, cfg: BertConfig, token_ids, *, dtype=None, ops=KERNELS, 
     # additive key-padding bias [B, L]: 0 where attended, -1e9 where padded
     pad_bias = (token_ids == cfg.pad_id).to(torch.float32) * -1e9
 
-    whole_layer = cfg.block_impl == "fused_infer" and bert_block_opted_in()
+    whole_layer = (cfg.block_impl == "fused_infer" and cfg.mlp_impl == "auto"
+                   and bert_block_opted_in())
     for layer in p.layers:
         x = x.contiguous()
+        if cfg.mlp_impl == "xla":
+            a = mha(layer.attn, x, num_heads=cfg.heads, key_padding_bias=pad_bias,
+                    lora_alpha=cfg.lora_alpha, lora_dropout=cfg.lora_dropout, gen=gen, ops=ops)
+            x = layernorm(layer.attn_ln, x + a, eps=cfg.ln_eps)
+            h = run_mlp(layer.ffn, x, "gelu", dtype=dtype, ops=ops, impl="xla")
+            x = layernorm(layer.ffn_ln, x + h, eps=cfg.ln_eps)
+            continue
         if "lora" in layer.attn._modules:
             a_sum = mha(layer.attn, x, num_heads=cfg.heads, key_padding_bias=pad_bias,
                         residual=x, lora_alpha=cfg.lora_alpha, lora_dropout=cfg.lora_dropout,

@@ -79,7 +79,9 @@ def infer_cfg(cfg: CLIPConfig, *, vision: bool = True, text: bool = True) -> CLI
     through the whole-block kernel (ops/fused_block.py; LoRA blocks decline
     it; BERT's layers take it only where opted in, models/bert.py). Use it
     only on paths autograd never differentiates (eval, serving, the frozen
-    text tower): that kernel has no backward."""
+    text tower): that kernel has no backward. A tower at ``mlp_impl='xla'``
+    (full fine-tuning) keeps its plain routes: each tower's block gates the
+    kernel on ``mlp_impl == 'auto'``, as in the JAX package."""
     kw = {}
     if vision:
         kw["vision"] = dataclasses.replace(cfg.vision, block_impl="fused_infer")
@@ -99,7 +101,7 @@ def encode_image(params: CLIP, cfg: CLIPConfig, images, *, extract_layers=(), op
 def encode_text(params: CLIP, cfg: CLIPConfig, token_ids, *, ops=KERNELS, gen=None):
     """token_ids [B, L] -> [B, embed]. ``gen``: the dropout generator of a
     train forward through BERT's LoRA pairs (None: eval); the CLIP text
-    tower carries no LoRA and runs frozen."""
+    tower carries no LoRA."""
     if cfg.text_kind == "bert":
         return bert_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops, gen=gen)
     return text_apply(params.text, cfg.text, token_ids, dtype=cfg.dtype, ops=ops)

@@ -23,9 +23,15 @@ and ``mha``'s whole-attention-block op (K11). Either route then applies the
 block's MONA adapter. Blocks with LayerScale (DINOv2's ``ls1``/``ls2``) take their own
 route at any ``block_impl``: attention without the residual (``mha``'s
 LayerScale routes, through the flash-attention kernel), then the MLP
-through the fused-MLP kernel, each scaled before its residual add. The
-token sequence runs unpadded (N = grid^2 + 1): the kernels mask their
-ragged edges themselves.
+through the fused-MLP kernel, each scaled before its residual add.
+``mlp_impl='xla'`` (full fine-tuning: the tower's own weights train) takes
+the JAX package's full route at any ``block_impl``: LayerNorm, ``mha``
+without ``ln`` or ``residual`` (q/k/v products, the flash-attention kernel
+forward and backward, the o-projection), the residual add (LayerScale
+first where present), LayerNorm, the MLP as plain products (exact GELU),
+the residual add, then MONA where present; no frozen-weight kernel runs
+on it. The token sequence runs unpadded (N = grid^2 + 1): the kernels mask
+their ragged edges themselves.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from torch import nn
 
 from ..adapters.mona import mona_apply
 from ..nn.attention import Attention, mha
-from ..nn.layers import Conv, LayerNorm, Linear, layernorm, linear, normal, param
+from ..nn.layers import (ACTIVATIONS, Conv, LayerNorm, Linear, layernorm, linear, normal,
+                         param)
 from ..ops import KERNELS
 from ..ops.fused_block import fused_block_eligible
 
@@ -69,6 +76,9 @@ class ViTConfig:
     # attention+o+residual), or the opt-in 'fused_block' / 'hybrid_block'
     # (the whole attention block as one op, ops/fused_attention.py)
     attn_impl: str = "auto"
+    # 'auto': the frozen-weight kernels; 'xla': plain LayerNorm and MLP
+    # products around mha's flash-attention route, for weights that train
+    mlp_impl: str = "auto"
 
     @property
     def grid(self) -> int:
@@ -146,12 +156,16 @@ def embed_patches(p: ViT, cfg: ViTConfig, images, *, dtype=None):
     return x
 
 
-def run_mlp(mlp, h_in, act: str, *, dtype=None, ops=KERNELS):
-    """fc1 -> act -> fc2 through ``ops.fused_mlp``, or SwiGLU (silu(x1) * x2
-    -> w3) as plain products when the block carries w12/w3."""
+def run_mlp(mlp, h_in, act: str, *, dtype=None, ops=KERNELS, impl: str = "auto"):
+    """fc1 -> act -> fc2 through ``ops.fused_mlp`` (frozen weights), as plain
+    products with ``impl='xla'`` (weights that train), or SwiGLU (silu(x1) *
+    x2 -> w3) as plain products when the block carries w12/w3."""
     if hasattr(mlp, "w12"):
         x1, x2 = linear(mlp.w12, h_in, dtype=dtype).chunk(2, dim=-1)
         return linear(mlp.w3, F.silu(x1) * x2, dtype=dtype)
+    if impl == "xla":
+        h = linear(mlp.fc1, h_in, dtype=dtype)
+        return linear(mlp.fc2, ACTIVATIONS[act](h), dtype=dtype)
     x = h_in if dtype is None else h_in.to(dtype)
     return ops.fused_mlp(x, mlp.fc1.w, mlp.fc1.b, mlp.fc2.w, mlp.fc2.b, act=act)
 
@@ -162,8 +176,17 @@ def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=Non
     x = x if dtype is None else x.to(dtype)
     if cfg.block_impl not in ("auto", "fused_infer"):
         raise ValueError(f"unknown block_impl {cfg.block_impl!r} ('auto' or 'fused_infer')")
+    if cfg.mlp_impl not in ("auto", "xla"):
+        raise ValueError(f"unknown mlp_impl {cfg.mlp_impl!r} ('auto' or 'xla')")
     lora = dict(lora_alpha=cfg.lora_alpha, lora_dropout=cfg.lora_dropout, gen=gen)
-    if hasattr(p, "ls1"):
+    if cfg.mlp_impl == "xla":
+        a = mha(p.attn, layernorm(p.ln1, x, eps=cfg.ln_eps), num_heads=cfg.heads, ops=ops,
+                **lora)
+        x = x + (a * p.ls1.to(a.dtype) if hasattr(p, "ls1") else a)
+        m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops,
+                    impl="xla")
+        x = x + (m * p.ls2.to(m.dtype) if hasattr(p, "ls2") else m)
+    elif hasattr(p, "ls1"):
         a = mha(p.attn, x, num_heads=cfg.heads, ln=p.ln1, ln_eps=cfg.ln_eps, ops=ops, **lora)
         x = x + a * p.ls1.to(a.dtype)
         m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops)

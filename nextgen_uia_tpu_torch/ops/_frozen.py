@@ -15,8 +15,7 @@ def check_frozen(op: str, *weights) -> None:
     if any(w is not None and w.requires_grad for w in weights):
         raise NotImplementedError(
             f"{op}: its weights are frozen (the kernel gives no weight gradients); "
-            "training them needs the eager (mlp_impl='xla') block path, which is not "
-            "ported yet (ROADMAP.md, section A, item 3)")
+            "weights that train take the models' mlp_impl='xla' routes")
 
 
 def _cat(ws, dt, dim=0):

@@ -1,45 +1,57 @@
 """Contrastive fine-tuning and image-text retrieval of the CLIP families on
 one device (counterpart of nextgen_uia_tpu/tasks/clip_finetune.py).
 
-Methods ``lora`` (LoRA pairs in every vision block, trained with the
-q/k/v/o biases of the blocks that hold them) and ``mona`` (MONA adapters);
-AdamW(0.9, 0.95) with weight decay 0.01 and a cosine rate per applied
-update over ceil(steps / accum) * epochs updates; gradient accumulation
-(default 4) with the non-finite skip and a global-norm clip of 1.0; InfoNCE
-at the fixed ``--temperature``; the frozen text tower's caption features
-cached once (or encoded in the step with ``--no-cache_text_features``, under
-no_grad, trimmed to 32-token buckets); validation each epoch through the
-forward-only kernels; the best-by-validation-loss checkpoint holding only
-the adapter tensors; early stop; ``--resume`` from the full train state and
-SIGTERM preemption; ``--chain_zero_shot`` then evaluates the best adapter
-zero-shot on each dataset it names, in the same process.
+Methods ``full`` (the default: the towers' own weights train, the last
+``--tune_layers`` ViT blocks, or all of the image tower with the default
+``all``, the text tower too with ``--tune_text_encoder``, ``logit_scale``
+never; the rate clamped to 1e-6 when above 1e-5; both towers at
+``mlp_impl='xla'``, so every block runs LayerNorm and the MLP as plain
+products around the flash-attention kernel, forward and backward, and no
+frozen-weight kernel runs), ``lora`` (LoRA pairs in every vision block,
+trained with the q/k/v/o biases of the blocks that hold them) and ``mona``
+(MONA adapters); AdamW(0.9, 0.95) with weight decay 0.01 and a cosine rate
+per applied update over ceil(steps / accum) * epochs updates, float32
+master weights cast per use; gradient accumulation (default 4) with the
+non-finite skip and a global-norm clip of 1.0; InfoNCE at the fixed
+``--temperature``; the text tower's caption features cached once (or
+encoded in the step with ``--no-cache_text_features``, under no_grad,
+trimmed to 32-token buckets); validation each epoch through the
+forward-only route; the best-by-validation-loss checkpoint holding the
+adapter tensors (the whole model under ``full``); early stop; ``--resume``
+from the full train state and SIGTERM preemption; ``--chain_zero_shot``
+then evaluates the best adapter (or, under ``full``, the best model as
+``--backbone_ckpt``) zero-shot on each dataset it names, in the same
+process.
 
-The frozen text towers run forward only: the CLIP text transformer
+A frozen text tower runs forward only: the CLIP text transformer
 (openai, metaclip, unimedclip; context 77) through the whole-block kernel
 with the causal mask, BiomedCLIP's PubMedBERT (context 256) through its
-post-norm kernels (models/bert.py). With ``--tune_text_encoder`` BiomedCLIP's text is
-encoded in the step, never cached, through the BERT tower under autograd
-with its own dropout stream (the JAX step splits its key for it): with
-``--method lora`` LoRA pairs sit in BERT's q/k/v/o of the first
-``--lora_layers`` layers and train with those attentions' biases (the
-LoRA layers' MLP runs the fused MLP kernel's backward, the layers above
-them K5 raw-x's), with ``--method mona`` the tower stays frozen; the
-validation text goes through the forward-only route. BiomedCLIP takes the
-PubMedBERT tokenizer where its HuggingFace files are cached, else the folded
-CLIP-BPE fallback, which a full-size run refuses unless
-NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
+post-norm kernels (models/bert.py); under ``full`` both take their plain
+``mlp_impl='xla'`` routes (the flash-attention kernel, plain products).
+With ``--tune_text_encoder`` the text is encoded in the step, never cached,
+under autograd with its own dropout stream (the JAX step splits its key
+for it): under ``full`` the tower trains; with ``--method lora`` LoRA
+pairs sit in BERT's q/k/v/o of the first ``--lora_layers`` layers and
+train with those attentions' biases (the LoRA layers' MLP runs the fused
+MLP kernel's backward, the layers above them K5 raw-x's); with ``--method
+mona`` (and ``lora`` for the OpenAI layout, whose text tower holds no LoRA)
+the tower stays frozen and runs its composed route in the step (the CLIP
+text blocks: the causal flash-attention kernel and the fused-MLP kernel,
+forward only); the validation text goes through the forward-only route.
+BiomedCLIP takes the PubMedBERT tokenizer where its HuggingFace files are
+cached, else the folded CLIP-BPE fallback, which a full-size run refuses
+unless NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
 
 ``retrieval_main`` encodes an image-caption CSV through both towers,
 forward only, and reports Recall@K in both directions, MedR, MeanR and rSum.
 
-Not ported, each refused naming its ROADMAP.md item: ``--method full``,
-``--tune_text_encoder`` for the OpenAI-layout families (the CLIP text
-tower's composed route) and ``--n_data``/``--n_model``.
+Not ported, refused naming its ROADMAP.md item: ``--n_data``/``--n_model``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import math
 import os
@@ -123,22 +135,46 @@ def trim_token_padding(tokens: np.ndarray, *, enabled: bool = True,
     return tokens[:, : min(bucket, tokens.shape[1])]
 
 
-def _refuse_unported(args, family):
-    if args.method == "full":
-        raise not_ported("--method full (the eager block route that trains the tower's "
-                         "weights)", "section A, item 3")
-    if args.tune_text_encoder and family != "biomedclip":
-        raise not_ported("--tune_text_encoder for the OpenAI-layout families (the CLIP text "
-                         "tower's composed route)", "section A, item 17")
+def full_ft_predicate(args, depth: int = 12):
+    """Trainable under ``--method full``: the last ``--tune_layers`` ViT
+    blocks, the rest of the image tower only with ``all``, the text tower
+    only with ``--tune_text_encoder``, never ``logit_scale`` (the loss uses
+    the fixed ``--temperature``, so the reference's AdamW never steps it,
+    where a trainable one would be weight-decayed)."""
+    first = depth - {"last3": 3, "last6": 6, "last9": 9, "all": depth}[args.tune_layers]
+
+    def pred(path: str) -> bool:
+        if path.startswith("text") and not args.tune_text_encoder:
+            return False
+        if path == "logit_scale":
+            return False
+        if path.startswith("visual/blocks/"):
+            return int(path.split("/")[2]) >= first
+        if path.startswith("visual/") and args.tune_layers != "all":
+            return False
+        return True
+
+    return pred
+
+
+def full_cfg(cfg):
+    """``cfg`` with both towers at ``mlp_impl='xla'``: their weights train,
+    so no frozen-weight kernel may run."""
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, mlp_impl="xla"),
+                       text=dataclasses.replace(cfg.text, mlp_impl="xla"))
+
+
+def _refuse_unported(args):
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
 
 
 def make_text_encoder(params, cfg, device, ops=KERNELS):
-    """tokens (numpy or tensor) -> float32 features [B, embed] of the frozen
-    text tower, forward only (models/clip.py::infer_cfg): the CLIP text
-    blocks through the whole-block kernel with the causal mask, BERT's
-    layers through its post-norm kernels."""
+    """tokens (numpy or tensor) -> float32 features [B, embed] of the text
+    tower, forward only (models/clip.py::infer_cfg): the CLIP text blocks
+    through the whole-block kernel with the causal mask, BERT's layers
+    through its post-norm kernels; under ``mlp_impl='xla'`` through their
+    plain routes (the flash-attention kernel, plain products)."""
     ecfg = clip_mod.infer_cfg(cfg, vision=False)
 
     @torch.no_grad()
@@ -163,16 +199,27 @@ def cache_text_features(encode, tokenizer, captions, ctx: int, chunk: int = 256)
 def finetune_main(family: str, argv=None):
     args = _finetune_parser(family).parse_args(argv)
     apply_compat_flags(args)
-    _refuse_unported(args, family)
+    _refuse_unported(args)
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
     run_path = os.path.join("runs", args.exp)
     setup_logging(run_path, args)
+    if args.method == "full" and args.lr > 1e-5:
+        args.lr = 1e-6
+        logging.info(f"Adjusted learning rate to {args.lr} for full fine-tuning")
 
-    cfg, params = build_clip_model(args, family, adapter=args.method, gen=gen)
+    adapter = args.method if args.method in ("mona", "lora") else None
+    cfg, params = build_clip_model(args, family, adapter=adapter, gen=gen)
+    if args.method == "full":
+        cfg = full_cfg(cfg)
     tokenizer = get_text_tokenizer(args, family)
     require_real_tokenizer(args, tokenizer, family)
-    pred = by_keywords("mona") if args.method == "mona" else lora_trainable_predicate(params)
+    if args.method == "mona":
+        pred = by_keywords("mona")
+    elif args.method == "lora":
+        pred = lora_trainable_predicate(params)
+    else:
+        pred = full_ft_predicate(args, depth=cfg.vision.depth)
     trainable, _ = partition(params, pred)
     names = list(trainable)
     logging.info(model_summary({"model": params}, trainable_pred=pred))
@@ -247,6 +294,8 @@ def finetune_main(family: str, argv=None):
     stopper = T.EarlyStopper(args.patience, mode="min")
     best_path = os.path.join(run_path, "best_model.npz")
     last_path = os.path.join(run_path, "last_state.npz")
+    # the adapter tensors, or under full the whole model
+    ckpt_keywords = None if args.method == "full" else [args.method]
     # the dropout stream: torch's, seeded like the JAX package's key
     drop_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
 
@@ -315,7 +364,7 @@ def finetune_main(family: str, argv=None):
             logging.info(f"Epoch {epoch + 1}: Train={train_str}, Val={avg_val:.4f}, "
                          f"Best={best:.4f}")
             if stopper.update(avg_val, epoch):
-                n = ckpt.save(best_path, params, keyword_filter=[args.method])
+                n = ckpt.save(best_path, params, keyword_filter=ckpt_keywords)
                 logging.info(f"Best model saved ({n} tensors) at epoch {epoch + 1} with "
                              f"validation loss {stopper.best:.4f}")
             save_last(epoch + 1, 0)
@@ -336,12 +385,13 @@ def finetune_main(family: str, argv=None):
 
 
 def chain_zero_shot(args, family: str, best_path: str):
-    """Zero-shot evaluation of the best adapter on each dataset of
-    ``--chain_zero_shot``, with the JAX package's argument list (and this
-    run's ``--device``)."""
+    """Zero-shot evaluation of the best adapter (under ``full``, the best
+    model as ``--backbone_ckpt``) on each dataset of ``--chain_zero_shot``,
+    with the JAX package's argument list (and this run's ``--device``)."""
     from .clip_tasks import zero_shot_main
 
-    weight_flag = {"mona": "--mona_weights", "lora": "--lora_weights"}[args.method]
+    weight_flag = {"mona": "--mona_weights", "lora": "--lora_weights",
+                   "full": "--backbone_ckpt"}[args.method]
     for ds in args.chain_zero_shot:
         logging.info(f"Chaining zero-shot evaluation on {ds}")
         zs_argv = ["--exp", f"{args.exp}_zero_shot", "--dataset", ds,
@@ -349,7 +399,7 @@ def chain_zero_shot(args, family: str, best_path: str):
                    "--seed", str(args.seed), "--device", args.device, weight_flag, best_path]
         if args.method == "mona":
             zs_argv += ["--mona_variant", args.mona_variant]
-        if args.backbone_ckpt:
+        if args.backbone_ckpt and args.method != "full":
             zs_argv += ["--backbone_ckpt", args.backbone_ckpt]
         if args.debug_tiny:
             zs_argv += ["--debug_tiny"]

@@ -113,7 +113,7 @@ def apply_compat_flags(args) -> None:
     surface, as the JAX package's ``apply_compat_flags`` does: a ``.npz``
     becomes ``--backbone_ckpt`` unless that is set; an existing file of any
     other kind is a torch archive, which needs the checkpoint converter
-    first. A non-``.npz`` path that does not exist (a reference-style default
+    (``python -m nextgen_uia_tpu_torch.convert``) first. A non-``.npz`` path that does not exist (a reference-style default
     such as ckpt/ViT-B-16.pt) stays informational."""
     ck = getattr(args, "ckpt", None)
     if not ck:
@@ -123,9 +123,9 @@ def apply_compat_flags(args) -> None:
             args.backbone_ckpt = ck
     elif os.path.exists(ck) and not getattr(args, "backbone_ckpt", None):
         raise SystemExit(
-            f"--ckpt {ck} looks like a torch archive. The checkpoint converter is not "
-            "ported to the PyTorch package yet (ROADMAP.md, section A, item 15); pass a "
-            "converted .npz via --ckpt or --backbone_ckpt.")
+            f"--ckpt {ck} looks like a torch archive. Convert it first:\n"
+            f"  python -m nextgen_uia_tpu_torch.convert <kind> {ck} out.npz\n"
+            "then pass the .npz via --ckpt or --backbone_ckpt.")
 
 
 def seed_everything(seed: int) -> torch.Generator:
@@ -244,7 +244,7 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
         logging.info(f"Loaded {n} backbone tensors from {args.backbone_ckpt}")
     else:
         logging.warning("No --backbone_ckpt given: backbone weights are RANDOM. Run the "
-                        "checkpoint converter (nextgen_uia_tpu.convert) for pretrained "
+                        "checkpoint converter (nextgen_uia_tpu_torch.convert) for pretrained "
                         "towers.")
     if use_lora:
         _, n = inject_lora(gen, params.visual, dim=cfg.vision.width, r=lora_r,

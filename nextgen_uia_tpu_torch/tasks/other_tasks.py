@@ -48,7 +48,7 @@ def _build_dino(args, gen: torch.Generator):
         logging.info(f"Loaded {n} DINOv2 tensors from {args.backbone_ckpt}")
     else:
         logging.warning("No --backbone_ckpt: DINOv2 weights are RANDOM (convert with "
-                        "nextgen_uia_tpu.convert dinov2)")
+                        "nextgen_uia_tpu_torch.convert dinov2)")
     return cfg, encoder
 
 

@@ -12,7 +12,8 @@ chain and by the whole-layer route (``NEXTGEN_UIA_FUSED_BLOCK_BERT=1``;
 the JAX side under ``NEXTGEN_UIA_FUSED_BLOCK=force``), against the JAX
 ``bert_apply`` through the .npz bridge, max|d| <= 1e-4 * max|ref|; the
 bridge round-trips the text/... paths both ways; trimming the padding gives
-the same features. (c) ``BertTokenizer`` on a synthetic vocabulary, the
+the same features; the ``mlp_impl='xla'`` layer (weights that train)
+against JAX's. (c) ``BertTokenizer`` on a synthetic vocabulary, the
 folded CLIP-BPE fallback and ``trim_token_padding`` equal to the JAX
 package's.
 """
@@ -191,12 +192,20 @@ def test_bridge_round_trips_the_text_tower(tmp_path):
 
 
 def test_bert_refuses_what_is_not_ported(tmp_path):
-    """Training the tower's own weights (--method full) refuses; LoRA in
-    its layers runs (tests/test_torch_text_lora.py)."""
-    _, _, tower, cfg = _towers(tmp_path)
-    ids = torch.from_numpy(_ids(cfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="method full.*item 3"):
-        bert.bert_apply(tower, dataclasses.replace(cfg, mlp_impl="xla"), ids)
+    """Training the tower's own weights (--method full, ``mlp_impl='xla'``)
+    is ported: the plain layer against the JAX one, max|d| <= 1e-4 *
+    max|ref|; an unknown ``mlp_impl`` refuses. LoRA in its layers runs
+    (tests/test_torch_text_lora.py)."""
+    p, jcfg, tower, cfg = _towers(tmp_path)
+    ids = _ids(cfg.vocab_size)
+    want = np.asarray(jax_bert.bert_apply(p, dataclasses.replace(jcfg, mlp_impl="xla"),
+                                          jnp.asarray(ids)))
+    with torch.no_grad():
+        got = bert.bert_apply(tower, dataclasses.replace(cfg, mlp_impl="xla"),
+                              torch.from_numpy(ids)).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    with pytest.raises(ValueError, match="mlp_impl"):
+        bert.bert_apply(tower, dataclasses.replace(cfg, mlp_impl="fused"), torch.from_numpy(ids))
 
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".", ",", "(", ")", "-", "_", "the", "a", "of",

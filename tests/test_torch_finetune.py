@@ -14,7 +14,8 @@ dropout to the JAX masks); (d) the
 fine-tune CLI with ``--debug_tiny --device cpu``: its best_model.npz holds
 only LoRA tensors and loads into the JAX package's tree, the in-step text
 path gives the cached path's validation loss, and ``--resume`` continues;
-(e) what is not ported refuses, naming its ROADMAP item; (f) three
+(e) what is not ported (multi-device training) refuses, naming its
+ROADMAP item; (f) three
 updates of the tiny BiomedCLIP MONA fine-tune step (the BERT text tower's
 features cached, or encoded in the step from trimmed tokens) against the
 JAX step, 1e-4 relative, and the BiomedCLIP fine-tune CLI with
@@ -279,7 +280,10 @@ def test_finetune_refuses_what_is_not_ported(ftdata):
     from nextgen_uia_tpu_torch.tasks.clip.finetune import main
 
     base = _argv(ftdata, "ft_refuse")
-    for extra, item in ((["--method", "full"], "item 3"), (["--tune_text_encoder"], "item 17"),
+    # --method full and --tune_text_encoder run (tests/test_torch_full_ft.py);
+    # multi-device training still refuses, with them too
+    for extra, item in ((["--method", "full", "--n_data", "2"], "item 14"),
+                        (["--tune_text_encoder", "--n_data", "2"], "item 14"),
                         (["--n_data", "2"], "item 14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             main(base + extra)

@@ -10,6 +10,7 @@ JAX package's ``apply_compat_flags`` resolves it.
 
 import argparse
 import importlib
+import re
 
 import pytest
 
@@ -86,9 +87,12 @@ def test_ckpt_npz_becomes_backbone_ckpt(tmp_path):
 
 
 def test_ckpt_torch_archive_names_the_converter_item(tmp_path):
+    """A torch archive through --ckpt refuses, as the JAX package's does,
+    naming the port's own converter (never the JAX package's)."""
     archive = tmp_path / "ViT-B-16.pt"
     archive.write_bytes(b"not an npz")
     args = base_parser("t").parse_args(["--ckpt", str(archive)])
-    with pytest.raises(SystemExit, match="section A, item 15") as err:
+    want = f"python -m nextgen_uia_tpu_torch.convert <kind> {archive} out.npz"
+    with pytest.raises(SystemExit, match=re.escape(want)) as err:
         apply_compat_flags(args)
     assert "nextgen_uia_tpu.convert" not in str(err.value)

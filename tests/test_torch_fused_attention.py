@@ -10,8 +10,8 @@ d = 128, 4 heads and (n, causal, key bias) in {(25, no, no), (16, yes, no),
 kernel (interpret mode) and of the JAX hybrid forward, dx within the same
 of ``jax.grad``. ``mha``'s 'fused_block' and 'hybrid_block' routes (the
 LayerNorm first, the residual outside) against the JAX ``mha``; weights
-that require grad are refused; 'einsum' and 'flash' name their ROADMAP
-item. The CUDA kernels' packed layout (``_packed_layout``): its strided
+that require grad are refused; 'einsum' and 'flash' (causal, key bias)
+against the JAX ``mha``. The CUDA kernels' packed layout (``_packed_layout``): its strided
 views of a [B*N, 3D] buffer equal the plain version's q, k, v and dq, dk,
 dv exactly.
 """
@@ -138,9 +138,19 @@ def test_trainable_weights_are_refused():
 
 @pytest.mark.parametrize("impl", ["einsum", "flash"])
 def test_unported_impls_raise(impl):
-    p = _port_attention(_weights(0))
-    with pytest.raises(NotImplementedError, match="section A, item 3"):
-        mha(p, torch.zeros(2, 5, D), num_heads=HEADS, ln=LayerNorm(D), impl=impl)
+    """'einsum' and 'flash' are ported: with a causal mask and a key bias,
+    the output and dx against the JAX ``mha``'s einsum route."""
+    n, w = 16, _weights(0)
+    x, g, kb = _inputs(n, True, seed=4)
+    jp = jax.tree_util.tree_map(jnp.asarray, w)
+    want, vjp = jax.vjp(lambda xx: jax_mha(jp, xx, num_heads=HEADS, causal=True, impl="einsum",
+                                           key_padding_bias=jnp.asarray(kb)), jnp.asarray(x))
+    (gx,) = vjp(jnp.asarray(g))
+    p = _port_attention(w)
+    out, dx = _port_run(lambda xx: mha(p, xx, num_heads=HEADS, causal=True, impl=impl,
+                                       key_padding_bias=torch.from_numpy(kb)), x, g)
+    _close(out, want, f"mha {impl} output")
+    _close(dx, gx, f"mha {impl} dx")
 
 
 @pytest.mark.parametrize("b,n,heads,dh", [(2, 5, 3, 8), (1, 1, 2, 64), (3, 7, 1, 16)])

@@ -193,29 +193,32 @@ def test_plain_backward_matches_autograd_of_plain_forward(op):
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()
 
 
+FROZEN = "frozen.*mlp_impl='xla'"
+
+
 def test_frozen_weight_contract():
     """The split kernels give no weight gradients: a weight that trains is
-    refused (NotImplementedError naming the ROADMAP item), on every
-    device, before anything runs."""
+    refused (NotImplementedError naming the models' mlp_impl='xla' routes,
+    which train weights), on every device, before anything runs."""
     blk, _ = _block(5)
     x = _randn(B, N, D)
     blk.ln1.scale.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_ln_qkv.fused_ln_qkv(x, blk.ln1, blk.attn, heads=H)
     blk.attn.o.w.requires_grad_(True)
     q = _randn(B, H, N, DH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_attn_o.fused_attn_o_residual(q, q, q, x, blk.attn.o, heads=H)
     blk.mlp.fc2.b.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_ln_mlp.fused_ln_mlp_residual(x, blk.ln2, blk.mlp)
     # the forward-only post-norm variants hold the same contract
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_attn_o.fused_attn_o_residual(q, q, q, x, blk.attn.o, heads=H, post_ln=blk.ln2)
     blk.attn.v.b.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_ln_qkv.fused_ln_qkv(x, None, blk.attn, heads=H)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=FROZEN):
         fused_ln_mlp.fused_postnorm_mlp_ln(x, blk.mlp, blk.ln2)
 
 

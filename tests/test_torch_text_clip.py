@@ -11,8 +11,8 @@ without a key bias, max|d| <= 2e-5 (atol = rtol); (d) the tiny text tower
 ``text_apply``, through the JAX whole-block kernel under
 NEXTGEN_UIA_FUSED_BLOCK=force (77 tokens padded to 80 there, unpadded
 here) at head dim 64 and through the JAX composed route at the
---debug_tiny head dim 24, <= 2e-5; the composed, differentiable route
-refuses.
+--debug_tiny head dim 24, <= 2e-5; the composed routes (``block_impl
+'auto'``, frozen and at ``mlp_impl='xla'``) against JAX's alike.
 """
 
 import dataclasses
@@ -141,6 +141,12 @@ def test_text_tower_matches_jax(tmp_path, monkeypatch, width, heads, fused):
     assert got.shape == (3, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        text_clip.text_apply(tower, dataclasses.replace(cfg, block_impl="auto"),
-                             torch.from_numpy(ids))
+    # the composed routes, frozen ('auto') and trained ('xla'), against JAX's
+    for mlp_impl in ("auto", "xla"):
+        want = jax_text.text_apply(
+            p, dataclasses.replace(jcfg, block_impl="auto", mlp_impl=mlp_impl), jnp.asarray(ids))
+        with torch.no_grad():
+            got = text_clip.text_apply(
+                tower, dataclasses.replace(cfg, block_impl="auto", mlp_impl=mlp_impl),
+                torch.from_numpy(ids))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
