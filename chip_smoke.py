@@ -70,7 +70,11 @@
    3e-2 * max|ref|; K12's parameter gradients min(1e-4 * the largest
    max|ref|, 3e-2 * their own) in float32), K12's backward bitwise equal
    over two calls. The post-norm epilogues' backwards, plain
-   recompositions with no kernel of their own, timed per layer.
+   recompositions with no kernel of their own, timed per layer. K6's
+   causal mode, forward and backward, at the frozen CLIP text tower's [16,
+   8, 64, 64] and [16, 8, 77, 64] (beside SDPA with is_causal and addmm),
+   and K7's float32 path at the CLIPSeg decoder's [32, 197, 4, 16] packed
+   views (beside SDPA in float32, bound at the CUDA cores' rate).
 4. Augmentation phase: one strong+weak plan at [32, 224, 224] and at [24,
    518, 518] through the kernels and through the plain versions (images and
    masks equal; equalize launched once per slot that drew it, the lookup
@@ -145,9 +149,16 @@
    --tune_text_encoder (BERT trained: K7 96 each), the OpenAI layout with
    --tune_text_encoder (the causal text tower trained: K7 96 each), each
    timed with a profiler table; then --method mona --tune_text_encoder on
-   the OpenAI layout (the frozen text tower's composed route in the step:
-   K7 causal forward and K10's forward 48 each, no text backward) against
-   the plain path.
+   the OpenAI layout (the frozen text tower's LN route in the step: K5, K6
+   causal and K10's forward 48 each, no K7 of its own, no text backward)
+   against the plain path, and that tower alone at the 64-token bucket.
+   CLIPSeg phase: the frozen OpenAI towers through K1 and K1 causal and
+   the FiLM decoder (K7 float32 at head dim 16) at batch 32, 224 px: three
+   updates and a serving batch against the plain path, launches, img/s,
+   profiler tables. Supervised LoRA phase: the BiomedCLIP seg trainer's
+   model from --lora_weights (r 16 in 12 blocks): two updates against the
+   plain path (K7 and K8 forward 12 each, backward 10), then an eval batch
+   by the composed route (no K1).
 13. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
    trainers, the OpenAI LoRA fine-tune CLI, the BiomedCLIP MONA fine-tune
@@ -158,10 +169,13 @@
    width: clip.classification (the hidden cls head in best_model.npz),
    metaclip.segmentation, the unimedclip, biomedclip and clip zero-shot
    CLIs, biomedclip.retrieval and clip.predict at its default task,
-   zero-shot, each with its launch counts.
+   zero-shot, each with its launch counts; then clipseg.segmentation, the
+   clipseg predict CLI on its best_model.npz, biomedclip.fewshot_segmentation
+   and biomedclip.predict with --lora_weights.
 14. Prints each phase's host seconds, one JSON line of per-kernel results
-   (37 rows: K7 also at the full route's shapes, K10 at the text tower's
-   composed route), then the final status line.
+   (41 rows: K7 also at the full route's shapes and in float32 at head dim
+   16, K10 at the frozen text tower's shape, K6 causal forward and
+   backward), then the final status line.
 
 Exits non-zero without a CUDA device or without the repository beside it,
 and refuses NEXTGEN_UIA_FUSED_MONA or NEXTGEN_UIA_FUSED_BLOCK_BERT set by the
@@ -638,9 +652,9 @@ def kernel_phase(dev):
     check("fused_mlp", mlp_only(fm.fused_mlp), mlp_only(fm.fused_mlp_plain), [randn(dm, d)],
           [randn(77, 128), True], (4 * dm * d * hid, 2 * (2 * dm * d + 2 * d * hid)),
           more=[[randn(FT_MICRO * 256, d)], [randn(1001, d)]], kernels=True)
-    # ... and at the frozen CLIP text tower's composed route in the step
-    # (--tune_text_encoder under mona): [16 * L, 512] x 2048 quick_gelu, L the
-    # in-step text's trimmed length
+    # ... and at the frozen CLIP text tower in the step (--tune_text_encoder
+    # under mona): [16 * L, 512] x 2048 quick_gelu, L the in-step text's
+    # trimmed length
     tl = full_step_tokens()[1].shape[1]
     tfm = FT_MICRO * tl
 
@@ -713,6 +727,8 @@ def kernel_phase(dev):
     k6_k8_rows(dev, block(d, h))
     k5_rows(dev, block(d, h))
     results.update(full_path_k7_rows(dev))
+    results.update(k6_causal_rows(dev))
+    results.update(k7_f32_dh16_rows(dev))
     return results
 
 
@@ -3863,10 +3879,11 @@ def full_finetune_phase(dev, converted):
     layout with ``--tune_text_encoder`` (the 12-layer causal text tower
     trained in the step: K7 96 each, causal 48 of them); then ``--method
     mona --tune_text_encoder`` on the OpenAI layout, the frozen text tower in
-    the step by its composed route (K7 causal forward and K10's forward 48
-    each, no text backward), one update at lr 0 against the plain path
+    the step by its LN route (K5, K6 causal and K10's forward 48 each, no K7
+    of its own, no text backward), one update at lr 0 against the plain path
     (``check_update``), and its text tower forward alone at the 64-token
-    bucket against the plain path. Every update is timed. Returns the launch
+    bucket against the plain path (K5, K6 causal, K10 12 each), profiled.
+    Every update is timed. Returns the launch
     counts of the new JSON rows."""
     import dataclasses
 
@@ -3984,8 +4001,8 @@ def full_finetune_phase(dev, converted):
     time_update("full --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg, trainable, args,
                 batch, dev, lr)
 
-    # --method mona --tune_text_encoder: the frozen text tower's composed
-    # route in the step (K7 causal forward, K10 forward), MONA trained
+    # --method mona --tune_text_encoder: the frozen text tower's LN route in
+    # the step (K5, K6 causal, K10 forward), MONA trained
     from nextgen_uia_tpu_torch.adapters.mona import inject_mona
 
     args = ft._finetune_parser("openai").parse_args(["--seed", "5", "--method", "mona",
@@ -4005,19 +4022,25 @@ def full_finetune_phase(dev, converted):
     counts, _, _ = check_update("mona --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg,
                                 trainable, args, batch, dev, reaches_no_feature)
     launched = {k: v for k, v in counts.items() if v}
-    require(launched.get("flash_attention") == kt and launched.get("fused_mlp") == kt
+    require(launched.get("fused_ln_qkv") == k7 + kt
+            and launched.get("fused_attn_o_residual") == k7 + kt
+            and launched.get("fused_mlp") == kt and "flash_attention" not in launched
             and "flash_attention_backward" not in launched
             and "fused_mlp_backward" not in launched and "fused_block_infer" not in launched
-            and launched.get("fused_ln_qkv") == k7,
-            f"mona --tune_text_encoder launched {launched}: want K7 causal forward and K10 "
-            f"forward {kt} each beside the image tower's kernels, no text backward")
-    launches["fused_mlp_text"] = kt
+            and launched.get("fused_attn_o_residual_backward", 0) <= k7
+            and launched.get("fused_ln_qkv_backward", 0) <= k7,
+            f"mona --tune_text_encoder launched {launched}: want K5, K6 causal and K10 "
+            f"forward {kt} each beside the image tower's kernels, no K7 of its own and no "
+            f"text backward")
+    launches["fused_mlp_text"] = launches["fused_attn_o_residual_causal"] = kt
+    # no path differentiates the frozen causal tower, in either package
+    launches["fused_attn_o_residual_causal_backward"] = 0
     time_update("mona --tune_text_encoder (OpenAI)", loss_for("in-step"), cfg, trainable, args,
                 batch, dev, args.lr)
 
     # the same frozen route at trim_token_padding's 64-token bucket (where
     # the JAX package's kernel path takes its LN+QKV and causal attn+o
-    # kernels instead), one microbatch forward against the plain path
+    # kernels too), one microbatch forward against the plain path, profiled
     lengths = rng.integers(8, 65, FT_MICRO)
     lengths[0] = 64
     short = np.zeros((FT_MICRO, cfg.text.context_length), np.int32)
@@ -4037,10 +4060,19 @@ def full_finetune_phase(dev, converted):
           f"{short_counts}; features vs plain path max|d| {err:.3e} (<= "
           f"{BF16_BOUND * max(1.0, scale):.3e})")
     depth_t = cfg.text.depth
-    require(short.shape[1] == 64 and short_counts == {"flash_attention": depth_t,
-                                                       "fused_mlp": depth_t},
+    want = {"fused_ln_qkv": depth_t, "fused_attn_o_residual": depth_t, "fused_mlp": depth_t}
+    require(short.shape[1] == 64 and short_counts == want,
             f"the frozen text tower at {short.shape[1]} tokens launched {short_counts}: want "
-            f"K7 causal forward and K10 forward {depth_t} each")
+            f"K5, K6 causal and K10 forward {depth_t} each, no K7 of its own")
+    with torch.no_grad():
+        short_ms = cuda_ms(lambda: clip_mod.encode_text(params, cfg, short), 5, warmup=1)
+        seen = set()
+        profile_steps(lambda: clip_mod.encode_text(params, cfg, short), 2, short_ms, seen)
+    # K6's kernels: K7 causal into the concat, the o-product with the residual epilogue
+    k6_seen = [any(part in k for k in seen) for part in ("flash_fwd_wgmma", "ResidualEpilogue")]
+    print(f"mona --tune_text_encoder (OpenAI): the 64-token forward's profile shows K6's "
+          f"attention and o-product: {k6_seen if seen else 'not checked (no device records)'}")
+    require(not seen or all(k6_seen), "the 64-token forward's profile lacks K6's kernels")
     require(bool(torch.isfinite(got).all()) and err <= BF16_BOUND * max(1.0, scale),
             "the frozen text tower at the 64-token bucket disagrees with the plain path")
     params.cpu()
@@ -4094,6 +4126,570 @@ def full_finetune_cli_phase(work, converted):
             and counts["flash_attention_backward"] == 2 * 12 * FT_ACCUM,
             f"the full fine-tune CLI launched {counts}: want K7 alone, its backward "
             f"{2 * 12 * FT_ACCUM} times")
+
+
+# --- K6's causal mode, K7 in float32 at head dim 16, CLIPSeg, LoRA in the
+# supervised CLIs and the few-shot trainers ---
+
+K6_CAUSAL_SHAPES = ((FT_MICRO, 64), (FT_MICRO, 77))  # the 64-token bucket, the full context
+
+
+def k6_causal_rows(dev):
+    """K6's causal mode (the frozen CLIP text tower in the step: width 512,
+    8 heads of 64) at [16, 8, 64, 64] (trim_token_padding's 64-token bucket)
+    and [16, 8, 77, 64], forward and dq/dk/dv backward: float32 against the
+    plain version within 1e-4 * max|ref|, bf16 on the bf16-rounded inputs
+    within 3e-2 * max(1, max|ref|), the bf16 backward bitwise equal over two
+    calls; then in bf16 the op by CUDA events, its kernels alone (no WMMA
+    GEMM, no SIMT attention), the plain version, the library (SDPA with
+    is_causal, then torch.addmm for the o-projection and the residual and
+    the bias added; backward: the doh product, then SDPA's autograd
+    backward) and the bound (the lower triangle's attention). Returns the
+    JSON rows, at the 64-token bucket."""
+    import torch
+    import torch.nn.functional as F
+
+    from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
+    from nextgen_uia_tpu_torch.ops import fused_attn_o as fao
+
+    bf16 = torch.bfloat16
+    d, h = 512, 8
+    dh = d // h
+    gen = torch.Generator().manual_seed(13)
+    o = Block(gen, ViTConfig(width=d, heads=h)).attn.o.to(dev).requires_grad_(False)
+    wo, wo_b, bo_b = o.w, o.w.to(bf16), o.b.to(bf16)
+    ops = {
+        "fused_attn_o_residual_causal": (
+            lambda q, k, v, x, _g: fao.fused_attn_o_residual(q, k, v, x, o, heads=h, causal=True),
+            lambda q, k, v, x, _g: fao.fused_attn_o_residual_plain(q, k, v, x, o, heads=h,
+                                                                   causal=True)),
+        "fused_attn_o_residual_causal_backward": (
+            lambda q, k, v, _x, g: fao.fused_attn_o_residual_backward(q, k, v, wo.to(q.dtype), g,
+                                                                      causal=True),
+            lambda q, k, v, _x, g: fao.fused_attn_o_residual_backward_plain(q, k, v, wo, g,
+                                                                            causal=True))}
+    rows = {}
+    for b, n in K6_CAUSAL_SHAPES:
+        args32 = [torch.randn(*s, generator=gen).to(dev)
+                  for s in [(b, h, n, dh)] * 3 + [(b, n, d)] * 2]
+        args_b = [t.to(bf16) for t in args32]
+        args_r = [t.float() for t in args_b]
+        m, pairs = b * n, n * (n + 1) // 2
+        attn = 4 * b * h * pairs * dh
+        costs = {"fused_attn_o_residual_causal": (attn + 2 * m * d * d, 2 * (5 * m * d + d * d)),
+                 "fused_attn_o_residual_causal_backward": (2.5 * attn + 2 * m * d * d,
+                                                           2 * (7 * m * d + d * d))}
+        qb, kb, vb, xb, gb = args_b
+
+        def lib_fwd():
+            att = F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+            return torch.addmm(xb.reshape(m, d), att.transpose(1, 2).reshape(m, d),
+                               wo_b).add_(bo_b)
+
+        leaves = [t.detach().requires_grad_() for t in (qb, kb, vb)]
+        att = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+        def lib_bwd():
+            doh = (gb.reshape(m, d) @ wo_b.T).reshape(b, n, h, dh).transpose(1, 2)
+            return torch.autograd.grad(att, leaves, doh, retain_graph=True)
+
+        libs = {"fused_attn_o_residual_causal": lib_fwd,
+                "fused_attn_o_residual_causal_backward": lib_bwd}
+        for name, (kern, plain) in ops.items():
+            with torch.no_grad():
+                rel32 = max(e / s for e, s in errors(kern(*args32), plain(*args32)))
+                errs = errors(kern(*args_b), plain(*args_r))
+                err_b, scale_b = max(errs, key=lambda e: e[0] / max(1.0, e[1]))
+                first, second = kern(*args_b), kern(*args_b)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, c) for a, c in
+                           zip(first if isinstance(first, tuple) else (first,),
+                               second if isinstance(second, tuple) else (second,)))
+                op_ms = cuda_ms(lambda: kern(*args_b), 20)
+                kern_ms, seen, check = hopper_kernels_ms(name, lambda: kern(*args_b))
+                plain_ms = cuda_ms(lambda: plain(*args_b), 3, warmup=1)
+            lib_ms = cuda_ms(libs[name], 20)
+            b_ms, b_by = bound(*costs[name])
+            print(f"{name}: [{b}, {h}, {n}, {dh}], width {d}: f32 rel max|d| {rel32:.3e} (<= "
+                  f"1e-4); bf16 max|d| {err_b:.3e} (<= {BF16_BOUND * max(1.0, scale_b):.3e}, "
+                  f"max|ref| {scale_b:.3e}); two bf16 calls bitwise equal: {same}; bf16 op "
+                  f"{op_ms:.4f} ms, kernels alone {kern_ms:.4f} ms ({check}), plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            for key, ms_ in sorted(seen.items(), key=lambda kv: -kv[1]):
+                print(f"{name}:   {ms_:.4f} ms {key[:100]}")
+            require(rel32 <= F32_BOUND, f"{name} float32 mismatch at [{b}, {h}, {n}, {dh}]")
+            require(err_b <= BF16_BOUND * max(1.0, scale_b),
+                    f"{name} bfloat16 mismatch at [{b}, {h}, {n}, {dh}]")
+            require(same or "backward" not in name,
+                    f"{name} bf16 is not bitwise repeatable at [{b}, {h}, {n}, {dh}]")
+            if name not in rows:
+                rows[name] = dict(max_abs_err=err_b, ms=op_ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def k7_f32_dh16_rows(dev):
+    """K7's float32 path at the CLIPSeg decoder's head dim 16, [32, 197, 4,
+    16] (batch, tokens, heads, head dim; reduce_dim 64 in 4 heads), q, k
+    and v strided views of one packed [B, N, 3, H, 16] float32 product as
+    ``mha`` hands them over: the output, its lse and dq, dk, dv against the
+    plain versions within 1e-4 * max|ref|, the backward bitwise equal over
+    two calls; the op and its kernels alone, forward and backward, SDPA's
+    float32 forward and autograd backward on the same views, the plain
+    versions, and the bound (the operations at the CUDA cores' float32
+    rate: the kernels run no tensor-core product). Returns the two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from nextgen_uia_tpu_torch.ops import flash_attention as fa
+
+    b, n, h, dh = BATCH, 197, 4, 16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = torch.randn(b, n, 3, h, dh, generator=gen, device=dev).unbind(2)
+    g = torch.randn(b, n, h, dh, generator=gen, device=dev)
+    kw = dict(layout="bnhd")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        (err, scale), = errors(out, fa.flash_attention_plain(q, k, v, **kw))
+        lse_ref = fa.flash_attention_lse_plain(q, k, **kw)
+        lse_rel = (lse - lse_ref).abs().max().item() / lse_ref.abs().max().item()
+        got = fa.flash_attention_backward(q, k, v, out, g, lse, bias_grad=False, **kw)[:3]
+        again = fa.flash_attention_backward(q, k, v, out, g, lse, bias_grad=False, **kw)[:3]
+        ref = fa.flash_attention_backward_plain(q, k, v, None, g, layout="bnhd")[:3]
+        b_errs = errors(tuple(got), tuple(ref))
+        b_rel = max(e / s for e, s in b_errs)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        torch.cuda.synchronize()
+        fwd = lambda: fa.flash_attention_forward(q, k, v, **kw)  # noqa: E731
+        bwd = lambda: fa.flash_attention_backward(q, k, v, out, g, lse,  # noqa: E731
+                                                  bias_grad=False, **kw)
+        sdpa_args = [t.transpose(1, 2) for t in (q, k, v)]
+        f_op, f_k = cuda_ms(fwd, 20), kernel_device_ms(fwd, "flash", 20)
+        f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(*sdpa_args), 20)
+        f_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3, warmup=1)
+        b_op, b_k = cuda_ms(bwd, 20), kernel_device_ms(bwd, "flash", 20)
+        b_plain = cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, None, g,
+                                                                    layout="bnhd"), 3, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in sdpa_args]
+    o = F.scaled_dot_product_attention(*leaves)
+    b_lib = cuda_ms(lambda: torch.autograd.grad(o, leaves, g.transpose(1, 2), retain_graph=True),
+                    20)
+    head_io = 4 * b * h * n * dh  # one float32 [B, H, N, dh] tensor
+    f_bound = bound(4 * b * h * n * n * dh, 4 * head_io + 4 * b * h * n, peak=CUDA_CORE_FLOPS)
+    b_bound = bound(10 * b * h * n * n * dh, 8 * head_io + 4 * b * h * n, peak=CUDA_CORE_FLOPS)
+    print(f"flash_attention_f32_dh16: K7 float32 [{b}, {n}, {h}, {dh}] packed: max|d| "
+          f"{err:.3e} (<= {F32_BOUND * scale:.3e}), lse rel {lse_rel:.3e}; backward max|d| / "
+          f"max|ref| {b_rel:.3e}, two calls bitwise equal: {same}; forward op {f_op:.4f} ms, "
+          f"kernel {f_k:.4f} ms, SDPA {f_lib:.4f} ms, plain {f_plain:.4f} ms, bound "
+          f"{f_bound[0]:.4f} ms ({f_bound[1]}); backward op {b_op:.4f} ms, kernels {b_k:.4f} ms, "
+          f"SDPA backward {b_lib:.4f} ms, plain {b_plain:.4f} ms, bound {b_bound[0]:.4f} ms "
+          f"({b_bound[1]})")
+    require(err <= F32_BOUND * scale and lse_rel <= F32_BOUND and b_rel <= F32_BOUND,
+            "K7 float32 at head dim 16 disagrees with the plain versions")
+    require(same, "K7's float32 backward at head dim 16 is not bitwise repeatable")
+    return {"flash_attention_f32_dh16": dict(
+                max_abs_err=err, ms=f_op, plain_ms=f_plain, library_ms=f_lib,
+                bound_ms=f_bound[0], bound_by=f_bound[1]),
+            "flash_attention_f32_dh16_backward": dict(
+                max_abs_err=max(e for e, _ in b_errs), ms=b_op, plain_ms=b_plain,
+                library_ms=b_lib, bound_ms=b_bound[0], bound_by=b_bound[1])}
+
+
+def held_updates(tag, make_step, trainable, batch, n, own_exempt, seed=None):
+    """``n`` updates of ``make_step(compute_dtype, ops)`` on one batch from
+    the same weights, through the kernels and on the plain path, in bf16
+    and in float32 (a fresh dropout generator of ``seed`` on each run, else
+    none; the weights put back after each). Each bf16 update's loss is held
+    to 3e-2 * max(1, |ref|) and its gradient norm to 3e-2; in float32 the
+    losses and norms to 1e-4, and the first update's gradient of every
+    trainable tensor by ``worst_ratio`` (``own_exempt``: the names whose
+    exact gradient is zero). Returns (the first kernel update's launch
+    counts, the bf16 kernel updates' metrics)."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+    dev = batch["image"].device
+
+    def run(dtype, ops):
+        step = make_step(dtype, ops)
+        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        reset_counts()
+        out = [step(batch, gen)]
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        grads = {k: p.grad.float().clone() for k, p in trainable.items()}
+        out += [step(batch, gen) for _ in range(n - 1)]
+        with torch.no_grad():
+            for k, p in trainable.items():
+                p.copy_(start[k])
+        return out, counts, grads
+
+    (got, counts, _), (ref, _, _) = run("bfloat16", KERNELS), run("bfloat16", PLAIN)
+    (got32, _, g32_k), (ref32, _, g32_p) = run("float32", KERNELS), run("float32", PLAIN)
+    worst, worst_name = worst_ratio(g32_k, g32_p, own_exempt)
+    print(f"{tag}: the first update's launches {counts}; bf16 losses kernel "
+          + " ".join(f"{m['loss']:.6f}" for m in got) + " plain "
+          + " ".join(f"{m['loss']:.6f}" for m in ref) + ", gradient norms "
+          + " ".join(f"{a['grad_norm']:.5f}/{c['grad_norm']:.5f}" for a, c in zip(got, ref))
+          + "; float32 losses " + " ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
+                                           for a, c in zip(got32, ref32))
+          + f", the first update's gradients worst max|d| / min(1e-4 max|ref| of all, 3e-2 "
+            f"its own) = {worst:.3f} ({worst_name})")
+    for a, c in zip(got, ref):
+        require(np.isfinite(a["loss"]) and a["skipped"] == 0
+                and abs(a["loss"] - c["loss"]) <= BF16_BOUND * max(1.0, abs(c["loss"]))
+                and abs(a["grad_norm"] - c["grad_norm"]) <= BF16_BOUND * c["grad_norm"],
+                f"a bf16 {tag} update disagrees with the plain path")
+    for a, c in zip(got32, ref32):
+        require(abs(a["loss"] - c["loss"]) <= F32_BOUND * abs(c["loss"])
+                and abs(a["grad_norm"] - c["grad_norm"]) <= F32_BOUND * c["grad_norm"],
+                f"a float32 {tag} update disagrees with the plain path")
+    require(worst <= 1.0, f"the float32 {tag} gradient of {worst_name} disagrees with the plain "
+                          f"path")
+    require(got[-1]["loss"] != got[0]["loss"], f"the {tag} loss did not move")
+    return counts, got
+
+
+def clipseg_args(*extra):
+    """The CLIPSeg trainer's flags (its parser and defaults) with ``extra``."""
+    from nextgen_uia_tpu_torch.tasks import other_tasks as ot
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    p = base_parser("clipseg_segmentation", epochs=1000, batch_size=32, strong_augs=True,
+                    weak_augs=True)
+    ot.add_clipseg_flags(p)
+    return p.parse_args(["--dataset", "BUSI", *extra])
+
+
+def clipseg_phase(dev):
+    """CLIPSeg at full width (the frozen OpenAI ViT-B/16 at 224 px and the
+    12-layer causal text tower through K1 and K1 causal, bf16; the FiLM
+    decoder at reduce_dim 64, 3 layers of 4 heads, float32; seeded random
+    weights), batch 32 with augmentation off: three AdamW updates at the
+    CLI's lr through the kernels and on the plain path from the same
+    weights, in bf16 and with float32 towers (``held_updates``: every
+    decoder tensor's float32 gradient held; the key bias's exact gradient
+    is zero), the first update's launches (K1 24: 12 image blocks and the
+    prompt's 12 causal ones; K7 float32 at head dim 16 3 forward and 3
+    backward; nothing else); ms per update and img/s, a profiler table;
+    then one serving batch (the predict CLI's per-batch function) against
+    the plain path (bf16 logits 3e-2 * max(1, max|ref|), float32 1e-4 *
+    max|ref|), its launches, img/s and a profiler table. Returns the launch
+    counts of an update."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import partition
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss
+    from nextgen_uia_tpu_torch.models import clip as clip_mod
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks import other_tasks as ot
+    from nextgen_uia_tpu_torch.tasks.serve import make_infer
+
+    args = clipseg_args("--no-strong_augs", "--no-weak_augs", "--seed", "4")
+    require((args.batch_size, args.img_size, args.reduce_dim, args.compute_dtype, args.epochs)
+            == (BATCH, IMG, 64, "bfloat16", 1000), f"clipseg defaults changed: {args}")
+    t0 = time.perf_counter()
+    bundle = ot.build_clipseg_bundle(args, torch.Generator().manual_seed(4))
+    # the same towers and decoder with float32 compute: only the forwards
+    forwards = {"bfloat16": (bundle.forward_train, bundle.forward_eval),
+                "float32": ot.clipseg_forwards(args, clip_mod.clip_config(
+                    "openai", compute_dtype="float32"))}
+    params = bundle.params.to(dev)
+    trainable, frozen = partition(params, bundle.trainable_pred)
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+    print(f"clipseg: built OpenAI CLIP + FiLM decoder in {time.perf_counter() - t0:.1f} s; "
+          f"{len(trainable)} trainable tensors ({sum(p.numel() for p in trainable.values())} "
+          f"values), {len(frozen)} frozen")
+    imgs, masks = disc_batch(np.random.default_rng(9), BATCH)
+    batch = {"image": torch.from_numpy(imgs).to(dev)[None],
+             "mask": torch.from_numpy(masks).to(dev)[None]}
+    tcfg = T.TrainConfig(lr=args.lr, lr_min=args.lr_min, weight_decay=args.weight_decay,
+                         beta1=args.beta1, beta2=args.beta2, total_updates=10)
+
+    def make_step(dtype, ops):
+        forward = forwards[dtype][0]
+
+        def loss(mb, gen):
+            return dice_ce_loss(*forward(params, mb, gen, ops))
+        return T.TrainStep(loss, T.make_optimizer(trainable.values(), tcfg), tcfg)
+
+    counts, _ = held_updates("clipseg", make_step, trainable, batch, 3, is_key_bias)
+    want = {"fused_block_infer": 24, "flash_attention": 3, "flash_attention_backward": 3}
+    require(counts == want, f"clipseg's update launched {counts}, want {want}")
+
+    step = make_step("bfloat16", KERNELS)
+    ms = cuda_ms(lambda: step(batch), 3, warmup=1)
+    print(f"clipseg: update at batch {BATCH} {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s")
+    profile_steps(lambda: step(batch), 2, ms)
+    with torch.no_grad():
+        for k, p in trainable.items():
+            p.copy_(start[k])
+
+    images = batch["image"][0]
+    infer = make_infer(bundle.forward_eval, params, dev)
+    reset_counts()
+    logits = infer(images)
+    torch.cuda.synchronize()
+    serve_counts = {k: v for k, v in read_counts().items() if v}
+    infer32 = make_infer(forwards["float32"][1], params, dev)
+    (err, scale), = errors(logits, infer(images, PLAIN))
+    (err32, scale32), = errors(infer32(images), infer32(images, PLAIN))
+    serve_ms = cuda_ms(lambda: infer(images), 5, warmup=1)
+    print(f"clipseg: serving batch {tuple(logits.shape)} launches {serve_counts}; bf16 logits "
+          f"max|d| {err:.3e} (<= {BF16_BOUND * max(1.0, scale):.3e}, max|ref| {scale:.3e}); "
+          f"float32 {err32:.3e} (<= {F32_BOUND * scale32:.3e}); {serve_ms:.2f} ms = "
+          f"{BATCH * 1000 / serve_ms:.1f} img/s")
+    require(tuple(logits.shape) == (BATCH, 2, IMG, IMG) and bool(torch.isfinite(logits).all()),
+            f"clipseg logits {tuple(logits.shape)}")
+    require(serve_counts == {"fused_block_infer": 24, "flash_attention": 3},
+            f"clipseg serving launched {serve_counts}")
+    require(err <= BF16_BOUND * max(1.0, scale) and err32 <= F32_BOUND * scale32,
+            "clipseg's logits disagree with the plain path")
+    profile_steps(lambda: infer(images), 2, serve_ms)
+    params.cpu()
+    torch.cuda.empty_cache()
+    return {"flash_attention_f32_dh16": counts["flash_attention"],
+            "flash_attention_f32_dh16_backward": counts["flash_attention_backward"]}
+
+
+# per update: the head taps blocks {3, 6, 9}, so blocks 10 and 11 have no backward
+SUP_LORA_LAUNCHES = {"flash_attention": 12, "flash_attention_backward": 10,
+                     "fused_ln_mlp_residual": 12, "fused_ln_mlp_residual_backward": 10}
+
+
+def lora_file(path, width, depth, r=16, seed=21):
+    """A seeded LoRA component checkpoint as the fine-tune writes it (q, k,
+    v, o pairs in every block, b nonzero)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    np.savez(path, **{f"visual/blocks/{i}/attn/lora/{t}/{ab}": (
+        rng.standard_normal((width, r)) * width ** -0.5 if ab == "a"
+        else rng.standard_normal((r, width)) * 0.02).astype(np.float32)
+        for i in range(depth) for t in "qkvo" for ab in "ab"})
+    return path
+
+
+def supervised_lora_phase(dev, work, files):
+    """The BiomedCLIP seg trainer's model with ``--lora_weights`` at full
+    width (slice_phase's backbone and head, a seeded LoRA file, r 16 in all
+    12 blocks, dropout 0.1, bf16, batch 32, augmentation off): two AdamW
+    updates at the CLI's lr through the kernels and on the plain path from
+    the same weights and the same dropout generator, in bf16 and float32
+    (``held_updates``: every head and LoRA tensor's float32 gradient held),
+    the first update's launches (K7 and K8 forward 12 each, backward 10:
+    the taps end at block 9; nothing else), ms per update, img/s and a
+    profiler table; then one eval batch (the predict CLI's per-batch
+    function): K1 absent, K7 and K8 12 each, the logits against the plain
+    path, img/s and a profiler table. Returns the LoRA file's path."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+    from nextgen_uia_tpu_torch.tasks.serve import make_infer
+
+    lora = lora_file(os.path.join(work, "lora.npz"), 768, 12)
+    args = base_parser("biomedclip_seg").parse_args([
+        "--num_classes", str(SEG_CLASSES), "--img_size", str(IMG), "--backbone_ckpt",
+        files["backbone"], "--head_weights", files["head"], "--lora_weights", lora])
+    cfg, hcfg, params = _build_supervised(args, "biomedclip", "seg",
+                                          torch.Generator().manual_seed(3))
+    require(cfg.vision.lora_dropout == 0.1 and all(hasattr(b.attn, "lora")
+                                                   for b in params.backbone.visual.blocks),
+            "--lora_weights did not inject LoRA with dropout into every block")
+    params.to(dev)
+    trainable, _ = partition(params, by_keywords("head", "mona", "lora"))
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+    imgs, masks = disc_batch(np.random.default_rng(10), BATCH)
+    batch = {"image": torch.from_numpy(imgs).to(dev)[None],
+             "mask": torch.from_numpy(masks).to(dev)[None]}
+    tcfg = T.TrainConfig(lr=args.lr, lr_min=args.lr_min, weight_decay=args.weight_decay,
+                         beta1=args.beta1, beta2=args.beta2, total_updates=10)
+
+    def make_step(dtype, ops):
+        fwd = _make_forward(cfg.replace(compute_dtype=dtype), hcfg, train=True)
+
+        def loss(mb, gen):
+            return dice_ce_loss(*fwd(params, mb["image"], mb["mask"], gen, ops))
+        return T.TrainStep(loss, T.make_optimizer(trainable.values(), tcfg), tcfg)
+
+    counts, _ = held_updates("supervised LoRA", make_step, trainable, batch, 2, is_key_bias,
+                             seed=7)
+    require(counts == SUP_LORA_LAUNCHES,
+            f"the supervised LoRA update launched {counts}, want {SUP_LORA_LAUNCHES}")
+    step, gen = make_step("bfloat16", KERNELS), torch.Generator(device=dev).manual_seed(8)
+    ms = cuda_ms(lambda: step(batch, gen), 3, warmup=1)
+    print(f"supervised LoRA: update at batch {BATCH} {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s")
+    profile_steps(lambda: step(batch, gen), 2, ms)
+    with torch.no_grad():
+        for k, p in trainable.items():
+            p.copy_(start[k])
+
+    infer = make_infer(_make_forward(cfg, hcfg, train=False), params, dev)
+    images = batch["image"][0]
+    reset_counts()
+    logits = infer(images)
+    torch.cuda.synchronize()
+    eval_counts = {k: v for k, v in read_counts().items() if v}
+    (err, scale), = errors(logits, infer(images, PLAIN))
+    eval_ms = cuda_ms(lambda: infer(images), 5, warmup=1)
+    print(f"supervised LoRA: eval batch launches {eval_counts}; logits vs plain path max|d| "
+          f"{err:.3e} (<= {BF16_BOUND * max(1.0, scale):.3e}); {eval_ms:.2f} ms = "
+          f"{BATCH * 1000 / eval_ms:.1f} img/s")
+    require(eval_counts == {"flash_attention": 12, "fused_ln_mlp_residual": 12},
+            f"the LoRA eval batch launched {eval_counts}: want the composed route, no K1")
+    require(bool(torch.isfinite(logits).all()) and err <= BF16_BOUND * max(1.0, scale),
+            "the LoRA eval logits disagree with the plain path")
+    profile_steps(lambda: infer(images), 2, eval_ms)
+    params.cpu()
+    torch.cuda.empty_cache()
+    return lora
+
+
+def adapter_cli_phase(work, files, lora):
+    """This slice's CLIs on cli_phase's dataset (64 train, 8 val, 8 test
+    images at 224 px; listed as BUSI, whose dense prompt CLIPSeg reads),
+    one epoch each at their default augmentation: clipseg.segmentation
+    (batch 32: 2 updates, each K7's float32 backward 3 times), clipseg
+    predict on its best_model.npz (8 images: K1 24, K7 3),
+    biomedclip.fewshot_segmentation with ``lora`` as --lora_weights (10% of
+    the train split: 6 images, one update at the clamped batch 6, through
+    supervised_main's LoRA route: K7 and K8 backward 10 each, no K1; the
+    LoRA tensors of its best_model.npz moved and load back),
+    biomedclip.fewshot_classification with MONA (one update), and
+    biomedclip.predict --task seg with that best_model.npz as
+    --lora_weights and --head_weights (K7 and K8 12 each, no K1)."""
+    import csv
+    import glob
+    import re
+
+    import numpy as np
+
+    from nextgen_uia_tpu_torch.tasks.biomedclip import fewshot_classification
+    from nextgen_uia_tpu_torch.tasks.biomedclip import fewshot_segmentation
+    from nextgen_uia_tpu_torch.tasks.biomedclip import predict as biomedclip_predict
+    from nextgen_uia_tpu_torch.tasks.clipseg import predict as clipseg_predict
+    from nextgen_uia_tpu_torch.tasks.clipseg import segmentation as clipseg_segmentation
+
+    data, listing = os.path.join(work, "data"), os.path.join(work, "predict.txt")
+    common = ["--num_workers", "4", "--device", "cuda"]
+    best = os.path.join(work, "runs", "chip_clipseg", "BUSI", "train", "best_model.npz")
+    lora_best = os.path.join(work, "lora_best_model.npz")
+    rows = (
+        ("clipseg seg", clipseg_segmentation.main,
+         ["--dataset", "BUSI", "--data_root", data, "--exp", "chip_clipseg", "--epochs", "1",
+          "--val_interval", "1", *common]),
+        ("clipseg predict", clipseg_predict.main,
+         ["--images", listing, "--head_weights", best, "--out",
+          os.path.join(work, "clipseg_out"), *common]),
+        ("biomedclip few-shot seg with LoRA", fewshot_segmentation.main,
+         ["--dataset", "SYNTH", "--data_root", data, "--exp", "chip_fewshot_seg", "--epochs",
+          "1", "--val_interval", "1", "--backbone_ckpt", files["backbone"], "--lora_weights",
+          lora, *common]),
+        ("biomedclip few-shot cls", fewshot_classification.main,
+         ["--dataset", "SYNTH", "--data_root", data, "--exp", "chip_fewshot_cls", "--epochs",
+          "1", "--val_interval", "1", "--mona_variant", "hybrid", "--backbone_ckpt",
+          files["backbone"], "--mona_weights", files["mona"], *common]),
+        ("biomedclip predict with LoRA", biomedclip_predict.main,
+         ["--task", "seg", "--images", listing, "--backbone_ckpt", files["backbone"],
+          "--head_weights", lora_best, "--lora_weights", lora_best, "--out",
+          os.path.join(work, "lora_out"), *common]))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name, fn, argv in rows:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(argv)
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+            shown = {k: round(float(v), 4) for k, v in out.items() if np.isscalar(v)
+                     and not isinstance(v, str)}
+            print(f"cli: {name} in {seconds:.1f} s (host clock: data decode included); "
+                  f"{shown}; launches {counts}")
+            if name == "clipseg seg":
+                require(np.isfinite(out["loss"]) and counts.get("flash_attention_backward") == 6
+                        and counts.get("fused_block_infer", 0) > 0
+                        and set(counts) <= {"fused_block_infer", "flash_attention",
+                                            "flash_attention_backward", "equalize"},
+                        f"the clipseg trainer launched {counts}")
+                require(os.path.exists(best), "clipseg best_model.npz missing")
+            elif name.startswith("biomedclip few-shot"):
+                exp = "chip_fewshot_seg" if "seg" in name else "chip_fewshot_cls"
+                run = glob.glob(os.path.join(work, "runs", exp, "**", "log.log"), recursive=True)
+                log = "".join(open(f).read() for f in run)
+                sampled = re.findall(r"Few-shot training subset: (\d+) samples", log)
+                require(np.isfinite(out["loss"]) and len(sampled) == 1
+                        and 1 <= int(sampled[0]) <= BATCH,
+                        f"the {name} trainer sampled {sampled}: want one subset, one update")
+                if "seg" in name:
+                    require(counts.get("flash_attention_backward") == 10
+                            and counts.get("fused_ln_mlp_residual_backward") == 10
+                            and "fused_block_infer" not in counts
+                            and set(counts) <= {"flash_attention", "flash_attention_backward",
+                                                "fused_ln_mlp_residual",
+                                                "fused_ln_mlp_residual_backward", "equalize"},
+                            f"the few-shot LoRA trainer launched {counts}: want one update "
+                            f"and its eval by the LoRA route")
+                    found = glob.glob(os.path.join(work, "runs", exp, "**", "best_model.npz"),
+                                      recursive=True)
+                    require(len(found) == 1, f"few-shot best_model.npz: {found}")
+                    shutil.copy(found[0], lora_best)
+                    lora_back_check(lora, lora_best, files)
+                else:
+                    require(counts.get("fused_ln_qkv_backward", 0) > 0
+                            and counts.get("fused_block_infer", 0) > 0,
+                            f"the few-shot cls trainer launched {counts}")
+            else:
+                want = ({"fused_block_infer": 24, "flash_attention": 3} if "clipseg" in name
+                        else {"flash_attention": 12, "fused_ln_mlp_residual": 12})
+                require(counts == want, f"{name} launched {counts}, want {want}")
+                with open(os.path.join(out["out"], "index.csv")) as f:
+                    served = list(csv.DictReader(f))
+                require(len(served) == 8 and all(r["status"] == "ok" for r in served),
+                        f"{name} wrote {len(served)} masks")
+    finally:
+        os.chdir(cwd)
+
+
+def lora_back_check(lora, best, files):
+    """The supervised trainer's best_model.npz holds every LoRA tensor of
+    ``lora`` (under params/backbone/), those of blocks 0-9 (the head's taps
+    end at block 9) moved by the update, and ``_build_supervised`` with it
+    as --lora_weights and --head_weights loads each one back unchanged."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    start, saved = np.load(lora), np.load(best)
+    keys = {k: "params/backbone/" + k for k in start.files}
+    require(all(v in saved.files for v in keys.values()),
+            f"best_model.npz lacks LoRA tensors: {sorted(set(keys.values()) - set(saved.files))[:4]}")
+    moved = sum(not np.array_equal(start[k], saved[v]) for k, v in keys.items()
+                if int(k.split("/")[2]) <= 9)
+    args = base_parser("biomedclip_seg").parse_args([
+        "--img_size", str(IMG), "--backbone_ckpt", files["backbone"], "--head_weights", best,
+        "--lora_weights", best])
+    _, _, params = _build_supervised(args, "biomedclip", "seg", torch.Generator().manual_seed(0))
+    state = params.state_dict()
+    same = sum(np.array_equal(state["backbone." + k.replace("/", ".")].numpy(), saved[v])
+               for k, v in keys.items())
+    print(f"cli: best_model.npz holds {len(keys)} LoRA tensors, {moved} of blocks 0-9's moved "
+          f"by the update; {same} load back unchanged")
+    require(moved == 8 * 10 and same == len(keys) == 8 * 12,
+            "the trained LoRA tensors did not round-trip through best_model.npz")
 
 
 def main():
@@ -4162,6 +4758,8 @@ def main():
         launches.update(dwconv7_per_sample=0, dwconv7_per_sample_backward=0)
         launches["fused_block_infer_quick_gelu"] = timed("zero-shot", zero_shot_phase, dev)
         launches.update(timed("bench", bench_phase, dev))
+        launches.update(timed("clipseg", clipseg_phase, dev))
+        lora = timed("supervised LoRA", supervised_lora_phase, dev, work, files)
         converted = timed("convert", convert_phase, work)
         launches.update(timed("full", full_finetune_phase, dev, converted))
         timed("trainer CLIs", cli_phase, dev, work, files)
@@ -4170,6 +4768,7 @@ def main():
                                         text_lora_cli_phase(work),
                                         full_finetune_cli_phase(work, converted)])
         timed("CLIP family CLIs", clip_cli_phase, work)
+        timed("CLIPSeg, few-shot and LoRA CLIs", adapter_cli_phase, work, files, lora)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4211,7 +4810,12 @@ def main():
               "flash_attention_bert": ("flash_attention.cu", "flash_attention.py:64"),
               "flash_attention_bert_backward": ("flash_attention.cu", "flash_attention.py:73"),
               "flash_attention_bert_cache": ("flash_attention.cu", "flash_attention.py:64"),
-              "fused_mlp_text": ("fused_mlp.cu", "fused_mlp.py:64")}
+              "fused_mlp_text": ("fused_mlp.cu", "fused_mlp.py:64"),
+              "fused_attn_o_residual_causal": ("fused_attn_o.cu", "fused_attn_o.py:51"),
+              "fused_attn_o_residual_causal_backward": ("fused_attn_o.cu", "fused_attn_o.py:83"),
+              "flash_attention_f32_dh16": ("flash_attention.cu", "flash_attention.py:64"),
+              "flash_attention_f32_dh16_backward": ("flash_attention.cu",
+                                                    "flash_attention.py:73")}
     kernels = [dict(name=name, route="cuda", source=csrc + src, replaces=jax_ops + rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in source.items()]

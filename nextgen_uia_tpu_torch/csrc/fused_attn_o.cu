@@ -2,7 +2,7 @@
 // Hopper (sm_90a), pre-norm (no post-LN epilogue), on head-major q, k, v
 // [B, H, N, dh]:
 //
-//   forward:  cat = concat_h softmax(q k^T / sqrt(dh) + bias) v -> T;
+//   forward:  cat = concat_h softmax(q k^T / sqrt(dh) + bias [+ causal]) v -> T;
 //             out = x + cat @ Wo + bo -> T
 //   backward: the attention forward again for its output o and each row's
 //             log-sum-exp; doh = g @ Wo^T -> T; dq, dk, dv by the
@@ -17,6 +17,9 @@
 // in float32 rounded once. Keys >= n_real carry -1e30 in the float32 key
 // bias the wrapper hands over (the JAX kernel's mask, added before the
 // caller's bias there and beside it here: either sum is -1e30 in float32).
+// With causal != 0 the keys after each query row are masked too (the JAX
+// kernel's causal=True, the frozen CLIP text tower): K7's causal mode, in
+// the forward, in the backward's recomputed forward and in its backward.
 //
 // What bounds it on the H100: at the bench step's shape ([64, 12, 197, 64],
 // D = 768) the forward is the o-projection (2 * 12608 * 768^2 = 14.9 GFLOP)
@@ -78,15 +81,15 @@ extern "C" {
 // q, k, v [B, H, N, dh] at element strides (sb, sh, sn); x, out [B*N, D];
 // key_bias [B, N] f32 (n_real folded in) or null; wo_t [D, D] = Wo^T and
 // cat scratch [B*N, D], read by K7 at strides (csb, csh, csn), in x's
-// dtype; bo [D] f32
+// dtype; bo [D] f32; causal 0 or 1
 int nx_attn_o_fwd(const void* q, const void* k, const void* v, const void* x,
                   const float* key_bias, const void* wo_t, const float* bo, void* cat, void* out,
                   int dtype, int b, int n, int heads, int dh, int sb, int sh, int sn, int csb,
-                  int csh, int csn, float scale, void* stream) {
+                  int csh, int csn, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * n, d = heads * dh;
   int err = nx_flash_attention(q, k, v, cat, key_bias, nullptr, dtype, b, heads, n, dh, sb, sh,
-                               sn, csb, csh, csn, 0, scale, stream);
+                               sn, csb, csh, csn, causal, scale, stream);
   if (err) return err;
   if (dtype == F32) {
     const Epilogue epi{bo, x, F32, nullptr, ACT_NONE, row_major(out), F32};
@@ -103,17 +106,18 @@ int nx_attn_o_fwd(const void* q, const void* k, const void* v, const void* x,
 
 // q, k, v as nx_attn_o_fwd; wo [D, D] (as stored) and g [B*N, D] in q's
 // dtype; scratch o and doh [B, H, N, dh] (q's strides) in q's dtype, lse and
-// delta [B, H, N] f32; dq, dk, dv [B, H, N, dh] at q's strides
+// delta [B, H, N] f32; dq, dk, dv [B, H, N, dh] at q's strides; causal as
+// the forward's
 int nx_attn_o_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                   const void* wo, const void* g, void* o, void* doh, float* lse, float* delta,
                   void* dq, void* dk, void* dv, int dtype, int b, int n, int heads, int dh,
-                  int sb, int sh, int sn, float scale, void* stream) {
+                  int sb, int sh, int sn, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * n, d = heads * dh;
   // o and doh take q's strides, and heads_matrix writes doh as a dense [B, H, N, dh]
   if (sb != heads * n * dh || sh != n * dh || sn != dh) return (int)cudaErrorInvalidValue;
   int err = nx_flash_attention(q, k, v, o, key_bias, lse, dtype, b, heads, n, dh, sb, sh, sn, sb,
-                               sh, sn, 0, scale, stream);
+                               sh, sn, causal, scale, stream);
   if (err) return err;
   if (dtype == F32) {
     const Epilogue epi{nullptr, nullptr, 0, nullptr, ACT_NONE,
@@ -131,7 +135,7 @@ int nx_attn_o_bwd(const void* q, const void* k, const void* v, const float* key_
   }
   if (err) return err;
   return nx_flash_attention_bwd(q, k, v, o, doh, lse, key_bias, dq, dk, dv, nullptr, delta, dtype,
-                                b, heads, n, dh, sb, sh, sn, sb, sh, sn, 0, scale, stream);
+                                b, heads, n, dh, sb, sh, sn, sb, sh, sn, causal, scale, stream);
 }
 
 // as nx_attn_o_fwd (q, k, v at strides (sb, sh, sn)), then out = LN(x +

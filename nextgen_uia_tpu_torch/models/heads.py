@@ -1,9 +1,18 @@
-"""Feature-pyramid adapter head (counterpart of nextgen_uia_tpu/models/heads.py's
-PyramidHead): tap ViT activations, reduce each D -> reduce_dim, process with
+"""Task heads (counterpart of nextgen_uia_tpu/models/heads.py).
+
+PyramidHead: tap ViT activations, reduce each D -> reduce_dim, process with
 LN-MLP blocks deep to shallow, sum into a grid x grid map, then a seg head
 (1x1 conv, then bilinear upsample) or a cls head: GAP -> dropout 0.5 ->
 linear (the timm adapter), or with ``cls_hidden`` GAP -> fc1 -> ReLU ->
 dropout 0.1 -> fc2 (the OpenAI adapter); the dropout in train mode only.
+
+ClipSegDecoder: the HF CIDAS/clipseg-rd64-refined FiLM decoder. The taps
+reduced D -> reduce_dim and summed deep to shallow, FiLM conditioning
+from the text embedding after the first reduce, a post-norm ReLU
+transformer layer after each reduce (4 heads), the CLS token dropped, then
+a 3x3 conv and two transposed convs of stride patch_size // 4 to full
+resolution: single-channel logits. Its parameters carry the JAX package's
+names, so the converter's ``clipseg_decoder`` output loads unchanged.
 """
 
 from __future__ import annotations
@@ -13,8 +22,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..nn.layers import (Conv, LayerNorm, Linear, dropout, gelu, layernorm, linear,
-                         resize_bilinear)
+from ..nn.attention import Attention, mha
+from ..nn.layers import (Conv, LayerNorm, Linear, conv2d, conv_transpose2d, dropout, gelu,
+                         layernorm, linear, resize_bilinear)
+from ..ops import KERNELS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +105,79 @@ def pyramid_head_apply(p: PyramidHead, cfg: PyramidHeadConfig, activations, *, d
         h = torch.relu(linear(p.cls_head.fc1, pooled, dtype=dtype))
         return linear(p.cls_head.fc2, dropout(h, 0.1, gen=gen), dtype=dtype)
     return linear(p.cls_head, dropout(pooled, 0.5, gen=gen), dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipSegDecoderConfig:
+    hidden_size: int = 768         # vision tower width
+    reduce_dim: int = 64
+    cond_dim: int = 512            # text embedding width
+    heads: int = 4
+    intermediate: int = 2048
+    extract_layers: tuple = (3, 6, 9)
+    conditional_layer: int = 0
+    patch_size: int = 16
+    ln_eps: float = 1e-5
+
+
+class ClipSegDecoder(nn.Module):
+    """``clipseg_decoder_init``'s tree: film_mul, film_add, reduces/<i>,
+    layers/<i>/{attn, ln1, mlp/fc1, mlp/fc2, ln2}, trans_conv1 (3x3),
+    trans_up1 and trans_up2 (transposed, [k, k, in, out])."""
+
+    def __init__(self, gen, cfg: ClipSegDecoderConfig):
+        super().__init__()
+        rd, depth, k = cfg.reduce_dim, len(cfg.extract_layers), cfg.patch_size // 4
+        self.film_mul = Linear(gen, cfg.cond_dim, rd)
+        self.film_add = Linear(gen, cfg.cond_dim, rd)
+        self.reduces = nn.ModuleList(Linear(gen, cfg.hidden_size, rd) for _ in range(depth))
+        self.layers = nn.ModuleList()
+        for _ in range(depth):
+            layer = nn.Module()
+            layer.attn = Attention(gen, rd)
+            layer.ln1 = LayerNorm(rd)
+            layer.mlp = nn.Module()
+            layer.mlp.fc1 = Linear(gen, rd, cfg.intermediate)
+            layer.mlp.fc2 = Linear(gen, cfg.intermediate, rd)
+            layer.ln2 = LayerNorm(rd)
+            self.layers.append(layer)
+        self.trans_conv1 = Conv(gen, 3, 3, rd, rd)
+        self.trans_up1 = Conv(gen, k, k, rd, rd // 2)
+        self.trans_up2 = Conv(gen, k, k, rd // 2, 1)
+
+
+def clipseg_decoder_init(gen: torch.Generator, cfg: ClipSegDecoderConfig) -> ClipSegDecoder:
+    return ClipSegDecoder(gen, cfg)
+
+
+def clipseg_decoder_apply(p: ClipSegDecoder, cfg: ClipSegDecoderConfig, activations, cond, *,
+                          ops=KERNELS):
+    """activations: list of [B, N, D] (shallow to deep); cond: [B, cond_dim].
+
+    Returns [B, H, W] single-channel logits (H = W = grid * patch_size).
+    The products run in the promoted type, so bf16 tower activations meet
+    the float32 decoder weights in float32, the attention included (``mha``
+    without ``ln`` or ``residual``: the flash-attention kernel at head dim
+    reduce_dim / heads)."""
+    out = None
+    # deep to shallow; reduces[0] takes the deepest tap, as in the JAX package
+    for i, (act, reduce_p, layer) in enumerate(zip(activations[::-1], p.reduces, p.layers)):
+        r = linear(reduce_p, act)
+        out = r if out is None else r + out
+        if i == cfg.conditional_layer:
+            mul, add = linear(p.film_mul, cond), linear(p.film_add, cond)
+            out = mul[:, None, :] * out + add[:, None, :]
+        # post-norm ReLU transformer layer (HF CLIPSegDecoderLayer)
+        a = mha(layer.attn, out, num_heads=cfg.heads, ops=ops)
+        out = layernorm(layer.ln1, out + a, eps=cfg.ln_eps)
+        h = linear(layer.mlp.fc2, torch.relu(linear(layer.mlp.fc1, out)))
+        out = layernorm(layer.ln2, out + h, eps=cfg.ln_eps)
+
+    out = out[:, 1:, :]  # drop CLS
+    b, n, c = out.shape
+    size = int(round(n ** 0.5))
+    y = torch.relu(conv2d(p.trans_conv1, out.reshape(b, size, size, c)))
+    k = cfg.patch_size // 4
+    y = torch.relu(conv_transpose2d(p.trans_up1, y, stride=k, dtype=y.dtype))
+    y = conv_transpose2d(p.trans_up2, y, stride=k, dtype=y.dtype)
+    return y[..., 0]

@@ -10,23 +10,19 @@ Each block takes the JAX package's route (``_text_block``):
     forward only, models/clip.py::infer_cfg): one call of the whole-block
     kernel with the causal mask;
   - ``'auto'`` with ``mlp_impl 'auto'`` (the frozen tower inside the step
-    under ``--tune_text_encoder``): LayerNorm, ``mha``'s flash-attention route
-    with the causal mask, the o-projection and the residual, then LayerNorm
-    and the fused-MLP kernel;
+    under ``--tune_text_encoder``): ``mha``'s frozen LN route, the LN+QKV
+    kernel and then the attention+o-projection+residual kernel with the
+    causal mask, then LayerNorm and the fused-MLP kernel;
   - ``mlp_impl 'xla'`` (the tower's own weights train, ``--method full``):
     LayerNorm, ``mha`` with the causal mask (forward and backward), the
     residual, LayerNorm, the MLP as plain products, the residual.
 The 77 tokens run unpadded on every route: the kernels mask their ragged
 edges, and under the causal mask no real row reads a later column, so the
-JAX package's padding to 80 changes nothing.
-
-One split from the JAX kernel path: at token counts its LN+QKV kernel takes
-(multiples of 16 in bf16, of 8 in float32: the 32- and 64-token buckets of
-``trim_token_padding``), the JAX ``'auto'`` route with ``mlp_impl 'auto'``
-runs that kernel and the attention+o-projection+residual kernel with the
-causal mask. The port's attention+o-projection kernel has no causal mode,
-so here every length takes the flash-attention route above: the same
-function, rounded at other points (ROADMAP.md, section B, item B14).
+JAX package's padding to 80 changes nothing. The JAX ``'auto'`` route takes
+its LN+QKV and attention+o-projection kernels only at the token counts its
+tiles take (the 32- and 64-token buckets of ``trim_token_padding``) and the
+flash-attention route at the others; the port takes its kernels at every
+length, the same function.
 """
 
 from __future__ import annotations

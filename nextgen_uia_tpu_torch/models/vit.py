@@ -191,7 +191,7 @@ def block_apply(p: Block, x, cfg: ViTConfig, *, dtype=None, ops=KERNELS, gen=Non
         x = x + a * p.ls1.to(a.dtype)
         m = run_mlp(p.mlp, layernorm(p.ln2, x, eps=cfg.ln_eps), cfg.act, dtype=dtype, ops=ops)
         x = x + m * p.ls2.to(m.dtype)
-    elif (cfg.block_impl == "fused_infer" and "lora" not in p.attn._modules
+    elif (cfg.block_impl == "fused_infer"
           and fused_block_eligible(x, p, heads=cfg.heads, act=cfg.act)):
         x = ops.fused_block_infer(x.contiguous(), p, heads=cfg.heads, act=cfg.act,
                                   eps=cfg.ln_eps)

@@ -5,13 +5,17 @@ The serving path's attention lives in the whole-block kernel
 (ops/fused_block.py). ``mha`` ports the JAX ``mha``'s routes as the JAX
 package dispatches them on its kernel path, chosen from the caller's
 arguments alone:
-  - with ``ln``, no LoRA, no causal mask (frozen pre-norm blocks): with
-    ``residual`` the LN+QKV kernel, then the attention+o-projection+residual
-    kernel; without it (LayerScale blocks, DINOv2) and N <= 512: the LN+QKV
-    kernel, then the flash-attention kernel, then the o-projection;
+  - with ``ln`` and no LoRA (frozen pre-norm blocks, the causal CLIP text
+    tower inside the step among them): with ``residual`` the LN+QKV kernel,
+    then the attention+o-projection+residual kernel; without it (LayerScale
+    blocks, DINOv2) and N <= 512: the LN+QKV kernel, then the
+    flash-attention kernel, then the o-projection; ``key_padding_bias`` and
+    ``causal`` reach the attention. The JAX package takes these kernels only
+    at token counts its tiles take (multiples of 16 in bf16, of 8 in
+    float32: the text tower's 32- and 64-token buckets); the port's take any;
   - every other call, N <= ``FLASH_N_MAX`` (weights that train under
-    ``mlp_impl='xla'``, BERT's post-norm layers, the causal text tower,
-    LoRA, DINOv2 at 518 px with 1370 tokens): LayerNorm when ``ln`` is
+    ``mlp_impl='xla'``, BERT's post-norm layers, LoRA, the CLIPSeg decoder,
+    DINOv2 at 518 px with 1370 tokens): LayerNorm when ``ln`` is
     given, q/k/v as plain products (one packed product, or one each plus
     ``(drop(z) @ a) @ b * alpha / sqrt(r)`` where ``p.lora`` holds q/k/v/o
     pairs), the flash-attention kernel
@@ -165,12 +169,12 @@ def mha(p: Attention, x, *, num_heads: int, ln=None, ln_eps: float = 1e-5, resid
         return out if residual is None else residual + out
     b, n, d = x.shape
     flash = mask is None and impl != "einsum" and (impl == "flash" or n <= FLASH_N_MAX)
-    if flash and ln is not None and not lora and not causal and (residual is not None or n <= 512):
+    if flash and ln is not None and not lora and (residual is not None or n <= 512):
         q, k, v = ops.fused_ln_qkv(x, ln, p, heads=num_heads, eps=ln_eps)
         if residual is not None:
             return ops.fused_attn_o_residual(q, k, v, residual, p.o, heads=num_heads,
-                                             bias=key_padding_bias)
-        out = ops.flash_attention(q, k, v, bias=key_padding_bias, layout="bhnd")
+                                             bias=key_padding_bias, causal=causal)
+        out = ops.flash_attention(q, k, v, bias=key_padding_bias, causal=causal, layout="bhnd")
         dt = x.dtype
         return out.transpose(1, 2).reshape(b, n, d) @ p.o.w.to(dt) + p.o.b.to(dt)
     return _mha_composed(p, x, num_heads=num_heads, ln=ln, ln_eps=ln_eps, residual=residual,

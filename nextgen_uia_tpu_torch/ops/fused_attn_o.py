@@ -4,7 +4,8 @@ pre-norm, ``post_ln=None``):
 
     out = x + concat_h(softmax(q k^T / sqrt(dh) + bias) v) @ Wo + bo
 
-Backward gives dq, dk, dv and d(x) = g; Wo and bo are frozen, as in the JAX
+with ``causal`` the keys after each query row masked too (the JAX kernel's
+``causal=True``, which the frozen CLIP text tower runs). Backward gives dq, dk, dv and d(x) = g; Wo and bo are frozen, as in the JAX
 kernel's custom VJP. ``fused_attn_o_residual`` is differentiable in q, k, v
 and x: on a CUDA tensor its forward and backward launch the hand-written
 kernels of csrc/fused_attn_o.cu (counted in ``fused_attn_o_residual.launches``
@@ -81,28 +82,31 @@ def _key_bias(bias, b, n, n_real, device):
     return kb.contiguous()
 
 
-def _probs(q, k, bias, n_real):
-    """float32 softmax(q k^T / sqrt(dh)), keys >= n_real masked, bias added."""
+def _probs(q, k, bias, n_real, causal=False):
+    """float32 softmax(q k^T / sqrt(dh)), keys >= n_real masked, bias added,
+    then with ``causal`` the keys after each row masked (JAX's ``_group_probs``)."""
     f32 = torch.float32
     n = q.shape[2]
     s = (q.to(f32) @ k.to(f32).transpose(-1, -2)) / math.sqrt(q.shape[-1])
     col = torch.arange(n, device=q.device)
-    s = torch.where(col >= n_real, torch.full_like(s, -1e30), s)
+    s = torch.where(col >= n_real, torch.full_like(s, NEG_INF), s)
     if bias is not None:
         s = s + bias.to(f32)[:, None, None, :]
+    if causal:
+        s = torch.where(col[None, :] > col[:, None], torch.full_like(s, NEG_INF), s)
     return torch.softmax(s, dim=-1)
 
 
 def fused_attn_o_residual_plain(q, k, v, x, o, *, heads: int, bias=None,
-                                n_real: int | None = None, post_ln=None,
-                                ln_eps: float = 1e-12):
+                                n_real: int | None = None, causal: bool = False,
+                                post_ln=None, ln_eps: float = 1e-12):
     """Plain PyTorch version, differentiable by autograd: float32 scores,
     softmax and products; the probabilities and the head concat rounded to
     x.dtype, the sum (with ``post_ln``: its LayerNorm, float32 statistics)
     rounded once (the kernel's rounding points)."""
     b, h, n, dh = q.shape
     dt, f32 = x.dtype, torch.float32
-    p = _probs(q, k, bias, n if n_real is None else n_real).to(dt)
+    p = _probs(q, k, bias, n if n_real is None else n_real, causal).to(dt)
     cat = (p.to(f32) @ v.to(f32)).transpose(1, 2).reshape(b, n, h * dh).to(dt)
     y = cat.to(f32) @ o.w.to(dt).to(f32) + o.b.to(f32) + x.to(f32)
     if post_ln is not None:
@@ -111,7 +115,7 @@ def fused_attn_o_residual_plain(q, k, v, x, o, *, heads: int, bias=None,
 
 
 def fused_attn_o_residual_backward_plain(q, k, v, wo, g, *, bias=None,
-                                         n_real: int | None = None):
+                                         n_real: int | None = None, causal: bool = False):
     """Plain (dq, dk, dv) of the JAX kernel's ``_bwd_kernel``: doh = g @ Wo^T
     rounded to q.dtype; P recomputed in float32; dv = round(P)^T doh,
     dp = doh v^T, ds = round(P * (dp - rowsum(dp * P)) / sqrt(dh)),
@@ -120,7 +124,7 @@ def fused_attn_o_residual_backward_plain(q, k, v, wo, g, *, bias=None,
     dt, f32 = q.dtype, torch.float32
     doh = (g.to(dt).to(f32) @ wo.to(dt).to(f32).T).to(dt)
     doh = doh.reshape(b, n, h, dh).transpose(1, 2).to(f32)
-    p = _probs(q, k, bias, n if n_real is None else n_real)
+    p = _probs(q, k, bias, n if n_real is None else n_real, causal)
     dv = p.to(dt).to(f32).transpose(-1, -2) @ doh
     dp = doh @ v.to(f32).transpose(-1, -2)
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dh)).to(dt).to(f32)
@@ -147,7 +151,7 @@ def _check_cuda(q, x, bias, n_real, op="fused_attn_o_residual"):
                          + "; ".join(problems))
 
 
-def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real):
+def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real, causal=False):
     b, h, n, dh = q.shape
     _check_cuda(q, x, bias, n_real)
     dt, d, dev = x.dtype, h * dh, x.device
@@ -162,8 +166,8 @@ def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real):
         build.check(lib.nx_attn_o_fwd(
             build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(x, "x"),
             build.ptr(kb), build.ptr(wo_t), build.ptr(bo), build.ptr(cat), build.ptr(out),
-            build.DTYPE_CODES[dt], b, n, h, dh, *strides, *cat_strides, 1.0 / math.sqrt(dh),
-            build.stream(dev)), "fused_attn_o_residual")
+            build.DTYPE_CODES[dt], b, n, h, dh, *strides, *cat_strides, int(causal),
+            1.0 / math.sqrt(dh), build.stream(dev)), "fused_attn_o_residual")
     fused_attn_o_residual.launches += 1
     return out
 
@@ -210,7 +214,8 @@ def fused_attn_o_residual_postln(q, k, v, x, o, ln, *, heads: int, bias=None,
                                                post_ln=ln, ln_eps=eps), q, k, v, x)
 
 
-def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | None = None):
+def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | None = None,
+                                   causal: bool = False):
     """(dq, dk, dv) for the output gradient g: on a CUDA tensor the
     backward kernels of csrc/fused_attn_o.cu (counted in
     ``fused_attn_o_residual_backward.launches``), on a CPU tensor
@@ -218,7 +223,8 @@ def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | N
     b, h, n, dh = q.shape
     n_real = n if n_real is None else n_real
     if q.device.type == "cpu":
-        return fused_attn_o_residual_backward_plain(q, k, v, wo, g, bias=bias, n_real=n_real)
+        return fused_attn_o_residual_backward_plain(q, k, v, wo, g, bias=bias, n_real=n_real,
+                                                    causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attn_o_residual: unsupported device {q.device}")
     dt, dev = q.dtype, q.device
@@ -235,7 +241,7 @@ def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | N
             build.ptr(q, "q"), build.ptr(k, "k"), build.ptr(v, "v"), build.ptr(kb),
             build.ptr(wo), build.ptr(g, "g"), build.ptr(o), build.ptr(doh), build.ptr(lse),
             build.ptr(delta), build.ptr(dq), build.ptr(dk), build.ptr(dv),
-            build.DTYPE_CODES[dt], b, n, h, dh, *strides, 1.0 / math.sqrt(dh),
+            build.DTYPE_CODES[dt], b, n, h, dh, *strides, int(causal), 1.0 / math.sqrt(dh),
             build.stream(dev)), "fused_attn_o_residual backward")
     fused_attn_o_residual_backward.launches += 1
     return dq, dk, dv
@@ -243,32 +249,35 @@ def fused_attn_o_residual_backward(q, k, v, wo, g, *, bias=None, n_real: int | N
 
 class _FusedAttnO(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, x, o, heads, bias, n_real):
+    def forward(ctx, q, k, v, x, o, heads, bias, n_real, causal):
         ctx.save_for_backward(q, k, v)
-        ctx.o, ctx.bias, ctx.n_real = o, bias, n_real
+        ctx.o, ctx.bias, ctx.n_real, ctx.causal = o, bias, n_real, causal
         if x.device.type == "cpu":
             return fused_attn_o_residual_plain(q, k, v, x, o, heads=heads, bias=bias,
-                                               n_real=n_real)
+                                               n_real=n_real, causal=causal)
         if x.device.type != "cuda":
             raise ValueError(f"fused_attn_o_residual: unsupported device {x.device}")
-        return _forward_cuda(q, k, v, x, *_kernel_weights(o, x.dtype), bias, n_real)
+        return _forward_cuda(q, k, v, x, *_kernel_weights(o, x.dtype), bias, n_real, causal)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         wo, _ = _weights(ctx.o, q.dtype)
         dq, dk, dv = fused_attn_o_residual_backward(q, k, v, wo, g, bias=ctx.bias,
-                                                    n_real=ctx.n_real)
-        return dq, dk, dv, g, None, None, None, None
+                                                    n_real=ctx.n_real, causal=ctx.causal)
+        return dq, dk, dv, g, None, None, None, None, None
 
 
 def fused_attn_o_residual(q, k, v, x, o, *, heads: int, bias=None,
-                          n_real: int | None = None, post_ln=None, ln_eps: float = 1e-12):
+                          n_real: int | None = None, causal: bool = False, post_ln=None,
+                          ln_eps: float = 1e-12):
     """(q, k, v [B, H, N, dh], x [B, N, D]) -> x + Wo(attention(q, k, v)) + bo,
     LayerNormed with ``post_ln`` (``fused_attn_o_residual_postln``).
 
     bias: optional additive [B, N] key bias (constant: no gradient); keys at
-    or beyond ``n_real`` are masked. Differentiable in q, k, v and x; the
+    or beyond ``n_real`` are masked, and with ``causal`` the keys after each
+    query row (pre-norm only: the post-LN variant, BERT's, is never causal,
+    and refuses it). Differentiable in q, k, v and x; the
     o-projection (and the LayerNorm) are frozen (raises if one requires
     grad).
     """
@@ -278,9 +287,11 @@ def fused_attn_o_residual(q, k, v, x, o, *, heads: int, bias=None,
                  *(() if post_ln is None else (post_ln.scale, post_ln.bias)))
     n_real = q.shape[2] if n_real is None else n_real
     if post_ln is not None:
+        if causal:
+            raise ValueError("fused_attn_o_residual: the post-LN variant has no causal mode")
         return fused_attn_o_residual_postln(q, k, v, x, o, post_ln, heads=heads, bias=bias,
                                             n_real=n_real, eps=ln_eps)
-    return _FusedAttnO.apply(q, k, v, x, o, heads, bias, n_real)
+    return _FusedAttnO.apply(q, k, v, x, o, heads, bias, n_real, causal)
 
 
 fused_attn_o_residual.launches = 0

@@ -143,11 +143,12 @@ def _problems(x, mlp, heads, key_bias, n_real):
 
 def fused_block_eligible(x, p, *, heads: int, act: str) -> bool:
     """Whether ``fused_block_infer`` takes this pre-norm block (a
-    models.vit.Block) and input: the shapes, dtypes and activations its
-    kernels take, on any device (the JAX package's ``fused_block_infer``
-    returns None where this is False, and its callers run the composed
-    route)."""
-    return act in ACT_CODES and not _problems(x, p.mlp, heads, None, x.shape[1])
+    models.vit.Block) and input: no LoRA in its attention, and the shapes,
+    dtypes and activations its kernels take, on any device (the JAX
+    package's ``fused_block_infer`` returns None where this is False, and
+    its callers run the composed route)."""
+    return ("lora" not in p.attn._modules and act in ACT_CODES
+            and not _problems(x, p.mlp, heads, None, x.shape[1]))
 
 
 def _check_cuda_shapes(x, mlp, heads, key_bias, n_real):

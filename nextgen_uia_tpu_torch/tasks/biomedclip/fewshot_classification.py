@@ -1,0 +1,11 @@
+"""CLI: python -m nextgen_uia_tpu_torch.tasks.biomedclip.fewshot_classification ..."""
+
+from ..clip_tasks import supervised_main
+
+
+def main(argv=None):
+    return supervised_main("biomedclip", "cls", argv, fewshot=True)
+
+
+if __name__ == "__main__":
+    main()

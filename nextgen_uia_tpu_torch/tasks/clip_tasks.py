@@ -6,9 +6,11 @@
     100 * cos; the prompt-similarity warning above 0.95 and the
     feature-collapse eigenvalue check over every test feature; metrics,
     ROC and results.csv in the acc-tagged backup folder.
-  - supervised: the backbone with its adapters plus a PyramidHead (the
-    OpenAI family's with its hidden cls layer), the train and eval forwards
-    over decoded uint8 images, and the trainer's entry point.
+  - supervised: the backbone with its adapters (MONA, or LoRA from
+    ``--lora_weights``) plus a PyramidHead (the OpenAI family's with its
+    hidden cls layer), the train and eval forwards over decoded uint8
+    images, and the trainer's entry point, with the few-shot subset of the
+    train split when asked (``fewshot=True``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from .clip_finetune import make_text_encoder
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
                      not_ported, require_real_tokenizer, resolve_device, seed_everything,
                      setup_run)
-from .supervised import Bundle, finish_cls, preprocess, run_supervised
+from .supervised import (Bundle, add_fewshot_flags, apply_fewshot, finish_cls, preprocess,
+                         run_supervised)
 
 
 def extract_layers_for(depth: int):
@@ -186,23 +189,24 @@ def _make_forward(cfg, hcfg, *, train: bool, strong: bool = False, weak: bool = 
     return forward_train
 
 
-def supervised_main(family: str, task: str, argv=None):
+def supervised_main(family: str, task: str, argv=None, *, fewshot: bool = False):
     """The supervised seg/cls trainer (reference CLI defaults: batch 32,
     strong and weak augmentation on; biomedclip 200 epochs and hybrid MONA,
     the others 1000 epochs and noise_aware, except freq_enhanced for openai
-    cls)."""
+    cls). ``fewshot``: the few-shot flags, and training on the sampled
+    subset."""
     defaults = dict(epochs=200 if family == "biomedclip" else 1000, batch_size=32,
                     strong_augs=True, weak_augs=True,
                     mona_variant="hybrid" if family == "biomedclip" else "noise_aware")
     if family == "openai" and task == "cls":
         defaults["mona_variant"] = "freq_enhanced"  # the reference's clip/classification.py
     p = base_parser(f"{family}_{task}", **defaults)
+    if fewshot:
+        add_fewshot_flags(p)
     args = p.parse_args(argv)
     apply_compat_flags(args)
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-    if args.lora_weights:
-        raise not_ported("LoRA weights in the supervised trainers", "section A, item 4")
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
 
@@ -213,6 +217,8 @@ def supervised_main(family: str, task: str, argv=None):
     datasets = D.make_datasets(args.data_root, args.dataset, args.img_size,
                                task="seg" if task == "seg" else "cls",
                                cache=args.cache_images)
+    if fewshot:
+        apply_fewshot(args, datasets, task)
     params.to(device)
     fwd_train = _make_forward(cfg, hcfg, train=True, strong=args.strong_augs,
                               weak=args.weak_augs)

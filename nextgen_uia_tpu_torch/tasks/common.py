@@ -256,7 +256,7 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
                                     num_layers=lora_layers)
             logging.info(f"Injected LoRA into {n} text-encoder layers")
         if args.lora_weights:
-            _, n = ckpt.load_into(args.lora_weights, params)
+            _, n = _load_adapter(args.lora_weights, params)
             logging.info(f"Loaded {n} LoRA tensors from {args.lora_weights}")
     elif use_mona:
         _, n = inject_mona(gen, params.visual, dim=cfg.vision.width,
@@ -264,16 +264,21 @@ def build_clip_model(args, family: str, *, adapter: str | None = None,
                            num_layers=args.mona_layers)
         logging.info(f"Injected {variant} MONA into {n} blocks")
         if args.mona_weights:
-            try:
-                _, n = ckpt.load_into(args.mona_weights, params)
-            except ckpt.NoMatch:
-                # the supervised trainer's best_model.npz roots the backbone at
-                # params/backbone/ (the JAX package's layout of that file)
-                rooted = torch.nn.ModuleDict(
-                    {"params": torch.nn.ModuleDict({"backbone": params})})
-                _, n = ckpt.load_into(args.mona_weights, rooted)
+            _, n = _load_adapter(args.mona_weights, params)
             logging.info(f"Loaded {n} MONA tensors from {args.mona_weights}")
     return cfg, params
+
+
+def _load_adapter(path: str, params):
+    """Load an adapter checkpoint into the CLIP module: rooted at the
+    backbone (the fine-tune's best_model.npz), else at params/backbone/ (the
+    supervised trainer's best_model.npz, the JAX package's layout of that
+    file)."""
+    try:
+        return ckpt.load_into(path, params)
+    except ckpt.NoMatch:
+        rooted = torch.nn.ModuleDict({"params": torch.nn.ModuleDict({"backbone": params})})
+        return ckpt.load_into(path, rooted)
 
 
 def get_text_tokenizer(args, family: str):

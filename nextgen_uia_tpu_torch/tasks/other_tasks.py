@@ -1,10 +1,18 @@
 """Trainers for the supervised engine's other families (counterpart of
-nextgen_uia_tpu/tasks/other_tasks.py). Ported: DINOv2 - a frozen DINOv2
-encoder with the 4-layer classification head, or the linear or UNet
-decoder (``--decoder_type``), trained by the supervised engine with its
-default augmentation, and the bundles the predict CLI serves. CLIPSeg and
-the ResNet/UNet baselines come with later slices (ROADMAP.md, section A,
-items 12-13); the dino few-shot trainers are refused (item 11).
+nextgen_uia_tpu/tasks/other_tasks.py), and the bundles the predict CLI
+serves. Ported:
+
+  - CLIPSeg: the frozen OpenAI ViT-B/16 image and text towers, forward only
+    through the whole-block kernel (``infer_cfg``), the dataset's dense
+    prompt as the FiLM conditioning, and the trainable FiLM decoder
+    (models/heads.py); its single-channel output stacked as ``[-s, s]``
+    into 2-class logits, DiceCE, decoder-only checkpoints.
+  - DINOv2: a frozen DINOv2 encoder with the 4-layer classification head,
+    or the linear or UNet decoder (``--decoder_type``), with the few-shot
+    subset when asked (``fewshot=True``).
+
+The ResNet/UNet baselines come with a later slice (ROADMAP.md, section A,
+item 13).
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,11 +28,118 @@ from ..core import checkpoint as ckpt
 from ..core.experiment import model_summary
 from ..core.partition import by_keywords
 from ..data import datasets as D
+from ..models import clip as clip_mod
 from ..models import dinov2 as DV
+from ..models.heads import ClipSegDecoderConfig, clipseg_decoder_apply, clipseg_decoder_init
 from ..ops import KERNELS
-from .common import (apply_compat_flags, base_parser, not_ported, resolve_device,
-                     seed_everything, setup_run)
-from .supervised import Bundle, preprocess, run_supervised
+from . import prompts as PR
+from .clip_tasks import extract_layers_for
+from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
+                     not_ported, resolve_device, seed_everything, setup_run)
+from .supervised import (Bundle, add_fewshot_flags, apply_fewshot, preprocess,
+                         run_supervised)
+
+
+def _refuse_multi_device(args):
+    if args.n_model != 1 or (args.n_data or 1) != 1:
+        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+
+
+# ---------------------------------------------------------------------------
+# CLIPSeg
+# ---------------------------------------------------------------------------
+
+
+def add_clipseg_flags(p):
+    p.add_argument("--version", type=str, default="ViT-B/16")
+    p.add_argument("--ckpt", type=str, default="ckpt/ViT-B-16.pt")
+    p.add_argument("--reduce_dim", type=int, default=64,
+                   help="decoder reduce dim (CIDAS/clipseg-rd64-refined uses 64)")
+    p.add_argument("--decoder_ckpt", type=str, default=None,
+                   help="converted CLIPSeg decoder .npz (convert clipseg_decoder) or a "
+                        "trainer's best_model.npz")
+
+
+def clipseg_segmentation_main(argv=None):
+    """The CLIPSeg trainer (reference CLI defaults: 1000 epochs, batch 32,
+    strong and weak augmentation on)."""
+    p = base_parser("clipseg_segmentation", epochs=1000, batch_size=32, strong_augs=True,
+                    weak_augs=True)
+    add_clipseg_flags(p)
+    args = p.parse_args(argv)
+    apply_compat_flags(args)
+    _refuse_multi_device(args)
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = setup_run(args, "test" if args.test else "train")
+    bundle = build_clipseg_bundle(args, gen)
+    bundle.params.to(device)
+    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task="seg",
+                               cache=args.cache_images)
+    return run_supervised(args, bundle, datasets, run_path, "clipseg_segmentation", device)
+
+
+def _clipseg_decoder_config(args, cfg) -> ClipSegDecoderConfig:
+    return ClipSegDecoderConfig(hidden_size=cfg.vision.width, reduce_dim=args.reduce_dim,
+                                cond_dim=cfg.text.embed_dim,
+                                extract_layers=extract_layers_for(cfg.vision.depth),
+                                patch_size=cfg.vision.patch_size)
+
+
+def build_clipseg_bundle(args, gen: torch.Generator) -> Bundle:
+    """The OpenAI CLIP towers and the FiLM decoder with its forwards,
+    dataset-free (the trainer and the predict CLI share it).
+    ``--decoder_ckpt`` takes the converter's decoder-rooted file or a
+    trainer's best_model.npz (rooted at 'params/head/')."""
+    cfg, backbone = build_clip_model(args, "openai", gen=gen)
+    decoder = clipseg_decoder_init(gen, _clipseg_decoder_config(args, cfg))
+    params = nn.ModuleDict({"backbone": backbone, "head": decoder})
+    if args.decoder_ckpt:
+        try:
+            _, n = ckpt.load_into(args.decoder_ckpt, decoder)
+        except ckpt.NoMatch:
+            _, n = ckpt.load_into(args.decoder_ckpt,
+                                  nn.ModuleDict({"params": nn.ModuleDict({"head": decoder})}))
+        logging.info(f"Loaded {n} decoder tensors from {args.decoder_ckpt}")
+    logging.info(model_summary({"model": params}, trainable_pred=by_keywords("head")))
+    forward_train, forward_eval = clipseg_forwards(args, cfg)
+    return Bundle(task="seg", params=params, trainable_pred=by_keywords("head"),
+                  forward_train=forward_train, forward_eval=forward_eval)
+
+
+def clipseg_forwards(args, cfg):
+    """(forward_train, forward_eval) of CLIPSeg over a bundle's params, the
+    towers at ``cfg`` (its compute dtype too)."""
+    dcfg = _clipseg_decoder_config(args, cfg)
+    tokenizer = get_text_tokenizer(args, "openai")
+    prompt = torch.from_numpy(np.asarray(tokenizer([PR.clipseg_prompt_for(args.dataset)])))
+    # the towers never train: forward only, through the whole-block kernel
+    icfg = clip_mod.infer_cfg(cfg)
+
+    def model_logits(params, x, ops):
+        with torch.no_grad():
+            _, acts = clip_mod.encode_image(params["backbone"], icfg, x,
+                                            extract_layers=dcfg.extract_layers, ops=ops)
+            cond = clip_mod.encode_text(params["backbone"], icfg, prompt.to(x.device), ops=ops)
+        single = clipseg_decoder_apply(params["head"], dcfg, acts,
+                                       cond.expand(x.shape[0], -1), ops=ops)
+        # 1 channel -> 2-class logits by negation (clipseg_adapter.py:92-96)
+        return torch.stack([-single, single], dim=1)
+
+    def forward_train(params, batch, gen, ops=KERNELS):
+        x, m = preprocess(batch["image"], batch.get("mask"), args, train=True, gen=gen, ops=ops)
+        return model_logits(params, x, ops), m
+
+    def forward_eval(params, images_u8, ops=KERNELS):
+        x, _ = preprocess(images_u8, None, args, train=False)
+        return model_logits(params, x, ops)
+
+    return forward_train, forward_eval
+
+
+# ---------------------------------------------------------------------------
+# DINOv2
+# ---------------------------------------------------------------------------
 
 
 def _dino_compute_dtype(args):
@@ -137,22 +253,22 @@ def build_dino_seg_bundle(args, gen: torch.Generator) -> Bundle:
 
 
 def _dino_main(task: str, argv, fewshot: bool):
-    if fewshot:
-        raise not_ported("The dino few-shot trainers", "section A, item 11")
     # reference dino CLI defaults: 1000 epochs, batch 24 (dino/classification.py:50-51,
     # dino/segmentation.py:49-50)
     p = base_parser(f"dino_{'classification' if task == 'cls' else 'segmentation'}",
                     epochs=1000, batch_size=24, strong_augs=True, weak_augs=True)
     add_dino_flags(p, seg=task == "seg")
+    if fewshot:
+        add_fewshot_flags(p)
     args = p.parse_args(argv)
     apply_compat_flags(args)
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-    if args.lora_weights:
-        raise not_ported("LoRA", "section A, item 4")
+    _refuse_multi_device(args)
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
     run_path = setup_run(args, "test" if args.test else "train")
+    if args.lora_weights:
+        # the JAX dino trainers accept the flag and never read it
+        logging.warning("--lora_weights has no effect on DINOv2 (no LoRA in its encoder)")
     build = build_dino_cls_bundle if task == "cls" else build_dino_seg_bundle
     bundle = build(args, gen)
     bundle.params.to(device)
@@ -160,6 +276,8 @@ def _dino_main(task: str, argv, fewshot: bool):
         bundle.bn_state.to(device)
     datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task=task,
                                cache=args.cache_images)
+    if fewshot:
+        apply_fewshot(args, datasets, task)
     tag = "dino_classification" if task == "cls" else "dino_segmentation"
     return run_supervised(args, bundle, datasets, run_path, tag, device)
 

@@ -1,16 +1,19 @@
 """Batch inference CLI (counterpart of nextgen_uia_tpu/tasks/serve.py): for
 the CLIP families ``--task zero_shot`` (the default: the dataset's prompt
 ensemble, no head weights) and the supervised ``--task cls`` / ``--task
-seg``, and the supervised-engine bundles of the DINOv2 family (served
-through the same ``forward_eval`` the trainer evaluates with).
+seg`` (with MONA or LoRA weights), and the supervised-engine bundles of the
+DINOv2 and CLIPSeg families (served through the same ``forward_eval`` the
+trainer evaluates with; CLIPSeg's only task is seg).
 
 Point it at a directory (or a .txt list) of images; it decodes them to
 uint8 grayscale batches, stages them on the device, runs the model forward
 and writes predictions.csv (zero_shot, cls; the prompt classes name the
 zero-shot columns) or <index>_<stem>_mask.png plus index.csv (seg). The
 model is assembled exactly as the JAX package assembles it
-(``--backbone_ckpt``, ``--mona_weights``, ``--head_weights``, the same
-``.npz`` files), on one device given by ``--device``.
+(``--backbone_ckpt``, ``--mona_weights``, ``--lora_weights``,
+``--head_weights``, ``--decoder_ckpt``, the same ``.npz`` files), on one
+device given by ``--device``. A block with LoRA serves through the composed
+route: the whole-block kernel does not take it.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ from .common import (apply_compat_flags, base_parser, build_clip_model, get_text
                      setup_logging)
 
 # supervised-engine families: (family, task) -> (dataset-free bundle factory,
-# the flag adder its parser needs); CLIPSeg and the baselines come later
+# the flag adder its parser needs); the baselines come later
 BUNDLE_FAMILIES = {
     ("dino", "cls"): (OT.build_dino_cls_bundle, OT.add_dino_flags),
     ("dino", "seg"): (OT.build_dino_seg_bundle, OT.add_dino_flags),
+    ("clipseg", "seg"): (OT.build_clipseg_bundle, OT.add_clipseg_flags),
 }
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
@@ -97,9 +101,10 @@ def predict_main(family: str = "biomedclip", argv=None):
 
     is_clip = family in clip_mod.FAMILIES
     if not is_clip and not any(f == family for f, _ in BUNDLE_FAMILIES):
-        raise not_ported(f"Serving the {family} family", "section A, items 12-13")
-    default_task = "zero_shot" if is_clip else "cls"
-    tasks = ["zero_shot", "cls", "seg"] if is_clip else ["cls", "seg"]
+        raise not_ported(f"Serving the {family} family", "section A, item 13")
+    default_task = "zero_shot" if is_clip else ("seg" if family == "clipseg" else "cls")
+    tasks = (["zero_shot", "cls", "seg"] if is_clip
+             else sorted(t for f, t in BUNDLE_FAMILIES if f == family))
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--task", type=str, default=default_task)
     task = pre.parse_known_args(argv)[0].task
@@ -108,8 +113,10 @@ def predict_main(family: str = "biomedclip", argv=None):
 
     p = base_parser(f"{family}_predict", batch_size=32)
     p.add_argument("--task", type=str, default=default_task, choices=tasks)
-    if not is_clip:
-        BUNDLE_FAMILIES[(family, task)][1](p, seg=task == "seg")
+    if family == "dino":
+        OT.add_dino_flags(p, seg=task == "seg")
+    elif not is_clip:
+        BUNDLE_FAMILIES[(family, task)][1](p)
     p.add_argument("--images", type=str, required=True,
                    help="directory of images or a .txt list of paths")
     p.add_argument("--out", type=str, default=None,
@@ -125,8 +132,6 @@ def predict_main(family: str = "biomedclip", argv=None):
         raise not_ported("--export", "section A, item 14")
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_model/--n_data (multi-device serving)", "section A, item 14")
-    if args.lora_weights and args.task != "zero_shot":
-        raise not_ported("LoRA weights in the supervised serving CLIs", "section A, item 4")
     device = resolve_device(args.device)
     gen = seed_everything(args.seed)
 

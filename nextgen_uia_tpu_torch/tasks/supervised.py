@@ -21,6 +21,7 @@ state, the JAX package's names) and the eval forward reads it.
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 from dataclasses import dataclass
@@ -33,6 +34,7 @@ from ..core import checkpoint as ckpt
 from ..core import train as T
 from ..core.experiment import TBWriter, archive_log, backup_folder, save_results_csv
 from ..core.partition import flatten_with_paths, partition
+from ..data import datasets as D
 from ..data import pipeline as P
 from ..data.augment import augment_batch
 from ..losses import dice_ce_loss, focal_loss
@@ -68,6 +70,29 @@ class Bundle:
     forward_train: Callable
     forward_eval: Callable
     bn_state: torch.nn.Module | None = None
+
+
+def add_fewshot_flags(p):
+    """The few-shot trainers' flags: ``--shots_per_class`` (unset: sample
+    ``--train_ratio`` of the train split, 10% by default, as the reference
+    does) and ``--stratified`` (per class, on by default)."""
+    p.add_argument("--shots_per_class", type=int, default=None)
+    p.add_argument("--train_ratio", type=float, default=0.1)
+    p.add_argument("--stratified", default=True, action=argparse.BooleanOptionalAction)
+
+
+def apply_fewshot(args, datasets, task: str):
+    """Replace the train split by its few-shot subset (``D.sample_few_shot``
+    from ``np.random.default_rng(args.seed)``; classes from labels.csv for
+    cls) and clamp the batch to the subset's size, as the JAX package does."""
+    labels = D.read_labels(args.data_root, args.dataset) if task == "cls" else None
+    sampled = D.sample_few_shot(datasets["train"].names, labels or {},
+                                rng=np.random.default_rng(args.seed),
+                                shots_per_class=args.shots_per_class,
+                                train_ratio=args.train_ratio, stratified=args.stratified)
+    datasets["train"].names = sampled
+    logging.info(f"Few-shot training subset: {len(sampled)} samples")
+    args.batch_size = min(args.batch_size, max(len(sampled), 1))
 
 
 def np_criterion_for(task: str):

@@ -20,7 +20,8 @@ from nextgen_uia_tpu_torch.tasks.common import apply_compat_flags, base_parser
 CLIS = [("biomedclip.classification", []), ("biomedclip.segmentation", []),
         ("biomedclip.finetune", []), ("biomedclip.predict", []),
         ("biomedclip.predict", ["--task", "seg"]), ("biomedclip.zero_shot", []),
-        ("biomedclip.retrieval", []),
+        ("biomedclip.retrieval", []), ("biomedclip.fewshot_classification", []),
+        ("biomedclip.fewshot_segmentation", []),
         ("clip.classification", []), ("clip.segmentation", []), ("clip.predict", []),
         ("clip.predict", ["--task", "cls"]), ("clip.zero_shot", []), ("clip.finetune", []),
         ("metaclip.classification", []), ("metaclip.segmentation", []),
@@ -28,7 +29,8 @@ CLIS = [("biomedclip.classification", []), ("biomedclip.segmentation", []),
         ("unimedclip.classification", []), ("unimedclip.segmentation", []),
         ("unimedclip.predict", []), ("unimedclip.zero_shot", []),
         ("unimedclip.finetune", []),
-        ("dino.classification", []), ("dino.segmentation", []), ("dino.predict", [])]
+        ("dino.classification", []), ("dino.segmentation", []), ("dino.predict", []),
+        ("clipseg.segmentation", []), ("clipseg.predict", [])]
 DIFFERENT_DEFAULT = {"device"}
 
 

@@ -13,7 +13,7 @@ bitwise equal over two calls, and one
 kernel on the card per K2, K3 or autograd backward call (profiler). The
 train path's kernels
 (forward and backward), the flash-attention (K7, forward and backward) and
-fused-MLP (K10) forwards, K1 with the causal mask: float32 max|d| <= 1e-4 *
+fused-MLP (K10) forwards, K1 and K6 with the causal mask: float32 max|d| <= 1e-4 *
 max|ref|, bfloat16 <= 3e-2 * max(1, max|ref|), for every output; K7's
 bfloat16 output (~0.04 for unit-variance inputs) and gradients <= 3e-2 *
 max|ref|, also at the wgmma kernels' tile edges (N = 1, 63, 64, 65, 127,
@@ -193,16 +193,18 @@ def test_mona_spatial_kernel_matches_plain(cuda, shape):
     assert (got_b.float() - ref_b).abs().max() <= ulp
 
 
-def _check(kern, plain, args, args_plain=None, scaled=False):
+def _check(kern, plain, args, args_plain=None, scaled=False, zero_floor=False):
     """Every output of kern(*args) against plain(*args_plain): float32
     max|d| <= 1e-4 max|ref|, bfloat16 <= 3e-2 max(1, max|ref|), or with
-    ``scaled`` 3e-2 max|ref|."""
+    ``scaled`` 3e-2 max|ref|. With ``zero_floor`` an output whose exact
+    value is zero (max|ref| = 0) takes the largest max|ref| of the call."""
     got, ref = kern(*args), plain(*(args_plain or args))
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
+    top = max(r.abs().max().item() for r in ref)
     for g, r in zip(got, ref):
-        scale = r.abs().max().item()
+        scale = r.abs().max().item() or (top if zero_floor else 0.0)
         if g.dtype != torch.bfloat16:
             bound = 1e-4 * scale
         else:
@@ -265,6 +267,48 @@ def test_train_path_kernels_match_plain(cuda, b, n, width, heads, act, dtype):
                lambda t, gg: fused_ln_mlp.fused_ln_mlp_residual_backward_plain(t, *ws, gg,
                                                                                act=act),
                low([x, g]), [x, g])
+
+
+@pytest.mark.parametrize("n,bias", [(1, False), (64, False), (77, False), (77, True),
+                                    (129, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_causal_matches_plain(cuda, n, bias, dtype):
+    """K6's causal mode (the frozen CLIP text tower's: width 512, 8 heads)
+    forward and backward against its plain versions, with and without a
+    key bias; the kernels launch, the mask matters. At N = 1 a row's one
+    key takes all its weight, so the exact dq and dk are zero: they take
+    the largest max|ref| of the call, and the mask changes nothing."""
+    from nextgen_uia_tpu_torch.ops import fused_attn_o
+
+    b, width, heads = 4, 512, 8
+    o = _block(cuda, width, heads).attn.o
+    gen = torch.Generator().manual_seed(n)
+
+    def rnd(*shape):
+        t = torch.randn(*shape, generator=gen).to(cuda)
+        return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+    q, k, v = (rnd(b, heads, n, width // heads) for _ in range(3))
+    x, g = rnd(b, n, width), rnd(b, n, width)
+    kw = dict(causal=True, bias=rnd(b, n) if bias else None)
+    wo = o.w.to(dtype).float()
+    with torch.no_grad():
+        before = (fused_attn_o.fused_attn_o_residual.launches,
+                  fused_attn_o.fused_attn_o_residual_backward.launches)
+        _check(lambda *t: fused_attn_o.fused_attn_o_residual(*t, o, heads=heads, **kw),
+               lambda *t: fused_attn_o.fused_attn_o_residual_plain(*t, o, heads=heads, **kw),
+               [t.to(dtype) for t in (q, k, v, x)], [q, k, v, x])
+        _check(lambda *t: fused_attn_o.fused_attn_o_residual_backward(*t[:3], wo.to(dtype),
+                                                                      t[3], **kw),
+               lambda *t: fused_attn_o.fused_attn_o_residual_backward_plain(*t[:3], wo, t[3],
+                                                                            **kw),
+               [t.to(dtype) for t in (q, k, v, g)], [q, k, v, g], zero_floor=n == 1)
+        assert (fused_attn_o.fused_attn_o_residual.launches,
+                fused_attn_o.fused_attn_o_residual_backward.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+        full = fused_attn_o.fused_attn_o_residual(q, k, v, x, o, heads=heads, bias=kw["bias"])
+        causal = fused_attn_o.fused_attn_o_residual(q, k, v, x, o, heads=heads, **kw)
+        assert n == 1 or (full - causal).abs().max().item() > 1e-3
 
 
 @pytest.mark.parametrize("shape", [(32, 14, 14, 64), (64, 14, 14, 64), (2, 9, 11, 32),

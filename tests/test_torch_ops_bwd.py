@@ -10,6 +10,8 @@ rows are compared. Bounds: forward max|d| <= 2e-5, gradients max|d| <=
 1e-4 * max|ref| (float32 on both sides, products in another order).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,7 @@ from nextgen_uia_tpu.ops.fused_attn_o import fused_attn_o_residual as jax_attn_o
 from nextgen_uia_tpu.ops.fused_ln_mlp import fused_ln_mlp_residual as jax_ln_mlp
 from nextgen_uia_tpu.ops.fused_ln_qkv import fused_ln_qkv as jax_ln_qkv
 from nextgen_uia_tpu_torch.models.vit import Block, ViTConfig
-from nextgen_uia_tpu_torch.ops import dwconv, fused_attn_o, fused_ln_mlp, fused_ln_qkv
+from nextgen_uia_tpu_torch.ops import KERNELS, dwconv, fused_attn_o, fused_ln_mlp, fused_ln_qkv
 
 B, N, NP, D, H = 2, 17, 32, 128, 2
 DH = D // H
@@ -103,6 +105,87 @@ def test_attn_o_residual_matches_jax_kernel(mask):
     _close(out_t.detach().numpy(), np.asarray(out_j)[:, :N], grad=False)
     for t, gj, axis in zip(ins, grads_j, (2, 2, 2, 1)):
         _close(t.grad.numpy(), np.take(np.asarray(gj), np.arange(N), axis=axis), grad=True)
+
+
+@pytest.mark.parametrize("n", [32, 77])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attn_o_residual_causal_matches_jax_kernel(n, with_bias):
+    """K6's causal mode (the frozen CLIP text tower's): the port's plain
+    forward and backward against the JAX kernel with ``causal=True``. N = 77
+    runs unpadded here and padded to 80 there (keys past 77 masked by
+    ``n_real`` or a -1e9 bias, which the causal mask hides from every real
+    row anyway); outputs and dq/dk/dv within 1e-5 * max|ref|."""
+    blk, jp = _block(4)
+    rng = np.random.default_rng(n + with_bias)
+    npad = -(-n // 8) * 8
+    q, k, v = (rng.standard_normal((B, H, n, DH)).astype(np.float32) for _ in range(3))
+    x, g = (rng.standard_normal((B, n, D)).astype(np.float32) for _ in range(2))
+    bias = (np.where(rng.random((B, n)) < 0.8, 0.0, -1e9) + 0.3 * rng.standard_normal((B, n))
+            ).astype(np.float32) if with_bias else None
+    kw_j = ({"bias": jnp.asarray(np.pad(bias, ((0, 0), (0, npad - n)), constant_values=-1e9))}
+            if with_bias else {"n_real": n})
+
+    def pad(a, axis):
+        width = [(0, 0)] * a.ndim
+        width[axis] = (0, npad - n)
+        return jnp.asarray(np.pad(a, width))
+
+    out_j, vjp = jax.vjp(
+        lambda qq, kk, vv, xx: jax_attn_o(qq, kk, vv, xx, jp["attn"]["o"], heads=H,
+                                          causal=True, **kw_j),
+        *(pad(a, 2) for a in (q, k, v)), pad(x, 1))
+    grads_j = vjp(pad(g, 1))
+
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, x)]
+    out_t = fused_attn_o.fused_attn_o_residual(
+        *ins, blk.attn.o, heads=H, causal=True,
+        bias=None if bias is None else torch.from_numpy(bias))
+    (out_t * torch.from_numpy(g)).sum().backward()
+
+    def close(got, want):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+    close(out_t.detach().numpy(), np.asarray(out_j)[:, :n])
+    for t, gj, axis in zip(ins, grads_j, (2, 2, 2, 1)):
+        close(t.grad.numpy(), np.take(np.asarray(gj), np.arange(n), axis=axis))
+    # the wrapper's backward is the plain one on the CPU; the mask matters
+    dq, _, _ = fused_attn_o.fused_attn_o_residual_backward(
+        *(torch.from_numpy(a) for a in (q, k, v)), blk.attn.o.w.detach(), torch.from_numpy(g),
+        bias=None if bias is None else torch.from_numpy(bias))
+    assert np.abs(dq.numpy() - ins[0].grad.numpy()).max() > 1e-3
+
+
+def test_mha_frozen_causal_route_matches_jax():
+    """``mha`` with ``ln``, ``residual`` and ``causal=True``: the port's
+    LN+QKV then K6 causal against the JAX ``mha``'s same route (its Pallas
+    kernels in interpret mode, N = 32 tiles), output and dx."""
+    from nextgen_uia_tpu.nn.attention import mha as jax_mha
+    from nextgen_uia_tpu_torch.nn.attention import mha
+
+    blk, jp = _block(5)
+    n = 32
+    rng = np.random.default_rng(5)
+    x, g = (rng.standard_normal((B, n, D)).astype(np.float32) for _ in range(2))
+    out_j, vjp = jax.vjp(lambda xx: jax_mha(jp["attn"], xx, num_heads=H, ln=jp["ln1"],
+                                            residual=xx, causal=True, impl="flash"),
+                         jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(g))
+    blk.requires_grad_(False)
+    seen = []
+
+    def k6(*a, **kw):
+        seen.append(kw["causal"])
+        return fused_attn_o.fused_attn_o_residual(*a, **kw)
+
+    ops = dataclasses.replace(KERNELS, fused_attn_o_residual=k6)
+    xt = torch.from_numpy(x).requires_grad_()
+    out_t = mha(blk.attn, xt, num_heads=H, ln=blk.ln1, residual=xt, causal=True, ops=ops)
+    (out_t * torch.from_numpy(g)).sum().backward()
+    assert seen == [True]
+    for got, want in ((out_t.detach().numpy(), np.asarray(out_j)),
+                      (xt.grad.numpy(), np.asarray(dx_j))):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])

@@ -109,10 +109,12 @@ def test_trainer_cli_refuses_what_is_not_ported(synth):
         segmentation.main(base + ["--n_data", "2"])
     dino = ["--dataset", "BUSI", "--data_root", root, "--debug_tiny", "--img_size", "28",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        other_tasks.dino_segmentation_main(dino, fewshot=True)
-    with pytest.raises(NotImplementedError, match="LoRA.*ROADMAP"):
-        dino_cls.main(dino + ["--lora_weights", "x.npz"])
+    # the few-shot mains and --lora_weights run since their slice
+    # (tests/test_torch_fewshot_lora.py); multi-device training still refuses
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        other_tasks.dino_segmentation_main(dino + ["--n_data", "2"], fewshot=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        dino_cls.main(dino + ["--lora_weights", "x.npz", "--n_model", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             segmentation.main([a for a in base if a not in ("--device", "cpu")])
@@ -152,7 +154,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     Docstrings and comments may name them."""
     files = glob.glob(os.path.join(REPO, "nextgen_uia_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) > 30
+    assert len(files) > 30 and any(os.sep + "clipseg" + os.sep in f for f in files)
     banned = ("nextgen_uia_tpu", "jax", "jaxlib", "flax", "optax")
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _imports(f) if mod.split(".")[0] in banned]
