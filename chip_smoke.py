@@ -142,6 +142,7 @@
    nextgen_uia_tpu_torch.convert`` in a process of its own, and loaded
    into the port's CLIP with every tensor filled.
 12. Full phase: ``--method full`` from the converted weights (ViT-B/16,
+   both towers cut to 6 blocks and layers since the baselines came,
    bf16, batch 64 as 4 x 16, AdamW at the clamped 1e-6): BiomedCLIP with
    its captions cached through PubMedBERT's mlp_impl='xla' layers (K7
    forward with the padding bias), two updates against the plain path (K7
@@ -158,7 +159,14 @@
    profiler tables. Supervised LoRA phase: the BiomedCLIP seg trainer's
    model from --lora_weights (r 16 in 12 blocks): two updates against the
    plain path (K7 and K8 forward 12 each, backward 10), then an eval batch
-   by the composed route (no K1).
+   by the composed route (no K1). Baselines phase: ResNet-18, ResNet-50
+   (cls, 3 channels) and the UNet (seg, 1 channel, init_channels 16) at
+   their CLIs' defaults (float32, batch 32, 224 px, augmentation on): 2
+   updates through the kernels and on the plain path (equalize_plain)
+   under one generator (losses, every gradient, the BatchNorm statistics;
+   equalize launched and recorded once per slot that drew it), the update
+   and eval batch timed with TF32 off and on (busy share, peak memory);
+   CLIP's ModifiedResNet RN50 at [32, 224, 224, 3] against the CPU.
 13. CLI phase: the BiomedCLIP and DINOv2 seg trainers at their default
    augmentation, the predict CLIs on their best_model.npz, both cls
    trainers, the OpenAI LoRA fine-tune CLI, the BiomedCLIP MONA fine-tune
@@ -171,7 +179,11 @@
    CLIs, biomedclip.retrieval and clip.predict at its default task,
    zero-shot, each with its launch counts; then clipseg.segmentation, the
    clipseg predict CLI on its best_model.npz, biomedclip.fewshot_segmentation
-   and biomedclip.predict with --lora_weights.
+   and biomedclip.predict with --lora_weights; then the baselines CLIs:
+   segmentation and predict --task seg on its best_model.npz,
+   classification from a seeded torchvision resnet18 converted by
+   ``python -m nextgen_uia_tpu_torch.convert resnet18`` and predict --task
+   cls, and both few-shot trainers.
 14. Prints each phase's host seconds, one JSON line of per-kernel results
    (41 rows: K7 also at the full route's shapes and in float32 at head dim
    16, K10 at the frozen text tower's shape, K6 causal forward and
@@ -198,6 +210,7 @@ DINO_IMG, DINO_BATCH, DINO_TOKENS = 518, 24, 37 * 37 + 1
 FT_BATCH, FT_ACCUM, FT_MICRO = 64, 4, 16     # the fine-tune's batch, accumulation, microbatch
 TEXT_CHUNK, N_CAPTIONS = 256, 512            # the text cache's chunk, captions cached
 TEXT_LORA_DEPTH = 6                          # blocks and layers of the text LoRA phases
+FULL_DEPTH = 6                               # blocks and layers of the --method full phase
 
 
 def require(cond, msg):
@@ -3646,19 +3659,60 @@ def _scaled(gen, *shape, std):
     return torch.randn(*shape, generator=gen) * std
 
 
+def torchvision_resnet18(gen):
+    """torchvision's resnet18 state dict, seeded from ``gen``: convolutions
+    normal of std fan_in^-0.5, BatchNorm scales near 1 and running
+    statistics away from their init, the ImageNet 1000-way fc."""
+    import torch
+
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = _scaled(gen, cout, cin, k, k, std=(cin * k * k) ** -0.5)
+
+    def bn(name, c):
+        sd[name + ".weight"] = 1 + _scaled(gen, c, std=0.1)
+        sd[name + ".bias"] = _scaled(gen, c, std=0.1)
+        sd[name + ".running_mean"] = _scaled(gen, c, std=0.1)
+        sd[name + ".running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[name + ".num_batches_tracked"] = torch.tensor(1000)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage in range(4):
+        cout = 64 * 2 ** stage
+        for b in range(2):
+            base = f"layer{stage + 1}.{b}"
+            conv(base + ".conv1", cout, cin if b == 0 else cout, 3)
+            bn(base + ".bn1", cout)
+            conv(base + ".conv2", cout, cout, 3)
+            bn(base + ".bn2", cout)
+            if b == 0 and stage > 0:
+                conv(base + ".downsample.0", cout, cin, 1)
+                bn(base + ".downsample.1", cout)
+        cin = cout
+    sd["fc.weight"] = _scaled(gen, 1000, 512, std=512 ** -0.5)
+    sd["fc.bias"] = _scaled(gen, 1000, std=0.02)
+    return sd
+
+
 def reference_state_dict(kind, seed):
     """A full-size state dict under the reference checkpoint's key names,
     seeded: 'biomedclip' is open_clip's BiomedCLIP (a timm ViT-B/16 trunk
     under visual.trunk, PubMedBERT under text.transformer, the MLP text
     projection; float32), 'openai' OpenAI's ViT-B/16 CLIP (fused in_proj
-    q/k/v; float16, as ViT-B-16.pt holds it). Weights are normal of std
-    fan_in^-0.5, embeddings 0.02, LayerNorm scales near 1."""
+    q/k/v; float16, as ViT-B-16.pt holds it), 'resnet18' torchvision's
+    (``torchvision_resnet18``). Weights are normal of std fan_in^-0.5,
+    embeddings 0.02, LayerNorm scales near 1."""
     import math
 
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     sd = {}
+    if kind == "resnet18":
+        return torchvision_resnet18(gen)
 
     def lin(name, d_in, d_out, bias=True):
         sd[name + ".weight"] = _scaled(gen, d_out, d_in, std=d_in ** -0.5)
@@ -3869,21 +3923,37 @@ def time_update(tag, loss_for, cfg, trainable, args, batch, dev, lr):
     return ms, busy
 
 
+def cut_towers(params, cfg, depth):
+    """Cut a CLIP model's towers, in place, to their first ``depth`` blocks
+    and layers; returns the config that says so."""
+    import dataclasses
+
+    import torch
+
+    params.visual.blocks = torch.nn.ModuleList(list(params.visual.blocks)[:depth])
+    name = "layers" if hasattr(params.text, "layers") else "blocks"
+    setattr(params.text, name, torch.nn.ModuleList(list(getattr(params.text, name))[:depth]))
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, depth=depth),
+                       text=dataclasses.replace(cfg.text, depth=depth))
+
+
 def full_finetune_phase(dev, converted):
-    """``--method full`` at full width from the converted weights (ViT-B/16
+    """``--method full`` at full width from the converted weights, both
+    towers cut to their first FULL_DEPTH blocks and layers (ViT-B/16
     at 224 px, bf16, batch 64 as 4 x 16, AdamW at the CLI's clamped 1e-6):
     BiomedCLIP with its 256 captions cached through PubMedBERT's plain
-    ``mlp_impl='xla'`` layers (K7 forward with the padding bias, 12 a chunk;
-    features against the plain path), then two updates against the plain
-    path (K7 forward and backward 48 each, nothing else), timed; the OpenAI
-    layout with ``--tune_text_encoder`` (the 12-layer causal text tower
-    trained in the step: K7 96 each, causal 48 of them); then ``--method
-    mona --tune_text_encoder`` on the OpenAI layout, the frozen text tower in
-    the step by its LN route (K5, K6 causal and K10's forward 48 each, no K7
-    of its own, no text backward), one update at lr 0 against the plain path
+    ``mlp_impl='xla'`` layers (K7 forward with the padding bias, one a layer
+    and chunk; features against the plain path), then two updates against
+    the plain path (K7 forward and backward once a block and microbatch,
+    nothing else), timed; the OpenAI layout with ``--tune_text_encoder``
+    (the causal text tower trained in the step: K7 twice as often, causal
+    half of it); then ``--method mona --tune_text_encoder`` on the OpenAI
+    layout, the frozen text tower in the step by its LN route (K5, K6
+    causal and K10's forward once a layer and microbatch, no K7 of its own,
+    no text backward), one update at lr 0 against the plain path
     (``check_update``), and its text tower forward alone at the 64-token
-    bucket against the plain path (K5, K6 causal, K10 12 each), profiled.
-    Every update is timed. Returns the launch
+    bucket against the plain path (K5, K6 causal, K10 once a layer),
+    profiled. Every update is timed. Returns the launch
     counts of the new JSON rows."""
     import dataclasses
 
@@ -3915,6 +3985,7 @@ def full_finetune_phase(dev, converted):
 
     # BiomedCLIP, --method full (the CLI's defaults)
     _, params, cfg = converted["biomedclip"]
+    cfg = cut_towers(params, cfg, FULL_DEPTH)
     args = ft._finetune_parser("biomedclip").parse_args(["--seed", "5"])
     require(args.method == "full" and args.lr > 1e-5 and args.tune_layers == "all"
             and args.batch_size == FT_BATCH and args.accumulation_steps == FT_ACCUM,
@@ -3982,6 +4053,8 @@ def full_finetune_phase(dev, converted):
 
     # the OpenAI layout, --method full --tune_text_encoder: the text trains
     _, params, cfg = converted["openai"]
+    cfg = cut_towers(params, cfg, FULL_DEPTH)
+    cut_cfg = cfg
     args = ft._finetune_parser("openai").parse_args(["--seed", "5", "--tune_text_encoder"])
     cfg = ft.full_cfg(cfg)
     trainable, frozen = partition(params, ft.full_ft_predicate(args, depth=cfg.vision.depth))
@@ -4007,8 +4080,8 @@ def full_finetune_phase(dev, converted):
 
     args = ft._finetune_parser("openai").parse_args(["--seed", "5", "--method", "mona",
                                                      "--tune_text_encoder"])
-    cfg = converted["openai"][2]
-    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, mona_variant=args.mona_variant))
+    cfg = cut_cfg.replace(vision=dataclasses.replace(cut_cfg.vision,
+                                                     mona_variant=args.mona_variant))
     params.cpu()
     inject_mona(torch.Generator().manual_seed(6), params.visual, dim=cfg.vision.width,
                 variant=args.mona_variant)
@@ -4295,22 +4368,26 @@ def k7_f32_dh16_rows(dev):
                 library_ms=b_lib, bound_ms=b_bound[0], bound_by=b_bound[1])}
 
 
-def held_updates(tag, make_step, trainable, batch, n, own_exempt, seed=None):
+def held_updates(tag, make_step, trainable, batch, n, own_exempt, seed=None,
+                 dtypes=("bfloat16", "float32"), state=None):
     """``n`` updates of ``make_step(compute_dtype, ops)`` on one batch from
-    the same weights, through the kernels and on the plain path, in bf16
-    and in float32 (a fresh dropout generator of ``seed`` on each run, else
-    none; the weights put back after each). Each bf16 update's loss is held
-    to 3e-2 * max(1, |ref|) and its gradient norm to 3e-2; in float32 the
-    losses and norms to 1e-4, and the first update's gradient of every
-    trainable tensor by ``worst_ratio`` (``own_exempt``: the names whose
-    exact gradient is zero). Returns (the first kernel update's launch
-    counts, the bf16 kernel updates' metrics)."""
+    the same weights, through the kernels and on the plain path, in each of
+    ``dtypes`` (a fresh generator of ``seed`` on each run, else none; the
+    weights, and the BatchNorm buffers of ``state`` if given, put back after
+    each). Each bf16 update's loss is held to 3e-2 * max(1, |ref|) and its
+    gradient norm to 3e-2; in float32 the losses and norms to 1e-4, the
+    first update's gradient of every trainable tensor by ``worst_ratio``
+    (``own_exempt``: the names whose exact gradient is zero), and each
+    buffer of ``state`` after the updates to 1e-4 * its max|ref|. Returns
+    (the first kernel update's launch counts, the kernel updates' metrics),
+    both of the first of ``dtypes``."""
     import numpy as np
     import torch
 
     from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
 
     start = {k: p.detach().clone() for k, p in trainable.items()}
+    buffers = {} if state is None else {k: v.clone() for k, v in state.state_dict().items()}
     dev = batch["image"].device
 
     def run(dtype, ops):
@@ -4322,33 +4399,50 @@ def held_updates(tag, make_step, trainable, batch, n, own_exempt, seed=None):
         counts = {k: v for k, v in read_counts().items() if v}
         grads = {k: p.grad.float().clone() for k, p in trainable.items()}
         out += [step(batch, gen) for _ in range(n - 1)]
+        after = {} if state is None else {k: v.clone() for k, v in state.state_dict().items()}
         with torch.no_grad():
             for k, p in trainable.items():
                 p.copy_(start[k])
-        return out, counts, grads
+            if state is not None:
+                state.load_state_dict(buffers)
+        return out, counts, grads, after
 
-    (got, counts, _), (ref, _, _) = run("bfloat16", KERNELS), run("bfloat16", PLAIN)
-    (got32, _, g32_k), (ref32, _, g32_p) = run("float32", KERNELS), run("float32", PLAIN)
-    worst, worst_name = worst_ratio(g32_k, g32_p, own_exempt)
-    print(f"{tag}: the first update's launches {counts}; bf16 losses kernel "
-          + " ".join(f"{m['loss']:.6f}" for m in got) + " plain "
-          + " ".join(f"{m['loss']:.6f}" for m in ref) + ", gradient norms "
-          + " ".join(f"{a['grad_norm']:.5f}/{c['grad_norm']:.5f}" for a, c in zip(got, ref))
-          + "; float32 losses " + " ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
-                                           for a, c in zip(got32, ref32))
-          + f", the first update's gradients worst max|d| / min(1e-4 max|ref| of all, 3e-2 "
-            f"its own) = {worst:.3f} ({worst_name})")
-    for a, c in zip(got, ref):
-        require(np.isfinite(a["loss"]) and a["skipped"] == 0
-                and abs(a["loss"] - c["loss"]) <= BF16_BOUND * max(1.0, abs(c["loss"]))
-                and abs(a["grad_norm"] - c["grad_norm"]) <= BF16_BOUND * c["grad_norm"],
-                f"a bf16 {tag} update disagrees with the plain path")
-    for a, c in zip(got32, ref32):
-        require(abs(a["loss"] - c["loss"]) <= F32_BOUND * abs(c["loss"])
-                and abs(a["grad_norm"] - c["grad_norm"]) <= F32_BOUND * c["grad_norm"],
-                f"a float32 {tag} update disagrees with the plain path")
-    require(worst <= 1.0, f"the float32 {tag} gradient of {worst_name} disagrees with the plain "
-                          f"path")
+    first = None
+    for dtype in dtypes:
+        (got, counts, g_k, s_k), (ref, _, g_p, s_p) = run(dtype, KERNELS), run(dtype, PLAIN)
+        first = first or (counts, got)
+        line = (f"{tag}: the first {dtype} update's launches {counts}; losses kernel "
+                + " ".join(f"{m['loss']:.7f}" for m in got) + " plain "
+                + " ".join(f"{m['loss']:.7f}" for m in ref) + ", gradient norms "
+                + " ".join(f"{a['grad_norm']:.5f}/{c['grad_norm']:.5f}"
+                           for a, c in zip(got, ref)))
+        for a, c in zip(got, ref):
+            require(np.isfinite(a["loss"]) and a["skipped"] == 0,
+                    f"a {dtype} {tag} update skipped or is not finite")
+        if dtype == "bfloat16":
+            print(line)
+            for a, c in zip(got, ref):
+                require(abs(a["loss"] - c["loss"]) <= BF16_BOUND * max(1.0, abs(c["loss"]))
+                        and abs(a["grad_norm"] - c["grad_norm"]) <= BF16_BOUND * c["grad_norm"],
+                        f"a bf16 {tag} update disagrees with the plain path")
+            continue
+        worst, worst_name = worst_ratio(g_k, g_p, own_exempt)
+        state_ratio = max(((s_k[k] - v).abs().max().item()
+                           / (F32_BOUND * max(v.abs().max().item(), 1e-30))
+                           for k, v in s_p.items()), default=0.0)
+        print(line + f"; the first update's gradients worst max|d| / min(1e-4 max|ref| of all, "
+                     f"3e-2 its own) = {worst:.3f} ({worst_name})"
+              + (f"; BatchNorm statistics after the updates worst max|d| / (1e-4 max|ref|) = "
+                 f"{state_ratio:.3f}" if state is not None else ""))
+        for a, c in zip(got, ref):
+            require(abs(a["loss"] - c["loss"]) <= F32_BOUND * abs(c["loss"])
+                    and abs(a["grad_norm"] - c["grad_norm"]) <= F32_BOUND * c["grad_norm"],
+                    f"a float32 {tag} update disagrees with the plain path")
+        require(worst <= 1.0, f"the float32 {tag} gradient of {worst_name} disagrees with the "
+                              f"plain path")
+        require(state_ratio <= 1.0, f"the {tag} BatchNorm statistics disagree with the plain "
+                                    f"path")
+    counts, got = first
     require(got[-1]["loss"] != got[0]["loss"], f"the {tag} loss did not move")
     return counts, got
 
@@ -4692,6 +4786,287 @@ def lora_back_check(lora, best, files):
             "the trained LoRA tensors did not round-trip through best_model.npz")
 
 
+# --- the ResNet/UNet baselines and CLIP's ModifiedResNet ---
+
+# (tag, task, flags): the baselines trainers' models at their CLI defaults
+BASELINE_MODELS = (("resnet18", "cls", ["--version", "resnet18"]),
+                   ("resnet50", "cls", ["--version", "resnet50"]),
+                   ("unet", "seg", []))
+
+
+def baseline_args(task, *extra):
+    """The baselines trainer's flags (its parser and defaults) with ``extra``."""
+    from nextgen_uia_tpu_torch.tasks import other_tasks as ot
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    p = base_parser("baselines", epochs=200, batch_size=32, strong_augs=True, weak_augs=True)
+    (ot.add_baseline_cls_flags if task == "cls" else ot.add_baseline_seg_flags)(p)
+    return p.parse_args(["--dataset", "BUSI", *extra])
+
+
+def is_bn_fed_bias(name):
+    """The UNet's conv biases ahead of a train-mode BatchNorm, which the
+    batch mean removes: their exact gradient is zero, so both paths give
+    rounding noise, held only to 1e-4 * the largest max|ref|."""
+    import re
+
+    return re.fullmatch(r"model/(enc|dec)\d/conv[12]/b", name) is not None
+
+
+def equalize_records(fn):
+    """(device records of K13's equalize kernel in one call of fn, whether
+    the profiler recorded any device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in device if "equalize" in e.key), bool(device)
+
+
+def baselines_phase(dev):
+    """The baselines at their CLIs' defaults (float32, batch 32, 224 px,
+    strong+weak augmentation, AdamW at the CLI's lr; seeded random
+    weights): ResNet-18 and ResNet-50 classifiers (3 channels, 2 classes)
+    and the UNet segmenter (1 channel, init_channels 16). Each takes 2
+    updates through the kernels (K13's equalize in the augmentation) and on
+    the plain path (``equalize_plain``) under one generator, cuDNN's
+    algorithms deterministic
+    (``held_updates``: losses 1e-4 relative, every first-update gradient by
+    ``worst_ratio``, the BatchNorm statistics after the updates 1e-4 *
+    max|ref|; equalize launched once per slot that drew it, and as many
+    device records in a profiled update); then the update and the eval
+    batch timed by CUDA events, with peak memory and the profiler's busy
+    share, with TF32 off and with PyTorch's default cuDNN TF32 on, as the
+    CLIs run. Then CLIP's ModifiedResNet RN50 forward at [32, 224, 224, 3]
+    on the card against the same module on the CPU in float32 (1e-4 *
+    max|ref|), timed both ways."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import partition
+    from nextgen_uia_tpu_torch.data.augment import sample_plan
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss, focal_loss
+    from nextgen_uia_tpu_torch.models import clip_resnet as cr
+    from nextgen_uia_tpu_torch.ops import KERNELS
+    from nextgen_uia_tpu_torch.tasks import other_tasks as ot
+    from nextgen_uia_tpu_torch.tasks.serve import make_infer
+
+    all_slots = 0
+    for tag, task, extra in BASELINE_MODELS:
+        args = baseline_args(task, "--seed", "6", *extra)
+        require((args.batch_size, args.img_size, args.strong_augs, args.weak_augs,
+                 args.in_channels, args.num_classes) == (BATCH, IMG, True, True,
+                                                         3 if task == "cls" else 1, 2)
+                and (task == "cls" or args.init_channels == 16),
+                f"baselines {task} defaults changed: {args}")
+        t0 = time.perf_counter()
+        build = ot.build_baseline_cls_bundle if task == "cls" else ot.build_baseline_seg_bundle
+        bundle = build(args, torch.Generator().manual_seed(6))
+        params, bn = bundle.params.to(dev), bundle.bn_state.to(dev)
+        trainable, _ = partition(params, bundle.trainable_pred)
+        imgs, masks = disc_batch(np.random.default_rng(10), BATCH)
+        batch = {"image": torch.from_numpy(imgs).to(dev)[None]}
+        if task == "cls":
+            batch["label"] = (torch.arange(BATCH, device=dev) % 2)[None]
+        else:
+            batch["mask"] = torch.from_numpy(masks).to(dev)[None]
+        print(f"baselines {tag}: built in {time.perf_counter() - t0:.1f} s; {len(trainable)} "
+              f"trainable tensors ({sum(p.numel() for p in trainable.values())} values), "
+              f"{len(bn.state_dict())} BatchNorm buffers")
+        tcfg = T.TrainConfig(lr=args.lr, lr_min=args.lr_min, weight_decay=args.weight_decay,
+                             beta1=args.beta1, beta2=args.beta2, total_updates=10)
+
+        def make_step(dtype, ops):  # the baselines compute in float32 alone
+            def loss(mb, gen):
+                logits, m = bundle.forward_train(params, mb, gen, ops)
+                return focal_loss(logits, mb["label"]) if task == "cls" else dice_ce_loss(logits, m)
+            return T.TrainStep(loss, T.make_optimizer(trainable.values(), tcfg), tcfg)
+
+        slots = int((sample_plan(torch.Generator(device=dev).manual_seed(11), BATCH).strong_ids
+                     == 2).any(0).sum())
+        # cuDNN's default algorithms sum in an order that varies between
+        # runs, and Adam's first step moves a weight whose gradient is
+        # rounding noise by +-lr in a direction that noise sets: the routes'
+        # second updates then part by more than rounding (ResNet-50's
+        # gradient norm by 3.0e-4 on an H100). Deterministic algorithms leave the
+        # kernel (equalize, bitwise equal to its plain version) as the only
+        # difference between the routes.
+        torch.backends.cudnn.deterministic = True
+        try:
+            counts, _ = held_updates(f"baselines {tag}", make_step, trainable, batch, 2,
+                                     is_bn_fed_bias, seed=11, dtypes=("float32",), state=bn)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        require(counts == ({"equalize": slots} if slots else {}),
+                f"baselines {tag}: the first update launched {counts} for {slots} equalize "
+                f"slots")
+        step = make_step("float32", KERNELS)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        twin = torch.Generator(device=dev)
+        twin.set_state(gen.get_state())
+        prof_slots = int((sample_plan(twin, BATCH).strong_ids == 2).any(0).sum())
+        records, seen = equalize_records(lambda: step(batch, gen))
+        print(f"baselines {tag}: equalize slots {slots} (held updates), {prof_slots} (profiled "
+              f"update): {records if seen else 'not measured'} equalize device records")
+        require(not seen or records == prof_slots,
+                f"baselines {tag}: {records} equalize device records for {prof_slots} slots")
+        all_slots += slots + prof_slots
+
+        infer = make_infer(bundle.forward_eval, params, dev)
+        images = batch["image"][0]
+        logits = infer(images)
+        want = (BATCH, 2) if task == "cls" else (BATCH, 2, IMG, IMG)
+        require(tuple(logits.shape) == want and bool(torch.isfinite(logits).all()),
+                f"baselines {tag} eval logits {tuple(logits.shape)}")
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: step(batch, gen), 5, warmup=2)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                busy = profile_steps(lambda: step(batch, gen), 2, ms)
+                eval_ms = cuda_ms(lambda: infer(images), 5, warmup=2)
+                eval_busy = profile_steps(lambda: infer(images), 2, eval_ms)
+            finally:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            print(f"baselines {tag}: TF32 {'on (the CLI default)' if tf32 else 'off (held)'}: "
+                  f"update at batch {BATCH} {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s, busy "
+                  f"{busy:.1f}%, peak device memory {peak_gb:.2f} GB; eval batch {eval_ms:.2f} "
+                  f"ms = {BATCH * 1000 / eval_ms:.1f} img/s, busy {eval_busy:.1f}%")
+        params.cpu()
+        bn.cpu()
+        del bundle, params, bn, trainable, step, infer
+        torch.cuda.empty_cache()
+    require(all_slots > 0, "no baselines update drew equalize: K13 went unchecked there")
+
+    params, state = cr.modified_resnet_init(torch.Generator().manual_seed(14), cr.RN50)
+    x = torch.from_numpy(np.random.default_rng(15).random((BATCH, IMG, IMG, 3),
+                                                          dtype=np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cr.modified_resnet_apply(params, state, x, cr.RN50)
+        cpu_s = time.perf_counter() - t0
+        params.to(dev)
+        state.to(dev)
+        xd = x.to(dev)
+        got = cr.modified_resnet_apply(params, state, xd, cr.RN50)
+        (err, scale), = errors(got.cpu(), ref)
+        ms = cuda_ms(lambda: cr.modified_resnet_apply(params, state, xd, cr.RN50), 5)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(lambda: cr.modified_resnet_apply(params, state, xd, cr.RN50), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"ModifiedResNet RN50: features {tuple(got.shape)} vs the CPU float32 forward "
+          f"({cpu_s:.1f} s) max|d| {err:.3e} (<= {F32_BOUND * scale:.3e}, max|ref| "
+          f"{scale:.3e}); forward at batch {BATCH} {ms:.2f} ms = {BATCH * 1000 / ms:.1f} img/s "
+          f"with TF32 off, {tf32_ms:.2f} ms = {BATCH * 1000 / tf32_ms:.1f} img/s on")
+    require(tuple(got.shape) == (BATCH, cr.RN50.output_dim) and scale > 0
+            and bool(torch.isfinite(got).all()) and err <= F32_BOUND * scale,
+            "ModifiedResNet RN50 on the card disagrees with the CPU")
+    params.cpu()
+    torch.cuda.empty_cache()
+
+
+def baselines_cli_phase(work):
+    """The baselines CLIs on cli_phase's dataset (64 train images at 224 px)
+    at their defaults: segmentation, one epoch (2 updates at batch 32,
+    equalize the only kernel), then predict --task seg on its
+    best_model.npz; classification, one epoch, from a seeded torchvision
+    resnet18 (``reference_state_dict``) converted by ``python -m
+    nextgen_uia_tpu_torch.convert resnet18`` in a process of its own (the
+    1000-way fc left at init, the ``__state__/`` statistics loaded), then
+    predict --task cls; both few-shot trainers, one update each."""
+    import csv
+    import glob
+    import re
+
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.core import checkpoint as ckpt
+    from nextgen_uia_tpu_torch.tasks.baselines import classification, fewshot_classification
+    from nextgen_uia_tpu_torch.tasks.baselines import fewshot_segmentation, predict, segmentation
+
+    data, listing = os.path.join(work, "data"), os.path.join(work, "predict.txt")
+    src, dst = (os.path.join(work, f"resnet18.{ext}") for ext in ("pt", "npz"))
+    torch.save(reference_state_dict("resnet18", 23), src)
+    proc = subprocess.run([sys.executable, "-m", "nextgen_uia_tpu_torch.convert", "resnet18", src,
+                           dst], cwd=ROOT, capture_output=True, text=True)
+    require(proc.returncode == 0, f"the converter failed on resnet18: {proc.stderr[-2000:]}")
+    print(f"cli: `python -m nextgen_uia_tpu_torch.convert resnet18`: {proc.stdout.strip()}")
+    common = ["--dataset", "SYNTH", "--data_root", data, "--epochs", "1", "--val_interval", "1",
+              "--num_workers", "4", "--device", "cuda"]
+    runs = os.path.join(work, "runs")
+    best_seg = os.path.join(runs, "chip_bl_seg", "SYNTH", "train", "best_model.npz")
+    best_cls = os.path.join(runs, "chip_bl_cls", "SYNTH", "train", "best_model.npz")
+    serve = ["--images", listing, "--num_workers", "4", "--device", "cuda"]
+    rows = (
+        ("baselines seg", segmentation.main, ["--exp", "chip_bl_seg", *common]),
+        ("baselines predict seg", predict.main,
+         ["--task", "seg", "--head_weights", best_seg, "--out", os.path.join(work, "bl_seg_out"),
+          *serve]),
+        ("baselines cls from a converted resnet18", classification.main,
+         ["--exp", "chip_bl_cls", "--backbone_ckpt", dst, *common]),
+        ("baselines predict cls", predict.main,
+         ["--head_weights", best_cls, "--out", os.path.join(work, "bl_cls_out"), *serve]),
+        ("baselines few-shot cls", fewshot_classification.main, ["--exp", "chip_bl_fs_cls",
+                                                                 *common]),
+        ("baselines few-shot seg", fewshot_segmentation.main, ["--exp", "chip_bl_fs_seg",
+                                                               *common]))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name, fn, argv in rows:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(argv)
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+            shown = {k: round(float(v), 4) for k, v in out.items() if np.isscalar(v)
+                     and not isinstance(v, str)}
+            print(f"cli: {name} in {seconds:.1f} s (host clock: data decode included); "
+                  f"{shown}; launches {counts}")
+            require(set(counts) <= {"equalize"}, f"{name} launched {counts}: want equalize alone")
+            if "predict" in name:
+                index = "index.csv" if "seg" in name else "predictions.csv"
+                with open(os.path.join(out["out"], index)) as f:
+                    served = list(csv.DictReader(f))
+                require(not counts and len(served) == 8
+                        and all(r["status"] == "ok" for r in served),
+                        f"{name} served {len(served)} images, launches {counts}")
+                continue
+            exp = argv[argv.index("--exp") + 1]
+            log = "".join(open(f).read() for f in glob.glob(
+                os.path.join(runs, exp, "**", "log.log"), recursive=True))
+            metric = "acc" if "cls" in name else "dice_mean"
+            require(np.isfinite(out["loss"]) and np.isfinite(out[metric]),
+                    f"{name} stats {out}")
+            if "few-shot" in name:
+                sampled = re.findall(r"Few-shot training subset: (\d+) samples", log)
+                require(len(sampled) == 1 and 1 <= int(sampled[0]) <= BATCH,
+                        f"the {name} trainer sampled {sampled}: want one subset, one update")
+            elif "converted" in name:
+                require("reinitializing fc" in log
+                        and "Loaded 60 ResNet tensors (+40 BN state)" in log,
+                        f"{name}: the converted resnet18 did not load with its BatchNorm "
+                        f"statistics and a fresh fc")
+                keys = ckpt.peek_keys(best_cls)
+                require(len(keys) == 62 + 40, f"{name}: best_model.npz holds {len(keys)} tensors")
+            else:
+                keys = ckpt.peek_keys(best_seg)
+                require(any(k.startswith("bn/") for k in keys)
+                        and all(k.startswith(("params/model/", "bn/")) for k in keys),
+                        f"{name}: best_model.npz holds {keys[:4]}...")
+    finally:
+        os.chdir(cwd)
+        os.remove(src)
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -4760,6 +5135,7 @@ def main():
         launches.update(timed("bench", bench_phase, dev))
         launches.update(timed("clipseg", clipseg_phase, dev))
         lora = timed("supervised LoRA", supervised_lora_phase, dev, work, files)
+        timed("baselines", baselines_phase, dev)
         converted = timed("convert", convert_phase, work)
         launches.update(timed("full", full_finetune_phase, dev, converted))
         timed("trainer CLIs", cli_phase, dev, work, files)
@@ -4769,6 +5145,7 @@ def main():
                                         full_finetune_cli_phase(work, converted)])
         timed("CLIP family CLIs", clip_cli_phase, work)
         timed("CLIPSeg, few-shot and LoRA CLIs", adapter_cli_phase, work, files, lora)
+        timed("baselines CLIs", baselines_cli_phase, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,6 +1,6 @@
 """Torch checkpoint converters for every backbone the reference loads: the
-port's own copy of nextgen_uia_tpu/convert/torch_to_jax.py (numpy only; the
-two write equal ``.npz`` files).
+port's own copy of nextgen_uia_tpu/convert/torch_to_jax.py (numpy arrays,
+the ResNet table from models/resnet.py; the two write equal ``.npz`` files).
 
 Covers the checkpoint layouts the reference loads:
   - open_clip/timm BiomedCLIP (visual.trunk timm ViT + HF BERT text tower)
@@ -24,6 +24,8 @@ ways.
 from __future__ import annotations
 
 import numpy as np
+
+from ..models.resnet import SPECS  # (block kind, blocks per stage) of each torchvision arch
 
 
 def _lin(sd, name):
@@ -329,16 +331,6 @@ def convert_dinov2(sd, depth=None):
 # ---------------------------------------------------------------------------
 
 
-# torchvision ResNet (block kind, blocks per stage)
-RESNET_SPECS = {
-    "resnet18": ("basic", (2, 2, 2, 2)),
-    "resnet34": ("basic", (3, 4, 6, 3)),
-    "resnet50": ("bottleneck", (3, 4, 6, 3)),
-    "resnet101": ("bottleneck", (3, 4, 23, 3)),
-    "resnet152": ("bottleneck", (3, 8, 36, 3)),
-}
-
-
 def _bn(sd, name):
     return ({"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]},
             {"mean": sd[f"{name}.running_mean"], "var": sd[f"{name}.running_var"]})
@@ -347,7 +339,7 @@ def _bn(sd, name):
 def convert_resnet(sd, arch="resnet18"):
     """torchvision resnet state dict -> (flat params, flat state)."""
     sd = _numpy_sd(sd)
-    kind, layout = RESNET_SPECS[arch]
+    kind, layout = SPECS[arch]
     p, s = {}, {}
     bnp, bns = _bn(sd, "bn1")
     p["stem"] = {"conv": {"w": sd["conv1.weight"].transpose(2, 3, 1, 0)}, "bn": bnp}
@@ -519,7 +511,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser("nextgen_uia_tpu_torch.convert")
     ap.add_argument("kind", choices=list(CONVERTERS) + list(STATEFUL_CONVERTERS)
-                    + ["modified_resnet", *RESNET_SPECS])
+                    + ["modified_resnet", *SPECS])
     ap.add_argument("src", help=".pt/.pth/.bin state dict or torch.jit archive")
     ap.add_argument("dst", help="output .npz")
     args = ap.parse_args(argv)

@@ -151,14 +151,18 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d(p: Conv, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
-    """NHWC x, HWIO weight, stride 1, SAME padding; returns NHWC."""
+def conv2d(p: Conv, x: torch.Tensor, *, stride: int = 1, padding="same",
+           dtype=None) -> torch.Tensor:
+    """NHWC x, HWIO weight; returns NHWC. ``padding``: "same" (stride 1
+    only: torch refuses it strided), "valid", or an int on every side, as
+    the JAX package's explicit ((p, p), (p, p)). No bias added where ``p``
+    has none."""
     w = p.w
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding="same")
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride, padding=padding)
     y = y.permute(0, 2, 3, 1)
-    return y + p.b.to(y.dtype)
+    return y if p.b is None else y + p.b.to(y.dtype)
 
 
 def conv2d_cat(p: Conv, x: torch.Tensor, sk: torch.Tensor, *, dtype=None) -> torch.Tensor:
@@ -170,7 +174,22 @@ def conv2d_cat(p: Conv, x: torch.Tensor, sk: torch.Tensor, *, dtype=None) -> tor
     y = F.conv2d(xx.permute(0, 3, 1, 2), w[:, :, :c].permute(3, 2, 0, 1), padding="same")
     y = y + F.conv2d(ss.permute(0, 3, 1, 2), w[:, :, c:].permute(3, 2, 0, 1), padding="same")
     y = y.permute(0, 2, 3, 1)
-    return y + p.b.to(y.dtype)
+    return y if p.b is None else y + p.b.to(y.dtype)
+
+
+def max_pool(x: torch.Tensor, k: int, stride: int, pad: int = 0) -> torch.Tensor:
+    """k x k max pool of ``stride`` over NHWC, padded by ``pad`` with -inf:
+    jax.lax.reduce_window's max over -inf padding ('VALID' at pad 0, odd
+    sizes floored)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, pad).permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """AvgPool2d(k) over NHWC: kernel = stride = k, no padding (the JAX
+    package's 'VALID' window sum over k * k); the identity at k <= 1."""
+    if k <= 1:
+        return x
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
 
 
 def conv_transpose2d(p: Conv, x: torch.Tensor, *, stride: int, dtype=None) -> torch.Tensor:

@@ -10,9 +10,11 @@ serves. Ported:
   - DINOv2: a frozen DINOv2 encoder with the 4-layer classification head,
     or the linear or UNet decoder (``--decoder_type``), with the few-shot
     subset when asked (``fewshot=True``).
-
-The ResNet/UNet baselines come with a later slice (ROADMAP.md, section A,
-item 13).
+  - The baselines: a ResNet (``--version``) classifier, from a converted
+    torchvision checkpoint when given (``--backbone_ckpt``), and the UNet
+    segmenter (``--init_channels``, one input channel by default), every
+    parameter trained, float32, their BatchNorm statistics the bundle's
+    ``bn_state``; the few-shot subset when asked.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from ..data import datasets as D
 from ..models import clip as clip_mod
 from ..models import dinov2 as DV
 from ..models.heads import ClipSegDecoderConfig, clipseg_decoder_apply, clipseg_decoder_init
+from ..models.resnet import SPECS as RESNET_SPECS
+from ..models.resnet import resnet_apply, resnet_init
+from ..models.unet import unet_apply, unet_init
 from ..ops import KERNELS
 from . import prompts as PR
 from .clip_tasks import extract_layers_for
@@ -43,6 +48,33 @@ from .supervised import (Bundle, add_fewshot_flags, apply_fewshot, preprocess,
 def _refuse_multi_device(args):
     if args.n_model != 1 or (args.n_data or 1) != 1:
         raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
+
+
+def _bundle_main(name: str, task: str, argv, build, add_flags, *, fewshot: bool = False,
+                 **defaults):
+    """A supervised-engine trainer on one device: the family's parser
+    (strong and weak augmentation on, ``defaults`` for the rest), its bundle
+    from ``build(args, gen)``, the few-shot subset when asked, then
+    run_supervised tagged ``name``."""
+    p = base_parser(name, strong_augs=True, weak_augs=True, **defaults)
+    add_flags(p)
+    if fewshot:
+        add_fewshot_flags(p)
+    args = p.parse_args(argv)
+    apply_compat_flags(args)
+    _refuse_multi_device(args)
+    device = resolve_device(args.device)
+    gen = seed_everything(args.seed)
+    run_path = setup_run(args, "test" if args.test else "train")
+    bundle = build(args, gen)
+    bundle.params.to(device)
+    if bundle.bn_state is not None:
+        bundle.bn_state.to(device)
+    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task=task,
+                               cache=args.cache_images)
+    if fewshot:
+        apply_fewshot(args, datasets, task)
+    return run_supervised(args, bundle, datasets, run_path, name, device)
 
 
 # ---------------------------------------------------------------------------
@@ -63,20 +95,8 @@ def add_clipseg_flags(p):
 def clipseg_segmentation_main(argv=None):
     """The CLIPSeg trainer (reference CLI defaults: 1000 epochs, batch 32,
     strong and weak augmentation on)."""
-    p = base_parser("clipseg_segmentation", epochs=1000, batch_size=32, strong_augs=True,
-                    weak_augs=True)
-    add_clipseg_flags(p)
-    args = p.parse_args(argv)
-    apply_compat_flags(args)
-    _refuse_multi_device(args)
-    device = resolve_device(args.device)
-    gen = seed_everything(args.seed)
-    run_path = setup_run(args, "test" if args.test else "train")
-    bundle = build_clipseg_bundle(args, gen)
-    bundle.params.to(device)
-    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task="seg",
-                               cache=args.cache_images)
-    return run_supervised(args, bundle, datasets, run_path, "clipseg_segmentation", device)
+    return _bundle_main("clipseg_segmentation", "seg", argv, build_clipseg_bundle,
+                        add_clipseg_flags, epochs=1000, batch_size=32)
 
 
 def _clipseg_decoder_config(args, cfg) -> ClipSegDecoderConfig:
@@ -152,6 +172,9 @@ def _build_dino(args, gen: torch.Generator):
     """(cfg, encoder on the CPU): the arch's config (``--debug_tiny``:
     width 64, depth 5, 4 heads), seeded random or ``--backbone_ckpt``
     weights (rooted at 'encoder/' or bare)."""
+    if getattr(args, "lora_weights", None):
+        # the JAX dino trainers accept the flag and never read it
+        logging.warning("--lora_weights has no effect on DINOv2 (no LoRA in its encoder)")
     cfg = DV.dinov2_config(getattr(args, "dino_arch", None) or "vit_base")
     if args.debug_tiny:
         cfg = dataclasses.replace(cfg, width=64, depth=5, heads=4)
@@ -255,31 +278,11 @@ def build_dino_seg_bundle(args, gen: torch.Generator) -> Bundle:
 def _dino_main(task: str, argv, fewshot: bool):
     # reference dino CLI defaults: 1000 epochs, batch 24 (dino/classification.py:50-51,
     # dino/segmentation.py:49-50)
-    p = base_parser(f"dino_{'classification' if task == 'cls' else 'segmentation'}",
-                    epochs=1000, batch_size=24, strong_augs=True, weak_augs=True)
-    add_dino_flags(p, seg=task == "seg")
-    if fewshot:
-        add_fewshot_flags(p)
-    args = p.parse_args(argv)
-    apply_compat_flags(args)
-    _refuse_multi_device(args)
-    device = resolve_device(args.device)
-    gen = seed_everything(args.seed)
-    run_path = setup_run(args, "test" if args.test else "train")
-    if args.lora_weights:
-        # the JAX dino trainers accept the flag and never read it
-        logging.warning("--lora_weights has no effect on DINOv2 (no LoRA in its encoder)")
+    name = "dino_classification" if task == "cls" else "dino_segmentation"
     build = build_dino_cls_bundle if task == "cls" else build_dino_seg_bundle
-    bundle = build(args, gen)
-    bundle.params.to(device)
-    if bundle.bn_state is not None:
-        bundle.bn_state.to(device)
-    datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task=task,
-                               cache=args.cache_images)
-    if fewshot:
-        apply_fewshot(args, datasets, task)
-    tag = "dino_classification" if task == "cls" else "dino_segmentation"
-    return run_supervised(args, bundle, datasets, run_path, tag, device)
+    return _bundle_main(name, task, argv, build,
+                        lambda p: add_dino_flags(p, seg=task == "seg"), fewshot=fewshot,
+                        epochs=1000, batch_size=24)
 
 
 def dino_classification_main(argv=None, *, fewshot: bool = False):
@@ -288,3 +291,95 @@ def dino_classification_main(argv=None, *, fewshot: bool = False):
 
 def dino_segmentation_main(argv=None, *, fewshot: bool = False):
     return _dino_main("seg", argv, fewshot)
+
+
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+
+
+def add_baseline_cls_flags(p):
+    p.add_argument("--version", type=str, default="resnet18", choices=sorted(RESNET_SPECS))
+
+
+def add_baseline_seg_flags(p):
+    p.set_defaults(in_channels=1)
+    p.add_argument("--init_channels", type=int, default=16)
+
+
+# reference baselines CLI defaults: 200 epochs, batch 32, augmentation on
+def baselines_classification_main(argv=None, *, fewshot: bool = False):
+    return _bundle_main("baselines_classification", "cls", argv, build_baseline_cls_bundle,
+                        add_baseline_cls_flags, fewshot=fewshot, epochs=200, batch_size=32)
+
+
+def baselines_segmentation_main(argv=None, *, fewshot: bool = False):
+    return _bundle_main("baselines_segmentation", "seg", argv, build_baseline_seg_bundle,
+                        add_baseline_seg_flags, fewshot=fewshot, epochs=200, batch_size=32)
+
+
+def _load_backbone(path: str, model, bn_state):
+    """A converted torchvision ResNet (``python -m
+    nextgen_uia_tpu_torch.convert resnet*``) or a JAX-written tree, read
+    once: the tower by name, a classifier of another width left at init
+    (the reference replaces the head for the task's classes), and the
+    BatchNorm running statistics from ``__state__/``."""
+    flat = ckpt.load_flat(path)
+    skip = ()
+    fcw = flat.get("fc/w")
+    if fcw is not None and tuple(fcw.shape) != tuple(model.fc.w.shape):
+        skip = ("fc/",)
+        logging.info(f"--backbone_ckpt fc head is {tuple(fcw.shape)}, model wants "
+                     f"{tuple(model.fc.w.shape)}: reinitializing fc (reference replaces the "
+                     "head)")
+    _, n = ckpt.merge_flat(flat, model, source=path, skip=skip)
+    ns = 0
+    try:
+        _, ns = ckpt.merge_flat(flat, nn.ModuleDict({"__state__": bn_state}), source=path)
+    except ckpt.NoMatch:
+        logging.warning(f"{path} has no __state__/ BN running stats; keeping init statistics")
+    logging.info(f"Loaded {n} ResNet tensors (+{ns} BN state) from {path}")
+
+
+def build_baseline_cls_bundle(args, gen: torch.Generator) -> Bundle:
+    """The ResNet baseline classifier, dataset-free (the trainer and the
+    predict CLI share it)."""
+    model, bn_state = resnet_init(gen, args.version, in_channels=args.in_channels,
+                                  num_classes=args.num_classes)
+    if args.backbone_ckpt:
+        _load_backbone(args.backbone_ckpt, model, bn_state)
+    params = nn.ModuleDict({"model": model})
+    logging.info(model_summary({"model": params}, trainable_pred=lambda _: True))
+
+    def forward_train(params, batch, gen, ops=KERNELS):
+        x, _ = preprocess(batch["image"], None, args, train=True, gen=gen, ops=ops,
+                          in_channels=args.in_channels)
+        return resnet_apply(params["model"], bn_state, x, args.version, train=True), None
+
+    def forward_eval(params, images_u8, ops=KERNELS):
+        x, _ = preprocess(images_u8, None, args, train=False, in_channels=args.in_channels)
+        return resnet_apply(params["model"], bn_state, x, args.version)
+
+    return Bundle(task="cls", params=params, trainable_pred=lambda _: True,
+                  forward_train=forward_train, forward_eval=forward_eval, bn_state=bn_state)
+
+
+def build_baseline_seg_bundle(args, gen: torch.Generator) -> Bundle:
+    """The UNet baseline segmenter, dataset-free. Its train forward draws
+    the augmentation, then the dropout masks, from the step's generator."""
+    model, bn_state = unet_init(gen, args.in_channels, args.num_classes,
+                                init_channels=args.init_channels)
+    params = nn.ModuleDict({"model": model})
+    logging.info(model_summary({"model": params}, trainable_pred=lambda _: True))
+
+    def forward_train(params, batch, gen, ops=KERNELS):
+        x, m = preprocess(batch["image"], batch.get("mask"), args, train=True, gen=gen, ops=ops,
+                          in_channels=args.in_channels)
+        return unet_apply(params["model"], bn_state, x, train=True, gen=gen), m
+
+    def forward_eval(params, images_u8, ops=KERNELS):
+        x, _ = preprocess(images_u8, None, args, train=False, in_channels=args.in_channels)
+        return unet_apply(params["model"], bn_state, x)
+
+    return Bundle(task="seg", params=params, trainable_pred=lambda _: True,
+                  forward_train=forward_train, forward_eval=forward_eval, bn_state=bn_state)

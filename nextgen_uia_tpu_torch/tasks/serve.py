@@ -2,8 +2,10 @@
 the CLIP families ``--task zero_shot`` (the default: the dataset's prompt
 ensemble, no head weights) and the supervised ``--task cls`` / ``--task
 seg`` (with MONA or LoRA weights), and the supervised-engine bundles of the
-DINOv2 and CLIPSeg families (served through the same ``forward_eval`` the
-trainer evaluates with; CLIPSeg's only task is seg).
+DINOv2, CLIPSeg and baselines families (served through the same
+``forward_eval`` the trainer evaluates with, the BatchNorm statistics
+loaded from ``bn/`` beside the parameters; CLIPSeg's only task is seg, the
+baselines' cls is the ResNet and seg the UNet).
 
 Point it at a directory (or a .txt list) of images; it decodes them to
 uint8 grayscale batches, stages them on the device, runs the model forward
@@ -39,11 +41,13 @@ from .common import (apply_compat_flags, base_parser, build_clip_model, get_text
                      setup_logging)
 
 # supervised-engine families: (family, task) -> (dataset-free bundle factory,
-# the flag adder its parser needs); the baselines come later
+# the flag adder its parser needs)
 BUNDLE_FAMILIES = {
     ("dino", "cls"): (OT.build_dino_cls_bundle, OT.add_dino_flags),
     ("dino", "seg"): (OT.build_dino_seg_bundle, OT.add_dino_flags),
     ("clipseg", "seg"): (OT.build_clipseg_bundle, OT.add_clipseg_flags),
+    ("baselines", "cls"): (OT.build_baseline_cls_bundle, OT.add_baseline_cls_flags),
+    ("baselines", "seg"): (OT.build_baseline_seg_bundle, OT.add_baseline_seg_flags),
 }
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
@@ -101,7 +105,9 @@ def predict_main(family: str = "biomedclip", argv=None):
 
     is_clip = family in clip_mod.FAMILIES
     if not is_clip and not any(f == family for f, _ in BUNDLE_FAMILIES):
-        raise not_ported(f"Serving the {family} family", "section A, item 13")
+        raise ValueError(f"no predict CLI serves the {family!r} family (the CLIP families "
+                         f"{sorted(clip_mod.FAMILIES)}, or "
+                         f"{sorted({f for f, _ in BUNDLE_FAMILIES})})")
     default_task = "zero_shot" if is_clip else ("seg" if family == "clipseg" else "cls")
     tasks = (["zero_shot", "cls", "seg"] if is_clip
              else sorted(t for f, t in BUNDLE_FAMILIES if f == family))

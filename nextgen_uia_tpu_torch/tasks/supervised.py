@@ -43,11 +43,13 @@ from ..ops import KERNELS
 from ..utils.viz import plot_roc, roc_figure, visualize_seg
 
 
-def preprocess(images_u8, masks_u8, args, *, train: bool, gen=None, ops=KERNELS):
+def preprocess(images_u8, masks_u8, args, *, train: bool, gen=None, ops=KERNELS,
+               in_channels: int = 3):
     """uint8 [B, H, W] -> float NHWC in [0, 1], augmented on the device in
     train mode when ``args.strong_augs``/``args.weak_augs`` ask for it (from
-    the generator ``gen``), the grayscale channel repeated to 3. Returns (x,
-    masks NCHW int64 or None)."""
+    the generator ``gen``), the grayscale channel repeated to 3 when
+    ``in_channels`` is 3 (kept single otherwise). Returns (x, masks NCHW
+    int64 or None)."""
     x = (images_u8.to(torch.float32) / 255.0)[..., None]
     m = None if masks_u8 is None else masks_u8.to(torch.float32)[..., None]
     if train and (args.strong_augs or args.weak_augs):
@@ -56,7 +58,8 @@ def preprocess(images_u8, masks_u8, args, *, train: bool, gen=None, ops=KERNELS)
         with torch.profiler.record_function("augment"):  # a host-time range for profiles
             x, m = augment_batch(gen, x, m, strong=args.strong_augs, weak=args.weak_augs,
                                  out_size=args.img_size, ops=ops)
-    x = x.expand(-1, -1, -1, 3)
+    if in_channels == 3:
+        x = x.expand(-1, -1, -1, 3)
     if m is not None:
         m = m.permute(0, 3, 1, 2).long()
     return x, m

@@ -22,6 +22,7 @@ from nextgen_uia_tpu_torch.convert import torch_to_npz as C
 from nextgen_uia_tpu_torch.core import checkpoint as ckpt
 from nextgen_uia_tpu_torch.models import bert
 from nextgen_uia_tpu_torch.models import clip as clip_mod
+from nextgen_uia_tpu_torch.models.resnet import SPECS
 from nextgen_uia_tpu_torch.nn.layers import gelu
 
 D, H, P, E = 8, 32, 2, 4   # width, MLP hidden (4 D), patch, embedding: toy sizes
@@ -206,7 +207,7 @@ def _unet(t):
 
 
 def _resnet(t, arch):
-    kind, layout = C.RESNET_SPECS[arch]
+    kind, layout = SPECS[arch]
     sd = {}
     _conv(sd, t, "conv1", 3, D, 7, bias=False)
     _bn(sd, t, "bn1")
@@ -259,7 +260,7 @@ STATE_DICTS = {
     "unet": _unet,
     "dinov2_unet_decoder": _unet_decoder,
     "modified_resnet": _modified_resnet,
-    **{arch: (lambda a: lambda t: _resnet(t, a))(arch) for arch in C.RESNET_SPECS},
+    **{arch: (lambda a: lambda t: _resnet(t, a))(arch) for arch in SPECS},
 }
 
 

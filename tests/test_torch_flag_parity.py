@@ -30,7 +30,10 @@ CLIS = [("biomedclip.classification", []), ("biomedclip.segmentation", []),
         ("unimedclip.predict", []), ("unimedclip.zero_shot", []),
         ("unimedclip.finetune", []),
         ("dino.classification", []), ("dino.segmentation", []), ("dino.predict", []),
-        ("clipseg.segmentation", []), ("clipseg.predict", [])]
+        ("clipseg.segmentation", []), ("clipseg.predict", []),
+        ("baselines.classification", []), ("baselines.segmentation", []),
+        ("baselines.fewshot_classification", []), ("baselines.fewshot_segmentation", []),
+        ("baselines.predict", []), ("baselines.predict", ["--task", "seg"])]
 DIFFERENT_DEFAULT = {"device"}
 
 

@@ -170,9 +170,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
             main(base + extra)
     from nextgen_uia_tpu_torch.tasks.serve import predict_main
 
-    # CLIPSeg serves since its slice; the baselines are still to come
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        predict_main("baselines", base + ["--task", "seg"])
+    # CLIPSeg and the baselines serve since their slices; --export still refuses there
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        predict_main("baselines", base + ["--task", "seg", "--export", "f"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--images", str(tmp_path / "imgs"), "--task", "seg", "--debug_tiny"])

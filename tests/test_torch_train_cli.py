@@ -154,7 +154,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     Docstrings and comments may name them."""
     files = glob.glob(os.path.join(REPO, "nextgen_uia_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) > 30 and any(os.sep + "clipseg" + os.sep in f for f in files)
+    assert len(files) > 30 and all(any(os.sep + pkg + os.sep in f for f in files)
+                                   for pkg in ("clipseg", "baselines"))
     banned = ("nextgen_uia_tpu", "jax", "jaxlib", "flax", "optax")
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _imports(f) if mod.split(".")[0] in banned]
