@@ -4301,6 +4301,12 @@ def k6_causal_rows(dev):
     return rows
 
 
+# K7's float32 kernels (csrc/flash_attention.cu, namespace f32): the
+# forward, then the backward's D pass, dK/dV and dQ kernels
+F32_FLASH_KERNELS = ("flash_fwd_f32", "flash_bwd_delta_f32", "flash_bwd_dkdv_f32",
+                     "flash_bwd_dq_f32")
+
+
 def k7_f32_dh16_rows(dev):
     """K7's float32 path at the CLIPSeg decoder's head dim 16, [32, 197, 4,
     16] (batch, tokens, heads, head dim; reduce_dim 64 in 4 heads), q, k
@@ -4310,7 +4316,10 @@ def k7_f32_dh16_rows(dev):
     two calls; the op and its kernels alone, forward and backward, SDPA's
     float32 forward and autograd backward on the same views, the plain
     versions, and the bound (the operations at the CUDA cores' float32
-    rate: the kernels run no tensor-core product). Returns the two rows."""
+    rate: the kernels run no tensor-core product) with the kernels' share of
+    it. The profiler windows must show the float32 kernels
+    (``F32_FLASH_KERNELS``) and no SIMT attention kernel. Returns the two
+    rows."""
     import torch
     import torch.nn.functional as F
 
@@ -4337,10 +4346,11 @@ def k7_f32_dh16_rows(dev):
         bwd = lambda: fa.flash_attention_backward(q, k, v, out, g, lse,  # noqa: E731
                                                   bias_grad=False, **kw)
         sdpa_args = [t.transpose(1, 2) for t in (q, k, v)]
-        f_op, f_k = cuda_ms(fwd, 20), kernel_device_ms(fwd, "flash", 20)
+        f_seen, b_seen = set(), set()
+        f_op, f_k = cuda_ms(fwd, 20), kernel_device_ms(fwd, "flash", 20, seen=f_seen)
         f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(*sdpa_args), 20)
         f_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3, warmup=1)
-        b_op, b_k = cuda_ms(bwd, 20), kernel_device_ms(bwd, "flash", 20)
+        b_op, b_k = cuda_ms(bwd, 20), kernel_device_ms(bwd, "flash", 20, seen=b_seen)
         b_plain = cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, None, g,
                                                                     layout="bnhd"), 3, warmup=1)
     leaves = [t.detach().requires_grad_() for t in sdpa_args]
@@ -4350,13 +4360,24 @@ def k7_f32_dh16_rows(dev):
     head_io = 4 * b * h * n * dh  # one float32 [B, H, N, dh] tensor
     f_bound = bound(4 * b * h * n * n * dh, 4 * head_io + 4 * b * h * n, peak=CUDA_CORE_FLOPS)
     b_bound = bound(10 * b * h * n * n * dh, 8 * head_io + 4 * b * h * n, peak=CUDA_CORE_FLOPS)
+    names = {"forward": (f_seen, F32_FLASH_KERNELS[:1]), "backward": (b_seen,
+                                                                      F32_FLASH_KERNELS[1:])}
+    for what, (seen, want) in names.items():
+        old = sorted(k[:60] for k in seen if "simt" in k)
+        missing = [w for w in want if not any(w in k for k in seen)]
+        check = ("not made: the profiler recorded no device activity" if not seen else
+                 f"{', '.join(want)} seen, no SIMT kernel")
+        print(f"flash_attention_f32_dh16: {what} profiler names: {check}")
+        require(not seen or (not old and not missing),
+                f"K7 float32 {what} ran {old or 'without ' + ', '.join(missing)}")
     print(f"flash_attention_f32_dh16: K7 float32 [{b}, {n}, {h}, {dh}] packed: max|d| "
-          f"{err:.3e} (<= {F32_BOUND * scale:.3e}), lse rel {lse_rel:.3e}; backward max|d| / "
-          f"max|ref| {b_rel:.3e}, two calls bitwise equal: {same}; forward op {f_op:.4f} ms, "
-          f"kernel {f_k:.4f} ms, SDPA {f_lib:.4f} ms, plain {f_plain:.4f} ms, bound "
-          f"{f_bound[0]:.4f} ms ({f_bound[1]}); backward op {b_op:.4f} ms, kernels {b_k:.4f} ms, "
-          f"SDPA backward {b_lib:.4f} ms, plain {b_plain:.4f} ms, bound {b_bound[0]:.4f} ms "
-          f"({b_bound[1]})")
+          f"{err:.3e} (<= {F32_BOUND * scale:.3e}), lse rel {lse_rel:.3e}; forward op "
+          f"{f_op:.4f} ms, kernel {f_k:.4f} ms ({f_bound[0] / f_k:.1%} of its bound "
+          f"{f_bound[0]:.4f} ms, {f_bound[1]}), SDPA {f_lib:.4f} ms, plain {f_plain:.4f} ms")
+    print(f"flash_attention_f32_dh16_backward: max|d| / max|ref| {b_rel:.3e}, two calls "
+          f"bitwise equal: {same}; op {b_op:.4f} ms, kernels {b_k:.4f} ms ({b_bound[0] / b_k:.1%} "
+          f"of its bound {b_bound[0]:.4f} ms, {b_bound[1]}), SDPA backward {b_lib:.4f} ms, "
+          f"plain {b_plain:.4f} ms")
     require(err <= F32_BOUND * scale and lse_rel <= F32_BOUND and b_rel <= F32_BOUND,
             "K7 float32 at head dim 16 disagrees with the plain versions")
     require(same, "K7's float32 backward at head dim 16 is not bitwise repeatable")

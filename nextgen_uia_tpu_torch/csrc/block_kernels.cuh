@@ -446,16 +446,4 @@ static cudaError_t launch_gemm(Operand a, const void* w, int dtype, bool bt, Epi
   return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// q, k, v at base + b*sb + h*sh + n*sn + d (element strides), as the
-// flash-attention kernels' float32 SIMT variants read them
-// ---------------------------------------------------------------------------
-
-struct QKV {
-  const void* q;
-  const void* k;
-  const void* v;
-  int sb, sh, sn;  // element strides; offsets are formed in size_t
-};
-
 }  // namespace nx

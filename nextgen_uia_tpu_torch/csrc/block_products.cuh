@@ -183,7 +183,7 @@ static int mlp_bwd(const void* z, const void* w1_t, const float* b1, const void*
 // 0.2667 ms against 0.2758 at 128 x 4 for BERT's [256 * 256, 768], a tie at
 // serving's [32 * 197, 768], 0.0570 against 0.0522 for the CLIP text
 // cache's [256 * 77, 512]). wo_t [D, D] = Wo^T in `dtype`; key_bias [B, N]
-// float32 (keys >= n_real folded in) or null. float32: K7's SIMT kernel and
+// float32 (keys >= n_real folded in) or null. float32: K7's float32 kernel and
 // the SIMT GEMM.
 static inline int attn_o_f32(const void* q, const void* k, const void* v, int sb, int sh,
                              int sn, const float* key_bias, int causal, const void* x,

@@ -77,10 +77,13 @@
 // on its last tile. In the dK/dV kernel a key's row of P^T touches only its
 // own dK, dV and dbias, which are clipped.
 //
-// float32: the tensor cores have no f32 product, so SIMT variants (8 warps
-// x 4 rows, 64-wide tiles) keep the f32 path exact for the checks.
+// float32 (the CLIPSeg decoder's attention at head dim 16, every float32
+// check): kernels of their own on the CUDA cores, the head dim specialised
+// at compile time; see "float32" below.
 
 #include <cfloat>
+#include <initializer_list>
+#include <type_traits>
 
 #include "block_kernels.cuh"
 #include "hopper.cuh"
@@ -865,16 +868,19 @@ cudaError_t head_map(CUtensorMap& m, const void* ptr, int b, int heads, int n, i
 }
 
 // launch KERNEL (3 warpgroups) with `smem` bytes of dynamic shared memory,
-// opting in to them once per device
+// opting in once per device to `most` bytes (a kernel whose shared memory
+// depends on the call), or to `smem`
 template <auto KERNEL, class P>
-cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const P& p, int threads = THREADS) {
+cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const P& p, int threads = THREADS,
+                   int most = 0) {
   static bool opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most > smem ? most : smem);
     if (err != cudaSuccess) return err;
     opted[dev] = true;
   }
@@ -885,382 +891,678 @@ cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const P& p, int threads 
 }
 
 // ---------------------------------------------------------------------------
-// float32 SIMT path: 8 warps x 4 query rows, 64-key tiles, dh <= 64
+// float32: exact FFMA on the CUDA cores, the head dim a template parameter
 // ---------------------------------------------------------------------------
-
-constexpr int SQ_ROWS = 4, S_THREADS = 256, S_WARPS = S_THREADS / 32;
-constexpr int S_QTILE = S_WARPS * SQ_ROWS, S_KTILE = 64, S_KLD = S_KTILE + 1;
-
-static inline size_t simt_smem(int dh) {
-  return sizeof(float) * ((size_t)S_WARPS * SQ_ROWS * dh + (size_t)dh * S_KLD +
-                          (size_t)S_KTILE * dh + (size_t)S_WARPS * SQ_ROWS * S_KTILE);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(S_THREADS)
-flash_fwd_simt(QKV in, Out out, const float* __restrict__ bias, float* __restrict__ lse, int n,
-               int dh, int causal, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;                                  // [warps][rows][dh]
-  float* Kt = Qs + S_WARPS * SQ_ROWS * dh;         // [dh][S_KLD], transposed
-  float* Vs = Kt + dh * S_KLD;                     // [S_KTILE][dh]
-  float* Ps = Vs + S_KTILE * dh;                   // [warps][rows][S_KTILE]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kb = static_cast<const T*>(in.k) + off;
-  const T* vb = static_cast<const T*>(in.v) + off;
-  const float* brow = bias ? bias + (size_t)b * n : nullptr;
-  const int i0 = blockIdx.x * S_QTILE + warp * SQ_ROWS;
-  float* q = Qs + warp * SQ_ROWS * dh;
-  float* p = Ps + warp * SQ_ROWS * S_KTILE;
-  for (int e = lane; e < SQ_ROWS * dh; e += 32) {
-    const int rr = e / dh, d = e % dh;
-    q[e] = i0 + rr < n ? to_f32(qb[(size_t)(i0 + rr) * in.sn + d]) : 0.f;
-  }
-  const int d0 = lane, d1 = lane + 32;
-  const bool has0 = d0 < dh, has1 = d1 < dh;
-  float m_run[SQ_ROWS], l_run[SQ_ROWS], o0[SQ_ROWS], o1[SQ_ROWS];
-#pragma unroll
-  for (int rr = 0; rr < SQ_ROWS; ++rr) m_run[rr] = -INFINITY, l_run[rr] = o0[rr] = o1[rr] = 0.f;
-
-  int n_tiles = (n + S_KTILE - 1) / S_KTILE;
-  if (causal) n_tiles = min(n_tiles, (blockIdx.x * S_QTILE + S_QTILE - 1) / S_KTILE + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int i = threadIdx.x; i < S_KTILE * dh; i += S_THREADS) {
-      const int k = i / dh, d = i % dh, key = t * S_KTILE + k;
-      const bool ok = key < n;
-      Kt[d * S_KLD + k] = ok ? to_f32(kb[(size_t)key * in.sn + d]) : 0.f;
-      Vs[k * dh + d] = ok ? to_f32(vb[(size_t)key * in.sn + d]) : 0.f;
-    }
-    __syncthreads();
-    float s[2][SQ_ROWS];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + 32 * half, key = t * S_KTILE + c;
-#pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) s[half][rr] = 0.f;
-      for (int d = 0; d < dh; ++d) {
-        const float kd = Kt[d * S_KLD + c];
-#pragma unroll
-        for (int rr = 0; rr < SQ_ROWS; ++rr) s[half][rr] = fmaf(q[rr * dh + d], kd, s[half][rr]);
-      }
-#pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        float v = s[half][rr] * scale;
-        if (key >= n) v = NEG;
-        else if (brow) v += brow[key];
-        if (causal && key > i0 + rr) v = NEG;
-        s[half][rr] = v;
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < SQ_ROWS; ++rr) {
-      const float mx = warp_max(fmaxf(s[0][rr], s[1][rr]));
-      const float m_new = fmaxf(m_run[rr], mx);
-      const float alpha = expf(m_run[rr] - m_new);
-      const float e0 = expf(s[0][rr] - m_new), e1 = expf(s[1][rr] - m_new);
-      p[rr * S_KTILE + lane] = round_to<T>(e0);
-      p[rr * S_KTILE + lane + 32] = round_to<T>(e1);
-      l_run[rr] = l_run[rr] * alpha + warp_sum(e0 + e1);
-      m_run[rr] = m_new;
-      o0[rr] *= alpha;
-      o1[rr] *= alpha;
-    }
-    __syncwarp();
-    for (int k = 0; k < S_KTILE; ++k) {
-      const float v0 = has0 ? Vs[k * dh + d0] : 0.f, v1 = has1 ? Vs[k * dh + d1] : 0.f;
-#pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        const float pk = p[rr * S_KTILE + k];
-        o0[rr] = fmaf(pk, v0, o0[rr]);
-        o1[rr] = fmaf(pk, v1, o1[rr]);
-      }
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int rr = 0; rr < SQ_ROWS; ++rr) {
-    if (i0 + rr >= n) break;
-    T* orow = static_cast<T*>(out.o) + (size_t)b * out.sb + (size_t)h * out.sh +
-              (size_t)(i0 + rr) * out.sn;
-    if (has0) orow[d0] = from_f32<T>(o0[rr] / l_run[rr]);
-    if (has1) orow[d1] = from_f32<T>(o1[rr] / l_run[rr]);
-    if (lse && lane == 0)
-      lse[((size_t)b * gridDim.y + h) * n + i0 + rr] = m_run[rr] + logf(l_run[rr]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 backward. The TPU kernel (_bwd_kernel) recomputes one head's whole
-// score block in VMEM; here P is recomputed tile by tile from the row
-// log-sum-exp the forward saved, P = exp(s - lse), with the forward's
-// masking order (-1e30 past N, then the key bias, then causal). With
-// D = rowsum(dO * O) (one small pass, `flash_bwd_delta`, shared with bf16):
 //
-//   dV = round(P)^T dO,  dP = dO V^T,  ds_raw = P * (dP - D),
-//   dS = round(ds_raw * scale),  dQ = dS K,  dK = dS^T Q,
-//   dbias[b, key] = sum over heads and queries of ds_raw.
+// The tensor cores take no float32 operand, and TF32's 10-bit mantissa
+// (~5e-4 relative) misses the float32 checks' 1e-4 * max|ref|, so every
+// product is float32 FFMA. At the CLIPSeg decoder's [32, 197, 4, 16] the
+// forward's 318 MFLOP take 4.7 us at the CUDA cores' 67 TFLOP/s and its
+// 1.7 MB 0.5 us at 3.35 TB/s: these kernels are bound by the issue of their
+// instructions, and their layout keeps the FFMA share of those high.
 //
-// D equals the TPU kernel's rowsum(dP * P) up to the rounding of O to the
-// input type (O = P V is stored rounded), a relative difference of about
-// one rounding step of O (2^-9 in bf16, 2^-24 in float32). Two kernels and
-// no atomics on dQ/dK/dV, so the result is deterministic: the dK/dV kernel
-// loops over the query tiles accumulating dK and dV in registers (with
-// `causal` it starts at the diagonal), the dQ kernel loops over the key
-// tiles accumulating dQ (with `causal` it stops at the diagonal). dbias,
-// when asked for, is each key's column sum of ds_raw, added over heads into
-// a float32 [B, N] with atomics (in bf16 too).
-// ---------------------------------------------------------------------------
+// - The head dim is a compile-time DH (16, 32, 64); a head dim below it
+//   runs with its missing dims zero-filled, which gives the same dot
+//   products. Each row is spread over S = DH / 16 lanes, 16 dims a lane
+//   (float4 chunks h, h + S, ... of lane part h), so every DH has the
+//   registers of DH 16; a score's S partial sums meet by xor shuffles,
+//   which leave the same bits in all S lanes.
+// - A CTA of four warps takes one (b, h) and 32 R / S rows of the operand
+//   it holds (queries in the forward and the dQ kernel, keys in the dK/dV
+//   kernel); each thread owns R of them, those rows and their accumulators
+//   in registers.
+// - The other operand (K and V, or Q and dO) streams through shared memory
+//   in chunks of 4096 / DH rows (two [rows, DH] tiles, 32 KB), copied by
+//   cp.async, 16 bytes a copy where every row is 16-byte aligned and 4
+//   otherwise; two chunks are in flight when the head needs more than one,
+//   else one buffer holds it whole (197 keys at DH 16: 25 KB). The warps
+//   split each chunk in groups of G rows, group j to warp j % 4. The lanes
+//   of a warp read the same streamed row (S neighbouring chunks of it), so
+//   every shared-memory read is a broadcast, four floats at a time.
+// - The forward's online softmax runs per thread on its own rows, with no
+//   shuffles, and rescales once per group of G keys. Without a key bias the
+//   scale and log2(e) fold into one FFMA before the SFU's exp2; with one,
+//   the difference to the row's max (or lse) is taken first, as in bf16.
+// - Masks cost nothing where they cannot apply: a group that holds keys at
+//   or past N, or (causal) keys past its first row, takes masked passes of
+//   its own behind one warp-uniform branch. Streamed rows past N are
+//   zero-filled; the dK/dV kernel's queries past N carry lse = +inf (P = 0).
+// - At the end the warps' partials meet in shared memory, and each thread
+//   sums one float4 chunk of its rows over them in a fixed order: no
+//   atomics on o, dq, dk or dv, so two calls are bitwise equal.
+//
+// The backward, as the TPU kernel (_bwd_kernel), recomputes P from the row
+// log-sum-exp the forward saved, P = exp(s - lse), in the forward's masking
+// order (-1e30 past N, then the key bias, then causal). With D = rowsum(dO
+// * O) from a pass of its own:
+//
+//   dV = P^T dO,  dP = dO V^T,  ds_raw = P * (dP - D),  dS = ds_raw * scale,
+//   dQ = dS K,  dK = dS^T Q,  dbias[b, key] = sum over heads and queries of
+//   ds_raw.
+//
+// D equals the TPU kernel's rowsum(dP * P) up to the rounding of O (2^-24
+// relative in float32). The dQ kernel holds queries and streams K and V
+// (with `causal` it stops at its last query); the dK/dV kernel holds keys
+// and streams Q, dO, lse and D (with `causal` it starts at its first key),
+// and adds each key's column sum of ds_raw into dbias with float32 atomics
+// over heads, as the bf16 kernel does.
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-flash_bwd_delta(Out og, const void* __restrict__ g, float* __restrict__ delta, int n, int dh) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z, h = blockIdx.y, row = blockIdx.x * 8 + warp;
-  if (row >= n) return;
-  const size_t off = (size_t)b * og.sb + (size_t)h * og.sh + (size_t)row * og.sn;
-  const T* orow = static_cast<const T*>(og.o) + off;
-  const T* grow = static_cast<const T*>(g) + off;
-  float s = 0.f;
-  for (int d = lane; d < dh; d += 32) s = fmaf(to_f32(orow[d]), to_f32(grow[d]), s);
-  s = warp_sum(s);
-  if (lane == 0) delta[((size_t)b * gridDim.y + h) * n + row] = s;
-}
+namespace f32 {
 
-struct Grads {
-  void* dq;
-  void* dk;
-  void* dv;
-  float* dbias;  // [B, N] float32, zeroed by the caller, or null
+constexpr int WARPS = 4, THREADS = 32 * WARPS;
+constexpr int DL = 16, CL = DL / 4;  // dims of a row a lane holds, in float4 chunks
+static_assert(CL == WARPS, "the combine gives each warp one chunk of a row");
+
+// Rows a thread holds (R), streamed rows a group (G) and CTAs an SM the
+// registers must leave room for (B: 255 registers a thread at 2, 168 at 3,
+// 128 at 4) of each kernel, the same at every DH. Timed on an H100 at [32,
+// 197, 4, 16] against one row a thread (each kernel slower), other groups,
+// and B 3 or 4 in the backward (spills); the forward's B 4 keeps 4 CTAs an
+// SM, so its 512 CTAs there run in one wave.
+constexpr int FWD_R = 2, FWD_G = 8, FWD_B = 4;
+constexpr int DQ_R = 2, DQ_G = 4, DQ_B = 2;
+constexpr int DKDV_R = 2, DKDV_G = 2, DKDV_B = 2;
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;      // backward: the forward's output
+  const float* g;      // backward: its gradient
+  float* out;          // forward: o
+  float* dq;
+  float* dk;
+  float* dv;
+  const float* bias;   // [B, N] or null
+  float* lse;          // [B, H, N], natural log: the forward's (or null), the backward's input
+  float* delta;        // [B, H, N]: D
+  float* dbias;        // [B, N], zeroed, or null
+  int sb, sh, sn;      // q, k, v
+  int osb, osh, osn;   // o, g, dq, dk, dv
+  int n, dh, causal;
+  int vec;             // every row 16-byte aligned and dh % 4 == 0: 16-byte copies
+  float scale;
 };
 
-// a masked, scaled score of (key, row), the forward's order
-__device__ __forceinline__ float masked_score(float s, float scale, int key, int row, int n,
-                                              const float* brow, int causal) {
-  float v = s * scale;
-  if (key >= n) v = NEG;
-  else if (brow) v += brow[key];
-  if (causal && key > row) v = NEG;
+// streamed rows a chunk holds at head dim DH (two [rows, DH] tiles, 32 KB)
+__host__ __device__ constexpr int chunk_rows(int dh) { return 4096 / dh; }
+
+// A kernel's layout: 32 R / S held rows a CTA, groups of G streamed rows,
+// PER_ROW floats of shared memory a streamed row, PART floats of the warps'
+// partials. One buffer of cap() rows (two when the head needs more than one
+// chunk); the partials reuse it from the start after the last chunk.
+template <int DH, int R, int G, int PER_ROW_EXTRA, int PART_ROW>
+struct Shape {
+  static constexpr int S = DH / DL, ROWS = 32 * R / S, PER_ROW = 2 * DH + PER_ROW_EXTRA,
+                       PART = WARPS * R * PART_ROW * 32;
+  // rows a buffer is given: the whole head, a multiple of G, when it fits
+  // in one chunk, else a chunk
+  static __host__ __device__ constexpr int cap(int n) {
+    return n <= chunk_rows(DH) ? (n + G - 1) / G * G : chunk_rows(DH);
+  }
+  static constexpr int smem_bytes(int n) {
+    const int bufs = (n > chunk_rows(DH) ? 2 : 1) * cap(n) * PER_ROW;
+    return 4 * (bufs > PART ? bufs : PART);
+  }
+};
+// the forward's partials: o, m, l; dQ's: dq; dK/dV's: dk, dv, dbias
+template <int DH, bool BIAS> using FwdShape = Shape<DH, FWD_R, FWD_G, BIAS, DL + 2>;
+template <int DH, bool BIAS> using DqShape = Shape<DH, DQ_R, DQ_G, BIAS, DL>;
+template <int DH> using DkdvShape = Shape<DH, DKDV_R, DKDV_G, 2, 2 * DL + 1>;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// rows [0, rows) of a tile at `src` (`stride` elements between rows) into
+// dst[rows][DH], rows from `valid` on and dims from dh on zero-filled
+template <int DH>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, size_t stride, int rows,
+                                           int valid, int dh, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * (DH / 4); i += THREADS) {
+      const int r = i / (DH / 4), c = 4 * (i % (DH / 4));
+      const bool ok = r < valid && c < dh;
+      cp_async16(dst + r * DH + c, ok ? src + r * stride + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DH; i += THREADS) {
+      const int r = i / DH, c = i % DH;
+      const bool ok = r < valid && c < dh;
+      cp_async4(dst + i, ok ? src + r * stride + c : src, ok);
+    }
+  }
+}
+
+// `rows` values of a per-row array, `fill` from `valid` on
+__device__ __forceinline__ void stage_values(float* dst, const float* src, int rows, int valid,
+                                             float fill) {
+  for (int i = threadIdx.x; i < rows; i += THREADS) {
+    if (i < valid) cp_async4(dst + i, src + i, true);
+    else dst[i] = fill;
+  }
+}
+
+// this lane's 16 dims of a held row (chunks h, h + S, ...; `src` at chunk
+// h), zero where !ok and from dh on
+template <int S>
+__device__ __forceinline__ void load_row(float (&x)[DL], const float* src, int h, bool ok, int dh,
+                                         bool vec) {
+#pragma unroll
+  for (int i = 0; i < CL; ++i) {
+    const int c = 4 * (h + S * i);
+    const float* p = src + 4 * S * i;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok && c < dh) {
+      if (vec) {
+        t = __ldg(reinterpret_cast<const float4*>(p));
+      } else {
+        t.x = __ldg(p);
+        t.y = c + 1 < dh ? __ldg(p + 1) : 0.f;
+        t.z = c + 2 < dh ? __ldg(p + 2) : 0.f;
+        t.w = c + 3 < dh ? __ldg(p + 3) : 0.f;
+      }
+    }
+    x[4 * i] = t.x, x[4 * i + 1] = t.y, x[4 * i + 2] = t.z, x[4 * i + 3] = t.w;
+  }
+}
+
+// the sum of v over the S lanes of a row, the same bits in each
+template <int S>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < S; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// float32 SIMT backward, dh <= 64, exact float32 for the checks. dK/dV: 8
-// warps x 4 keys per CTA, 64-query tiles (Q and dO transposed in shared
-// memory, one query per lane and half); dQ: 8 warps x 4 queries, 64-key
-// tiles (K and V transposed), as the forward's SIMT kernel.
-constexpr int B_KLD = 64 + 1;
-
-static inline size_t simt_bwd_smem(int dh) {
-  // per-warp rows (2 x [4][dh]), two transposed tiles [dh][65], per-warp
-  // [4][64] P and dS, and (dK/dV) the tile's lse and D
-  return sizeof(float) * (2 * (size_t)S_WARPS * SQ_ROWS * dh + 2 * (size_t)dh * B_KLD +
-                          2 * (size_t)S_WARPS * SQ_ROWS * 64 + 2 * 64);
+// s[r][j] = a_r . X[j] and t[r][j] = b_r . Y[j] over whole rows, for this
+// thread's R held rows a, b (its 16 dims) and G streamed rows X[j], Y[j]
+// ([G][DH] in shared memory, X and Y at this lane's chunk h)
+template <int DH, int R, int G>
+__device__ __forceinline__ void dots(float (&s)[R][G], float (&t)[R][G], const float (&a)[R][DL],
+                                     const float (&b)[R][DL], const float* X, const float* Y) {
+  constexpr int S = DH / DL;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < G; ++j) s[r][j] = t[r][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CL; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(X + j * DH + 4 * S * i);
+      const float4 y = *reinterpret_cast<const float4*>(Y + j * DH + 4 * S * i);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r][j] = fmaf(a[r][4 * i], x.x, s[r][j]);
+        s[r][j] = fmaf(a[r][4 * i + 1], x.y, s[r][j]);
+        s[r][j] = fmaf(a[r][4 * i + 2], x.z, s[r][j]);
+        s[r][j] = fmaf(a[r][4 * i + 3], x.w, s[r][j]);
+        t[r][j] = fmaf(b[r][4 * i], y.x, t[r][j]);
+        t[r][j] = fmaf(b[r][4 * i + 1], y.y, t[r][j]);
+        t[r][j] = fmaf(b[r][4 * i + 2], y.z, t[r][j]);
+        t[r][j] = fmaf(b[r][4 * i + 3], y.w, t[r][j]);
+      }
+    }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < G; ++j) s[r][j] = row_sum<S>(s[r][j]), t[r][j] = row_sum<S>(t[r][j]);
+  // the callers read X or Y again (dq += dS K, dk += dS^T Q, dv += P^T dO):
+  // reloading them costs less than the registers that keeping every value
+  // read here would take through the softmax
+  asm volatile("" ::: "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(S_THREADS)
-flash_bwd_dkdv_simt(QKV in, Out og, const T* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const float* __restrict__ bias, Grads out,
-                    int n, int dh, int causal, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* Kr = sm;                                  // [warps][rows][dh]
-  float* Vr = Kr + S_WARPS * SQ_ROWS * dh;         // [warps][rows][dh]
-  float* Qt = Vr + S_WARPS * SQ_ROWS * dh;         // [dh][65]
-  float* Gt = Qt + dh * B_KLD;                     // [dh][65]
-  float* Ps = Gt + dh * B_KLD;                     // [warps][rows][64]
-  float* Ss = Ps + S_WARPS * SQ_ROWS * 64;         // [warps][rows][64]
-  float* Lt = Ss + S_WARPS * SQ_ROWS * 64;         // [64]
-  float* Dt = Lt + 64;                             // [64]
+// acc[r][d] += w[r][j] * X[j][d] over the G streamed rows X ([G][DH], at
+// this lane's chunk h), this lane's 16 dims
+template <int DH, int R, int G>
+__device__ __forceinline__ void accumulate(float (&acc)[R][DL], const float (&w)[R][G],
+                                           const float* X) {
+  constexpr int S = DH / DL;
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int i = 0; i < CL; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(X + j * DH + 4 * S * i);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r][4 * i] = fmaf(w[r][j], x.x, acc[r][4 * i]);
+        acc[r][4 * i + 1] = fmaf(w[r][j], x.y, acc[r][4 * i + 1]);
+        acc[r][4 * i + 2] = fmaf(w[r][j], x.z, acc[r][4 * i + 2]);
+        acc[r][4 * i + 3] = fmaf(w[r][j], x.w, acc[r][4 * i + 3]);
+      }
+    }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const size_t goff = (size_t)b * og.sb + (size_t)h * og.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kb = static_cast<const T*>(in.k) + off;
-  const T* vb = static_cast<const T*>(in.v) + off;
-  const T* gb = g + goff;
-  const size_t rows_off = ((size_t)b * gridDim.y + h) * n;
-  const float* brow = bias ? bias + (size_t)b * n : nullptr;
-  const int cta_key0 = blockIdx.x * S_QTILE, j0 = cta_key0 + warp * SQ_ROWS;
-  float* kr = Kr + warp * SQ_ROWS * dh;
-  float* vr = Vr + warp * SQ_ROWS * dh;
-  float* p = Ps + warp * SQ_ROWS * 64;
-  float* ds = Ss + warp * SQ_ROWS * 64;
-  for (int e = lane; e < SQ_ROWS * dh; e += 32) {
-    const int rr = e / dh, d = e % dh;
-    const bool ok = j0 + rr < n;
-    kr[e] = ok ? to_f32(kb[(size_t)(j0 + rr) * in.sn + d]) : 0.f;
-    vr[e] = ok ? to_f32(vb[(size_t)(j0 + rr) * in.sn + d]) : 0.f;
+// float4 y into global chunk `chunk` of a row (the dims below dh)
+__device__ __forceinline__ void store_chunk(float* row, float4 y, int chunk, int dh, bool vec) {
+  const int c = 4 * chunk;
+  if (c >= dh) return;
+  if (vec) {
+    *reinterpret_cast<float4*>(row + c) = y;
+  } else {
+    row[c] = y.x;
+    if (c + 1 < dh) row[c + 1] = y.y;
+    if (c + 2 < dh) row[c + 2] = y.z;
+    if (c + 3 < dh) row[c + 3] = y.w;
   }
-  const int d0 = lane, d1 = lane + 32;
-  const bool has0 = d0 < dh, has1 = d1 < dh;
-  float ak0[SQ_ROWS] = {}, ak1[SQ_ROWS] = {}, av0[SQ_ROWS] = {}, av1[SQ_ROWS] = {};
-  float db[SQ_ROWS] = {};
+}
 
-  const int n_tiles = (n + 63) / 64;
-  for (int t = causal ? cta_key0 / 64 : 0; t < n_tiles; ++t) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < 64 * dh; i += S_THREADS) {
-      const int c = i / dh, d = i % dh, row = t * 64 + c;
-      const bool ok = row < n;
-      Qt[d * B_KLD + c] = ok ? to_f32(qb[(size_t)row * in.sn + d]) : 0.f;
-      Gt[d * B_KLD + c] = ok ? to_f32(gb[(size_t)row * og.sn + d]) : 0.f;
-    }
-    if (threadIdx.x < 64) {
-      const int row = t * 64 + threadIdx.x;
-      Lt[threadIdx.x] = row < n ? lse[rows_off + row] : 0.f;
-      Dt[threadIdx.x] = row < n ? delta[rows_off + row] : 0.f;
-    }
+// the four warps' float4 chunk `i` (of DL / 4) of row r, as put_part left
+// them in part[warp][r][ROW][lane], each weighted by w[warp], summed in order
+template <int R, int ROW>
+__device__ __forceinline__ float4 sum_chunk(const float* part, int r, int i,
+                                            const float (&w)[WARPS], int lane) {
+  float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int wp = 0; wp < WARPS; ++wp) {
+    const float* pr = part + ((wp * R + r) * ROW + 4 * i) * 32 + lane;
+    y.x = fmaf(w[wp], pr[0], y.x);
+    y.y = fmaf(w[wp], pr[32], y.y);
+    y.z = fmaf(w[wp], pr[64], y.z);
+    y.w = fmaf(w[wp], pr[96], y.w);
+  }
+  return y;
+}
+
+// Runs `body(c, buf)` for each of `chunks` chunks of streamed rows, `buf`
+// the shared-memory buffer that `stage(c, buf)` filled with cp.async:
+// chunk c + 1's copies are in flight while chunk c is read.
+template <class Stage, class Body>
+__device__ __forceinline__ void for_chunks(float* bufs, int buf_floats, int chunks, Stage stage,
+                                           Body body) {
+  for (int c = 0; c <= chunks; ++c) {
+    if (c < chunks) stage(c, bufs + (c & 1) * buf_floats);
+    cp_async_commit();  // empty after the last chunk
+    if (c == 0) continue;
+    cp_async_wait<1>();  // chunk c - 1 has landed
     __syncthreads();
+    body(c - 1, bufs + ((c - 1) & 1) * buf_floats);
+    __syncthreads();  // its buffer is free for chunk c + 1
+  }
+}
+
+// Forward. Held: R query rows a thread; streamed: K, V (and the key bias).
+template <int DH, bool BIAS>
+__global__ void __launch_bounds__(THREADS, FWD_B)
+flash_fwd_f32(Params p) {
+  using Sh = FwdShape<DH, BIAS>;
+  constexpr int S = Sh::S, R = FWD_R, G = FWD_G, CH = chunk_rows(DH);
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, part_h = lane % S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * Sh::ROWS, n = p.n;
+  const int row0 = q0 + lane / S;  // this thread's rows: row0 + r * 32 / S
+  const size_t off = (size_t)b * p.sb + (size_t)h * p.sh;
+  const float* brow = BIAS ? p.bias + (size_t)b * n : nullptr;
+  const int cap = Sh::cap(n), nk = p.causal ? min(n, q0 + Sh::ROWS) : n;
+  const float c2 = BIAS ? L2E : p.scale * L2E;  // exp2 units of a score (BIAS: of a biased one)
+
+  float q[R][DL], o[R][DL], m[R], l[R];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + 32 * half, row = t * 64 + c;
-      float s[SQ_ROWS] = {}, dp[SQ_ROWS] = {};
-      for (int d = 0; d < dh; ++d) {
-        const float qd = Qt[d * B_KLD + c], gd = Gt[d * B_KLD + c];
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * 32 / S;
+    load_row<S>(q[r], p.q + off + (size_t)row * p.sn + 4 * part_h, part_h, row < n, p.dh,
+                p.vec);
+    m[r] = -INFINITY, l[r] = 0.f;
 #pragma unroll
-        for (int rr = 0; rr < SQ_ROWS; ++rr) {
-          s[rr] = fmaf(kr[rr * dh + d], qd, s[rr]);
-          dp[rr] = fmaf(vr[rr * dh + d], gd, dp[rr]);
+    for (int d = 0; d < DL; ++d) o[r][d] = 0.f;
+  }
+
+  auto stage = [&](int c, float* buf) {
+    const int c0 = c * CH, len = min(CH, nk - c0), rows = (len + G - 1) / G * G;
+    stage_tile<DH>(buf, p.k + off + (size_t)c0 * p.sn, p.sn, rows, len, p.dh, p.vec);
+    stage_tile<DH>(buf + cap * DH, p.v + off + (size_t)c0 * p.sn, p.sn, rows, len, p.dh, p.vec);
+    if (BIAS) stage_values(buf + 2 * cap * DH, brow + c0, rows, len, 0.f);
+  };
+  for_chunks(sm, cap * Sh::PER_ROW, (nk + CH - 1) / CH, stage, [&](int c, const float* buf) {
+    const int c0 = c * CH, groups = (min(CH, nk - c0) + G - 1) / G;
+    for (int j = warp; j < groups; j += WARPS) {
+      // one group of G keys from key0: scores, online softmax, o += P V
+      const int key0 = c0 + j * G;
+      const float* K = buf + j * G * DH + 4 * part_h;
+      const float* V = K + cap * DH;
+      const float* kbias = buf + 2 * cap * DH + j * G;
+      const bool edge = key0 + G > n || (p.causal && key0 + G - 1 > q0);
+      auto masked = [&](int r, int jj) {
+        return key0 + jj >= n || (p.causal && key0 + jj > row0 + r * 32 / S);
+      };
+      float s[R][G];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) s[r][jj] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CL; ++i)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          const float4 x = *reinterpret_cast<const float4*>(K + jj * DH + 4 * S * i);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            s[r][jj] = fmaf(q[r][4 * i], x.x, s[r][jj]);
+            s[r][jj] = fmaf(q[r][4 * i + 1], x.y, s[r][jj]);
+            s[r][jj] = fmaf(q[r][4 * i + 2], x.z, s[r][jj]);
+            s[r][jj] = fmaf(q[r][4 * i + 3], x.w, s[r][jj]);
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          s[r][jj] = row_sum<S>(s[r][jj]);
+          if (BIAS) s[r][jj] = fmaf(s[r][jj], p.scale, kbias[jj]);
+        }
+      if (edge) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int jj = 0; jj < G; ++jj)
+            if (masked(r, jj)) s[r][jj] = NEG;
+      }
+      float alpha[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) mx = fmaxf(mx, s[r][jj]);
+        alpha[r] = exp2_approx((m[r] - mx) * c2);
+        const float mc = mx * c2;
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+          s[r][jj] = BIAS ? exp2_approx((s[r][jj] - mx) * L2E)
+                          : exp2_approx(fmaf(s[r][jj], c2, -mc));
+        m[r] = mx;
+      }
+      // a masked key's P is 0, also where every key so far was masked (the
+      // folded FFMA of -1e30 against itself leaves the product's rounding)
+      if (edge) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int jj = 0; jj < G; ++jj)
+            if (masked(r, jj)) s[r][jj] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) sum += s[r][jj];
+        l[r] = fmaf(l[r], alpha[r], sum);
+#pragma unroll
+        for (int d = 0; d < DL; ++d) o[r][d] *= alpha[r];
+      }
+      accumulate<DH, R, G>(o, s, V);
+    }
+  });
+
+  // the warps' (o, m, l) as part[warp][r][DL + 2][lane]; then thread (warp
+  // w) rescales and sums chunk w of its rows over the warps in order. Warp
+  // 0 saw key 0, which no row masks, so every row's max is real.
+  float* part = sm;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* pr = part + (warp * R + r) * (DL + 2) * 32 + lane;
+#pragma unroll
+    for (int d = 0; d < DL; ++d) pr[d * 32] = o[r][d];
+    pr[DL * 32] = m[r];
+    pr[(DL + 1) * 32] = l[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * 32 / S;
+    float mw[WARPS], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      mw[w] = part[((w * R + r) * (DL + 2) + DL) * 32 + lane];
+      mx = fmaxf(mx, mw[w]);
+    }
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      mw[w] = exp2_approx((mw[w] - mx) * c2);
+      sum = fmaf(mw[w], part[((w * R + r) * (DL + 2) + DL + 1) * 32 + lane], sum);
+    }
+    float4 y = sum_chunk<R, DL + 2>(part, r, warp, mw, lane);
+    if (row >= n) continue;
+    y.x /= sum, y.y /= sum, y.z /= sum, y.w /= sum;
+    store_chunk(p.out + (size_t)b * p.osb + (size_t)h * p.osh + (size_t)row * p.osn, y,
+                part_h + S * warp, p.dh, p.vec);
+    if (p.lse && warp == 0 && part_h == 0)
+      p.lse[((size_t)b * gridDim.y + h) * n + row] = (BIAS ? mx : mx * p.scale) + logf(sum);
+  }
+}
+
+// D = rowsum(dO * O): a thread a row
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_f32(Params p) {
+  const int row = blockIdx.x * 256 + threadIdx.x, b = blockIdx.z, h = blockIdx.y;
+  if (row >= p.n) return;
+  const size_t off = (size_t)b * p.osb + (size_t)h * p.osh + (size_t)row * p.osn;
+  const float* o = p.o + off;
+  const float* g = p.g + off;
+  float s = 0.f;
+  if (p.vec) {
+    for (int d = 0; d < p.dh; d += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(o + d));
+      const float4 c = __ldg(reinterpret_cast<const float4*>(g + d));
+      s = fmaf(a.x, c.x, s);
+      s = fmaf(a.y, c.y, s);
+      s = fmaf(a.z, c.z, s);
+      s = fmaf(a.w, c.w, s);
+    }
+  } else {
+    for (int d = 0; d < p.dh; ++d) s = fmaf(__ldg(o + d), __ldg(g + d), s);
+  }
+  p.delta[((size_t)b * gridDim.y + h) * p.n + row] = s;
+}
+
+// dQ. Held: R query rows a thread (q and dO, with their lse and D);
+// streamed: K, V (and the key bias).
+template <int DH, bool BIAS>
+__global__ void __launch_bounds__(THREADS, DQ_B)
+flash_bwd_dq_f32(Params p) {
+  using Sh = DqShape<DH, BIAS>;
+  constexpr int S = Sh::S, R = DQ_R, G = DQ_G, CH = chunk_rows(DH);
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, part_h = lane % S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * Sh::ROWS, n = p.n;
+  const int row0 = q0 + lane / S;
+  const size_t off = (size_t)b * p.sb + (size_t)h * p.sh;
+  const size_t goff = (size_t)b * p.osb + (size_t)h * p.osh;
+  const size_t rows_off = ((size_t)b * gridDim.y + h) * n;
+  const float* brow = BIAS ? p.bias + (size_t)b * n : nullptr;
+  const int cap = Sh::cap(n), nk = p.causal ? min(n, q0 + Sh::ROWS) : n;
+  const float c2 = p.scale * L2E;
+
+  float q[R][DL], go[R][DL], dq[R][DL], lse[R], dd[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * 32 / S;
+    const bool ok = row < n;
+    load_row<S>(q[r], p.q + off + (size_t)row * p.sn + 4 * part_h, part_h, ok, p.dh, p.vec);
+    load_row<S>(go[r], p.g + goff + (size_t)row * p.osn + 4 * part_h, part_h, ok, p.dh, p.vec);
+    // lse in exp2 units without a bias; +inf past N (P = 0)
+    lse[r] = ok ? p.lse[rows_off + row] * (BIAS ? 1.f : L2E) : INFINITY;
+    dd[r] = ok ? p.delta[rows_off + row] : 0.f;
+#pragma unroll
+    for (int d = 0; d < DL; ++d) dq[r][d] = 0.f;
+  }
+
+  auto stage = [&](int c, float* buf) {
+    const int c0 = c * CH, len = min(CH, nk - c0), rows = (len + G - 1) / G * G;
+    stage_tile<DH>(buf, p.k + off + (size_t)c0 * p.sn, p.sn, rows, len, p.dh, p.vec);
+    stage_tile<DH>(buf + cap * DH, p.v + off + (size_t)c0 * p.sn, p.sn, rows, len, p.dh, p.vec);
+    if (BIAS) stage_values(buf + 2 * cap * DH, brow + c0, rows, len, 0.f);
+  };
+  for_chunks(sm, cap * Sh::PER_ROW, (nk + CH - 1) / CH, stage, [&](int c, const float* buf) {
+    const int c0 = c * CH, groups = (min(CH, nk - c0) + G - 1) / G;
+    for (int j = warp; j < groups; j += WARPS) {
+      // one group of G keys from key0: S, dP, dS, then dq += dS K
+      const int key0 = c0 + j * G;
+      const float* K = buf + j * G * DH + 4 * part_h;
+      const float* V = K + cap * DH;
+      const float* kbias = buf + 2 * cap * DH + j * G;
+      float s[R][G], dp[R][G];
+      dots<DH, R, G>(s, dp, q, go, K, V);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          const float pv = BIAS ? exp2_approx((fmaf(s[r][jj], p.scale, kbias[jj]) - lse[r]) * L2E)
+                                : exp2_approx(fmaf(s[r][jj], c2, -lse[r]));
+          s[r][jj] = pv * (dp[r][jj] - dd[r]) * p.scale;
+        }
+      if (key0 + G > n || (p.causal && key0 + G - 1 > q0)) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int jj = 0; jj < G; ++jj)
+            if (key0 + jj >= n || (p.causal && key0 + jj > row0 + r * 32 / S)) s[r][jj] = 0.f;
+      }
+      accumulate<DH, R, G>(dq, s, K);
+    }
+  });
+
+  // the warps' dq as part[warp][r][DL][lane], summed in order
+  float* part = sm;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int d = 0; d < DL; ++d) part[((warp * R + r) * DL + d) * 32 + lane] = dq[r][d];
+  __syncthreads();
+  const float ones[WARPS] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * 32 / S;
+    const float4 y = sum_chunk<R, DL>(part, r, warp, ones, lane);
+    if (row < n)
+      store_chunk(p.dq + goff + (size_t)row * p.osn, y, part_h + S * warp, p.dh, p.vec);
+  }
+}
+
+// dK and dV. Held: R key rows a thread (k and v, with their key bias);
+// streamed: Q, dO, lse and D.
+template <int DH, bool BIAS>
+__global__ void __launch_bounds__(THREADS, DKDV_B)
+flash_bwd_dkdv_f32(Params p) {
+  using Sh = DkdvShape<DH>;
+  constexpr int S = Sh::S, R = DKDV_R, G = DKDV_G, CH = chunk_rows(DH);
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, part_h = lane % S;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * Sh::ROWS, n = p.n;
+  const int key0 = k0 + lane / S;  // this thread's keys: key0 + r * 32 / S
+  const size_t off = (size_t)b * p.sb + (size_t)h * p.sh;
+  const size_t goff = (size_t)b * p.osb + (size_t)h * p.osh;
+  const size_t rows_off = ((size_t)b * gridDim.y + h) * n;
+  const int cap = Sh::cap(n), qs = p.causal ? k0 : 0;  // the first query that counts
+  const float c2 = p.scale * L2E;
+
+  float k[R][DL], v[R][DL], dk[R][DL], dv[R][DL], kb[R], db[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int key = key0 + r * 32 / S;
+    const bool ok = key < n;
+    load_row<S>(k[r], p.k + off + (size_t)key * p.sn + 4 * part_h, part_h, ok, p.dh, p.vec);
+    load_row<S>(v[r], p.v + off + (size_t)key * p.sn + 4 * part_h, part_h, ok, p.dh, p.vec);
+    kb[r] = BIAS && ok ? p.bias[(size_t)b * n + key] : 0.f;
+    db[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DL; ++d) dk[r][d] = dv[r][d] = 0.f;
+  }
+
+  auto stage = [&](int c, float* buf) {
+    const int c0 = qs + c * CH, len = min(CH, n - c0), rows = (len + G - 1) / G * G;
+    stage_tile<DH>(buf, p.q + off + (size_t)c0 * p.sn, p.sn, rows, len, p.dh, p.vec);
+    stage_tile<DH>(buf + cap * DH, p.g + goff + (size_t)c0 * p.osn, p.osn, rows, len, p.dh,
+                   p.vec);
+    stage_values(buf + 2 * cap * DH, p.lse + rows_off + c0, rows, len, INFINITY);
+    stage_values(buf + 2 * cap * DH + cap, p.delta + rows_off + c0, rows, len, 0.f);
+  };
+  for_chunks(sm, cap * Sh::PER_ROW, (n - qs + CH - 1) / CH, stage, [&](int c, const float* buf) {
+    const int c0 = qs + c * CH, groups = (min(CH, n - c0) + G - 1) / G;
+    for (int j = warp; j < groups; j += WARPS) {
+      // one group of G queries from i0: S^T, dP^T, then dv += P^T dO, dk += dS^T Q
+      const int i0 = c0 + j * G;
+      const float* Q = buf + j * G * DH + 4 * part_h;
+      const float* GO = Q + cap * DH;
+      const float* L = buf + 2 * cap * DH + j * G;
+      const float* Dq = L + cap;
+      float s[R][G], dp[R][G];
+      dots<DH, R, G>(s, dp, k, v, Q, GO);
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) {
+        const float lj = BIAS ? L[jj] : L[jj] * L2E, dj = Dq[jj];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float pv = BIAS ? exp2_approx((fmaf(s[r][jj], p.scale, kb[r]) - lj) * L2E)
+                                : exp2_approx(fmaf(s[r][jj], c2, -lj));
+          s[r][jj] = pv;
+          dp[r][jj] = pv * (dp[r][jj] - dj);
         }
       }
+      if (p.causal && k0 + Sh::ROWS - 1 > i0) {
 #pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        const float v = masked_score(s[rr], scale, j0 + rr, row, n, brow, causal);
-        const float pij = row < n ? expf(v - Lt[c]) : 0.f;
-        const float ds_raw = pij * (dp[rr] - Dt[c]);
-        db[rr] += ds_raw;
-        p[rr * 64 + c] = round_to<T>(pij);
-        ds[rr * 64 + c] = round_to<T>(ds_raw * scale);
-      }
-    }
-    __syncwarp();
-    for (int c = 0; c < 64; ++c) {
-      const float g0 = has0 ? Gt[d0 * B_KLD + c] : 0.f, g1 = has1 ? Gt[d1 * B_KLD + c] : 0.f;
-      const float q0 = has0 ? Qt[d0 * B_KLD + c] : 0.f, q1 = has1 ? Qt[d1 * B_KLD + c] : 0.f;
+        for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        const float pr = p[rr * 64 + c], sr = ds[rr * 64 + c];
-        av0[rr] = fmaf(pr, g0, av0[rr]);
-        av1[rr] = fmaf(pr, g1, av1[rr]);
-        ak0[rr] = fmaf(sr, q0, ak0[rr]);
-        ak1[rr] = fmaf(sr, q1, ak1[rr]);
+          for (int jj = 0; jj < G; ++jj)
+            if (key0 + r * 32 / S > i0 + jj) s[r][jj] = dp[r][jj] = 0.f;
       }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          if (BIAS) db[r] += dp[r][jj];
+          dp[r][jj] *= p.scale;
+        }
+      accumulate<DH, R, G>(dv, s, GO);
+      accumulate<DH, R, G>(dk, dp, Q);
     }
-    __syncwarp();
+  });
+
+  // the warps' (dk, dv, dbias) as part[warp][r][2 DL + 1][lane], summed in order
+  float* part = sm;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* pr = part + (warp * R + r) * (2 * DL + 1) * 32 + lane;
+#pragma unroll
+    for (int d = 0; d < DL; ++d) pr[d * 32] = dk[r][d], pr[(DL + d) * 32] = dv[r][d];
+    pr[2 * DL * 32] = db[r];
   }
+  __syncthreads();
+  const float ones[WARPS] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
-  for (int rr = 0; rr < SQ_ROWS; ++rr) {
-    const float dsum = warp_sum(db[rr]);
-    const int key = j0 + rr;
+  for (int r = 0; r < R; ++r) {
+    const int key = key0 + r * 32 / S;
+    const float4 yk = sum_chunk<R, 2 * DL + 1>(part, r, warp, ones, lane);
+    const float4 yv = sum_chunk<R, 2 * DL + 1>(part + DL * 32, r, warp, ones, lane);
     if (key >= n) continue;
-    if (out.dbias && lane == 0) atomicAdd(out.dbias + (size_t)b * n + key, dsum);
-    const size_t o = goff + (size_t)key * og.sn;
-    T* dkr = static_cast<T*>(out.dk) + o;
-    T* dvr = static_cast<T*>(out.dv) + o;
-    if (has0) dkr[d0] = from_f32<T>(ak0[rr]), dvr[d0] = from_f32<T>(av0[rr]);
-    if (has1) dkr[d1] = from_f32<T>(ak1[rr]), dvr[d1] = from_f32<T>(av1[rr]);
+    const size_t o = goff + (size_t)key * p.osn;
+    store_chunk(p.dk + o, yk, part_h + S * warp, p.dh, p.vec);
+    store_chunk(p.dv + o, yv, part_h + S * warp, p.dh, p.vec);
+    if (BIAS && p.dbias && warp == 0 && part_h == 0) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += part[((w * R + r) * (2 * DL + 1) + 2 * DL) * 32 + lane];
+      atomicAdd(p.dbias + (size_t)b * n + key, sum);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(S_THREADS)
-flash_bwd_dq_simt(QKV in, Out og, const T* __restrict__ g, const float* __restrict__ lse,
-                  const float* __restrict__ delta, const float* __restrict__ bias, Grads out,
-                  int n, int dh, int causal, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qr = sm;                                  // [warps][rows][dh]
-  float* Gr = Qr + S_WARPS * SQ_ROWS * dh;         // [warps][rows][dh]
-  float* Kt = Gr + S_WARPS * SQ_ROWS * dh;         // [dh][65]
-  float* Vt = Kt + dh * B_KLD;                     // [dh][65]
-  float* Ss = Vt + dh * B_KLD;                     // [warps][rows][64]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t off = (size_t)b * in.sb + (size_t)h * in.sh;
-  const size_t goff = (size_t)b * og.sb + (size_t)h * og.sh;
-  const T* qb = static_cast<const T*>(in.q) + off;
-  const T* kb = static_cast<const T*>(in.k) + off;
-  const T* vb = static_cast<const T*>(in.v) + off;
-  const T* gb = g + goff;
-  const size_t rows_off = ((size_t)b * gridDim.y + h) * n;
-  const float* brow = bias ? bias + (size_t)b * n : nullptr;
-  const int i0 = blockIdx.x * S_QTILE + warp * SQ_ROWS;
-  float* qr = Qr + warp * SQ_ROWS * dh;
-  float* gr = Gr + warp * SQ_ROWS * dh;
-  float* ds = Ss + warp * SQ_ROWS * 64;
-  for (int e = lane; e < SQ_ROWS * dh; e += 32) {
-    const int rr = e / dh, d = e % dh;
-    const bool ok = i0 + rr < n;
-    qr[e] = ok ? to_f32(qb[(size_t)(i0 + rr) * in.sn + d]) : 0.f;
-    gr[e] = ok ? to_f32(gb[(size_t)(i0 + rr) * og.sn + d]) : 0.f;
-  }
-  float l_row[SQ_ROWS], d_row[SQ_ROWS];
-#pragma unroll
-  for (int rr = 0; rr < SQ_ROWS; ++rr) {
-    const bool ok = i0 + rr < n;
-    l_row[rr] = ok ? lse[rows_off + i0 + rr] : 0.f;
-    d_row[rr] = ok ? delta[rows_off + i0 + rr] : 0.f;
-  }
-  const int d0 = lane, d1 = lane + 32;
-  const bool has0 = d0 < dh, has1 = d1 < dh;
-  float a0[SQ_ROWS] = {}, a1[SQ_ROWS] = {};
-
-  int n_tiles = (n + 63) / 64;
-  if (causal) n_tiles = min(n_tiles, (blockIdx.x * S_QTILE + S_QTILE - 1) / 64 + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 64 * dh; i += S_THREADS) {
-      const int c = i / dh, d = i % dh, key = t * 64 + c;
-      const bool ok = key < n;
-      Kt[d * B_KLD + c] = ok ? to_f32(kb[(size_t)key * in.sn + d]) : 0.f;
-      Vt[d * B_KLD + c] = ok ? to_f32(vb[(size_t)key * in.sn + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + 32 * half, key = t * 64 + c;
-      float s[SQ_ROWS] = {}, dp[SQ_ROWS] = {};
-      for (int d = 0; d < dh; ++d) {
-        const float kd = Kt[d * B_KLD + c], vd = Vt[d * B_KLD + c];
-#pragma unroll
-        for (int rr = 0; rr < SQ_ROWS; ++rr) {
-          s[rr] = fmaf(qr[rr * dh + d], kd, s[rr]);
-          dp[rr] = fmaf(gr[rr * dh + d], vd, dp[rr]);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        const int row = i0 + rr;
-        const float v = masked_score(s[rr], scale, key, row, n, brow, causal);
-        const float pij = row < n ? expf(v - l_row[rr]) : 0.f;
-        ds[rr * 64 + c] = round_to<T>(pij * (dp[rr] - d_row[rr]) * scale);
-      }
-    }
-    __syncwarp();
-    for (int c = 0; c < 64; ++c) {
-      const float k0 = has0 ? Kt[d0 * B_KLD + c] : 0.f, k1 = has1 ? Kt[d1 * B_KLD + c] : 0.f;
-#pragma unroll
-      for (int rr = 0; rr < SQ_ROWS; ++rr) {
-        a0[rr] = fmaf(ds[rr * 64 + c], k0, a0[rr]);
-        a1[rr] = fmaf(ds[rr * 64 + c], k1, a1[rr]);
-      }
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int rr = 0; rr < SQ_ROWS; ++rr) {
-    if (i0 + rr >= n) break;
-    T* dqr = static_cast<T*>(out.dq) + goff + (size_t)(i0 + rr) * og.sn;
-    if (has0) dqr[d0] = from_f32<T>(a0[rr]);
-    if (has1) dqr[d1] = from_f32<T>(a1[rr]);
-  }
+// every base 16-byte aligned, every stride and dh a multiple of 4 floats
+inline bool rows_aligned(std::initializer_list<const void*> ptrs,
+                         std::initializer_list<int> strides, int dh) {
+  if (dh % 4) return false;
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  for (int s : strides)
+    if (s % 4) return false;
+  return true;
 }
+
+}  // namespace f32
 
 template <int NC>
 cudaError_t fwd(const float* bias, int n, int heads, int b, cudaStream_t s, const FwdParams& p) {
@@ -1268,6 +1570,46 @@ cudaError_t fwd(const float* bias, int n, int heads, int b, cudaStream_t s, cons
   constexpr int smem = FwdSmem<NC>::BYTES, threads = (NC + 1) * WG;
   return bias ? launch<flash_fwd_wgmma<true, NC>>(grid, smem, s, p, threads)
               : launch<flash_fwd_wgmma<false, NC>>(grid, smem, s, p, threads);
+}
+
+// float32 at head dim DH: the forward, or the backward's three launches
+template <int DH, bool BIAS>
+cudaError_t fwd_f32(const f32::Params& p, int heads, int b, cudaStream_t s) {
+  using S = f32::FwdShape<DH, BIAS>;
+  return launch<f32::flash_fwd_f32<DH, BIAS>>(dim3((p.n + S::ROWS - 1) / S::ROWS, heads, b),
+                                              S::smem_bytes(p.n), s, p, f32::THREADS,
+                                              S::smem_bytes(1 << 30));
+}
+
+template <int DH, bool BIAS>
+cudaError_t bwd_f32(const f32::Params& p, int heads, int b, cudaStream_t s) {
+  using K = f32::DkdvShape<DH>;
+  using Q = f32::DqShape<DH, BIAS>;
+  f32::flash_bwd_delta_f32<<<dim3((p.n + 255) / 256, heads, b), 256, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch<f32::flash_bwd_dkdv_f32<DH, BIAS>>(dim3((p.n + K::ROWS - 1) / K::ROWS, heads, b),
+                                                 K::smem_bytes(p.n), s, p, f32::THREADS,
+                                                 K::smem_bytes(1 << 30));
+  if (err != cudaSuccess) return err;
+  return launch<f32::flash_bwd_dq_f32<DH, BIAS>>(dim3((p.n + Q::ROWS - 1) / Q::ROWS, heads, b),
+                                                Q::smem_bytes(p.n), s, p, f32::THREADS,
+                                                Q::smem_bytes(1 << 30));
+}
+
+// the float32 forward, or backward, at head dim DH
+template <int DH>
+cudaError_t run_f32(bool backward, const f32::Params& p, int heads, int b, cudaStream_t s) {
+  if (backward)
+    return p.bias ? bwd_f32<DH, true>(p, heads, b, s) : bwd_f32<DH, false>(p, heads, b, s);
+  return p.bias ? fwd_f32<DH, true>(p, heads, b, s) : fwd_f32<DH, false>(p, heads, b, s);
+}
+
+// ... at the DH of dh: the next of 16, 32 and 64
+cudaError_t run_f32(bool backward, const f32::Params& p, int heads, int b, cudaStream_t s) {
+  return p.dh <= 16   ? run_f32<16>(backward, p, heads, b, s)
+         : p.dh <= 32 ? run_f32<32>(backward, p, heads, b, s)
+                      : run_f32<64>(backward, p, heads, b, s);
 }
 
 }  // namespace
@@ -1303,15 +1645,14 @@ int nx_flash_attention(const void* q, const void* k, const void* v, void* o, con
     return (int)(n > 512 ? fwd<3>(bias, n, heads, b, s, p) : fwd<2>(bias, n, heads, b, s, p));
   }
   if (dtype != F32 || dh < 1 || dh > 64) return (int)cudaErrorInvalidValue;
-  const QKV in{q, k, v, sb, sh, sn};
-  const Out out{o, osb, osh, osn};
-  const size_t smem = simt_smem(dh);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + S_QTILE - 1) / S_QTILE, heads, b);
-  flash_fwd_simt<float><<<grid, S_THREADS, smem, s>>>(in, out, bias, lse, n, dh, causal, scale);
-  return (int)cudaGetLastError();
+  f32::Params p = {};
+  p.q = static_cast<const float*>(q), p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v), p.out = static_cast<float*>(o);
+  p.bias = bias, p.lse = lse;
+  p.sb = sb, p.sh = sh, p.sn = sn, p.osb = osb, p.osh = osh, p.osn = osn;
+  p.n = n, p.dh = dh, p.causal = causal, p.scale = scale;
+  p.vec = f32::rows_aligned({q, k, v, o}, {sb, sh, sn, osb, osh, osn}, dh);
+  return (int)run_f32(false, p, heads, b, s);
 }
 
 // Backward of nx_flash_attention: q, k, v at their strides (as the
@@ -1327,10 +1668,6 @@ int nx_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || heads < 1 || n < 1 || b > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  const QKV in{q, k, v, sb, sh, sn};
-  const Out og{const_cast<void*>(o), osb, osh, osn};
-  const Grads out{dq, dk, dv, dbias};
-  const dim3 rows_grid((n + 7) / 8, heads, b);
   cudaError_t err;
   if (dtype == BF16) {
     if (dh != D) return (int)cudaErrorInvalidValue;
@@ -1346,6 +1683,7 @@ int nx_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
     p.lse = lse, p.delta = delta, p.bias = bias, p.dbias = dbias;
     p.n = n, p.causal = causal, p.scale = scale;
     if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+    const Out og{const_cast<void*>(o), osb, osh, osn};
     flash_bwd_delta_bf16<<<dim3((n + 31) / 32, heads, b), 256, 0, s>>>(
         og, static_cast<const __nv_bfloat16*>(g), delta, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1357,25 +1695,16 @@ int nx_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
                       : launch<flash_bwd_dq_wgmma<false>>(grid, DqSmem::BYTES, s, p));
   }
   if (dtype != F32 || dh < 1 || dh > 64) return (int)cudaErrorInvalidValue;
-  flash_bwd_delta<float><<<rows_grid, 256, 0, s>>>(og, g, delta, n, dh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const auto* gg = static_cast<const float*>(g);
-  const size_t smem = simt_bwd_smem(dh);
-  const dim3 grid((n + S_QTILE - 1) / S_QTILE, heads, b);
-  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_simt<float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-      cudaSuccess)
-    return (int)err;
-  flash_bwd_dkdv_simt<float><<<grid, S_THREADS, smem, s>>>(in, og, gg, lse, delta, bias, out, n,
-                                                           dh, causal, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = cudaFuncSetAttribute(flash_bwd_dq_simt<float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-      cudaSuccess)
-    return (int)err;
-  flash_bwd_dq_simt<float><<<grid, S_THREADS, smem, s>>>(in, og, gg, lse, delta, bias, out, n, dh,
-                                                         causal, scale);
-  return (int)cudaGetLastError();
+  f32::Params p = {};
+  p.q = static_cast<const float*>(q), p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v), p.o = static_cast<const float*>(o);
+  p.g = static_cast<const float*>(g), p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk), p.dv = static_cast<float*>(dv);
+  p.bias = bias, p.lse = const_cast<float*>(lse), p.delta = delta, p.dbias = dbias;
+  p.sb = sb, p.sh = sh, p.sn = sn, p.osb = osb, p.osh = osh, p.osn = osn;
+  p.n = n, p.dh = dh, p.causal = causal, p.scale = scale;
+  p.vec = f32::rows_aligned({q, k, v, o, g, dq, dk, dv}, {sb, sh, sn, osb, osh, osn}, dh);
+  return (int)run_f32(true, p, heads, b, s);
 }
 
 }  // extern "C"

@@ -53,7 +53,7 @@
 // forward in the backward costs a projection and an attention forward
 // more than saving them, which is what the TPU kernel's structure does too.
 // float32 runs the same layout on block_kernels.cuh's SIMT GEMM and K7's
-// SIMT kernels: the exact float32 check of the algorithm.
+// float32 kernels: the exact float32 check of the algorithm.
 
 #include "block_products.cuh"
 

@@ -53,8 +53,8 @@
 // Each output element is one thread's sum in a fixed order (no atomics), so
 // two calls are bitwise equal. bf16 needs dh = 64 (K7's wgmma kernels) and
 // D % 64 == 0 (the core); the wrapper refuses anything else. float32 runs
-// the same dataflow on K7's SIMT kernels and block_kernels.cuh's SIMT GEMM:
-// the exact float32 check of the algorithm.
+// the same dataflow on K7's float32 kernels and block_kernels.cuh's SIMT
+// GEMM: the exact float32 check of the algorithm.
 //
 // Post-LN variant (nx_attn_o_postln_fwd), forward only: out = LN(x + cat @
 // Wo + bo) -> T, eps 1e-12 for BERT. It replaces the same Pallas kernel with

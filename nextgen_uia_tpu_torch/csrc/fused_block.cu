@@ -59,7 +59,7 @@
 // Each output element is one thread's sum in a fixed order (no atomics), so
 // two calls are bitwise equal. bf16 needs dh = 64 (K7's wgmma kernels),
 // D % 64 == 0 and hidden % 64 == 0 (the core); the wrapper refuses anything
-// else. float32 runs the same dataflow on K7's SIMT kernels and
+// else. float32 runs the same dataflow on K7's float32 kernels and
 // block_kernels.cuh's SIMT GEMM: the exact float32 check of the algorithm.
 
 #include "block_products.cuh"

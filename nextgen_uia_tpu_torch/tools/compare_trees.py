@@ -1,7 +1,7 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
     python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
-        [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench|aug]
+        [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|aug]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -20,7 +20,12 @@ raw-x, K6 post-LN, K9, the three-kernel chain they make, and K1 post-norm.
 the flash-attention forward and backward at each of ``K7_SHAPES`` in bf16:
 the op's CUDA-event mean over back-to-back calls through the wrapper (its
 host time included) and its kernels' device time alone (torch.profiler,
-the sum of every kernel whose name holds "flash" per call). ``k11`` prints
+the sum of every kernel whose name holds "flash" per call). ``k7f32`` prints the same for K7 in float32 at
+each of ``K7F32_SHAPES`` (the CLIPSeg decoder's [32, 197, 4, 16], then a
+float32 fine-tune's head dim 64), q, k and v strided views of one packed
+[B, N, 3, H, dh] product as ``mha`` hands them over, no bias, and beside
+each direction ``scaled_dot_product_attention``'s float32 time on the same
+views (its forward, and its autograd backward). ``k11`` prints
 the same for the attention block's forward and dx backward
 (``fused_attn_block``, ``fused_attn_block_backward``) at each of
 ``K11_SHAPES`` in bf16, its kernels being every one whose name holds
@@ -73,6 +78,10 @@ K7_SHAPES = (  # (B, H, N, layout, key bias): DINOv2 at 518 px, then the path sh
     (16, 12, 197, "bnhd", True),    # OpenAI/MetaCLIP LoRA microbatch (mha's LoRA route)
     (64, 12, 197, "bhnd", False),   # the bench step's K11 and hybrid routes
     (16, 12, 256, "bnhd", True))    # --tune_text_encoder's PubMedBERT LoRA layers
+
+K7F32_SHAPES = (  # (B, N, H, dh), q|k|v packed: the CLIPSeg decoder, a float32 fine-tune
+    (32, 197, 4, 16),
+    (16, 197, 12, 64))
 
 K11_SHAPES = (  # (B, N, D, heads, causal, key bias): the bench step's, the causal case
     (64, 197, 768, 12, False, True),
@@ -180,6 +189,31 @@ for b, h, n, layout, bias in SHAPES:
         print(f"K7 [{b}, {h}, {n}, 64] {layout} bias={bias}: fwd op {op_ms(fwd, iters):.4f} "
               f"kernel {kernel_ms(fwd, iters, ('flash',)):.4f}; bwd op {op_ms(bwd, iters):.4f} "
               f"kernel {kernel_ms(bwd, iters, ('flash',)):.4f} ms", flush=True)
+'''
+
+K7F32 = f"SHAPES = {K7F32_SHAPES!r}" + TIMERS + r'''
+import torch.nn.functional as F
+from nextgen_uia_tpu_torch.ops import flash_attention as fa
+torch.backends.cuda.matmul.allow_tf32 = False
+for b, n, h, dh in SHAPES:
+    g = torch.Generator().manual_seed(n)
+    q, k, v = torch.randn(b, n, 3, h, dh, generator=g).to(dev).unbind(2)
+    go = torch.randn(b, n, h, dh, generator=g).to(dev)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    with torch.no_grad():
+        out, lse = fa.flash_attention_forward(q, k, v, layout="bnhd")
+        fwd = lambda: fa.flash_attention_forward(q, k, v, layout="bnhd")
+        bwd = lambda: fa.flash_attention_backward(q, k, v, out, go, lse, layout="bnhd",
+                                                  bias_grad=False)
+        sdpa = lambda: F.scaled_dot_product_attention(*views)
+        fwd_ms = (op_ms(fwd, 50), kernel_ms(fwd, 50, ('flash',)), op_ms(sdpa, 50))
+        bwd_ms = (op_ms(bwd, 50), kernel_ms(bwd, 50, ('flash',)))
+    leaves = [t.detach().requires_grad_() for t in views]
+    o = F.scaled_dot_product_attention(*leaves)
+    sdpa_bwd = lambda: torch.autograd.grad(o, leaves, go.transpose(1, 2), retain_graph=True)
+    print(f"K7F32 [{b}, {n}, {h}, {dh}] packed: fwd op {fwd_ms[0]:.4f} kernel {fwd_ms[1]:.4f} "
+          f"SDPA {fwd_ms[2]:.4f}; bwd op {bwd_ms[0]:.4f} kernels {bwd_ms[1]:.4f} SDPA "
+          f"{op_ms(sdpa_bwd, 50):.4f} ms", flush=True)
 '''
 
 K11 = f"SHAPES = {K11_SHAPES!r}" + TIMERS + r'''
@@ -449,7 +483,7 @@ for b, size in SHAPES:
 '''
 
 TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
-           "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
+           "k7f32": (K7F32, "K7F32 "), "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
            "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH "),
            "aug": (AUG, "AUG ")}
 
@@ -459,7 +493,8 @@ def main(argv=None):
     if not 1 <= len(argv) <= 2 or not os.path.isdir(argv[0]) or (
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
-                         "OTHER_CHECKOUT [k1|k5|k6|k7|k8|k11|k12|mlp|spatial|text|bench|aug]")
+                         "OTHER_CHECKOUT [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|"
+                         "aug]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

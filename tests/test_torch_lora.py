@@ -4,8 +4,9 @@ the CPU.
 (a) ``flash_attention_backward_plain`` against ``jax.grad`` of the JAX
 ``flash_attention`` (Pallas, interpret mode, as tests/test_flash_attention.py
 runs it): float32, with a key bias, causal, a ragged N, the CUDA kernels'
-tile edges (N = 1, 64, 65, 129), both layouts, and ``bias_grad=True`` (the
-bias's gradient too); the port's autograd through
+tile edges (N = 1, 64, 65, 129), both layouts, ``bias_grad=True`` (the
+bias's gradient too), head dim 64 and the CLIPSeg decoder's 16; the port's
+autograd through
 ``flash_attention`` on CPU tensors gives the same; max|d| <= 2e-5 *
 max(1, max|ref|). (b) ``mha``'s LoRA route (LayerNorm given, residual,
 nonzero b, a key bias) against the JAX ``mha`` (its CPU einsum route): the
@@ -48,20 +49,23 @@ def _close(got, want, rel=2e-5):
     assert err <= rel * max(1.0, scale), f"max|d| {err:.3e} (max|ref| {scale:.3e})"
 
 
-@pytest.mark.parametrize("layout,b,h,n,bias,causal,bias_grad", [
-    ("bnhd", 2, 2, 33, False, False, False),
-    ("bhnd", 2, 3, 20, True, False, False),
-    ("bnhd", 1, 2, 37, False, True, False),
-    ("bhnd", 2, 2, 29, True, True, True),
-    ("bnhd", 2, 4, 33, True, False, True),
+@pytest.mark.parametrize("layout,b,h,n,bias,causal,bias_grad,dh", [
+    ("bnhd", 2, 2, 33, False, False, False, 64),
+    ("bhnd", 2, 3, 20, True, False, False, 64),
+    ("bnhd", 1, 2, 37, False, True, False, 64),
+    ("bhnd", 2, 2, 29, True, True, True, 64),
+    ("bnhd", 2, 4, 33, True, False, True, 64),
     # the CUDA kernels' tile edges (64-row boxes, 128-row tiles)
-    ("bnhd", 2, 2, 1, True, True, True),
-    ("bhnd", 1, 2, 64, True, True, False),
-    ("bnhd", 1, 2, 65, True, True, True),
-    ("bhnd", 1, 2, 129, True, True, True)])
-def test_flash_backward_plain_matches_jax(layout, b, h, n, bias, causal, bias_grad):
+    ("bnhd", 2, 2, 1, True, True, True, 64),
+    ("bhnd", 1, 2, 64, True, True, False, 64),
+    ("bnhd", 1, 2, 65, True, True, True, 64),
+    ("bhnd", 1, 2, 129, True, True, True, 64),
+    # the CLIPSeg decoder's head dim (4 heads of 16)
+    ("bnhd", 1, 4, 33, True, True, True, 16),
+    ("bnhd", 1, 4, 33, False, False, False, 16)])
+def test_flash_backward_plain_matches_jax(layout, b, h, n, bias, causal, bias_grad, dh):
     rng = np.random.default_rng(n + h)
-    shape = (b, n, h, 64) if layout == "bnhd" else (b, h, n, 64)
+    shape = (b, n, h, dh) if layout == "bnhd" else (b, h, n, dh)
     q, k, v, cot = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
     kb = (0.5 * rng.standard_normal((b, n))).astype(np.float32) if bias else None
 
