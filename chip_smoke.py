@@ -183,7 +183,18 @@
    segmentation and predict --task seg on its best_model.npz,
    classification from a seeded torchvision resnet18 converted by
    ``python -m nextgen_uia_tpu_torch.convert resnet18`` and predict --task
-   cls, and both few-shot trainers.
+   cls, and both few-shot trainers. Export phase: BiomedCLIP cls with
+   hybrid MONA, DINOv2 seg at 518 px, CLIPSeg and the UNet (BatchNorm
+   statistics as arguments) exported at batch 16 through the predict
+   CLI's `build_served` and export (the kernels as nextgen_uia:: ops), loaded back:
+   exactly the expected ops, no weight in the program (under 1% of the
+   weights' bytes but for the UNet), outputs against the live forward and
+   the plain route, export seconds and the exported call against the live
+   one; the first loaded in a fresh process with only the documented
+   import. Distributed phase: the sharded train step under NCCL at world
+   1 (one card) on the supervised BiomedCLIP step against the plain
+   TrainStep (loss, gradient norm, gradients against the plain step's own
+   repeat, updated adapters, launches, both timed in turns).
 14. Prints each phase's host seconds, one JSON line of per-kernel results
    (41 rows: K7 also at the full route's shapes and in float32 at head dim
    16, K10 at the frozen text tower's shape, K6 causal forward and
@@ -5088,6 +5099,220 @@ def baselines_cli_phase(work):
         os.remove(src)
 
 
+EXPORT_BATCH = 16
+
+
+def export_cases(files):
+    """(label, family, predict argv, the nextgen_uia ops the exported graph
+    holds, whether its program must weigh under 1% of its weights): the
+    served forwards the export phase writes. The UNet's 7.3 MB of weights
+    are smaller than 100 times its graph (576 nodes) and the align-corners
+    taps it holds as constants (0.27 MB at 224 px): its program is held to
+    holding no weight instead."""
+    return (("BiomedCLIP cls, hybrid MONA", "biomedclip",
+             ["--task", "cls", "--mona_variant", "hybrid", "--backbone_ckpt", files["backbone"],
+              "--mona_weights", files["mona"]], ["block_fwd", "mona_spatial"], True),
+            ("DINOv2 seg, 518 px", "dino", ["--task", "seg"], ["flash_fwd", "mlp"], True),
+            ("CLIPSeg seg", "clipseg", ["--task", "seg"], ["block_fwd", "flash_fwd"], True),
+            ("UNet seg, BatchNorm statistics as arguments", "baselines", ["--task", "seg"], [],
+             False))
+
+
+FRESH_LOAD = r"""
+import sys, numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import nextgen_uia_tpu_torch.ops  # the documented import: the nextgen_uia:: ops
+from nextgen_uia_tpu_torch.ops import fused_block
+from nextgen_uia_tpu_torch.tasks.serve import load_exported_params
+with open(sys.argv[2], "rb") as f:
+    program = torch.export.load(f)
+weights = load_exported_params(sys.argv[2] + ".params.npz", device="cuda")
+images = torch.from_numpy(np.load(sys.argv[3])).cuda()
+with torch.no_grad():
+    out = program.module()(weights, images)
+np.save(sys.argv[4], out.float().cpu().numpy())
+print(f"launches {fused_block.fused_block_infer.launches}")
+"""
+
+
+def export_phase(dev, work, files):
+    """Each of ``export_cases`` through the predict CLI's own model and
+    export (tasks/serve.py::build_served, export_program) on the card at
+    batch EXPORT_BATCH: the program loaded back, the nextgen_uia:: ops in its
+    graph exactly the expected set, its bytes under 1% of its weights', its
+    output on a seeded batch against the live make_infer forward (kernels)
+    and the plain route, export seconds, the exported call against the live
+    call (CUDA events); then the first program loaded in a fresh process
+    with only the documented import."""
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch.ops import PLAIN, registry
+    from nextgen_uia_tpu_torch.tasks import serve
+    from nextgen_uia_tpu_torch.tasks.common import seed_everything
+
+    first = None
+    for label, family, argv, want_ops, small in export_cases(files):
+        args = serve.predict_args(family, ["--images", work, "--device", "cuda",
+                                           "--batch_size", str(EXPORT_BATCH),
+                                           "--export", f"{family}.pt2", *argv])
+        served = serve.build_served(family, args, dev, seed_everything(args.seed))
+        infer = serve.make_infer(served.forward, served.params, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        path, wpath, size = serve.export_program(
+            lambda x: served.forward(served.params, x), served.export_tree, args, work, dev)
+        export_s = time.perf_counter() - t0
+        launched = {k: v for k, v in read_counts().items() if v}
+        with open(path, "rb") as f:
+            program = torch.export.load(f)
+        ops = registry.graph_ops(program.graph)
+        state = served.export_tree.state_dict()
+        wbytes = sum(t.numel() * t.element_size() for t in state.values())
+        shapes = {tuple(t.shape) for t in state.values() if t.dim()}
+        consts = [tuple(t.shape) for t in program.constants.values() if torch.is_tensor(t)]
+        weights = serve.load_exported_params(wpath, device=dev)
+        x = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 256, (EXPORT_BATCH, args.img_size, args.img_size), dtype=np.uint8)).to(dev)
+        with torch.no_grad():
+            call = program.module()
+            got = call(weights, x).float()
+            live = infer(x).float()
+            plain = infer(x, ops=PLAIN).float()
+        scale = max(1.0, plain.abs().max().item())
+        d_live = (got - live).abs().max().item()
+        d_plain = (got - plain).abs().max().item()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: call(weights, x), 5)
+        live_ms = cuda_ms(lambda: infer(x), 5)
+        print(f"export {label}: {export_s:.1f} s (host clock: trace, save, load-back probe; "
+              f"the probe's launches {launched}), {size} bytes = {100 * size / wbytes:.4f}% of "
+              f"its {wbytes} bytes of weights, constants {consts}; nextgen_uia ops {ops}; output "
+              f"{tuple(got.shape)} vs live max|d| {d_live:.3e}, vs plain max|d| {d_plain:.3e} "
+              f"(max|ref| {scale:.3f}); exported call {ms:.2f} ms, live {live_ms:.2f} ms "
+              f"(CUDA events)")
+        require(ops == sorted(want_ops), f"{label}: exported ops {ops}, want {sorted(want_ops)}")
+        require(not program.state_dict and not shapes & set(consts),
+                f"{label}: the program holds weights")
+        require(size < 0.01 * wbytes or not small, f"{label}: the program weighs {size} bytes")
+        require(torch.isfinite(got).all().item(), f"{label}: non-finite exported output")
+        require(d_live <= BF16_BOUND * scale, f"{label}: exported output disagrees with live")
+        require(d_plain <= BF16_BOUND * scale, f"{label}: exported output disagrees with plain")
+        if first is None:
+            first = (path, x, got)
+        del served, infer, program, call, weights
+        torch.cuda.empty_cache()
+
+    path, x, got = first
+    np.save(os.path.join(work, "images.npy"), x.cpu().numpy())
+    out_npy = os.path.join(work, "fresh.npy")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", FRESH_LOAD, ROOT, path,
+                          os.path.join(work, "images.npy"), out_npy],
+                         capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, f"fresh-process load failed: {res.stderr[-2000:]}")
+    d = float(np.abs(np.load(out_npy) - got.cpu().numpy()).max())
+    print(f"export: fresh process (import nextgen_uia_tpu_torch.ops only) loaded {path}, "
+          f"{res.stdout.strip()}, max|d| vs this process {d:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s (host clock, the library built again)")
+    require(d <= BF16_BOUND * max(1.0, float(got.abs().max())),
+            "the fresh-process output disagrees")
+
+
+def distributed_phase(dev, files):
+    """The sharded train step (core/train.py::make_sharded_train_step) on a
+    world of 1 under NCCL, forced sharded, on the supervised BiomedCLIP seg
+    step with the kernels and no dropout: its loss, gradient norm and
+    updated adapters held against the plain TrainStep on the same batch
+    from the same weights. Several ranks or a model axis need more cards
+    than this machine has."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nextgen_uia_tpu_torch.core import mesh as M
+    from nextgen_uia_tpu_torch.core import train as T
+    from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
+    from nextgen_uia_tpu_torch.losses import dice_ce_loss
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.common import base_parser
+
+    args = base_parser("chip_smoke").parse_args([
+        "--mona_variant", "hybrid", "--num_classes", str(SEG_CLASSES), "--img_size", str(IMG),
+        "--backbone_ckpt", files["backbone"], "--mona_weights", files["mona"],
+        "--head_weights", files["head"]])
+    cfg, hcfg, params = _build_supervised(args, "biomedclip", "seg",
+                                          torch.Generator().manual_seed(1))
+    trainable, _ = partition(params, by_keywords("head", "mona", "lora"))
+    params.to(dev)
+    start = {k: p.detach().clone() for k, p in trainable.items()}
+    forward = _make_forward(cfg, hcfg, train=True)
+    imgs, masks = disc_batch(np.random.default_rng(3), BATCH)
+    batch = {"image": torch.from_numpy(imgs).to(dev)[None],
+             "mask": torch.from_numpy(masks).to(dev)[None]}
+
+    def loss_fn(mb, gen):
+        logits, m = forward(params, mb["image"], mb["mask"], None)
+        return dice_ce_loss(logits, m)
+
+    tcfg = T.TrainConfig(lr=1e-4, total_updates=10)
+    results = {}
+    with environ(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(29500 + os.getpid() % 1000)):
+        t0 = time.perf_counter()
+        mesh = M.make_mesh(1, 1, device="cuda")
+        init_s = time.perf_counter() - t0
+        try:
+            require(mesh.distributed and dist.get_backend() == "nccl" and mesh.world == 1,
+                    "the distributed phase did not start an NCCL group of one")
+            steps = {}
+            for kind in ("plain", "repeat", "sharded"):
+                with torch.no_grad():
+                    for k, p in trainable.items():
+                        p.copy_(start[k])
+                opt = T.make_optimizer(trainable.values(), tcfg)
+                step = steps[kind] = (T.make_sharded_train_step(loss_fn, opt, tcfg, mesh)
+                                      if kind == "sharded" else T.TrainStep(loss_fn, opt, tcfg))
+                reset_counts()
+                m = step(batch)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                results[kind] = (m, {k: p.detach().float().clone()
+                                     for k, p in trainable.items()}, counts,
+                                 {k: p.grad.float().clone() for k, p in trainable.items()})
+            # host-bound steps spread: time the two in turns
+            times = [(kind, cuda_ms(lambda: steps[kind](batch), 5, warmup=1))
+                     for _ in range(3) for kind in ("plain", "sharded")]
+        finally:
+            dist.destroy_process_group()
+    (mp, wp, cp, gp), (ms_, ws, cs, gs) = results["plain"], results["sharded"]
+    dg = max((gs[k] - gp[k]).abs().max().item() for k in gp)
+    # the same plain step twice: bf16 rounding after the seg head's
+    # upsampling backward, which sums with atomics, in any order
+    repeat = max((results["repeat"][3][k] - gp[k]).abs().max().item() for k in gp)
+    g_max = max(g.abs().max().item() for g in gp.values())
+    # AdamW's first step moves a weight by about the rate times its
+    # gradient's sign, so a gradient that is zero but for rounding (the seg
+    # head's upsampling backward sums with atomics) may move either way:
+    # the updates are held on the mean
+    dw = np.mean([(ws[k] - wp[k]).abs().mean().item() for k in wp])
+    moved = np.mean([(wp[k] - start[k].float()).abs().mean().item() for k in wp])
+    print(f"distributed: NCCL group of 1 in {init_s:.2f} s; sharded step loss {ms_['loss']:.6f} "
+          f"grad norm {ms_['grad_norm']:.6f}, plain {mp['loss']:.6f} / {mp['grad_norm']:.6f}; "
+          f"gradients max|d| {dg:.3e} (the plain step again: {repeat:.3e}; max|g| {g_max:.3e}); "
+          f"updated trainables mean|d| "
+          f"{dw:.3e} (the update moved them {moved:.3e} on the mean); launches "
+          f"{({k: v for k, v in cs.items() if v})}; steps in turns (CUDA events, 5 a window) "
+          + ", ".join(f"{k} {t:.2f}" for k, t in times) + " ms (world 1: the all-reduce of one "
+          "rank). FSDP (n_model > 1) and world > 1 need more than one card")
+    require(cs == cp and sum(cs.values()) > 0, f"launches differ: sharded {cs}, plain {cp}")
+    require(abs(ms_["loss"] - mp["loss"]) <= 1e-6 * abs(mp["loss"]), "sharded loss disagrees")
+    require(abs(ms_["grad_norm"] - mp["grad_norm"]) <= 1e-5 * mp["grad_norm"],
+            "sharded gradient norm disagrees")
+    require(dg <= max(3 * repeat, 1e-3 * g_max), "sharded gradients disagree with the plain step")
+    require(dw <= 1e-2 * moved, "sharded update disagrees with the plain step")
+
+
 def main():
     if not os.path.isfile(os.path.join(ROOT, "nextgen_uia_tpu_torch", "__init__.py")):
         raise SystemExit("chip_smoke: the nextgen_uia_tpu_torch package is not beside "
@@ -5167,6 +5392,8 @@ def main():
         timed("CLIP family CLIs", clip_cli_phase, work)
         timed("CLIPSeg, few-shot and LoRA CLIs", adapter_cli_phase, work, files, lora)
         timed("baselines CLIs", baselines_cli_phase, work)
+        timed("export", export_phase, dev, work, files)
+        timed("distributed", distributed_phase, dev, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -78,7 +78,10 @@ def archive_log(log_path: str, dest_folder: str):
 class TBWriter:
     """Thin TensorBoard writer; no-ops when tensorboard is not installed."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str | None):
+        if logdir is None:  # a process that writes no log
+            self._w = None
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:

@@ -16,6 +16,7 @@ Reference training semantics, as the JAX engine reproduces them:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -76,6 +77,14 @@ class TrainStep:
         self.applied = 0
 
     def __call__(self, batch: dict, gen=None) -> dict:
+        total, loss_sum, kept = self._accumulate(batch, gen)
+        total /= torch.clamp(kept, min=1.0)
+        return self._update(total, loss_sum / torch.clamp(kept, min=1.0), kept,
+                            self.accum_steps - kept)
+
+    def _accumulate(self, batch: dict, gen):
+        """(the kept microbatches' summed gradients as one float32 buffer,
+        their summed loss, their count), on the device."""
         lead = {v.shape[0] for v in batch.values()}
         if lead != {self.accum_steps}:
             raise ValueError(f"batch leaves lead with {lead}, want accum_steps "
@@ -98,21 +107,27 @@ class TrainStep:
             total += torch.where(ok, flat, torch.zeros_like(flat))
             loss_sum += torch.where(ok, loss.detach().float(), torch.zeros_like(loss_sum))
             kept += ok.float()
-        total /= torch.clamp(kept, min=1.0)
+        return total, loss_sum, kept
+
+    def _update(self, total, loss, kept, skipped) -> dict:
+        """Clip the averaged gradient buffer ``total``, hand it to the
+        parameters and take the update unless ``kept`` is 0; the host reads
+        the scalars once."""
+        params = self.params
         grad_norm = torch.linalg.vector_norm(total)
         if self.grad_clip > 0:
             total *= torch.clamp(self.grad_clip / torch.clamp(grad_norm, min=1e-12), max=1.0)
-        n_kept, loss_total, norm = torch.stack([kept, loss_sum, grad_norm]).tolist()
-        n_kept = int(n_kept)
-        for p, g in zip(params, torch.split(total, sizes)):
+        n_kept, loss, norm, skipped = torch.stack(
+            [kept, loss, grad_norm, torch.as_tensor(skipped, device=kept.device).float()]
+        ).tolist()
+        for p, g in zip(params, torch.split(total, [p.numel() for p in params])):
             p.grad = g.view_as(p).to(p.dtype)
         if n_kept:
             for group in self.optimizer.param_groups:
                 group["lr"] = cosine_lr_value(self.cfg, self.applied)
             self.optimizer.step()
             self.applied += 1
-        return {"loss": loss_total / max(n_kept, 1), "skipped": self.accum_steps - n_kept,
-                "grad_norm": norm}
+        return {"loss": loss, "skipped": int(skipped), "grad_norm": norm}
 
     def state(self, names) -> dict:
         """Flat path -> array of the resumable state: the trainable
@@ -171,6 +186,222 @@ def pad_eval_batch(batch: dict, multiple: int):
         else:
             out[k] = v
     return out, n
+
+
+class FrozenShards:
+    """The frozen tensors sharded over the mesh's 'model' axis (the JAX
+    package's ``shard_params`` + ``gather_from_specs``): between steps each
+    one holds this rank's slice (``mesh.shard``); ``gathered()`` makes them
+    whole (one ``all_gather_into_tensor`` each over the data index's
+    subgroup) for the body of a ``with``, and puts the slices back after.
+    They get no gradient, so nothing is reduce-scattered."""
+
+    def __init__(self, frozen: dict, mesh):
+        from .mesh import param_pspecs, shard
+
+        self.mesh = mesh
+        specs = param_pspecs(frozen, mesh)
+        self.items = [(p, specs[path]) for path, p in frozen.items() if specs[path]]
+        with torch.no_grad():
+            for p, spec in self.items:
+                p.data = shard(p.data, spec, mesh)
+
+    @contextlib.contextmanager
+    def gathered(self):
+        from .mesh import gather, shard
+
+        with torch.no_grad():
+            for p, spec in self.items:
+                p.data = gather(p.data, spec, self.mesh)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, spec in self.items:
+                    p.data = shard(p.data, spec, self.mesh)
+
+
+def _dp(mesh, fsdp: bool):
+    """(width, this rank's index) of the data-parallel split: every rank
+    when the frozen tower is model-sharded (the batch splits over both
+    axes), else the 'data' axis (the 'model' ranks of a data index
+    compute the same slice)."""
+    return (mesh.world, mesh.rank) if fsdp else (mesh.n_data, mesh.data_index)
+
+
+def local_slice(x, width: int, index: int, dim: int = 0):
+    """The ``index``-th of ``width`` contiguous equal slices of x along
+    ``dim``."""
+    n = x.shape[dim]
+    if n % width:
+        raise ValueError(f"batch of {n} does not split over a data-parallel width of {width}")
+    return x.narrow(dim, index * (n // width), n // width)
+
+
+def rank_generator(gen, index: int):
+    """A generator for this data-parallel rank (the JAX package's
+    ``fold_in(rng, shard_idx)``): seeded from one draw of the caller's
+    ``gen``, which every rank advances alike, and the rank's index."""
+    if gen is None:
+        return None
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device))
+    return torch.Generator(device=gen.device).manual_seed((seed * 1000003 + index) % 2 ** 63)
+
+
+class ShardedTrainStep(TrainStep):
+    """One update over several processes (``make_sharded_train_step``, the
+    counterpart of the JAX package's shard_map step): each rank takes its
+    contiguous slice of every microbatch ([accum, global_micro, ...] ->
+    [accum, global_micro / width, ...]), draws its randomness from
+    ``rank_generator``, accumulates its kept microbatches' gradients in the
+    flat float32 buffer and divides by its kept count; then one
+    ``all_reduce`` SUM over every rank, divided by the world, averages the
+    gradients and the loss (pmean), one ``all_reduce`` MAX takes the kept
+    and skipped counts (pmax: the update is skipped only when every rank
+    kept nothing), and each rank clips and applies the same update. With
+    ``frozen`` (FrozenShards) the frozen tower is gathered whole once per
+    step and the batch splits over every rank; ``bn`` (a module) has its
+    floating buffers, BatchNorm's running statistics, averaged after the
+    step (pmean of the aux)."""
+
+    def __init__(self, loss_fn, optimizer, cfg, mesh, *, accum_steps: int = 1,
+                 grad_clip: float = 0.0, frozen: FrozenShards | None = None, bn=None):
+        super().__init__(loss_fn, optimizer, cfg, accum_steps=accum_steps, grad_clip=grad_clip)
+        self.mesh, self.frozen, self.bn = mesh, frozen, bn
+        self.width, self.index = _dp(mesh, frozen is not None and mesh.n_model > 1)
+
+    def __call__(self, batch: dict, gen=None) -> dict:
+        import torch.distributed as dist
+
+        batch = {k: local_slice(v, self.width, self.index, 1) for k, v in batch.items()}
+        gen = rank_generator(gen, self.index)
+        with self.frozen.gathered() if self.frozen is not None else contextlib.nullcontext():
+            total, loss_sum, kept = self._accumulate(batch, gen)
+        denom = torch.clamp(kept, min=1.0)
+        buf = torch.cat([total / denom, (loss_sum / denom).reshape(1)])
+        counts = torch.stack([kept, self.accum_steps - kept])
+        if self.mesh.distributed:
+            dist.all_reduce(buf)
+            buf /= self.mesh.world
+            dist.all_reduce(counts, op=dist.ReduceOp.MAX)
+            if self.bn is not None:
+                for b in self.bn.buffers():
+                    if b.is_floating_point():
+                        dist.all_reduce(b)
+                        b /= self.mesh.world
+        return self._update(buf[:-1], buf[-1], counts[0], counts[1])
+
+
+def make_sharded_train_step(loss_fn, optimizer, cfg, mesh, *, accum_steps: int = 1,
+                            grad_clip: float = 0.0, frozen=None, bn=None) -> ShardedTrainStep:
+    """The data-parallel step over ``mesh``'s processes (ShardedTrainStep),
+    with the flat path -> tensor dict ``frozen`` sharded over 'model' when
+    the mesh has a model axis (``FrozenShards``, in place)."""
+    shards = FrozenShards(frozen, mesh) if frozen and mesh.n_model > 1 else None
+    return ShardedTrainStep(loss_fn, optimizer, cfg, mesh, accum_steps=accum_steps,
+                            grad_clip=grad_clip, frozen=shards, bn=bn)
+
+
+def make_step_for_mesh(loss_fn, optimizer, cfg, mesh=None, *, accum_steps: int = 1,
+                       grad_clip: float = 0.0, frozen=None, bn=None):
+    """The plain TrainStep when one process takes part (no model-sharded
+    frozen tower), else ``make_sharded_train_step``. ``frozen`` (flat path
+    -> tensor) shards the frozen tower over 'model' when the mesh's model
+    axis is > 1; the batch then splits over every rank."""
+    fsdp = mesh is not None and mesh.n_model > 1 and bool(frozen)
+    if mesh is None or (mesh.n_data <= 1 and not fsdp):
+        return TrainStep(loss_fn, optimizer, cfg, accum_steps=accum_steps, grad_clip=grad_clip)
+    return make_sharded_train_step(loss_fn, optimizer, cfg, mesh, accum_steps=accum_steps,
+                                   grad_clip=grad_clip, frozen=frozen if fsdp else None,
+                                   bn=bn)
+
+
+def dp_width(mesh, frozen=None) -> int:
+    """The data-parallel width batches are split over (and eval batches
+    padded to a multiple of): every rank under a model-sharded frozen
+    tower, else the 'data' axis."""
+    return 1 if mesh is None else _dp(mesh, frozen is not None and mesh.n_model > 1)[0]
+
+
+def _gather_rows(t, mesh):
+    import torch.distributed as dist
+
+    out = torch.empty((mesh.world * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous())
+    return out
+
+
+def make_sharded_apply(fn, mesh=None, *, frozen: FrozenShards | None = None):
+    """Data-parallel evaluation and serving (the eval-side counterpart of
+    the sharded step): ``apply(params, *batch)`` runs ``fn`` on this
+    rank's contiguous slice of every tensor of ``batch`` (their leading dim
+    a multiple of ``apply.dp_width``: pad ragged batches with
+    ``pad_eval_batch`` and slice outputs back; other arguments pass
+    through), then gathers every output leaf (a tensor or a
+    tuple of them, batch-leading) from every rank in rank order. With
+    ``frozen`` the model-sharded frozen tower is gathered whole around the
+    call. On one process it is ``fn``."""
+    width, index = _dp(mesh, frozen is not None) if mesh is not None else (1, 0)
+
+    def apply(params, *batch, **kw):
+        if width <= 1 and not (mesh is not None and mesh.distributed):
+            return fn(params, *batch, **kw)
+        local = [local_slice(t, width, index) if torch.is_tensor(t) else t for t in batch]
+        with frozen.gathered() if frozen is not None else contextlib.nullcontext():
+            out = fn(params, *local, **kw)
+        if width <= 1:
+            return out
+        # every rank's slice, in rank order; the 'model' replicas of a data
+        # index (no frozen sharding) hold the same rows, so keep one of each
+        step = mesh.world // width
+        pick = (lambda t: _gather_rows(t, mesh).reshape(width, step, *t.shape)[:, 0]
+                .reshape(width * t.shape[0], *t.shape[1:]))
+        return tuple(map(pick, out)) if isinstance(out, tuple) else pick(out)
+
+    apply.dp_width = width
+    return apply
+
+
+def scale_gradient(x, s: float):
+    """Identity on the forward pass; multiplies the gradient by ``s``: a
+    rank's loss computed from features gathered over every rank sees only
+    its own samples' part of the gradient, which the step's mean over the
+    ranks then divides by their number; pre-scaling by it makes the mean
+    the whole batch's gradient."""
+    return x * s + (x * (1.0 - s)).detach()
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        return _gather_rows(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        # the transpose of a tiled all-gather is a psum-scatter: every
+        # rank's gradient of the gathered rows summed, this rank's rows kept
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return local_slice(g, ctx.mesh.world, ctx.mesh.rank), None
+
+
+def all_gather_batch(x, mesh):
+    """x [n, ...] of every rank concatenated in rank order, [world * n,
+    ...], differentiable (the JAX package's tiled ``all_gather`` over the
+    data-parallel axes); x itself on one process."""
+    if mesh is None or not mesh.distributed:
+        return x
+    return _GatherBatch.apply(x, mesh)
+
+
+def pad_rows(x, multiple: int):
+    """On the device: x's leading dim padded up to a multiple of
+    ``multiple`` by repeating its last row (``pad_eval_batch`` for a tensor)."""
+    pad = -x.shape[0] % multiple
+    return x if not pad else torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
 
 
 class EarlyStopper:

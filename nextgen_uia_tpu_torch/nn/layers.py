@@ -313,9 +313,14 @@ def scale_translate_weights(n_in: int, n_out: int, inv_scale: torch.Tensor,
 def _bicubic_aa_matrix(n_in: int, n_out: int) -> torch.Tensor:
     """[n_in, n_out] weights of jax.image.resize(method='bicubic') with its
     default antialias=True; jax.image.resize takes 1 / scale of a Python
-    float, rounded to float32 once."""
-    inv = torch.tensor([1.0 / (n_out / n_in)], dtype=torch.float32)
-    return scale_translate_weights(n_in, n_out, inv, torch.zeros(1), keys_cubic_kernel)[0]
+    float, rounded to float32 once. Always a real CPU tensor, computed
+    outside any tracing mode: a trace (torch.export) that first meets a
+    size must not leave a fake tensor in the cache for later eager calls."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        inv = torch.tensor([1.0 / (n_out / n_in)], dtype=torch.float32)
+        return scale_translate_weights(n_in, n_out, inv, torch.zeros(1), keys_cubic_kernel)[0]
 
 
 def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .registry import register
 
 ACCESS_BYTES = (16, 8, 4, 2)  # the kernels' vector copies, widest first
 CTA_THREADS = 256             # csrc/mona_spatial.cu::S_THREADS
@@ -194,8 +195,14 @@ def _geometry(x, *operands):
 
 
 def _forward_cuda(s, freq, kernels, bias):
-    b, h, w, c = s.shape
     _check_cuda(s, freq=freq, kernels=kernels, bias=bias)
+    return MONA_SPATIAL(s, freq, kernels, bias)
+
+
+def _spatial_launch(s, freq, kernels, bias):
+    """The registered op ``nextgen_uia::mona_spatial``: one launch of the
+    forward kernel, counted in ``mona_spatial.launches``."""
+    b, h, w, c = s.shape
     out = torch.empty_like(s)
     grid = _geometry(s, freq, kernels, out)
     lib = build.library()
@@ -207,6 +214,11 @@ def _forward_cuda(s, freq, kernels, bias):
                     "mona_spatial")
     mona_spatial.launches += 1
     return out
+
+
+MONA_SPATIAL = register("mona_spatial",
+                        "(Tensor s, Tensor freq, Tensor kernels, Tensor bias) -> Tensor",
+                        _spatial_launch, lambda s, *_: torch.empty_like(s))
 
 
 def _scratch(x, grid, taps):

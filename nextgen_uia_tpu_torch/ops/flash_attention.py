@@ -24,6 +24,7 @@ import math
 import torch
 
 from . import build
+from .registry import register
 
 NEG_INF = -1e30
 
@@ -114,8 +115,7 @@ def _check_cuda(q, k, v, bias, layout):
     if q.dtype == torch.bfloat16:
         if dh != 64:
             problems.append(f"head dim {dh} (bfloat16: 64)")
-        strides = [s for t in (q, k, v) for s in _strides(t, layout)]
-        if any(s % 8 for s in strides) or any(t.data_ptr() % 16 for t in (q, k, v)):
+        if any(s % 8 for t in (q, k, v) for s in _strides(t, layout)):
             problems.append("bfloat16 rows not 16-byte aligned")
     elif not 1 <= dh <= 64:
         problems.append(f"head dim {dh} (float32: 1..64)")
@@ -128,25 +128,58 @@ def _check_cuda(q, k, v, bias, layout):
     return b, n, h, dh
 
 
+def _check_aligned(*ts):
+    """The bf16 kernels' 16-byte vector copies: every operand's address, a
+    launch-time fact a trace does not see."""
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention CUDA kernel does not take: bfloat16 operands not "
+                         "16-byte aligned")
+
+
 def _key_bias(bias):
     return None if bias is None else bias.detach().to(torch.float32).contiguous()
 
 
+def _bhn(q, layout):
+    return (q.shape[0], q.shape[2], q.shape[1]) if layout == "bnhd" else tuple(q.shape[:3])
+
+
 def _forward_cuda(q, k, v, bias, causal, layout, with_lse):
-    """(out, lse [B, H, N] float32 or None) from the forward kernel."""
+    """(out, lse [B, H, N] float32 or None) from the forward kernel, through
+    the registered op ``nextgen_uia::flash_fwd``."""
+    _check_cuda(q, k, v, bias, layout)
+    out, lse = FLASH_FWD(q, k, v, _key_bias(bias), causal, layout, with_lse)
+    return out, lse if with_lse else None
+
+
+def _flash_launch(q, k, v, bias, causal, layout, with_lse):
+    """The registered op: one launch of the forward kernel, counted in
+    ``flash_attention.launches``; lse is empty unless ``with_lse``."""
+    _check_aligned(q, k, v)
     b, n, h, dh = _check_cuda(q, k, v, bias, layout)
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32) if with_lse else None
+    lse = torch.empty(b, h, n if with_lse else 0, device=q.device, dtype=torch.float32)
     sb, sh, sn = _strides(q, layout)
     osb, osh, osn = _strides(out, layout)
     lib = build.library()
     with torch.cuda.device(q.device):
         build.check(lib.nx_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), build.ptr(_key_bias(bias)),
-            build.ptr(lse), build.DTYPE_CODES[q.dtype], b, h, n, dh, sb, sh, sn, osb, osh, osn,
-            int(causal), 1.0 / math.sqrt(dh), build.stream(q.device)), "flash_attention")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), build.ptr(bias),
+            build.ptr(lse) if with_lse else None, build.DTYPE_CODES[q.dtype], b, h, n, dh, sb,
+            sh, sn, osb, osh, osn, int(causal), 1.0 / math.sqrt(dh), build.stream(q.device)),
+            "flash_attention")
     flash_attention.launches += 1
     return out, lse
+
+
+def _flash_shapes(q, k, v, bias, causal, layout, with_lse):
+    b, h, n = _bhn(q, layout)
+    return q.new_empty(q.shape), q.new_empty(b, h, n if with_lse else 0, dtype=torch.float32)
+
+
+FLASH_FWD = register("flash_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? bias, bool causal, "
+                     "str layout, bool with_lse) -> (Tensor, Tensor)",
+                     _flash_launch, _flash_shapes)
 
 
 def flash_attention_forward(q, k, v, *, bias=None, causal: bool = False, layout: str = "bnhd"):
@@ -173,6 +206,7 @@ def flash_attention_backward(q, k, v, out, g, lse, *, bias=None, causal: bool = 
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, n, h, dh = _check_cuda(q, k, v, bias, layout)
+    _check_aligned(q, k, v)
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
     ostrides = _strides(out, layout)

@@ -45,6 +45,7 @@ import torch
 from . import build
 from ._frozen import _cat, check_frozen, layernorm_parts, plain_backward
 from .flash_attention import NEG_INF
+from .registry import register
 
 
 def _weights(o, dt):
@@ -154,13 +155,19 @@ def _check_cuda(q, x, bias, n_real, op="fused_attn_o_residual"):
 def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real, causal=False):
     b, h, n, dh = q.shape
     _check_cuda(q, x, bias, n_real)
+    q, k, v = (t.to(x.dtype).contiguous() for t in (q, k, v))
+    return ATTN_O(q, k, v, x.contiguous(), wo_t, bo, _key_bias(bias, b, n, n_real, x.device),
+                  causal)
+
+
+def _attn_o_launch(q, k, v, x, wo_t, bo, kb, causal):
+    """The registered op ``nextgen_uia::attn_o``: one launch, counted in
+    ``fused_attn_o_residual.launches``."""
+    b, h, n, dh = q.shape
     dt, d, dev = x.dtype, h * dh, x.device
-    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
-    x = x.contiguous()
     strides, cat_strides = _layout(b, n, h, dh)
     cat = torch.empty(b * n, d, device=dev, dtype=dt)
     out = torch.empty(b, n, d, device=dev, dtype=dt)
-    kb = _key_bias(bias, b, n, n_real, dev)
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.nx_attn_o_fwd(
@@ -170,6 +177,11 @@ def _forward_cuda(q, k, v, x, wo_t, bo, bias, n_real, causal=False):
             1.0 / math.sqrt(dh), build.stream(dev)), "fused_attn_o_residual")
     fused_attn_o_residual.launches += 1
     return out
+
+
+ATTN_O = register("attn_o", "(Tensor q, Tensor k, Tensor v, Tensor x, Tensor wo_t, Tensor bo, "
+                  "Tensor? key_bias, bool causal) -> Tensor",
+                  _attn_o_launch, lambda q, k, v, x, *_: torch.empty_like(x))
 
 
 def _postln_cuda(q, k, v, x, wo_t, bo, gamma, beta, bias, n_real, eps):

@@ -43,6 +43,7 @@ from ._frozen import _cat, forward_only
 from .build import ACT_CODES, DTYPE_CODES
 from .fused_attention import _packed_layout
 from .fused_attn_o import _key_bias
+from .registry import register
 
 
 def bert_block_opted_in() -> bool:
@@ -208,19 +209,31 @@ def _kernel_weights(p, layout, dt):
 
 
 def _block_cuda(x, p, layout, heads, act, eps, key_bias, n_real, causal):
+    """The registered op ``nextgen_uia::block_fwd`` on the block's weights
+    as the kernels read them (``_kernel_weights``), keys >= n_real folded
+    into the float32 key bias (``fused_attn_o._key_bias``)."""
+    b, n, _ = x.shape
+    _check_cuda_shapes(x, _parts(p, layout)[3], heads, key_bias, n_real)
+    w = _kernel_weights(p, layout, x.dtype)
+    return BLOCK_FWD(x, *(w[k] for k in _WEIGHT_ORDER), _key_bias(key_bias, b, n, n_real, x.device),
+                     heads, act, causal, layout == "postnorm", eps)
+
+
+_WEIGHT_ORDER = ("ga", "ba", "wqkv_t", "bqkv", "wo_t", "bo", "gb", "bb", "w1_t", "b1", "w2_t",
+                 "b2")
+
+
+def _block_launch(x, ga, ba, wqkv_t, bqkv, wo_t, bo, gb, bb, w1_t, b1, w2_t, b2, kb, heads,
+                  act, causal, postnorm, eps):
     """nx_block_fwd: q|k|v in one row-major [B*N, 3D] buffer
     (``fused_attention._packed_layout``), which the attention reads through
     strides, the head concat row-major [B*N, D] (``fused_attn_o._layout``),
-    keys >= n_real folded into the float32 key bias
-    (``fused_attn_o._key_bias``), the residual stream float32 (y32, and s32
-    post-norm); one launch counted in ``fused_block_infer.launches`` or, post-norm,
+    the residual stream float32 (y32, and s32 post-norm); one launch counted
+    in ``fused_block_infer.launches`` or, post-norm,
     ``fused_block_infer_postnorm.launches``."""
     b, n, d = x.shape
-    postnorm = layout == "postnorm"
-    _check_cuda_shapes(x, _parts(p, layout)[3], heads, key_bias, n_real)
     dt, dev, f32 = x.dtype, x.device, torch.float32
-    w = _kernel_weights(p, layout, dt)
-    m, dh, hidden = b * n, d // heads, w["w1_t"].shape[0]
+    m, dh, hidden = b * n, d // heads, w1_t.shape[0]
     qkv = torch.empty(_packed_layout(b, n, heads, dh)[0], device=dev, dtype=dt)
     cat = torch.empty(m, d, device=dev, dtype=dt)
     y32 = torch.empty(m, d, device=dev, dtype=f32)
@@ -229,19 +242,24 @@ def _block_cuda(x, p, layout, heads, act, eps, key_bias, n_real, causal):
     z2 = None if postnorm and dt == f32 else torch.empty(m, d, device=dev, dtype=dt)
     h = torch.empty(m, hidden, device=dev, dtype=dt)
     out = torch.empty(b, n, d, device=dev, dtype=dt)
-    kb = _key_bias(key_bias, b, n, n_real, dev)
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.nx_block_fwd(
-            build.ptr(x, "x"), *(build.ptr(w[k]) for k in (
-                "ga", "ba", "wqkv_t", "bqkv", "wo_t", "bo", "gb", "bb", "w1_t", "b1", "w2_t",
-                "b2")),
+            build.ptr(x, "x"), *(build.ptr(t) for t in (
+                ga, ba, wqkv_t, bqkv, wo_t, bo, gb, bb, w1_t, b1, w2_t, b2)),
             build.ptr(kb), build.ptr(qkv), build.ptr(cat), build.ptr(y32), build.ptr(s32),
             build.ptr(z2), build.ptr(h), build.ptr(out), DTYPE_CODES[dt], b, n, heads, dh,
             hidden, ACT_CODES[act], int(causal), int(postnorm), 1.0 / math.sqrt(dh), eps,
-            build.stream(dev)), f"fused_block_infer ({layout})")
+            build.stream(dev)), f"fused_block_infer ({'postnorm' if postnorm else 'prenorm'})")
     (fused_block_infer_postnorm if postnorm else fused_block_infer).launches += 1
     return out
+
+
+BLOCK_FWD = register(
+    "block_fwd", "(Tensor x, Tensor ga, Tensor ba, Tensor wqkv_t, Tensor bqkv, Tensor wo_t, "
+    "Tensor bo, Tensor gb, Tensor bb, Tensor w1_t, Tensor b1, Tensor w2_t, Tensor b2, "
+    "Tensor? key_bias, int heads, str act, bool causal, bool postnorm, float eps) -> Tensor",
+    _block_launch, lambda x, *_: torch.empty_like(x))
 
 
 def fused_block_infer_postnorm(x, p, *, heads: int, act: str = "gelu", eps: float = 1e-12,

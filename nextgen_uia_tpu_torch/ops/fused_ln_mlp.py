@@ -36,6 +36,7 @@ import torch
 from ..nn.layers import ACTIVATIONS
 from . import build
 from ._frozen import _cat, check_frozen, layernorm_parts, plain_backward
+from .registry import register
 
 
 def act_grad(act: str, a):
@@ -115,10 +116,15 @@ def _check_cuda(x, hidden, act, op="fused_ln_mlp_residual"):
 
 
 def _forward_cuda(x, gamma, beta, w1_t, b1, w2_t, b2, act, eps):
+    _check_cuda(x, w1_t.shape[0], act)
+    return LN_MLP(x.contiguous(), gamma, beta, w1_t, b1, w2_t, b2, act, eps)
+
+
+def _ln_mlp_launch(x, gamma, beta, w1_t, b1, w2_t, b2, act, eps):
+    """The registered op ``nextgen_uia::ln_mlp``: one launch, counted in
+    ``fused_ln_mlp_residual.launches``."""
     d, hidden = x.shape[-1], w1_t.shape[0]
-    _check_cuda(x, hidden, act)
     m, dt = x.numel() // d, x.dtype
-    x = x.contiguous()
     z = torch.empty(m, d, device=x.device, dtype=dt)
     h = torch.empty(m, hidden, device=x.device, dtype=dt)
     out = torch.empty_like(x)
@@ -131,6 +137,11 @@ def _forward_cuda(x, gamma, beta, w1_t, b1, w2_t, b2, act, eps):
             build.stream(x.device)), "fused_ln_mlp_residual")
     fused_ln_mlp_residual.launches += 1
     return out
+
+
+LN_MLP = register("ln_mlp", "(Tensor x, Tensor gamma, Tensor beta, Tensor w1_t, Tensor b1, "
+                  "Tensor w2_t, Tensor b2, str act, float eps) -> Tensor",
+                  _ln_mlp_launch, lambda x, *_: torch.empty_like(x))
 
 
 def fused_ln_mlp_residual_backward(x, gamma, beta, w1, b1, w2, g, *, act: str = "gelu",

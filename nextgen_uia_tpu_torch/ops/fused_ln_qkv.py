@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .registry import register
 from ._frozen import check_frozen, layernorm_parts
 
 
@@ -187,8 +188,14 @@ def fused_ln_qkv_rawx(x, attn, *, heads: int):
 
 
 def _forward_cuda(x, gamma, beta, w_qkv_t, b_qkv, heads, eps):
-    b, n, d = x.shape
     _check_hopper_cuda(x, heads, "fused_ln_qkv")
+    return LN_QKV(x, gamma, beta, w_qkv_t, b_qkv, heads, eps)
+
+
+def _ln_qkv_launch(x, gamma, beta, w_qkv_t, b_qkv, heads, eps):
+    """The registered op ``nextgen_uia::ln_qkv``: one launch, counted in
+    ``fused_ln_qkv.launches``."""
+    b, n, d = x.shape
     dt, dh = x.dtype, d // heads
     z = torch.empty(b * n, d, device=x.device, dtype=dt)
     q, k, v = (torch.empty(b, heads, n, dh, device=x.device, dtype=dt) for _ in range(3))
@@ -201,6 +208,16 @@ def _forward_cuda(x, gamma, beta, w_qkv_t, b_qkv, heads, eps):
             "fused_ln_qkv")
     fused_ln_qkv.launches += 1
     return q, k, v
+
+
+def _heads_like(x, heads):
+    b, n, d = x.shape
+    return tuple(x.new_empty(b, heads, n, d // heads) for _ in range(3))
+
+
+LN_QKV = register("ln_qkv", "(Tensor x, Tensor gamma, Tensor beta, Tensor w_qkv_t, "
+                  "Tensor b_qkv, int heads, float eps) -> (Tensor, Tensor, Tensor)",
+                  _ln_qkv_launch, lambda x, gamma, beta, w, b, heads, eps: _heads_like(x, heads))
 
 
 def fused_ln_qkv_backward(x, gamma, w_qkv, dq, dk, dv, *, eps: float = 1e-5):

@@ -25,6 +25,7 @@ from ..nn.layers import ACTIVATIONS
 from . import build
 from ._frozen import _cat, check_frozen
 from .fused_ln_mlp import act_grad
+from .registry import register
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2, *, act: str = "gelu"):
@@ -71,20 +72,32 @@ def _kernel_weights(w1, b1, w2, b2, dt):
 
 
 def _forward_cuda(x, w, act):
-    d, hidden = x.shape[-1], w["w1_t"].shape[0]
-    _check_cuda(x, hidden, act)
-    dt, m = x.dtype, x.numel() // d
-    xm = x.contiguous().reshape(m, d)
+    d = x.shape[-1]
+    _check_cuda(x, w["w1_t"].shape[0], act)
+    out = MLP(x.contiguous().reshape(x.numel() // d, d), w["w1_t"], w["b1"], w["w2_t"],
+              w["b2"], act)
+    return out.reshape(x.shape)
+
+
+def _mlp_launch(x, w1_t, b1, w2_t, b2, act):
+    """The registered op ``nextgen_uia::mlp`` on x [M, D]: one launch,
+    counted in ``fused_mlp.launches``."""
+    m, d = x.shape
+    hidden, dt = w1_t.shape[0], x.dtype
     h = torch.empty(m, hidden, device=x.device, dtype=dt)
     out = torch.empty(m, d, device=x.device, dtype=dt)
     lib = build.library()
     with torch.cuda.device(x.device):
         build.check(lib.nx_mlp_fwd(
-            build.ptr(xm, "x"), build.ptr(w["w1_t"]), build.ptr(w["b1"]), build.ptr(w["w2_t"]),
-            build.ptr(w["b2"]), build.ptr(h), build.ptr(out), build.DTYPE_CODES[dt], m, d,
-            hidden, build.ACT_CODES[act], build.stream(x.device)), "fused_mlp")
+            build.ptr(x, "x"), build.ptr(w1_t), build.ptr(b1), build.ptr(w2_t), build.ptr(b2),
+            build.ptr(h), build.ptr(out), build.DTYPE_CODES[dt], m, d, hidden,
+            build.ACT_CODES[act], build.stream(x.device)), "fused_mlp")
     fused_mlp.launches += 1
-    return out.reshape(x.shape)
+    return out
+
+
+MLP = register("mlp", "(Tensor x, Tensor w1_t, Tensor b1, Tensor w2_t, Tensor b2, str act) "
+               "-> Tensor", _mlp_launch, lambda x, *_: torch.empty_like(x))
 
 
 def fused_mlp_backward(x, w1, b1, w2, g, *, act: str = "gelu", w1_t=None):

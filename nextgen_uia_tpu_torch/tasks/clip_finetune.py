@@ -45,12 +45,18 @@ unless NEXTGEN_UIA_ALLOW_TOKENIZER_FALLBACK=1.
 ``retrieval_main`` encodes an image-caption CSV through both towers,
 forward only, and reports Recall@K in both directions, MedR, MeanR and rSum.
 
-Not ported, refused naming its ROADMAP.md item: ``--n_data``/``--n_model``.
+Under ``torchrun``, ``--n_data``/``--n_model`` spread both over the
+launch's processes (core/mesh.py): each rank takes its slice of every
+microbatch, InfoNCE sees the whole batch through the features gathered
+from every rank (``T.all_gather_batch`` after ``T.scale_gradient``), the
+frozen tower is sharded over 'model' when ``--n_model`` > 1, and rank 0
+writes the logs and checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import math
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt
+from ..core import mesh as M
 from ..core import train as T
 from ..core.experiment import TBWriter, model_summary, save_results_csv
 from ..core.partition import by_keywords, partition, path_str
@@ -69,8 +76,7 @@ from ..losses import info_nce
 from ..models import clip as clip_mod
 from ..ops import KERNELS
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
-                     not_ported, require_real_tokenizer, resolve_device, seed_everything,
-                     setup_logging, setup_run)
+                     require_real_tokenizer, seed_everything, setup_logging, setup_run)
 
 
 def _finetune_parser(family: str):
@@ -164,11 +170,6 @@ def full_cfg(cfg):
                        text=dataclasses.replace(cfg.text, mlp_impl="xla"))
 
 
-def _refuse_unported(args):
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-
-
 def make_text_encoder(params, cfg, device, ops=KERNELS):
     """tokens (numpy or tensor) -> float32 features [B, embed] of the text
     tower, forward only (models/clip.py::infer_cfg): the CLIP text blocks
@@ -199,8 +200,8 @@ def cache_text_features(encode, tokenizer, captions, ctx: int, chunk: int = 256)
 def finetune_main(family: str, argv=None):
     args = _finetune_parser(family).parse_args(argv)
     apply_compat_flags(args)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    mesh = M.make_mesh(args.n_data, args.n_model, device=args.device)
+    device, main = mesh.device, mesh.is_main
     gen = seed_everything(args.seed)
     run_path = os.path.join("runs", args.exp)
     setup_logging(run_path, args)
@@ -220,7 +221,7 @@ def finetune_main(family: str, argv=None):
         pred = lora_trainable_predicate(params)
     else:
         pred = full_ft_predicate(args, depth=cfg.vision.depth)
-    trainable, _ = partition(params, pred)
+    trainable, frozen = partition(params, pred)
     names = list(trainable)
     logging.info(model_summary({"model": params}, trainable_pred=pred))
 
@@ -239,6 +240,14 @@ def finetune_main(family: str, argv=None):
 
     ctx = cfg.text.context_length
     accum = args.accumulation_steps
+    # with the frozen tower sharded over 'model' the batch splits over every
+    # rank: the data-parallel width is the whole grid
+    fsdp = mesh.n_model > 1
+    width = T.dp_width(mesh, frozen if fsdp else None)
+    if width > 1 and (args.batch_size // accum) % width:
+        raise ValueError(f"microbatch size {args.batch_size // accum} (batch_size / "
+                         f"accumulation_steps) must be divisible by the data-parallel width "
+                         f"{width}")
     steps = max(len(train_ds) // args.batch_size, 1)
     total_updates = math.ceil(steps / accum) * args.epochs
     logging.info(f"Updates per epoch: {math.ceil(steps / accum)}; total: {total_updates}")
@@ -268,16 +277,32 @@ def finetune_main(family: str, argv=None):
             txt_feats = clip_mod.encode_text(params, cfg, mb["tokens"], gen=text_gen)
         else:
             txt_feats = text_features(mb)
+        if width > 1:
+            # global-batch negatives: every rank's features gathered, so
+            # InfoNCE sees the whole microbatch at any width; scale_gradient
+            # undoes the step's mean over the ranks (each rank's gradient is
+            # only its own samples' part of the shared loss)
+            img_feats = T.all_gather_batch(T.scale_gradient(img_feats, float(width)), mesh)
+            txt_feats = T.all_gather_batch(T.scale_gradient(txt_feats, float(width)), mesh)
         return info_nce(img_feats, txt_feats, temperature=args.temperature)
+
+    step = T.make_step_for_mesh(loss_fn, T.make_optimizer(trainable.values(), tcfg), tcfg,
+                                mesh, accum_steps=accum, grad_clip=args.grad_clip,
+                                frozen=frozen if fsdp else None)
+    shards = getattr(step, "frozen", None)
+    # validation encodes the images data-parallel over the same grid, then
+    # takes the exact InfoNCE over the whole batch
+    encode_val = T.make_sharded_apply(
+        lambda p, x: clip_mod.encode_image(p, eval_cfg, x.to(torch.float32) / 255.0)[0], mesh,
+        frozen=shards)
 
     @torch.no_grad()
     def val_loss(batch):
-        x = batch["image"].to(torch.float32) / 255.0
-        img_feats, _ = clip_mod.encode_image(params, eval_cfg, x)
-        return float(info_nce(img_feats, text_features(batch), temperature=args.temperature))
-
-    step = T.TrainStep(loss_fn, T.make_optimizer(trainable.values(), tcfg), tcfg,
-                       accum_steps=accum, grad_clip=args.grad_clip)
+        images = batch["image"]
+        img_feats = encode_val(params, T.pad_rows(images, encode_val.dp_width))[:len(images)]
+        with shards.gathered() if shards is not None else contextlib.nullcontext():
+            txt = text_features(batch)
+        return float(info_nce(img_feats, txt, temperature=args.temperature))
 
     def tokenized_batches(ds, shuffle, drop_last, seed, skip_batches=0):
         for b in P.batches(ds, args.batch_size, shuffle=shuffle, drop_last=drop_last,
@@ -290,7 +315,7 @@ def finetune_main(family: str, argv=None):
             del b["caption"]
             yield b
 
-    writer = TBWriter(os.path.join(run_path, "log"))
+    writer = TBWriter(os.path.join(run_path, "log") if main else None)
     stopper = T.EarlyStopper(args.patience, mode="min")
     best_path = os.path.join(run_path, "best_model.npz")
     last_path = os.path.join(run_path, "last_state.npz")
@@ -311,6 +336,8 @@ def finetune_main(family: str, argv=None):
                      f"({step.applied} updates applied)")
 
     def save_last(epoch_, updates_into_epoch_):
+        if not main:
+            return
         ckpt.save_train_state(last_path, step.state(names), extra={
             "epoch": epoch_, "updates_into_epoch": updates_into_epoch_,
             "update_count": update_count, "applied_count": step.applied,
@@ -363,7 +390,7 @@ def finetune_main(family: str, argv=None):
             best = stopper.best if stopper.best is not None else float("inf")
             logging.info(f"Epoch {epoch + 1}: Train={train_str}, Val={avg_val:.4f}, "
                          f"Best={best:.4f}")
-            if stopper.update(avg_val, epoch):
+            if stopper.update(avg_val, epoch) and main:
                 n = ckpt.save(best_path, params, keyword_filter=ckpt_keywords)
                 logging.info(f"Best model saved ({n} tensors) at epoch {epoch + 1} with "
                              f"validation loss {stopper.best:.4f}")
@@ -379,6 +406,7 @@ def finetune_main(family: str, argv=None):
                 "best_epoch": stopper.best_step}
     logging.info(f"Training completed. Best val loss {stopper.best:.4f} at epoch "
                  f"{stopper.best_step + 1}")
+    M.barrier(mesh)  # rank 0's best_model.npz is written before any rank reads it
     if args.chain_zero_shot:
         chain_zero_shot(args, family, best_path)
     return {"best_val_loss": stopper.best, "best_epoch": stopper.best_step}
@@ -471,9 +499,9 @@ def retrieval_main(family: str, argv=None):
                    help="also save the image and text features as features.npz")
     args = p.parse_args(argv)
     apply_compat_flags(args)
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device evaluation)", "section A, item 14")
-    device = resolve_device(args.device)
+    # encoding spreads over every process of the launch, data-parallel
+    mesh = M.make_mesh(args.n_data, args.n_model, device=args.device)
+    device = mesh.device
     gen = seed_everything(args.seed)
     run_path = setup_run(args, "test")
 
@@ -496,18 +524,22 @@ def retrieval_main(family: str, argv=None):
 
     ctx = cfg.text.context_length
     params.to(device)
-    features = make_pair_features(cfg)
+    features = T.make_sharded_apply(make_pair_features(cfg), mesh)
 
     def tokenized():
         for b in P.batches(ds, args.batch_size, shuffle=False, drop_last=False,
                            workers=args.num_workers):
-            yield {"image": b["image"], "tokens": np.asarray(tokenizer(b["caption"], ctx))}
+            b, n_real = T.pad_eval_batch({"image": b["image"], "tokens": np.asarray(
+                tokenizer(b["caption"], ctx))}, features.dp_width)
+            b["n_real"] = n_real
+            yield b
 
     all_img, all_txt = [], []
     for batch in P.prefetch_to_device(tokenized(), device=device):
+        n = batch["n_real"]
         fi, ft = features(params, batch["image"], batch["tokens"])
-        all_img.append(fi.cpu().numpy())
-        all_txt.append(ft.cpu().numpy())
+        all_img.append(fi[:n].cpu().numpy())
+        all_txt.append(ft[:n].cpu().numpy())
 
     img_feats, txt_feats = np.concatenate(all_img), np.concatenate(all_txt)
     m = retrieval_metrics(img_feats @ txt_feats.T, k_values=args.k_values)
@@ -515,6 +547,8 @@ def retrieval_main(family: str, argv=None):
     flat.update({f"t2i_{k}": v for k, v in m["t2i"].items()})
     flat["rsum"] = m["rsum"]
     logging.info("  ".join(f"{k}={v:.2f}" for k, v in flat.items()))
+    if not mesh.is_main:
+        return flat
     out_dir = args.output_dir or run_path
     os.makedirs(out_dir, exist_ok=True)
     save_results_csv(flat, os.path.join(out_dir, "results.csv"), scale100=())

@@ -1,5 +1,6 @@
 """Zero-shot classification and supervised seg/cls for the CLIP families
-(counterpart of nextgen_uia_tpu/tasks/clip_tasks.py), on one device.
+(counterpart of nextgen_uia_tpu/tasks/clip_tasks.py), on one device or
+data-parallel over the processes of a ``torchrun`` launch (core/mesh.py).
 
   - zero-shot: each class's 10-prompt ensemble through the frozen text tower
     (forward only), L2-normalised; the logits are the mean over prompts of
@@ -23,6 +24,8 @@ import torch
 from torch import nn
 
 from ..core import checkpoint as ckpt
+from ..core import mesh as M
+from ..core import train as T
 from ..core.experiment import model_summary
 from ..core.partition import by_keywords
 from ..data import datasets as D
@@ -34,8 +37,7 @@ from ..ops import KERNELS
 from . import prompts as PR
 from .clip_finetune import make_text_encoder
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
-                     not_ported, require_real_tokenizer, resolve_device, seed_everything,
-                     setup_run)
+                     require_real_tokenizer, seed_everything, setup_run)
 from .supervised import (Bundle, add_fewshot_flags, apply_fewshot, finish_cls, preprocess,
                          run_supervised)
 
@@ -83,9 +85,9 @@ def zero_shot_main(family: str, argv=None):
                     mona_variant="freq_enhanced" if family == "biomedclip" else "noise_aware")
     args = p.parse_args(argv)
     apply_compat_flags(args)
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device evaluation)", "section A, item 14")
-    device = resolve_device(args.device)
+    # evaluation spreads over every process of the launch, data-parallel
+    mesh = M.make_mesh(args.n_data, args.n_model, device=args.device)
+    device = mesh.device
     gen = seed_everything(args.seed)
     run_path = setup_run(args, "test")
     args.test_snapshot_path = run_path
@@ -105,15 +107,22 @@ def zero_shot_main(family: str, argv=None):
 
     datasets = D.make_datasets(args.data_root, args.dataset, args.img_size, task="cls",
                                zero_shot=True, cache=args.cache_images)
-    image_logits = make_zero_shot_logits_fn(cfg, text_feats)
+    image_logits = T.make_sharded_apply(make_zero_shot_logits_fn(cfg, text_feats), mesh)
     acc = ClsAccumulator(criterion=cross_entropy_np)
     collected = []
-    batches = P.batches(datasets["test"], args.batch_size, shuffle=False, drop_last=False,
-                        workers=args.num_workers)
-    for batch in P.prefetch_to_device(batches, device=device):
+
+    def padded():
+        for b in P.batches(datasets["test"], args.batch_size, shuffle=False, drop_last=False,
+                           workers=args.num_workers):
+            b, n_real = T.pad_eval_batch(b, image_logits.dp_width)
+            b["n_real"] = n_real
+            yield b
+
+    for batch in P.prefetch_to_device(padded(), device=device):
+        n = batch["n_real"]
         logits, feats = image_logits(params, batch["image"])
-        acc.update(logits.cpu().numpy(), batch["label"].cpu().numpy())
-        collected.append(feats.cpu().numpy())  # every test feature, for the check below
+        acc.update(logits[:n].cpu().numpy(), batch["label"][:n].cpu().numpy())
+        collected.append(feats[:n].cpu().numpy())  # every test feature, for the check below
 
     feats = np.concatenate(collected, axis=0)
     if len(feats) > 10:  # feature collapse: one direction holding the covariance
@@ -124,7 +133,8 @@ def zero_shot_main(family: str, argv=None):
             logging.warning(f"Features may be collapsed (ratio={ratio:.4f})")
 
     stats = acc.compute()
-    finish_cls(args, acc, stats, run_path, f"roc_curve_{family}_zero_shot")
+    if mesh.is_main:
+        finish_cls(args, acc, stats, run_path, f"roc_curve_{family}_zero_shot")
     return stats
 
 
@@ -205,9 +215,8 @@ def supervised_main(family: str, task: str, argv=None, *, fewshot: bool = False)
         add_fewshot_flags(p)
     args = p.parse_args(argv)
     apply_compat_flags(args)
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-    device = resolve_device(args.device)
+    mesh = M.make_mesh(args.n_data, args.n_model, device=args.device)
+    device = mesh.device
     gen = seed_everything(args.seed)
 
     run_path = setup_run(args, "test" if args.test else "train")
@@ -229,4 +238,4 @@ def supervised_main(family: str, task: str, argv=None, *, fewshot: bool = False)
 
     bundle = Bundle(task=task, params=params, trainable_pred=trainable_pred,
                     forward_train=forward_train, forward_eval=fwd_eval)
-    return run_supervised(args, bundle, datasets, run_path, f"{family}_{task}", device)
+    return run_supervised(args, bundle, datasets, run_path, f"{family}_{task}", device, mesh)

@@ -36,11 +36,6 @@ BIOMEDCLIP_HF = "microsoft/BiomedCLIP-PubMedBERT_256-vit_base_patch16_224"
 UNIMEDCLIP_HF = "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract"
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP.md, {item})")
-
-
 def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(name, conflict_handler="resolve")
     p.add_argument("--exp", type=str, default=defaults.get("exp", name))
@@ -101,8 +96,9 @@ def base_parser(name: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--n_data", type=int, default=None,
-                   help="data-parallel width; the port serves on one device")
-    p.add_argument("--n_model", type=int, default=1, help="model-parallel width")
+                   help="data-parallel width under torchrun (default: the world size)")
+    p.add_argument("--n_model", type=int, default=1,
+                   help="model-parallel width under torchrun (shards the frozen tower)")
     p.add_argument("--debug_tiny", default=False, action="store_true",
                    help="shrink towers for smoke tests (random weights)")
     return p
@@ -156,9 +152,15 @@ def setup_run(args, subdir: str) -> str:
 
 
 def setup_logging(log_path: str, args) -> None:
-    """Log to <log_path>/log.log and stdout."""
+    """Log to <log_path>/log.log and stdout; a process of rank > 0 under
+    ``torchrun`` (``RANK``) writes no file and prints warnings only, so rank
+    0 alone logs a multi-process run."""
     for handler in logging.root.handlers[:]:
         logging.root.removeHandler(handler)
+    if int(os.environ.get("RANK", "0")) > 0:
+        logging.basicConfig(level=logging.WARNING, stream=sys.stdout,
+                            format=f"[rank {os.environ['RANK']}] %(message)s")
+        return
     os.makedirs(log_path, exist_ok=True)
     logging.basicConfig(filename=os.path.join(log_path, "log.log"), filemode="w",
                         level=logging.INFO, format="[%(asctime)s] %(message)s",

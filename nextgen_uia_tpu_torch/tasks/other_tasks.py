@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..core import checkpoint as ckpt
+from ..core import mesh as M
 from ..core.experiment import model_summary
 from ..core.partition import by_keywords
 from ..data import datasets as D
@@ -40,19 +41,15 @@ from ..ops import KERNELS
 from . import prompts as PR
 from .clip_tasks import extract_layers_for
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
-                     not_ported, resolve_device, seed_everything, setup_run)
+                     seed_everything, setup_run)
 from .supervised import (Bundle, add_fewshot_flags, apply_fewshot, preprocess,
                          run_supervised)
 
 
-def _refuse_multi_device(args):
-    if args.n_model != 1 or (args.n_data or 1) != 1:
-        raise not_ported("--n_data/--n_model (multi-device training)", "section A, item 14")
-
-
 def _bundle_main(name: str, task: str, argv, build, add_flags, *, fewshot: bool = False,
                  **defaults):
-    """A supervised-engine trainer on one device: the family's parser
+    """A supervised-engine trainer (on the processes of the launch, as
+    run_supervised spreads it; one device outside torchrun): the family's parser
     (strong and weak augmentation on, ``defaults`` for the rest), its bundle
     from ``build(args, gen)``, the few-shot subset when asked, then
     run_supervised tagged ``name``."""
@@ -62,8 +59,8 @@ def _bundle_main(name: str, task: str, argv, build, add_flags, *, fewshot: bool 
         add_fewshot_flags(p)
     args = p.parse_args(argv)
     apply_compat_flags(args)
-    _refuse_multi_device(args)
-    device = resolve_device(args.device)
+    mesh = M.make_mesh(args.n_data, args.n_model, device=args.device)
+    device = mesh.device
     gen = seed_everything(args.seed)
     run_path = setup_run(args, "test" if args.test else "train")
     bundle = build(args, gen)
@@ -74,7 +71,7 @@ def _bundle_main(name: str, task: str, argv, build, add_flags, *, fewshot: bool 
                                cache=args.cache_images)
     if fewshot:
         apply_fewshot(args, datasets, task)
-    return run_supervised(args, bundle, datasets, run_path, name, device)
+    return run_supervised(args, bundle, datasets, run_path, name, device, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt
+from ..core import mesh as M
 from ..core import train as T
 from ..core.experiment import TBWriter, archive_log, backup_folder, save_results_csv
 from ..core.partition import flatten_with_paths, partition
@@ -138,10 +139,23 @@ def finish_seg(args, stats, names, vis, run_path):
 
 
 def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
-                   device: torch.device):
+                   device: torch.device, mesh=None):
+    """Train (unless ``--test``) and test. ``mesh`` (core/mesh.py) spreads
+    both over its processes: each takes its slice of every batch
+    (``make_step_for_mesh``; the frozen tower sharded over 'model' when
+    ``n_model`` > 1), eval batches are padded to the data-parallel width,
+    run per rank and gathered, and rank 0 alone writes logs, checkpoints,
+    figures and results."""
     task, params, bn = bundle.task, bundle.params, bundle.bn_state
-    trainable, _ = partition(params, bundle.trainable_pred)
+    trainable, frozen = partition(params, bundle.trainable_pred)
     names = list(trainable)
+    main = mesh is None or mesh.is_main
+    fsdp = mesh is not None and mesh.n_model > 1
+    width = T.dp_width(mesh, frozen if fsdp else None)
+    if width > 1 and args.batch_size % width:
+        raise ValueError(f"batch_size {args.batch_size} must be divisible by the "
+                         f"data-parallel width {width}")
+    shards = []  # the train step's model-sharded frozen tower, once it exists
 
     def bn_flat():
         return {} if bn is None else {f"bn/{k}": v for k, v in flatten_with_paths(bn)}
@@ -157,18 +171,27 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
         accum = (ClsAccumulator if task == "cls" else SegAccumulator)(
             criterion=np_criterion_for(task))
         names_out, vis = [], []
-        batches = P.batches(datasets[split], args.batch_size, shuffle=False, drop_last=False,
-                            workers=args.num_workers)
-        for batch in P.prefetch_to_device(batches, device=device):
-            logits = bundle.forward_eval(params, batch["image"]).float().cpu().numpy()
+        apply = T.make_sharded_apply(bundle.forward_eval, mesh,
+                                     frozen=shards[0] if shards else None)
+
+        def padded():
+            for b in P.batches(datasets[split], args.batch_size, shuffle=False,
+                               drop_last=False, workers=args.num_workers):
+                b, n_real = T.pad_eval_batch(b, apply.dp_width)
+                b["n_real"] = n_real
+                yield b
+
+        for batch in P.prefetch_to_device(padded(), device=device):
+            n = batch["n_real"]
+            logits = apply(params, batch["image"]).float().cpu().numpy()[:n]
             if task == "cls":
-                accum.update(logits, batch["label"].cpu().numpy())
+                accum.update(logits, batch["label"].cpu().numpy()[:n])
             else:
-                gt = batch["mask"].cpu().numpy()[:, None, :, :]
+                gt = batch["mask"].cpu().numpy()[:n, None, :, :]
                 accum.update(logits, gt)
-                names_out.extend(batch["name"])
+                names_out.extend(batch["name"][:n])
                 if max_vis_batches is None or len(vis) < max_vis_batches:
-                    vis.append((batch["image"].cpu().numpy(), gt, logits))
+                    vis.append((batch["image"].cpu().numpy()[:n], gt, logits))
         return accum, names_out, vis
 
     best_path = os.path.join(run_path if not args.test else
@@ -181,9 +204,16 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
         tcfg = T.TrainConfig(lr=args.lr, lr_min=args.lr_min, weight_decay=args.weight_decay,
                              beta1=args.beta1, beta2=args.beta2,
                              total_updates=steps_per_epoch * args.epochs)
-        step = T.TrainStep(loss_fn, T.make_optimizer(trainable.values(), tcfg), tcfg)
+        step = T.make_step_for_mesh(loss_fn, T.make_optimizer(trainable.values(), tcfg), tcfg,
+                                    mesh, frozen=frozen if fsdp else None, bn=bn)
+        if getattr(step, "frozen", None) is not None:
+            shards.append(step.frozen)
+        if width > 1:
+            logging.info(f"Data-parallel training over {width} processes"
+                         + (f" (frozen tower sharded over model={mesh.n_model})" if fsdp
+                            else ""))
         stopper = T.EarlyStopper(args.patience, mode="max")
-        writer = TBWriter(os.path.join(run_path, "log"))
+        writer = TBWriter(os.path.join(run_path, "log") if main else None)
         key_metric = "acc" if task == "cls" else "dice_mean"
         # the dropout stream: torch's, seeded like the JAX package's key
         gen = torch.Generator(device=device).manual_seed(args.seed + 123)
@@ -204,6 +234,8 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
                          f"({step.applied} updates applied)")
 
         def save_last(epoch_, updates_into_epoch_):
+            if not main:
+                return
             flat = {f"train/{k}": v for k, v in step.state(names).items()}
             flat.update({k: v.detach().cpu().numpy() for k, v in bn_flat().items()})
             ckpt.save_train_state(last_path, flat, extra={
@@ -273,7 +305,7 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
                             plt.close(fig)
                     logging.info(f"Epoch {epoch + 1}: loss={epoch_loss / max(nb, 1):.4f} "
                                  f"val {key_metric}={val_metric:.4f}")
-                    if stopper.update(val_metric, epoch):
+                    if stopper.update(val_metric, epoch) and main:
                         n = ckpt.save_flat(best_path,
                                            {**{f"params/{k}": v for k, v in trainable.items()},
                                             **bn_flat()})
@@ -293,6 +325,7 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
         if shutdown.requested:
             return {"preempted": True}
 
+    M.barrier(mesh)  # rank 0's best_model.npz is written before any rank reads it
     if os.path.exists(best_path):
         tree = {"params": params, **({"bn": bn} if bn is not None else {})}
         _, n = ckpt.load_into(best_path, torch.nn.ModuleDict(tree))
@@ -300,6 +333,8 @@ def run_supervised(args, bundle: Bundle, datasets, run_path: str, tag: str,
 
     accum, names_out, vis = evaluate("test")
     stats = accum.compute()
+    if not main:
+        return stats
     if task == "cls":
         finish_cls(args, accum, stats, run_path, f"roc_curve_{tag}")
     else:

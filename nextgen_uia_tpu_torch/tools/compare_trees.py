@@ -1,7 +1,7 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
     python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
-        [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|aug]
+        [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|aug|serve]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -62,7 +62,12 @@ image as one slot, the way the tree's ``apply_plan`` runs it (this tree:
 histogram and lookup kernels and the torch ops around them, the quantize
 and the copy back): the op's ms, its device records, its K13 kernels'
 device time and all its device time; then hist256 and lut_apply over the
-batch, op and kernel alone. The timing scripts import nothing of
+batch, op and kernel alone. ``serve`` prints the serving batch of 32
+(BiomedCLIP seg, hybrid MONA, bf16, ``make_infer``: K1 and K2 in every
+block) and the 1 x 64 bench step at its default route, CUDA-event ms per
+call over three 10-call windows each: the host cost of calling the
+kernels as registered torch ops (ops/registry.py) shows there against a
+tree that calls them through ctypes. The timing scripts import nothing of
 this module, since they run in the other tree.
 """
 
@@ -436,6 +441,49 @@ for attn, fused in ROUTES:
           flush=True)
 '''
 
+SERVE = r'''
+import sys, torch
+sys.path.insert(0, ".")
+from nextgen_uia_tpu_torch import bench
+from nextgen_uia_tpu_torch.adapters.mona import inject_mona
+from nextgen_uia_tpu_torch.models import clip as clip_mod
+from nextgen_uia_tpu_torch.models.heads import PyramidHeadConfig, pyramid_head_init
+from nextgen_uia_tpu_torch.tasks.clip_tasks import _make_forward
+from nextgen_uia_tpu_torch.tasks.serve import make_infer
+dev = torch.device("cuda")
+
+def windows(fn, n=3, calls=10):
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(n):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    return " ".join(f"{v:.3f}" for v in out)
+
+gen = torch.Generator().manual_seed(0)
+cfg = clip_mod.clip_config("biomedclip", compute_dtype="bfloat16", mona_variant="hybrid")
+backbone = clip_mod.clip_init(gen, cfg)
+inject_mona(gen, backbone.visual, dim=cfg.vision.width, variant="hybrid")
+hcfg = PyramidHeadConfig(feature_dim=cfg.vision.width, num_classes=2, img_size=224)
+params = torch.nn.ModuleDict({"backbone": backbone,
+                              "head": pyramid_head_init(gen, hcfg)}).to(dev)
+infer = make_infer(_make_forward(cfg, hcfg, train=False), params, dev)
+x = torch.randint(0, 256, (32, 224, 224), dtype=torch.uint8,
+                  generator=torch.Generator().manual_seed(1)).to(dev)
+print(f"SERVE batch 32 seg forward (K1 + K2, 12 blocks): {windows(lambda: infer(x))} ms",
+      flush=True)
+bn = bench.build(dev, bench.Knobs())
+step = bn.train_step()
+g = torch.Generator(device=dev).manual_seed(0)
+print(f"SERVE bench step 1 x 64: {windows(lambda: step(bn.batch, g))} ms", flush=True)
+'''
+
 AUG = f"SHAPES = {AUG_SHAPES!r}" + TIMERS + r'''
 from nextgen_uia_tpu_torch.data import augment as aug
 from nextgen_uia_tpu_torch.ops import KERNELS, lut
@@ -485,7 +533,7 @@ for b, size in SHAPES:
 TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
            "k7f32": (K7F32, "K7F32 "), "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
            "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH "),
-           "aug": (AUG, "AUG ")}
+           "aug": (AUG, "AUG "), "serve": (SERVE, "SERVE ")}
 
 
 def main(argv=None):
@@ -494,7 +542,7 @@ def main(argv=None):
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
                          "OTHER_CHECKOUT [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|"
-                         "aug]")
+                         "aug|serve]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

@@ -571,8 +571,9 @@ def test_baselines_refuse_several_devices_and_serve_no_unknown_family(synth):
     from nextgen_uia_tpu_torch.tasks import serve
     from nextgen_uia_tpu_torch.tasks.baselines import fewshot_segmentation, segmentation
 
+    # several devices take a torchrun launch of as many processes
     for main in (segmentation.main, fewshot_segmentation.main):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             main(COMMON + ["--data_root", synth, "--n_data", "2"])
     with pytest.raises(ValueError, match="no predict CLI serves the 'resnet' family"):
         serve.predict_main("resnet", ["--images", synth])

@@ -21,6 +21,7 @@ tree) and ``clip.finetune --method mona --chain_zero_shot BUSI``.
 import dataclasses
 import glob
 import math
+import os
 import types
 
 import jax
@@ -301,8 +302,10 @@ def test_unimedclip_zero_shot_and_clip_predict_run(synth, tmp_path, offline):
     lines = open(f"{out['out']}/predictions.csv").read().splitlines()
     assert lines[0] == "path,pred,status,prob_benign,prob_malignant" and len(lines) == 13
     assert all(line.split(",")[1] in ("benign", "malignant") for line in lines[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        predict.main(_cpu("--images", synth, "--export", "f"))
+    # --export writes the program and its weights beside the predictions
+    out = predict.main(_cpu("--images", synth, "--export", "f.pt2"))
+    assert os.path.getsize(os.path.join(out["out"], "f.pt2.params.npz")) > 0
+    assert os.path.getsize(os.path.join(out["out"], "f.pt2")) > 0
 
 
 def test_clip_classification_writes_the_hidden_head(synth, tmp_path):

@@ -281,13 +281,13 @@ def test_finetune_refuses_what_is_not_ported(ftdata):
 
     base = _argv(ftdata, "ft_refuse")
     # --method full and --tune_text_encoder run (tests/test_torch_full_ft.py);
-    # multi-device training still refuses, with them too
-    for extra, item in ((["--method", "full", "--n_data", "2"], "item 14"),
-                        (["--tune_text_encoder", "--n_data", "2"], "item 14"),
-                        (["--n_data", "2"], "item 14")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    # several devices take a torchrun launch of as many processes
+    # (tests/test_torch_mesh.py), with them too
+    for extra in (["--method", "full", "--n_data", "2"], ["--tune_text_encoder", "--n_data", "2"],
+                  ["--n_data", "2"]):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             main(base + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ft.retrieval_main("openai", ["--n_data", "2"])
     # an unknown family: no such model (all four CLIP families are ported)
     with pytest.raises(ValueError, match="Unknown CLIP family"):

@@ -157,22 +157,36 @@ def test_predict_cli_matches_jax(tmp_path, monkeypatch, task):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """What the predict CLIs once refused now runs: ``--export`` (zero-shot,
+    cls, the baselines' seg) writes a program and its weights that load
+    back, ``--n_model`` is ignored by serving, as in the JAX CLI; serving
+    on an absent CUDA device still refuses."""
     from nextgen_uia_tpu_torch.tasks.biomedclip.predict import main
+    from nextgen_uia_tpu_torch.tasks.serve import load_exported_params, predict_main
 
     monkeypatch.chdir(tmp_path)
     (tmp_path / "imgs").mkdir()
     Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "imgs" / "a.png")
     base = ["--images", str(tmp_path / "imgs"), "--debug_tiny", "--img_size", "32",
-            "--device", "cpu"]
-    for extra in (["--export", "f"], ["--task", "cls", "--export", "f"],
-                  ["--task", "cls", "--n_model", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-            main(base + extra)
-    from nextgen_uia_tpu_torch.tasks.serve import predict_main
+            "--device", "cpu", "--batch_size", "1"]
 
-    # CLIPSeg and the baselines serve since their slices; --export still refuses there
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        predict_main("baselines", base + ["--task", "seg", "--export", "f"])
+    def exported(out, name="f"):
+        program = torch.export.load(os.path.join(out, name + ".pt2"))
+        weights = load_exported_params(os.path.join(out, name + ".pt2.params.npz"))
+        logits = program.module()(weights, torch.zeros(1, 32, 32, dtype=torch.uint8))
+        assert torch.isfinite(logits).all()
+        return logits
+
+    for extra in (["--export", "f.pt2"], ["--task", "cls", "--export", "f.pt2"],
+                  ["--task", "cls", "--n_model", "2"]):
+        out = str(tmp_path / f"out{len(extra)}_{extra[1]}")
+        assert main(base + extra + ["--out", out])["n_images"] == 1
+        if "--export" in extra:
+            assert exported(out).shape == (1, 2)
+    out = str(tmp_path / "out_baselines")
+    predict_main("baselines", base + ["--task", "seg", "--export", "f.pt2", "--out", out,
+                                      "--init_channels", "2"])
+    assert exported(out).shape == (1, 2, 32, 32)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--images", str(tmp_path / "imgs"), "--task", "seg", "--debug_tiny"])

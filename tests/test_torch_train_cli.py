@@ -105,15 +105,16 @@ def test_trainer_cli_refuses_what_is_not_ported(synth):
 
     root, mona = synth
     base = _argv(root, mona, "--epochs", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # several devices take a torchrun launch of as many processes
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         segmentation.main(base + ["--n_data", "2"])
     dino = ["--dataset", "BUSI", "--data_root", root, "--debug_tiny", "--img_size", "28",
             "--device", "cpu"]
     # the few-shot mains and --lora_weights run since their slice
-    # (tests/test_torch_fewshot_lora.py); multi-device training still refuses
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    # (tests/test_torch_fewshot_lora.py); a grid this launch lacks refuses
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         other_tasks.dino_segmentation_main(dino + ["--n_data", "2"], fewshot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         dino_cls.main(dino + ["--lora_weights", "x.npz", "--n_model", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
