@@ -136,6 +136,15 @@
    share, peak memory, no WMMA GEMM, colgemm_kernel or mona_down_kernel in
    the profile; in float32 the fused route on the kernels against
    the composed plain path (loss, every MONA tensor); bench.main's JSON.
+   Bench modes phase: bench.main() under NEXTGEN_UIA_BENCH_SUPERVISED,
+   _EVAL and _INPUT at full width and depth (10-step windows; 1024 PNGs, 2
+   epochs; the supervised mode with augmentation on and off): each JSON
+   line's keys, the whole run's launches against one
+   step's times the steps, img/s, ms a step, peak memory, the input mode's
+   host-only rate and decoder; one augmented supervised step's launches
+   (equalize once a slot that drew it) and a float32 step with
+   augmentation off on the kernels against the plain path (loss and the
+   head and MONA gradients; the plain path launches nothing).
 11. Convert phase: full-size seeded state dicts under the reference
    checkpoints' key names (open_clip's BiomedCLIP in float32, OpenAI's
    ViT-B/16 CLIP in float16), each torch.save'd, converted by ``python -m
@@ -1798,7 +1807,7 @@ def slice_phase(dev, work):
     from nextgen_uia_tpu_torch.models import clip as clip_mod
     from nextgen_uia_tpu_torch.models.heads import PyramidHeadConfig, pyramid_head_init
     from nextgen_uia_tpu_torch.ops import PLAIN
-    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, make_forward
     from nextgen_uia_tpu_torch.tasks.common import base_parser
     from nextgen_uia_tpu_torch.tasks.serve import iter_padded, make_infer
 
@@ -1829,7 +1838,7 @@ def slice_phase(dev, work):
             and all(torch.equal(loaded[k], source[k]) for k in source),
             "weights did not round-trip through the .npz bridge")
     params.to(dev)
-    infer = make_infer(_make_forward(cfg, hcfg, train=False), params, dev)
+    infer = make_infer(make_forward(cfg, hcfg, train=False), params, dev)
     print(f"slice: built and loaded {len(source)} tensors via the .npz bridge in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1953,7 +1962,7 @@ def train_phase(dev, files):
     from nextgen_uia_tpu_torch.data.augment import augment_batch, sample_plan
     from nextgen_uia_tpu_torch.losses import dice_ce_loss
     from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
-    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, make_forward
     from nextgen_uia_tpu_torch.tasks.common import base_parser
 
     args = base_parser("chip_smoke").parse_args([
@@ -1964,7 +1973,7 @@ def train_phase(dev, files):
                                           torch.Generator().manual_seed(1))
     trainable, frozen = partition(params, by_keywords("head", "mona", "lora"))
     params.to(dev)
-    forward = _make_forward(cfg, hcfg, train=True)
+    forward = make_forward(cfg, hcfg, train=True)
     imgs, masks = disc_batch(np.random.default_rng(1), BATCH)
     batch = {"image": torch.from_numpy(imgs).to(dev)[None],
              "mask": torch.from_numpy(masks).to(dev)[None]}
@@ -2005,10 +2014,10 @@ def train_phase(dev, files):
     # largest gradient, so in bf16 the whole gradient's norm is held to the
     # plain path's, and each tensor to the plain path in the same step in
     # float32
-    forward = _make_forward(cfg.replace(compute_dtype="float32"), hcfg, train=True)
+    forward = make_forward(cfg.replace(compute_dtype="float32"), hcfg, train=True)
     loss32_k, g32_k = grads(KERNELS)
     loss32_p, g32_p = grads(PLAIN)
-    forward = _make_forward(cfg, hcfg, train=True)
+    forward = make_forward(cfg, hcfg, train=True)
     worst, worst_name = worst_ratio(g32_k, g32_p, lambda k: False)
     print(f"train: first-step loss kernel {loss_k:.6f} plain {loss_p:.6f}, gradient norm "
           f"{norm_k:.6f} / {norm_p:.6f} (relative L2 distance {rel_l2:.3e}); float32: loss "
@@ -2043,7 +2052,7 @@ def train_phase(dev, files):
     profile_steps(lambda: step(batch, gen), 3, ms)
 
     # the same step with the trainer's default strong+weak augmentation
-    forward_aug = _make_forward(cfg, hcfg, train=True, strong=True, weak=True)
+    forward_aug = make_forward(cfg, hcfg, train=True, strong=True, weak=True)
 
     def aug_loss(mb, gen_):
         logits, m = forward_aug(params, mb["image"], mb["mask"], gen_)
@@ -3118,6 +3127,130 @@ def bench_phase(dev):
                                                               "vs_baseline"}
             and rec["value"] > 0, "the bench did not print its one JSON line")
     return launches
+
+
+BENCH_MODE_KEYS = {  # each JAX bench mode's JSON keys beyond metric, value, unit, vs_baseline
+    "SUPERVISED": {"batch", "augs"}, "EVAL": {"batch"},
+    "INPUT": {"host_only_images_per_sec", "decode", "workers", "n_images"}}
+
+
+def bench_modes_phase(dev):
+    """The bench's three other modes at full width and depth (ViT-B/16, 224
+    px, 12 blocks, bf16), each through ``bench.main()`` under its
+    environment variable with 10-step windows after 2 warm-up steps (the
+    input mode: 1024 PNGs, 2 epochs): one JSON line with the JAX mode's
+    keys and a positive rate, and the launches of the whole run equal to
+    one step's (or batch's) times the steps: the supervised step's
+    TRAIN_LAUNCHES and equalize, the zero-shot batch's K1 and K2 12 each,
+    the input mode's bench step (warm-up and end-to-end epochs; the
+    host-only epochs launch nothing); the supervised mode with augmentation
+    on and off (NEXTGEN_UIA_BENCH_AUGS). Before them, from
+    ``bench.build_supervised``: one augmented bf16 step's launches exactly
+    (equalize once a slot that drew it), and one float32 step with
+    augmentation off on the kernels against the plain path (which launches
+    nothing): loss within F32_BOUND, head and MONA gradients by
+    ``worst_ratio``. Prints each mode's img/s, ms a step, peak memory and the
+    input mode's host-only rate and decoder."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from nextgen_uia_tpu_torch import bench
+    from nextgen_uia_tpu_torch.data.augment import sample_plan
+    from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
+
+    knobs = bench.Knobs()
+    require((knobs.img, knobs.dtype, knobs.depth, knobs.sup_batch, knobs.augs, knobs.images)
+            == (224, "bfloat16", 12, 32, True, 1024), f"bench defaults changed: {knobs}")
+    step_launches = {k: v for k, v in TRAIN_LAUNCHES.items() if v}
+
+    sb = bench.build_supervised(dev, knobs)
+    step = sb.train_step()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(sb.batch, gen)
+    twin = torch.Generator(device=dev)  # the plan the next step draws first from gen
+    twin.set_state(gen.get_state())
+    eq_slots = int((sample_plan(twin, knobs.sup_batch).strong_ids == 2).any(0).sum())
+    reset_counts()
+    metrics = step(sb.batch, gen)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {**step_launches, **({"equalize": eq_slots} if eq_slots else {})}
+    print(f"bench modes: supervised, one augmented bf16 step: loss {metrics['loss']:.6f}, "
+          f"launches {counts}")
+    require(np.isfinite(metrics["loss"]), f"supervised bench step {metrics}")
+    require(counts == want, f"a supervised bench step launched {counts}, want {want}")
+
+    sb.cfg = sb.cfg.replace(compute_dtype="float32")
+    mb = {k: v[0] for k, v in sb.batch.items()}
+
+    def loss32(ops):
+        for t in sb.trainable.values():
+            t.grad = None
+        loss = sb.loss_fn(ops, augs=False)(mb, torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        return loss.item(), {k: torch.zeros_like(t) if t.grad is None else t.grad.clone()
+                             for k, t in sb.trainable.items()}
+
+    reset_counts()
+    loss_k, g_k = loss32(KERNELS)
+    counts32 = {k: v for k, v in read_counts().items() if v}
+    reset_counts()
+    loss_p, g_p = loss32(PLAIN)
+    counts_plain = {k: v for k, v in read_counts().items() if v}
+    worst, worst_name = worst_ratio(g_k, g_p, lambda k: False)
+    del sb, step, g_k, g_p
+    print(f"bench modes: supervised, float32 step, augmentation off: loss kernels {loss_k:.7f}, "
+          f"plain {loss_p:.7f} (|d| {abs(loss_k - loss_p):.2e}); head and MONA gradients worst "
+          f"max|d| / min(1e-4 max|ref| of all, 3e-2 its own max|ref|) = {worst:.3f} "
+          f"({worst_name}); launches {counts32}, plain path {counts_plain}")
+    require(counts32 == step_launches, f"the float32 supervised step launched {counts32}")
+    require(not counts_plain, f"the plain float32 supervised step launched {counts_plain}")
+    require(abs(loss_k - loss_p) <= F32_BOUND * abs(loss_p),
+            "the float32 supervised bench loss disagrees with the plain path")
+    require(worst <= 1.0, f"the float32 supervised gradient of {worst_name} disagrees with the "
+                          "plain path")
+
+    n_steps = 2 + 2 * 10
+    e2e = 1 + bench.INPUT_EPOCHS * (knobs.images // knobs.batch)
+    runs = (("SUPERVISED", "1", step_launches, n_steps, knobs.sup_batch),
+            ("SUPERVISED", "0", step_launches, n_steps, knobs.sup_batch),
+            ("EVAL", "1", {"fused_block_infer": 12, "mona_spatial": 12}, n_steps,
+             knobs.eval_batch),
+            ("INPUT", "1", bench_launches(12, "auto", False), e2e, knobs.batch))
+    for mode, augs, launches, steps, batch in runs:
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with environ(NEXTGEN_UIA_BENCH_STEPS="10", NEXTGEN_UIA_BENCH_WARMUP="2",
+                     NEXTGEN_UIA_BENCH_AUGS=augs, **{f"NEXTGEN_UIA_BENCH_{mode}": "1"}), \
+                contextlib.redirect_stdout(out):
+            rec = bench.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lines = out.getvalue().strip().splitlines()
+        print(f"bench modes: {mode}: {lines}")
+        require(len(lines) == 1 and set(json.loads(lines[0])) == {
+            "metric", "value", "unit", "vs_baseline"} | BENCH_MODE_KEYS[mode]
+            and rec["value"] > 0 and rec.get("augs", augs == "1") == (augs == "1"),
+            f"the {mode} bench did not print its one JSON line")
+        want = {k: v * steps for k, v in launches.items()}
+        if mode == "SUPERVISED":  # the slots that drew equalize vary by step
+            eq = counts.pop("equalize", 0)
+            require((eq > 0) == (augs == "1"), f"{eq} equalize launches, augmentation {augs}")
+            mode = f"{mode} (augmentation {'on' if augs == '1' else 'off'})"
+        require(counts == want, f"the {mode} bench launched {counts}, want {want} "
+                                f"({steps} steps)")
+        extra = (f", host only {rec['host_only_images_per_sec']:.2f} img/s, decoder "
+                 f"{rec['decode']}, {rec['workers']} workers" if mode == "INPUT" else "")
+        print(f"bench modes: {mode}: {rec['value']:.2f} img/s = {batch * 1000 / rec['value']:.2f} "
+              f"ms a step at batch {batch}{extra}; peak device memory {peak:.2f} GB; "
+              f"{seconds:.1f} s in bench.main()")
 
 
 def profile_steps(fn, steps, step_ms, seen=None):
@@ -4620,7 +4753,7 @@ def supervised_lora_phase(dev, work, files):
     from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
     from nextgen_uia_tpu_torch.losses import dice_ce_loss
     from nextgen_uia_tpu_torch.ops import KERNELS, PLAIN
-    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, make_forward
     from nextgen_uia_tpu_torch.tasks.common import base_parser
     from nextgen_uia_tpu_torch.tasks.serve import make_infer
 
@@ -4643,7 +4776,7 @@ def supervised_lora_phase(dev, work, files):
                          beta1=args.beta1, beta2=args.beta2, total_updates=10)
 
     def make_step(dtype, ops):
-        fwd = _make_forward(cfg.replace(compute_dtype=dtype), hcfg, train=True)
+        fwd = make_forward(cfg.replace(compute_dtype=dtype), hcfg, train=True)
 
         def loss(mb, gen):
             return dice_ce_loss(*fwd(params, mb["image"], mb["mask"], gen, ops))
@@ -4661,7 +4794,7 @@ def supervised_lora_phase(dev, work, files):
         for k, p in trainable.items():
             p.copy_(start[k])
 
-    infer = make_infer(_make_forward(cfg, hcfg, train=False), params, dev)
+    infer = make_infer(make_forward(cfg, hcfg, train=False), params, dev)
     images = batch["image"][0]
     reset_counts()
     logits = infer(images)
@@ -5234,7 +5367,7 @@ def distributed_phase(dev, files):
     from nextgen_uia_tpu_torch.core import train as T
     from nextgen_uia_tpu_torch.core.partition import by_keywords, partition
     from nextgen_uia_tpu_torch.losses import dice_ce_loss
-    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, _make_forward
+    from nextgen_uia_tpu_torch.tasks.clip_tasks import _build_supervised, make_forward
     from nextgen_uia_tpu_torch.tasks.common import base_parser
 
     args = base_parser("chip_smoke").parse_args([
@@ -5246,7 +5379,7 @@ def distributed_phase(dev, files):
     trainable, _ = partition(params, by_keywords("head", "mona", "lora"))
     params.to(dev)
     start = {k: p.detach().clone() for k, p in trainable.items()}
-    forward = _make_forward(cfg, hcfg, train=True)
+    forward = make_forward(cfg, hcfg, train=True)
     imgs, masks = disc_batch(np.random.default_rng(3), BATCH)
     batch = {"image": torch.from_numpy(imgs).to(dev)[None],
              "mask": torch.from_numpy(masks).to(dev)[None]}
@@ -5379,6 +5512,7 @@ def main():
         launches.update(dwconv7_per_sample=0, dwconv7_per_sample_backward=0)
         launches["fused_block_infer_quick_gelu"] = timed("zero-shot", zero_shot_phase, dev)
         launches.update(timed("bench", bench_phase, dev))
+        timed("bench modes", bench_modes_phase, dev)
         launches.update(timed("clipseg", clipseg_phase, dev))
         lora = timed("supervised LoRA", supervised_lora_phase, dev, work, files)
         timed("baselines", baselines_phase, dev)

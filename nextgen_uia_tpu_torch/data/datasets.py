@@ -53,17 +53,24 @@ def load_image(path: str, img_size: int) -> np.ndarray:
     levels (float vs PIL's fixed-point filter arithmetic; parity test
     tests/test_native_loader.py), much faster on multi-core hosts;
     NEXTGEN_UIA_NATIVE_LOADER=0 forces PIL."""
+    return decode_image(path, img_size)[0]
+
+
+def decode_image(path: str, img_size: int) -> tuple[np.ndarray, str]:
+    """``load_image`` and the decoder that decoded the file: "native" (the
+    C++ loader, when it is on and built) or "PIL" (otherwise, or where the
+    C++ loader fails on the file)."""
     if _use_native():
         from . import native_loader
 
         if native_loader.available():
             batch, status = native_loader.decode_batch([path], img_size, gray=True)
             if status[0]:
-                return batch[0, :, :, 0]
+                return batch[0, :, :, 0], "native"
     img = Image.open(path).convert("L")
     if img.size != (img_size, img_size):
         img = img.resize((img_size, img_size))
-    return np.asarray(img, dtype=np.uint8)
+    return np.asarray(img, dtype=np.uint8), "PIL"
 
 
 def load_mask(path: str, img_size: int) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Host -> device feed (counterpart of nextgen_uia_tpu/data/pipeline.py):
 threaded batch assembly (``collate``, ``batches``, in the JAX package's
-seeded order) and ``prefetch_to_device``."""
+seeded order) and ``prefetch_to_device``, which reads its iterator on a
+producer thread."""
 
 from __future__ import annotations
 
-import collections
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -52,6 +54,12 @@ def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):
     tensors on ``device``, staged ``size`` batches ahead; other leaves pass
     through.
 
+    A producer thread reads the iterator, so the decode and collation of the
+    next batches overlap the consumer's step. A consumer that stops early
+    (closes the generator, or raises) sets a stop event that releases the
+    producer from a full queue; an error raised by the iterator is raised in
+    the consumer.
+
     On a CUDA device each leaf is copied from pinned host memory with
     ``non_blocking`` on a side stream, so the copies of the next batches
     overlap the work queued on the current stream; the consumer's stream
@@ -59,6 +67,8 @@ def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
+    if cuda and device.index is None:  # the consumer's current device, not the thread's
+        device = torch.device("cuda", torch.cuda.current_device())
     side = torch.cuda.Stream(device) if cuda else None
 
     def transfer(batch):
@@ -68,7 +78,7 @@ def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):
                                               or v.dtype == np.bool_):
                 t = torch.from_numpy(np.ascontiguousarray(v))
                 if cuda:
-                    with torch.cuda.stream(side):
+                    with torch.cuda.device(device), torch.cuda.stream(side):
                         t = t.pin_memory().to(device, non_blocking=True)
                 else:
                     t = t.to(device)
@@ -81,21 +91,47 @@ def prefetch_to_device(iterator, *, device: torch.device, size: int = 2):
             event.record(side)
         return out, event
 
-    def hand_out(batch, event):
-        if event is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(event)
-            for v in batch.values():
-                if isinstance(v, torch.Tensor):
-                    # allocated on the side stream: keep the memory from reuse
-                    # until the consumer's queued work on it is done
-                    v.record_stream(stream)
-        return batch
+    q: queue.Queue = queue.Queue(maxsize=size)
+    sentinel = object()
+    err = []
+    stop = threading.Event()
 
-    staged = collections.deque()
-    for batch in iterator:
-        staged.append(transfer(batch))
-        if len(staged) > size:
-            yield hand_out(*staged.popleft())
-    while staged:
-        yield hand_out(*staged.popleft())
+    def put_or_stop(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                if not put_or_stop(transfer(batch)):
+                    return
+        except Exception as e:  # raised in the consumer
+            err.append(e)
+        finally:
+            put_or_stop(sentinel)
+
+    threading.Thread(target=producer, daemon=True, name="nextgen-uia-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(event)
+                for v in batch.values():
+                    if isinstance(v, torch.Tensor):
+                        # allocated on the side stream: keep the memory from
+                        # reuse until the consumer's queued work on it is done
+                        v.record_stream(stream)
+            yield batch
+    finally:
+        stop.set()

@@ -164,7 +164,7 @@ def _build_supervised(args, family: str, task: str, gen: torch.Generator):
     return cfg, hcfg, params
 
 
-def _make_forward(cfg, hcfg, *, train: bool, strong: bool = False, weak: bool = False):
+def make_forward(cfg, hcfg, *, train: bool, strong: bool = False, weak: bool = False):
     """The model forward over uint8 images [B, H, W], scaled to [0, 1] and
     the grayscale channel repeated to 3 (tasks/supervised.py::preprocess).
 
@@ -229,9 +229,9 @@ def supervised_main(family: str, task: str, argv=None, *, fewshot: bool = False)
     if fewshot:
         apply_fewshot(args, datasets, task)
     params.to(device)
-    fwd_train = _make_forward(cfg, hcfg, train=True, strong=args.strong_augs,
-                              weak=args.weak_augs)
-    fwd_eval = _make_forward(cfg, hcfg, train=False)
+    fwd_train = make_forward(cfg, hcfg, train=True, strong=args.strong_augs,
+                             weak=args.weak_augs)
+    fwd_eval = make_forward(cfg, hcfg, train=False)
 
     def forward_train(params, batch, gen):
         return fwd_train(params, batch["image"], batch.get("mask"), gen)

@@ -4,8 +4,8 @@ flags, seeding, device choice and model assembly.
 The flags keep the JAX package's names and defaults for what the serving,
 supervised-training and contrastive fine-tune paths read. ``--device``
 selects the torch device here (default ``cuda``); asking for CUDA where
-there is none raises, and nothing falls back to the CPU. Features outside
-the ported slices raise NotImplementedError naming their ROADMAP.md item.
+there is none raises, and nothing falls back to the CPU. Every task of the
+JAX package is ported; none refuses as unported.
 
 Without converted pretrained weights the backbone initialises randomly from
 ``--seed`` with a loud warning.

@@ -36,7 +36,7 @@ from ..models import clip as clip_mod
 from ..ops import KERNELS
 from . import other_tasks as OT
 from . import prompts as PR
-from .clip_tasks import (_build_supervised, _make_forward, build_text_features,
+from .clip_tasks import (_build_supervised, build_text_features, make_forward,
                          make_zero_shot_logits_fn)
 from .common import (apply_compat_flags, base_parser, build_clip_model, get_text_tokenizer,
                      require_real_tokenizer, seed_everything, setup_logging)
@@ -167,7 +167,7 @@ def build_served(family: str, args, device, gen):
         export_tree = torch.nn.ModuleDict({"visual": params.visual})
     elif is_clip:
         cfg, hcfg, params = _build_supervised(args, family, args.task, gen)
-        forward = _make_forward(cfg, hcfg, train=False)
+        forward = make_forward(cfg, hcfg, train=False)
         # the supervised forward reads the vision tower and the head only
         export_tree = torch.nn.ModuleDict({
             "backbone": torch.nn.ModuleDict({"visual": params["backbone"].visual}),

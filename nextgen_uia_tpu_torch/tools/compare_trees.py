@@ -1,7 +1,7 @@
 """Time a kernel in this checkout and in another one, in turns, on one card:
 
     python -m nextgen_uia_tpu_torch.tools.compare_trees OTHER_CHECKOUT
-        [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|aug|serve]
+        [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|aug|serve|input]
 
 OTHER_CHECKOUT is a second copy of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -67,8 +67,14 @@ batch, op and kernel alone. ``serve`` prints the serving batch of 32
 block) and the 1 x 64 bench step at its default route, CUDA-event ms per
 call over three 10-call windows each: the host cost of calling the
 kernels as registered torch ops (ops/registry.py) shows there against a
-tree that calls them through ctypes. The timing scripts import nothing of
-this module, since they run in the other tree.
+tree that calls them through ctypes. ``input`` prints the input mode's
+feed (1024 seeded 256 x 256 PNGs, ``load_image`` at 224 px, ``batches``
+with 8 workers, ``prefetch_to_device``) into the bench step at batch 64 on
+the host clock, in ms a batch: the step alone on a resident batch, the
+decode alone, their sum, and the two end to end (2 epochs), at Python's
+default thread switch interval and at 0.5 ms: a prefetch that overlaps
+decode with the step comes in under the sum. The timing scripts import
+nothing of this module, since they run in the other tree.
 """
 
 from __future__ import annotations
@@ -448,7 +454,7 @@ from nextgen_uia_tpu_torch import bench
 from nextgen_uia_tpu_torch.adapters.mona import inject_mona
 from nextgen_uia_tpu_torch.models import clip as clip_mod
 from nextgen_uia_tpu_torch.models.heads import PyramidHeadConfig, pyramid_head_init
-from nextgen_uia_tpu_torch.tasks.clip_tasks import _make_forward
+from nextgen_uia_tpu_torch.tasks import clip_tasks
 from nextgen_uia_tpu_torch.tasks.serve import make_infer
 dev = torch.device("cuda")
 
@@ -473,7 +479,8 @@ inject_mona(gen, backbone.visual, dim=cfg.vision.width, variant="hybrid")
 hcfg = PyramidHeadConfig(feature_dim=cfg.vision.width, num_classes=2, img_size=224)
 params = torch.nn.ModuleDict({"backbone": backbone,
                               "head": pyramid_head_init(gen, hcfg)}).to(dev)
-infer = make_infer(_make_forward(cfg, hcfg, train=False), params, dev)
+make_forward = getattr(clip_tasks, "make_forward", None) or clip_tasks._make_forward  # older trees
+infer = make_infer(make_forward(cfg, hcfg, train=False), params, dev)
 x = torch.randint(0, 256, (32, 224, 224), dtype=torch.uint8,
                   generator=torch.Generator().manual_seed(1)).to(dev)
 print(f"SERVE batch 32 seg forward (K1 + K2, 12 blocks): {windows(lambda: infer(x))} ms",
@@ -530,10 +537,85 @@ for b, size in SHAPES:
               f"{kernel_ms(fn, 20, k13):.4f} ms", flush=True)
 '''
 
+INPUT = r'''
+import os, shutil, sys, tempfile, time
+import numpy as np, torch
+from PIL import Image
+sys.path.insert(0, ".")
+from nextgen_uia_tpu_torch import bench
+from nextgen_uia_tpu_torch.data import datasets as D
+from nextgen_uia_tpu_torch.data import pipeline as P
+dev = torch.device("cuda")
+BATCH, IMAGES, WORKERS, EPOCHS, IMG = 64, 1024, 8, 2, 224
+
+class Images:  # the input mode's dataset: load_image, the channel repeated to 3
+    def __init__(self, paths):
+        self.paths = paths
+    def __len__(self):
+        return len(self.paths)
+    def __getitem__(self, i):
+        g = D.load_image(self.paths[i], IMG)
+        return {"image": np.repeat(g[:, :, None], 3, axis=2)}
+
+def feed(ds):
+    for b in P.batches(ds, BATCH, shuffle=True, drop_last=True, seed=0, workers=WORKERS):
+        yield {"image": b["image"][None]}
+
+root = tempfile.mkdtemp(prefix="uia_input_compare_")
+try:
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(IMAGES):
+        paths.append(os.path.join(root, f"img_{i:05d}.png"))
+        Image.fromarray(rng.integers(0, 255, (256, 256), dtype=np.uint8)).save(paths[-1])
+    ds = Images(paths)
+    bn = bench.build(dev, bench.Knobs())
+    step = bn.train_step()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    txt = bn.batch["txt_feat"]
+    run = lambda mb: step({"image": mb["image"].to(torch.float32) / 255.0, "txt_feat": txt}, gen)
+    resident = {"image": torch.from_numpy(next(feed(ds))["image"]).to(dev)}
+    for _ in range(3):
+        run(resident)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        run(resident)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    n_batches = EPOCHS * (IMAGES // BATCH)
+    t0 = time.perf_counter()
+    for _ in range(EPOCHS):
+        for mb in feed(ds):
+            pass
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+
+    def e2e():
+        t0 = time.perf_counter()
+        for _ in range(EPOCHS):
+            for mb in P.prefetch_to_device(feed(ds), device=dev):
+                run(mb)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_batches
+
+    e2e_ms = e2e()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    e2e_short_ms = e2e()
+    sys.setswitchinterval(interval)
+finally:
+    shutil.rmtree(root, ignore_errors=True)
+print(f"INPUT batch {BATCH}, {IMAGES} PNGs by {D.load_image.__module__}.load_image, {WORKERS} "
+      f"workers (host clock, ms a batch): step alone {step_ms:.2f}, decode alone "
+      f"{decode_ms:.2f}, their sum {step_ms + decode_ms:.2f}; end to end {e2e_ms:.2f} "
+      f"({BATCH * 1e3 / e2e_ms:.2f} img/s); end to end at a 0.5 ms switch interval "
+      f"{e2e_short_ms:.2f} ({BATCH * 1e3 / e2e_short_ms:.2f} img/s)", flush=True)
+'''
+
 TIMINGS = {"k1": (K1, "K1 "), "k5": (K5, "K5 "), "k6": (K6, "K6 "), "k7": (K7, "K7 "),
            "k7f32": (K7F32, "K7F32 "), "k8": (K8, "K8 "), "k11": (K11, "K11 "), "k12": (K12, "K12 "), "mlp": (MLP, "K10 "),
            "spatial": (SPATIAL, "SPATIAL "), "text": (TEXT, "TEXT "), "bench": (BENCH, "BENCH "),
-           "aug": (AUG, "AUG "), "serve": (SERVE, "SERVE ")}
+           "aug": (AUG, "AUG "), "serve": (SERVE, "SERVE "), "input": (INPUT, "INPUT ")}
 
 
 def main(argv=None):
@@ -542,7 +624,7 @@ def main(argv=None):
             len(argv) == 2 and argv[1] not in TIMINGS):
         raise SystemExit("usage: python -m nextgen_uia_tpu_torch.tools.compare_trees "
                          "OTHER_CHECKOUT [k1|k5|k6|k7|k7f32|k8|k11|k12|mlp|spatial|text|bench|"
-                         "aug|serve]")
+                         "aug|serve|input]")
     script, tag = TIMINGS[argv[1] if len(argv) == 2 else "k1"]
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for name, tree in (("other", argv[0]), ("this", here), ("this", here),

@@ -216,7 +216,7 @@ def test_openai_cls_steps_match_jax(tmp_path, monkeypatch):
     assert n == len(model.state_dict())
     trainable, _ = partition(model, by_keywords("head", "mona", "lora"))
     assert set(trainable) == set(grads_j)
-    fwd = clip_tasks._make_forward(cfg, hcfg, train=True)
+    fwd = clip_tasks.make_forward(cfg, hcfg, train=True)
 
     def loss_t(mb, g):
         logits, _ = fwd(model, mb["image"], None, g)

@@ -194,7 +194,7 @@ def _lora_steps(tmp_path, monkeypatch, scale, f64=False, nudge=0.0):
     trainable, _ = partition(model, by_keywords("head", "mona", "lora"))
     assert set(trainable) == set(grads_j)
     assert sum("/lora/" in k for k in trainable) == len(lora)
-    fwd = clip_tasks._make_forward(cfg, hcfg, train=True)
+    fwd = clip_tasks.make_forward(cfg, hcfg, train=True)
 
     def loss_t(mb, gen):
         logits, m = fwd(model, mb["image"], mb["mask"], gen)

@@ -83,7 +83,7 @@ def test_forward_matches_jax_fused_kernel(tmp_path, monkeypatch, task):
     _, n = ckpt.load_into(str(tmp_path / "w.npz"), model)
     assert n == len(model.state_dict())
     with torch.no_grad():
-        got = clip_tasks._make_forward(cfg, hcfg, train=False)(
+        got = clip_tasks.make_forward(cfg, hcfg, train=False)(
             model, torch.from_numpy(images))
     want = np.asarray(want)
     assert got.shape == want.shape == ((3, 2, 64, 64) if task == "seg" else (3, 2))

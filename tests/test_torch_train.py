@@ -168,7 +168,7 @@ def test_three_train_steps_match_jax(tmp_path, monkeypatch, task):
     ckpt.load_into(str(tmp_path / "w.npz"), model)
     trainable, _ = partition(model, by_keywords("head", "mona", "lora"))
     assert set(trainable) == set(grads_j)
-    fwd = clip_tasks._make_forward(cfg, hcfg, train=True)
+    fwd = clip_tasks.make_forward(cfg, hcfg, train=True)
 
     def loss_t(mb, g):
         logits, m = fwd(model, mb["image"], mb.get("mask"), g)
