@@ -1,0 +1,9 @@
+"""The whole step's share of the card's peak: its counted operations at the
+peak of their precision, over the wall time per step of the traced run's
+untraced window."""
+
+from benchmark.metrics import _layers
+
+
+def read(ctx):
+    return _layers.mfu(ctx, "train")
